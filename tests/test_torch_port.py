@@ -1,0 +1,236 @@
+"""The port's foundations held against the JAX reference on the CPU:
+the package imports neither JAX nor the JAX package; its env vars,
+fault-injection grammar, autotune overrides and percentile convention
+match the reference's; devices and the kernel build fail loudly."""
+import os
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import jax
+
+jax.config.update("jax_platforms", "cpu")
+
+from mxnet_tpu import autotune as j_autotune  # noqa: E402
+from mxnet_tpu import config as j_config  # noqa: E402
+from mxnet_tpu.resilience import faultsim as j_faultsim  # noqa: E402
+from mxnet_tpu.telemetry.opstats import percentile as j_percentile  # noqa: E402
+
+import mxnet_tpu.serving  # noqa: E402,F401  (registers serve.* points)
+import mxnet_tpu_torch  # noqa: E402
+from mxnet_tpu_torch import _kernels  # noqa: E402
+from mxnet_tpu_torch import autotune as t_autotune  # noqa: E402
+from mxnet_tpu_torch import config as t_config  # noqa: E402
+from mxnet_tpu_torch import context as t_context  # noqa: E402
+from mxnet_tpu_torch.base import MXNetError  # noqa: E402
+from mxnet_tpu_torch.resilience import faultsim as t_faultsim  # noqa: E402
+from mxnet_tpu_torch.serving import ServeRejected  # noqa: E402
+from mxnet_tpu_torch.telemetry.opstats import percentile as t_percentile  # noqa: E402
+
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_PKG = os.path.join(_ROOT, "mxnet_tpu_torch")
+_MODULES = ["mxnet_tpu_torch", "mxnet_tpu_torch.autotune",
+            "mxnet_tpu_torch._kernels", "mxnet_tpu_torch.context",
+            "mxnet_tpu_torch.ops.flash_attention",
+            "mxnet_tpu_torch.quantization",
+            "mxnet_tpu_torch.resilience.faultsim",
+            "mxnet_tpu_torch.serving",
+            "mxnet_tpu_torch.telemetry.opstats"]
+_FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(?:jax|jaxlib|mxnet_tpu)"
+                        r"(?:\.|\s|$)", re.M)
+
+
+def test_import_loads_neither_jax_nor_reference():
+    code = ("import sys\n"
+            + "".join(f"import {m}\n" for m in _MODULES)
+            + "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+              "('jax', 'jaxlib', 'mxnet_tpu'))\n"
+              "print(bad)\n"
+              "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=_ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=_ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_sources_import_neither_jax_nor_reference():
+    files = [os.path.join(d, f) for d, _, fs in os.walk(_PKG)
+             for f in fs if f.endswith(".py")]
+    files.append(os.path.join(_ROOT, "chip_smoke.py"))
+    assert len(files) > 10
+    for path in files:
+        with open(path) as f:
+            hits = _FORBIDDEN.findall(f.read())
+        assert not hits, (path, hits)
+
+
+_PORT_ENV = ["MXNET_AUTOTUNE", "MXNET_AUTOTUNE_CACHE_DIR",
+             "MXNET_FLASH_ATTENTION", "MXNET_FAULT_SPEC",
+             "MXNET_KV_PAGE_TOKENS", "MXNET_KV_POOL_BUDGET",
+             "MXNET_DECODE_SLOTS", "MXNET_KV_DTYPE",
+             "MXNET_PAGED_ATTENTION"]
+
+
+@pytest.mark.parametrize("name", _PORT_ENV)
+def test_env_vars_match_reference(name, monkeypatch):
+    assert name in t_config.list_env()
+    want = j_config._ENV[name]
+    got = t_config._ENV[name]
+    assert (got.default, got.type) == (want.default, want.type)
+    assert t_config.get_env(name) == j_config.get_env(name)
+    raw = "7" if want.type is int else "int8"
+    monkeypatch.setenv(name, raw)
+    assert t_config.get_env(name) == j_config.get_env(name)
+
+
+def test_unregistered_and_malformed_env_raise(monkeypatch):
+    with pytest.raises(MXNetError):
+        t_config.get_env("MXNET_NOT_A_KNOB")
+    monkeypatch.setenv("MXNET_DECODE_SLOTS", "eight")
+    with pytest.raises(MXNetError):
+        t_config.get_env("MXNET_DECODE_SLOTS")
+
+
+# ------------------------------------------------------------ faultsim
+def _trace(fs, spec, point, n):
+    fs.reset(spec)
+    out = []
+    for _ in range(n):
+        try:
+            out.append(fs.inject(point))
+        except Exception as e:  # FaultInjected of either package
+            out.append(type(e).__name__)
+    return out, fs.hits(point)
+
+
+@pytest.mark.parametrize("spec,point", [
+    ("serve.decode:raise@2-3", "serve.decode"),
+    ("serve.prefill:nan@1;serve.prefill:raise@3+", "serve.prefill"),
+    ("serve.admit:delay=0.0@2", "serve.admit"),
+    ("", "serve.decode"),
+])
+def test_faultsim_grammar_matches_reference(spec, point):
+    try:
+        assert _trace(t_faultsim, spec, point, 5) == \
+            _trace(j_faultsim, spec, point, 5)
+    finally:
+        t_faultsim.reset("")
+        j_faultsim.reset("")
+
+
+@pytest.mark.parametrize("spec", ["nope.point:raise@1",
+                                  "serve.decode:explode@1",
+                                  "serve.decode:raise",
+                                  "serve.decode:raise@x",
+                                  "serve.decode:delay=abc@1"])
+def test_faultsim_bad_specs_raise(spec):
+    with pytest.raises(MXNetError):
+        t_faultsim.reset(spec)
+    t_faultsim.reset("")
+
+
+def test_faultsim_points_registered_by_serving():
+    assert {"serve.admit", "serve.prefill", "serve.decode"} <= \
+        set(t_faultsim.points())
+
+
+# ------------------------------------------------------------ autotune
+@pytest.mark.parametrize("raw", ["0", "1", "naive", "pallas", "PALLAS_PAD",
+                                 "pallas_b256", "auto", "on", ""])
+def test_flash_override_matches_reference(raw):
+    assert t_autotune._parse_flash(raw) == j_autotune._parse_flash(raw)
+
+
+@pytest.mark.parametrize("raw", ["0", "1", "gather", "paged", "dense",
+                                 "auto", "off"])
+def test_paged_override_matches_reference(raw, monkeypatch):
+    assert t_autotune._parse_paged(raw) == j_autotune._parse_paged(raw)
+    monkeypatch.setenv("MXNET_PAGED_ATTENTION", raw)
+    assert t_autotune.variant_choice("paged_decode_attention",
+                                     default="x") == \
+        j_autotune.variant_choice("paged_decode_attention", default="x")
+
+
+def test_force_scope_wins_and_unwinds(monkeypatch):
+    monkeypatch.setenv("MXNET_FLASH_ATTENTION", "naive")
+    assert t_autotune.variant_choice("flash_attention") == "naive"
+    with t_autotune.force(flash_attention="pallas_pad"):
+        assert t_autotune.variant_choice("flash_attention") == \
+            "pallas_pad"
+    assert t_autotune.variant_choice("flash_attention") == "naive"
+
+
+def test_tune_records_and_answers_from_cache(tmp_path, monkeypatch):
+    monkeypatch.setenv("MXNET_AUTOTUNE_CACHE_DIR", str(tmp_path))
+    t_autotune.cache_clear()
+    calls = []
+
+    def measure(value):
+        calls.append(value)
+        return {"gather": 2.0, "paged": 1.0}[value]
+
+    try:
+        variants = t_autotune.VARIANT_OPS["paged_decode_attention"]
+        w, info = t_autotune.tune("paged_decode_attention", (2, 3),
+                                  "int8", variants, measure, "cuda",
+                                  level=1)
+        assert (w, info["cached"]) == ("paged", False)
+        w2, info2 = t_autotune.tune("paged_decode_attention", (2, 3),
+                                    "int8", variants, measure, "cuda",
+                                    level=1)
+        assert (w2, info2["cached"]) == ("paged", True)
+        assert len(calls) == 2
+        assert t_autotune.lookup("paged_decode_attention", (2, 3),
+                                 "int8", "cpu") is None
+        t_autotune.tune("paged_decode_attention", (2, 3), "int8",
+                        variants, measure, "cuda", level=2)
+        assert len(calls) == 4
+        assert t_autotune.tune("x", (1,), "f", {}, measure, "cpu",
+                               level=0) == (None, {"enabled": False})
+    finally:
+        t_autotune.cache_clear()
+
+
+# ------------------------------------------------------ misc contracts
+@pytest.mark.parametrize("vals", [[], [3.0], [1.0, 2.0, 3.0, 4.0],
+                                  list(range(101))])
+@pytest.mark.parametrize("q", [0.0, 0.5, 0.99, 1.0])
+def test_percentile_matches_reference(vals, q):
+    assert t_percentile(vals, q) == j_percentile(vals, q)
+
+
+def test_serve_rejected_is_structured():
+    err = ServeRejected("queue_full", "9 queued")
+    assert isinstance(err, MXNetError)
+    assert (err.reason, err.detail) == ("queue_full", "9 queued")
+    assert "queue_full" in str(err)
+
+
+def test_devices():
+    assert t_context.cpu() == torch.device("cpu")
+    assert t_context.gpu(1) == torch.device("cuda", 1)
+    assert t_context.default_device() == torch.device("cuda", 0)
+    assert mxnet_tpu_torch.resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(MXNetError):
+        t_context.resolve_device("meta")
+    if not torch.cuda.is_available():
+        with pytest.raises(MXNetError):
+            t_context.resolve_device(None)
+
+
+def test_kernel_sources_and_missing_nvcc(monkeypatch, tmp_path):
+    """Every CUDA source is listed for the build; without nvcc the
+    build raises instead of running anything."""
+    assert "flash_attention" in _kernels.sources()
+    assert "sm_90a" in " ".join(_kernels.NVCC_FLAGS)
+    key = _kernels._key("flash_attention")
+    assert len(key) == 16 and key == _kernels._key("flash_attention")
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(_kernels, "BUILD_DIR", str(tmp_path / "build"))
+    with pytest.raises(MXNetError, match="nvcc"):
+        _kernels.build(["flash_attention"])
