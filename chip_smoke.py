@@ -4,10 +4,14 @@
     python3 chip_smoke.py [--out FILE] [--profile]
 
 Builds every CUDA kernel from ``mxnet_tpu_torch/csrc`` with nvcc, holds
-each kernel against its plain PyTorch version on the card, then serves
-the generative decoder end to end through ``GenerativeServer`` at the
-width of the repo's generate benchmark and at a wide configuration,
-checking the results.  Each phase prints one JSON line on stdout
+each kernel against its plain PyTorch version on the card, serves the
+generative decoder end to end through ``GenerativeServer`` at the width
+of the repo's generate benchmark and at a wide configuration, then
+trains ResNet-50 v1 (full width and depth, batch 128, bf16) through
+``parallel.make_train_step`` with the fused BN-ReLU-1x1-conv backward
+and the flat-bucket SGD kernels, and checks one fp32 step on the card
+against the host, checking the results.  Each phase prints one JSON
+line on stdout
 (progress goes to stderr); ``--out`` also appends them to FILE.  Any
 failed check exits non-zero.  The last line is
 ``{"ok": true, "device": {...}}``.
@@ -33,6 +37,9 @@ import traceback
 #: the CUDA cores, bf16 on the tensor cores, and HBM3 bandwidth
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 PEAK_BYTES = 3.35e12
+#: bytes a timing loop cycles through so that no call finds its inputs
+#: in the H100's 50 MB L2 cache: four times its size
+COLD_BYTES = 4 * 50 * 2 ** 20
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 
 _out_file = None
@@ -93,7 +100,48 @@ def time_ms(fn, budget_ms=300.0):
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, calls=50, attempts=3):
+    """Device time per call of ``fn``: the summed self device time of
+    every kernel it launches over ``calls`` calls under torch.profiler,
+    over ``calls``.  Unlike CUDA events around back-to-back calls it
+    leaves out the host's launch cost, which dominates kernels of a few
+    tens of microseconds.  A profiler session that records no device
+    activity at all (seen once in a run of many sessions) is run again,
+    up to ``attempts`` sessions."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(attempts):
+        prof = torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA])
+        with prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        total_us = 0.0
+        for evt in prof.key_averages():
+            t_us = getattr(evt, "self_device_time_total", None)
+            if t_us is None:
+                t_us = getattr(evt, "self_cuda_time_total", 0.0)
+            total_us += max(t_us, 0.0)
+        if total_us > 0:
+            return total_us / 1e3 / calls
+        log("[device_ms] the profiler recorded no device time; again")
+    raise CheckFailed(f"the profiler recorded no device time in "
+                      f"{attempts} sessions")
+
+
 # ------------------------------------------------------------ kernels
+def bound(flops, nbytes, dtype):
+    """(bound_ms, bound_by): the larger of operations over the peak for
+    ``dtype`` and bytes over the HBM rate."""
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
 def attention_work(bh, sq, sk, d, causal, dtype):
     """(flops, bytes) the function needs on these inputs: 2 FLOPs per
     multiply-add in QK^T and in PV over the visible (query, key) pairs;
@@ -159,14 +207,12 @@ def kernel_case(b, h, sq, sk, d, dtype, causal, path, seed):
     plain_ms = time_ms(plain)
     library_ms = time_ms(lib)
     flops, nbytes = attention_work(b * h, sq, sk, d, causal, dtype)
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    t_bytes = nbytes / PEAK_BYTES * 1e3
+    bound_ms, bound_by = bound(flops, nbytes, dtype)
     return {"path": path, "shape": [b, h, sq, sk, d], "dtype": dtype,
             "causal": causal, "max_abs_err": err, "tol": TOL[dtype],
             "masked_rows_exact_zero": masked_rows, "ms": ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_ms": bound_ms, "bound_by": bound_by,
             "flops": flops, "bytes": nbytes}
 
 
@@ -217,10 +263,11 @@ def campaign(srv, rng, n_req, vocab, max_prompt):
     return submitted, shed
 
 
-def device_profile(prof, wall_s, top=12):
+def device_profile(prof, wall_s, top=12, shares=None):
     """Kernel time by name from a torch.profiler run over ``wall_s``
     seconds of one stream: the busy share is the kernels' summed self
-    device time over the wall time."""
+    device time over the wall time.  ``shares`` ({label: name
+    fragments}) adds each label's share of the device time."""
     rows = []
     for evt in prof.key_averages():
         t_us = getattr(evt, "self_device_time_total", None)
@@ -232,11 +279,14 @@ def device_profile(prof, wall_s, top=12):
     busy_us = sum(r[0] for r in rows)
     if busy_us <= 0:
         return {"device_time": "not measured"}
-    flash_us = sum(r[0] for r in rows if "flash_fwd_kernel" in r[2])
+    shares = shares or {"flash_attention": ("flash_fwd_kernel",)}
     return {
         "wall_ms": wall_s * 1e3, "device_busy_ms": busy_us / 1e3,
         "device_idle_share": max(0.0, 1.0 - busy_us / 1e6 / wall_s),
-        "flash_share_of_device": flash_us / busy_us,
+        "shares_of_device": {
+            label: sum(r[0] for r in rows
+                       if any(f in r[2] for f in frags)) / busy_us
+            for label, frags in shares.items()},
         "top_kernels": [{"name": k[:96], "ms": t / 1e3, "calls": c,
                          "share": t / busy_us}
                         for t, c, k in rows[:top]],
@@ -370,6 +420,409 @@ FIXED_PROMPTS = ([1, 2, 3], [5], [7, 3, 9, 2, 11],
                  [4, 15, 26, 9, 30, 1, 2, 8, 19, 0, 31, 12, 6])
 
 
+# ------------------------------------------------- ResNet-50 training
+#: the fused tail's (M, Ci, Co) at ResNet-50 batch 128, 224x224: one
+#: launch per bottleneck, 3/4/6/3 per stage
+BRC_STAGES = [(128 * 56 * 56, 64, 256, 3), (128 * 28 * 28, 128, 512, 4),
+              (128 * 14 * 14, 256, 1024, 6), (128 * 7 * 7, 512, 2048, 3)]
+#: stated tolerances of the fused backward, kernel against plain:
+#: d_bn fp32 relative to its largest value, bf16 one ulp of each value
+#: plus 1e-5 of the largest (a d_act that cancels to near zero differs
+#: between fp32 sums taken in other orders by more than its own bf16
+#: ulp); dW/s1/s2 relative to their largest value
+BRC_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (2.0 ** -7, 1e-3)}
+
+
+def brc_case(m, ci, co, dtype, path, seed):
+    """The fused BN-ReLU-1x1-conv backward (pass 1) at one shape: kernel
+    against plain on the same inputs, times, and the bound."""
+    import torch
+
+    from mxnet_tpu_torch.ops import pallas_conv as pc
+
+    dev = torch.device("cuda", 0)
+    tdt = getattr(torch, dtype)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    dy, u = rnd(m, co).to(tdt), rnd(m, ci).to(tdt)
+    w2 = rnd(co, ci, scale=0.05).to(tdt).t()
+    g, b = rnd(1, ci).abs() + 0.5, rnd(1, ci, scale=0.3)
+    mu, inv = rnd(1, ci, scale=0.1), rnd(1, ci).abs() + 0.5
+    args = (dy, u, w2, g, b, mu, inv)
+    n0 = pc.bnreluconv_bwd.launches
+    got = pc.bnreluconv_bwd(*args)
+    want = pc._bwd_pass1_reference(*args)
+    torch.cuda.synchronize()
+    check(pc.bnreluconv_bwd.launches == n0 + 1, "bnreluconv not launched")
+    d_tol, s_tol = BRC_TOL[dtype]
+    d_bn, d_ref = got[0].float(), want[0].float()
+    if dtype == "float32":
+        d_ok = float((d_bn - d_ref).abs().max()) <= d_tol * float(
+            d_ref.abs().max())
+    else:
+        d_ok = bool(((d_bn - d_ref).abs() <= d_ref.abs() * d_tol
+                     + 1e-5 * d_ref.abs().max()).all())
+    rel = [float((a - r).abs().max() / r.abs().max().clamp_min(1e-30))
+           for a, r in zip(got[1:], want[1:])]
+    abs_err = max(float((a.float() - r.float()).abs().max())
+                  for a, r in zip(got, want))
+    check(d_ok and max(rel) <= s_tol,
+          f"bnreluconv {m, ci, co} {dtype}: d_bn ok={d_ok}, dW/s1/s2 rel "
+          f"{rel} > {s_tol}")
+    again = pc.bnreluconv_bwd(*args)
+    check(all(torch.equal(a, r) for a, r in zip(got, again)),
+          "bnreluconv kernel is not deterministic")
+    relu_act = torch.where(
+        (u.float() * g + b).to(tdt).float() > 0, (u.float() * g + b).to(tdt),
+        torch.zeros((), dtype=tdt, device=dev))
+    ms = time_ms(lambda: pc.bnreluconv_bwd(*args))
+    plain_ms = time_ms(lambda: pc._bwd_pass1_reference(*args))
+    matmul_ms = time_ms(lambda: (dy @ w2.t(), relu_act.t() @ dy))
+    size = 2 if dtype == "bfloat16" else 4
+    flops = 4.0 * m * ci * co
+    nbytes = float(size * (m * co + 2 * m * ci + ci * co) + 4 * ci * co)
+    bound_ms, bound_by = bound(flops, nbytes, dtype)
+    return {"path": path, "shape": [m, ci, co], "dtype": dtype,
+            "rel_err_dw_s1_s2": rel, "max_abs_err": abs_err,
+            "tol": BRC_TOL[dtype], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None,
+            "library": "none: no single PyTorch call computes this "
+                       "function",
+            "yardstick_two_matmuls_ms": matmul_ms, "flops": flops,
+            "bytes": nbytes}
+
+
+def bucket_case(n, dtype, momentum, path, seed):
+    """The bucket SGD kernel at one size: bit-identical to the plain
+    version on the same inputs, with infs and NaNs planted at known
+    positions and their count exact; times and the bound."""
+    import torch
+
+    from mxnet_tpu_torch.ops import pallas_opt as po
+
+    dev = torch.device("cuda", 0)
+    tdt = getattr(torch, dtype)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    w = torch.randn(n, generator=gen, device=dev).to(tdt)
+    m = torch.randn(n, generator=gen, device=dev).to(tdt)
+    g = torch.randn(n, generator=gen, device=dev)
+    bad = sorted({0, 7, n // 3, n // 2, n - 1})
+    g[bad] = torch.tensor([float("nan"), float("inf"), float("-inf"),
+                           float("nan"), float("inf")][:len(bad)],
+                          device=dev)
+    hyper = dict(lr=0.1, wd=1e-4, rescale=1.0, clip=None)
+    wrapper = po.bucket_sgd_mom if momentum else po.bucket_sgd
+
+    def kernel():
+        if momentum:
+            return po.bucket_sgd_mom(w, g, m, momentum=momentum,
+                                     with_finite=True, **hyper)
+        return po.bucket_sgd(w, g, with_finite=True, **hyper)
+
+    n0 = wrapper.launches
+    got = kernel()
+    want = po._sgd_reference(w, g, m if momentum else None, hyper["lr"],
+                             hyper["wd"], momentum, 1.0, None, True)
+    torch.cuda.synchronize()
+    check(wrapper.launches == n0 + 1, "bucket kernel not launched")
+    outs = list(zip(got[:-1], want[:2]))
+    for a, r in outs:
+        nan = torch.isnan(r)
+        check(torch.equal(torch.isnan(a), nan) and
+              torch.equal(a[~nan], r[~nan]),
+              f"bucket kernel {n} {dtype} momentum={momentum} is not "
+              "bit-identical to the plain version")
+    check(int(got[-1]) == int(want[2]) == len(bad),
+          f"non-finite count {int(got[-1])}, plain {int(want[2])}, "
+          f"planted {len(bad)}")
+    g.nan_to_num_(0.0, 0.0, 0.0)  # timing on finite data
+    # the timed calls cycle through copies that together span COLD_BYTES,
+    # so each reads its inputs from HBM, as in a train step
+    n_sets = max(2, math.ceil(COLD_BYTES / (w.nbytes + m.nbytes + g.nbytes)))
+    sets = [(w.clone(), g.clone(), m.clone()) for _ in range(n_sets)]
+    turn = [0]
+
+    def next_set():
+        turn[0] += 1
+        return sets[turn[0] % n_sets]
+
+    def kernel_cold():
+        ws, gs, ms_ = next_set()
+        if momentum:
+            return po.bucket_sgd_mom(ws, gs, ms_, momentum=momentum,
+                                     with_finite=True, **hyper)
+        return po.bucket_sgd(ws, gs, with_finite=True, **hyper)
+
+    def plain():
+        ws, gs, ms_ = next_set()
+        return po._sgd_reference(ws, gs, ms_ if momentum else None,
+                                 hyper["lr"], hyper["wd"], momentum, 1.0,
+                                 None, True)
+
+    opts = []
+    for ws, gs, _ in sets:
+        wl = ws.float().requires_grad_(True)
+        wl.grad = gs
+        opts.append(torch.optim.SGD([wl], lr=0.1, momentum=momentum,
+                                    weight_decay=1e-4, fused=True))
+
+    def library():
+        turn[0] += 1
+        opts[turn[0] % n_sets].step()
+
+    # device time per call: at these sizes the kernel takes tens of
+    # microseconds and CUDA events around back-to-back calls would time
+    # the host's launch cost (kept below as *_event_ms)
+    ms, plain_ms, library_ms = (device_ms(f) for f in (kernel_cold, plain,
+                                                       library))
+    event_ms = [time_ms(f) for f in (kernel_cold, plain, library)]
+    size = 2 if dtype == "bfloat16" else 4
+    nbytes = float(n * (size * (4 if momentum else 2) + 4))
+    # elementwise fp32 arithmetic on the CUDA cores, whatever the dtype
+    bound_ms, bound_by = bound((6.0 if momentum else 4.0) * n, nbytes,
+                               "float32")
+    return {"path": path, "n": n, "dtype": dtype, "momentum": momentum,
+            "bit_identical": True, "nonfinite_planted": len(bad),
+            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms,
+            "timing": f"device time per call, inputs cold in L2 "
+                      f"({n_sets} rotating copies)",
+            "event_ms": event_ms[0], "plain_event_ms": event_ms[1],
+            "library_event_ms": event_ms[2],
+            "library": "yardstick: torch.optim.SGD(fused=True).step() on "
+                       "an fp32 tensor of the same size (same update up "
+                       "to rounding, no non-finite count; the port never "
+                       "calls it)",
+            "bytes": nbytes}
+
+
+def resnet50(device, seed):
+    """ResNet-50 v1 at full width and depth, channel-last, bias-free
+    1x1 convs, random Xavier weights from ``seed``."""
+    import torch
+
+    from mxnet_tpu_torch import initializer
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+
+    net = resnet50_v1(classes=1000, layout="NHWC", no_bias=True)
+    return net.initialize(initializer.Xavier(), device=device,
+                          generator=torch.Generator().manual_seed(seed))
+
+
+def train_phase(batch, warmup, steps, seed=0):
+    """Drive the ResNet-50 training step on the card through the port's
+    entry points (bf16 compute, SGD momentum 0.9 / lr 0.1, dynamic loss
+    scaling, the sharded-bucket arm on the one-card mesh, both kernel
+    arms forced).  Launch counts are set to 0 just before the first
+    step and read after the last timed one; three more steps then run
+    under torch.profiler (device activity only) for kernel time by
+    name."""
+    import torch
+
+    from mxnet_tpu_torch import autotune, parallel
+    from mxnet_tpu_torch.gluon import loss
+    from mxnet_tpu_torch.ops import pallas_conv as pc
+    from mxnet_tpu_torch.ops import pallas_opt as po
+
+    dev = torch.device("cuda", 0)
+    net = resnet50(dev, seed)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    x = torch.randn((batch, 224, 224, 3), generator=gen, device=dev)
+    y = torch.randint(0, 1000, (batch,), generator=gen,
+                      device=dev).float()
+    torch.cuda.reset_peak_memory_stats()
+    with autotune.force(pallas_bnreluconv="pallas", fused_bucket_opt=True):
+        t0 = time.perf_counter()
+        step, params, state = parallel.make_train_step(
+            net, loss.SoftmaxCrossEntropyLoss(), "sgd", learning_rate=0.1,
+            momentum=0.9, mesh=parallel.get_mesh(),
+            compute_dtype="bfloat16", loss_scale="dynamic",
+            optimizer_sharding="ps")
+        build_s = time.perf_counter() - t0
+        plan = step.zero_plan
+        stats = {n: v.clone() for n, v in params.items()
+                 if n.endswith(("running_mean", "running_var"))}
+        pc.bnreluconv_bwd.launches = 0
+        po.bucket_sgd_mom.launches = 0
+        losses = []
+        for i in range(warmup):
+            lv, params, state = step(params, state, x, y, None, float(i + 1))
+            losses.append(lv)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for i in range(warmup, warmup + steps):
+            lv, params, state = step(params, state, x, y, None, float(i + 1))
+            losses.append(lv)
+        end.record()
+        end.synchronize()
+        n_brc = pc.bnreluconv_bwd.launches
+        n_sgd = po.bucket_sgd_mom.launches
+        scale, good = (float(v) for v in state["_loss_scale"])
+        prof = torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA])
+        with prof:
+            t1 = time.perf_counter()
+            for i in range(3):
+                lv, params, state = step(params, state, x, y, None,
+                                         float(warmup + steps + i + 1))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+    total = warmup + steps
+    losses = [float(v) for v in losses]
+    ms_step = start.elapsed_time(end) / steps
+    res = {
+        "phase": "train_resnet50", "batch": batch, "image": 224,
+        "compute_dtype": "bfloat16", "optimizer": "sgd momentum 0.9 lr 0.1",
+        "warmup_steps": warmup, "timed_steps": steps,
+        "ms_per_step": ms_step, "img_s": batch / ms_step * 1e3,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "buckets": len(plan), "params": sum(b.size for b in plan),
+        "losses": losses, "loss_scale": scale, "good_steps": good,
+        "bnreluconv_launches": n_brc, "bucket_sgd_mom_launches": n_sgd,
+        "build_s": build_s,
+        "profile_3_steps": device_profile(prof, wall, top=25, shares={
+            "bnreluconv_bwd": ("dact_kernel", "dw_kernel", "reduce_dw",
+                               "reduce_s"),
+            "bucket_sgd": ("bucket_sgd_kernel",),
+            "convolution": ("cudnn", "xmma", "convolve", "conv2d", "wgrad",
+                            "dgrad", "fprop"),
+            "elementwise": ("elementwise", "vectorized", "unrolled"),
+            "reduction": ("reduce_kernel", "Reduce")}),
+    }
+    check(all(math.isfinite(v) for v in losses), f"loss not finite: "
+          f"{losses}")
+    check(sum(losses[-3:]) / 3 < losses[0],
+          f"loss did not fall on the fixed batch: {losses}")
+    check(n_brc == 16 * total, f"bnreluconv launches {n_brc} != 16 x "
+          f"{total} steps")
+    check(n_sgd == len(plan) * total, f"bucket launches {n_sgd} != "
+          f"{len(plan)} buckets x {total} steps")
+    check((scale == 2.0 ** 16 and good == total) or
+          (scale < 2.0 ** 16 and good < total),
+          f"loss scale {scale} after {good} good of {total} steps")
+    for n, v in stats.items():
+        check(torch.equal(params[n], v), f"running statistic {n} changed")
+    return res
+
+
+#: one fp32 step, card against host.  ResNet-50's gradient at a random
+#: init and batch 4 is ill-conditioned in fp32 (BatchNorm backward
+#: cancels): the host's fp32 update of the worst parameter differs from
+#: a float64 host update by about 2 % in norm (16 % in the worst
+#: element), so the card is held to the host's own fp32 error, not to a
+#: fixed bound: each parameter's update may be no farther from its
+#: float64 update than twice the host's fp32 update of that parameter
+#: is, plus 1e-3.  The forward is well conditioned: losses within 1e-5.
+CUDA_CPU_TOL = {"loss": 1e-5,
+                "update_vs_f64": "per parameter: 2 x host fp32 + 1e-3"}
+
+
+def cuda_vs_cpu_phase(batch=4, seed=3):
+    """One fp32 step of ResNet-50 on the card (the kernels) and on the
+    host (the plain versions) from the same weights, TF32 off, and a
+    float64 host step as the yardstick: SGD without momentum, so the
+    bucket update is the momentum-0 kernel."""
+    import copy
+
+    import torch
+
+    from mxnet_tpu_torch import autotune, parallel
+    from mxnet_tpu_torch.gluon import loss
+    from mxnet_tpu_torch.ops import pallas_conv as pc
+    from mxnet_tpu_torch.ops import pallas_opt as po
+
+    host = resnet50("cpu", seed)
+    gen = torch.Generator().manual_seed(seed + 1)
+    x = torch.randn((batch, 224, 224, 3), generator=gen)
+    y = torch.randint(0, 1000, (batch,), generator=gen).float()
+    out, launches = {}, None
+    # the float64 yardstick runs the unfused layers and the plain bucket
+    # rule (the kernels take fp32/bf16 only)
+    for key, where, dtype, arms in (
+            ("cuda", "cuda", torch.float32, ("pallas", True)),
+            ("cpu", "cpu", torch.float32, ("pallas", True)),
+            ("cpu64", "cpu", torch.float64, ("stock", False))):
+        net = copy.deepcopy(host).to(where, dtype)
+        with autotune.force(pallas_bnreluconv=arms[0],
+                            fused_bucket_opt=arms[1]):
+            step, params, state = parallel.make_train_step(
+                net, loss.SoftmaxCrossEntropyLoss(), "sgd",
+                learning_rate=0.1, momentum=0.0,
+                mesh=parallel.get_mesh(devices=[where]),
+                optimizer_sharding="ps")
+            # a copy: the step updates params in place (donation), and
+            # .double() of a float64 tensor is the tensor itself
+            before = {n: v.detach().to("cpu", torch.float64, copy=True)
+                      for n, v in params.items()}
+            if key == "cuda":
+                pc.bnreluconv_bwd.launches = 0
+                po.bucket_sgd.launches = 0
+            lv, params, state = step(params, state, x.to(dtype), y, None,
+                                     1.0)
+            if key == "cuda":
+                torch.cuda.synchronize()
+                launches = (pc.bnreluconv_bwd.launches,
+                            po.bucket_sgd.launches, len(step.zero_plan))
+        out[key] = (float(lv),
+                    {n: v.detach().to("cpu", torch.float64, copy=True)
+                     for n, v in params.items()}, before)
+        del net, params, state
+
+    trained = [n for n in out["cpu"][1]
+               if not n.endswith(("running_mean", "running_var"))]
+
+    def update_err(a, ref):
+        """{parameter: norm error of a's update against ref's}."""
+        return {n: float(((a[1][n] - a[2][n]) - (ref[1][n] - ref[2][n]))
+                         .norm() / (ref[1][n] - ref[2][n]).norm()
+                         .clamp_min(1e-30)) for n in trained}
+
+    gpu, cpu, f64 = out["cuda"], out["cpu"], out["cpu64"]
+    loss_rel = abs(gpu[0] - cpu[0]) / abs(cpu[0])
+    param_rel = max(float((gpu[1][n] - cpu[1][n]).abs().max()
+                          / cpu[1][n].abs().max().clamp_min(1e-30))
+                    for n in cpu[1])
+    card_err, host_err = update_err(gpu, f64), update_err(cpu, f64)
+    over = {n: (card_err[n], host_err[n]) for n in trained
+            if card_err[n] > 2 * host_err[n] + 1e-3}
+    worst = max(trained, key=lambda n: card_err[n] - 2 * host_err[n])
+    # the card's error over the host's, where the host's is above the
+    # 1e-3 floor of the limit
+    ratio = max([card_err[n] / host_err[n] for n in trained
+                 if host_err[n] > 1e-3], default=None)
+    res = {"phase": "train_cuda_vs_cpu", "batch": batch, "dtype": "float32",
+           "loss_cuda": gpu[0], "loss_cpu": cpu[0], "loss_cpu_f64": f64[0],
+           "loss_rel": loss_rel,
+           # element-wise, for information: the per-parameter norm
+           # errors below are what is checked
+           "param_max_rel_cuda_vs_cpu": param_rel,
+           "update_err_cuda_vs_f64_max": max(card_err.values()),
+           "update_err_cpu_vs_f64_max": max(host_err.values()),
+           "update_err_cuda_vs_cpu_max": max(update_err(gpu, cpu).values()),
+           "closest_to_limit": {"param": worst, "cuda_vs_f64":
+                                card_err[worst], "cpu_vs_f64":
+                                host_err[worst]},
+           "max_ratio_cuda_over_cpu_error": ratio,
+           "params_checked": len(trained), "params_over_limit": len(over),
+           "tol": CUDA_CPU_TOL, "bnreluconv_launches": launches[0],
+           "bucket_sgd_launches": launches[1], "buckets": launches[2]}
+    emit(res)
+    check(loss_rel <= CUDA_CPU_TOL["loss"] and not over,
+          f"cuda vs cpu: loss rel {loss_rel}; parameters whose update "
+          f"error against float64 exceeds 2 x the host's + 1e-3 "
+          f"(card, host): {dict(list(over.items())[:8])}")
+    check(launches[0] == 16 and launches[1] == launches[2],
+          f"cuda step launches {launches}")
+    return res
+
+
 def run(profile=False):
     import torch
 
@@ -436,20 +889,85 @@ def run(profile=False):
           f"wide prefill cuda vs cpu max abs {errs} > {WIDE_PREFILL_TOL}")
     del wide_params
 
+    brc = []
+    for i, (m, ci, co, _per_step) in enumerate(BRC_STAGES):
+        for dtype in ("bfloat16", "float32"):
+            brc.append(brc_case(m, ci, co, dtype, "resnet50_stage",
+                                seed=100 + i))
+    for j, dtype in enumerate(("bfloat16", "float32")):
+        # ragged M, and the smallest Ci/Co the path uses
+        brc.append(brc_case(100003, 64, 256, dtype, "check", seed=110 + j))
+    for c in brc:
+        log(f"[bnreluconv] {c['shape']} {c['dtype']} err={c['max_abs_err']:.3g}"
+            f" ms={c['ms']:.4f} plain={c['plain_ms']:.4f} "
+            f"matmuls={c['yardstick_two_matmuls_ms']:.4f} "
+            f"bound={c['bound_ms']:.4f}")
+    emit({"phase": "kernels_bnreluconv", "cases": brc})
+
+    sizes = resnet50_bucket_sizes()
+    big, mid = max(sizes), sorted(sizes)[len(sizes) // 2]
+    sgd = [bucket_case(big, "float32", 0.9, "resnet50_bucket", 200),
+           bucket_case(mid, "float32", 0.9, "resnet50_bucket", 201),
+           bucket_case(1000003, "float32", 0.9, "check", 202),
+           bucket_case(big, "float32", 0.0, "resnet50_bucket", 203),
+           bucket_case(mid, "bfloat16", 0.9, "check", 204)]
+    for c in sgd:
+        log(f"[bucket_sgd] n={c['n']} {c['dtype']} momentum={c['momentum']}"
+            f" ms={c['ms']:.4f} plain={c['plain_ms']:.4f} "
+            f"fused_sgd={c['library_ms']:.4f} bound={c['bound_ms']:.4f}")
+    emit({"phase": "kernels_bucket_sgd", "bucket_sizes": sizes,
+          "cases": sgd})
+
+    train = train_phase(batch=128, warmup=2, steps=10)
+    log(f"[train_resnet50] {train['ms_per_step']:.2f} ms/step "
+        f"{train['img_s']:.1f} img/s losses {train['losses']}")
+    emit(train)
+    cvc = cuda_vs_cpu_phase()
+
     main = [c for c in cases if c["path"] != "check"]
     head = next(c for c in cases if c["path"] == "serve_wide"
                 and c["shape"][2] == 2048)
-    emit({"kernels": [{
-        "name": "flash_attention", "route": "cuda",
-        "source": "mxnet_tpu_torch/csrc/flash_attention.cu",
-        "replaces": "mxnet_tpu/ops/flash_attention.py:87",
-        "launches": bench["flash_launches"] + wide["flash_launches"],
-        "max_abs_err": max(c["max_abs_err"] for c in main),
-        "ms": head["ms"], "plain_ms": head["plain_ms"],
-        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-        "library_ms": head["library_ms"]}]})
+    brc_main = [c for c in brc if c["path"] == "resnet50_stage"]
+    brc_head = brc_main[0]  # stage 1, bf16: the largest launch per step
+    mom_head = sgd[0]
+    plain_head = sgd[3]
+
+    def entry(name, source, replaces, launches, err, c):
+        return {"name": name, "route": "cuda",
+                "source": f"mxnet_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": err, "ms": c["ms"], "plain_ms": c["plain_ms"],
+                "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+                "library_ms": c["library_ms"]}
+
+    emit({"kernels": [
+        entry("flash_attention", "flash_attention.cu",
+              "mxnet_tpu/ops/flash_attention.py:87",
+              bench["flash_launches"] + wide["flash_launches"],
+              max(c["max_abs_err"] for c in main), head),
+        entry("bnreluconv_bwd", "bnreluconv_bwd.cu",
+              "mxnet_tpu/ops/pallas_conv.py:83",
+              train["bnreluconv_launches"],
+              max(c["max_abs_err"] for c in brc_main), brc_head),
+        entry("bucket_sgd_mom", "bucket_sgd.cu",
+              "mxnet_tpu/ops/pallas_opt.py:157",
+              train["bucket_sgd_mom_launches"], 0.0, mom_head),
+        entry("bucket_sgd", "bucket_sgd.cu",
+              "mxnet_tpu/ops/pallas_opt.py:145",
+              cvc["bucket_sgd_launches"], 0.0, plain_head)]})
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": emit_dev}), flush=True)
+
+
+def resnet50_bucket_sizes():
+    """Element counts of ResNet-50's flat buckets (the default
+    ``MXNET_KVSTORE_BIGARRAY_BOUND`` split), from the shapes alone."""
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+    from mxnet_tpu_torch.parallel import zero
+
+    net = resnet50_v1(classes=1000, layout="NHWC", no_bias=True)
+    params = {n: p.data() for n, p in net.collect_params().items()}
+    return [b.size for b in zero.plan_buckets(params, 1)]
 
 
 def main(argv=None):
@@ -459,7 +977,9 @@ def main(argv=None):
                     help="also append every JSON line to this file")
     ap.add_argument("--profile", action="store_true",
                     help="profile each serving campaign (kernel time by "
-                         "name, device idle share); slows the campaign")
+                         "name, device idle share); slows the campaign. "
+                         "The training phase always profiles three extra "
+                         "steps")
     args = ap.parse_args(argv)
     try:
         import torch

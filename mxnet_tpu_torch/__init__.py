@@ -11,8 +11,10 @@ takes.
 Entry points run on ``cuda:0`` unless the caller passes
 ``device="cpu"``; asking for CUDA where there is none raises.
 
-The slice ported so far is the generative decode server
-(:mod:`mxnet_tpu_torch.serving`) and what it runs.
+The slices ported so far are the generative decode server
+(:mod:`mxnet_tpu_torch.serving`) and ResNet v1 training
+(:mod:`mxnet_tpu_torch.gluon`, :mod:`mxnet_tpu_torch.parallel`), with
+what they run.
 """
 __version__ = "0.1.0"
 

@@ -10,7 +10,8 @@ to the host and the reverse.
 
 Decision precedence (``variant_choice``): a :func:`force` scope, then
 an explicitly set env override (``MXNET_FLASH_ATTENTION``,
-``MXNET_PAGED_ATTENTION``), then the caller's default.
+``MXNET_PAGED_ATTENTION``, ``MXNET_BNRELUCONV_VARIANT``,
+``MXNET_PALLAS_OPT``), then the caller's default.
 
 ``MXNET_AUTOTUNE``: 0 = off (no race), 1 = consult the cache and race
 on a miss (default), 2 = race even on a hit.  Timing on the card is by
@@ -38,7 +39,24 @@ VARIANT_OPS = {
     # ops/flash_attention.paged_decode_attention: one gather then a
     # dense masked softmax, or an online-softmax walk over the pages
     "paged_decode_attention": {"gather": "gather", "paged": "paged"},
+    # ops/pallas_conv.py: "stock" is the unfused layer path, "jnp" the
+    # fused op with the plain backward, "pallas" the fused op with the
+    # hand-written backward kernel
+    "pallas_bnreluconv": {"stock": "stock", "jnp": "jnp",
+                          "pallas": "pallas"},
+    # ops/pallas_opt.py: the fused bucket kernel against the plain
+    # fused_bucket_update, consulted by parallel.zero
+    "fused_bucket_opt": {"jnp": False, "pallas": True},
 }
+
+
+def _parse_bool(raw):
+    return raw.lower() in ("1", "true", "yes", "on")
+
+
+def _parse_bnreluconv(raw):
+    lowered = raw.lower()
+    return lowered if lowered in ("stock", "jnp", "pallas") else None
 
 
 def _parse_flash(raw):
@@ -65,6 +83,8 @@ def _parse_paged(raw):
 _ENV_OVERRIDE = {
     "flash_attention": ("MXNET_FLASH_ATTENTION", _parse_flash),
     "paged_decode_attention": ("MXNET_PAGED_ATTENTION", _parse_paged),
+    "pallas_bnreluconv": ("MXNET_BNRELUCONV_VARIANT", _parse_bnreluconv),
+    "fused_bucket_opt": ("MXNET_PALLAS_OPT", _parse_bool),
 }
 
 _tls = threading.local()

@@ -86,3 +86,21 @@ register_env("MXNET_PAGED_ATTENTION", "", str,
              "Hand override for the 'paged_decode_attention' variant: "
              "gather/0 or paged/1.  Unset: the cached winner of the "
              "generative server's warmup race.")
+register_env("MXNET_BNRELUCONV_VARIANT", "", str,
+             "Hand override for the 'pallas_bnreluconv' variant: stock "
+             "(unfused layer path), jnp (fused op, plain backward), "
+             "pallas (fused op, the hand-written backward kernel).  "
+             "Unset: MXNET_FUSED_BNRELUCONV.")
+register_env("MXNET_PALLAS_OPT", "", str,
+             "Hand override for the 'fused_bucket_opt' variant: 1 forces "
+             "the fused bucket kernel (prep + update + loss-scale count "
+             "in one pass), 0 the plain fused_bucket_update.")
+register_env("MXNET_KVSTORE_BIGARRAY_BOUND", 1000000, int,
+             "Flat-bucket split threshold (elements) of the sharded-"
+             "server exchange (optimizer_sharding='ps', parallel.zero): "
+             "a bucket closes once the next parameter would push it "
+             "past this many elements.")
+register_env("MXNET_BAD_STEP_LIMIT", 0, int,
+             "Step-level NaN/Inf guard: >0 arms make_train_step's "
+             "skip-and-count guard (opt_state['_bad_steps'] counts "
+             "consecutive bad steps).  0 disables it.")

@@ -1,0 +1,211 @@
+"""Block / HybridBlock (counterpart of ``mxnet_tpu/gluon/block.py``).
+
+A :class:`Block` is an ``nn.Module`` that keeps the reference's
+name-scope scheme (``_BlockScope``), so parameter names match it
+exactly (``resnetv10_stage1_conv0_weight``), and the reference's
+parameter order (``_collect_all_params``: a block's own parameters in
+registration order, then its children's).  Layers implement
+``forward``; the reference's ``hybrid_forward(F, ...)`` indirection has
+no counterpart.
+
+Like the reference, a block predicts unless asked to train: every
+Block starts in eval mode (``block.train()`` or
+``parallel.functionalize(..., train=True)`` switch it).
+
+``HybridBlock.hybridize`` is a no-op for now: PyTorch runs eagerly and
+the CachedOp analog (a shape-keyed compiled program) is queued
+(ROADMAP §A).
+"""
+from __future__ import annotations
+
+import contextlib
+import threading
+from collections import OrderedDict
+
+import torch
+from torch import nn
+
+from ..base import MXNetError
+from .parameter import Parameter, ParameterDict
+
+__all__ = ["Block", "HybridBlock", "state_writes_dropped",
+           "drop_state_writes"]
+
+
+class _BlockScope:
+    """Name-scope manager producing reference-compatible prefixes."""
+
+    _current = threading.local()
+
+    def __init__(self, block):
+        self._block = block
+        self._counter = {}
+        self._old_scope = None
+
+    @staticmethod
+    def create(prefix, hint):
+        current = getattr(_BlockScope._current, "value", None)
+        if current is None:
+            if prefix is None:
+                prefix = _NM.get(hint) + "_"
+            return prefix
+        if prefix is None:
+            count = current._counter.get(hint, 0)
+            prefix = f"{hint}{count}_"
+            current._counter[hint] = count + 1
+        return current._block.prefix + prefix
+
+    def __enter__(self):
+        if self._block._empty_prefix:
+            return self
+        self._old_scope = getattr(_BlockScope._current, "value", None)
+        _BlockScope._current.value = self
+        return self
+
+    def __exit__(self, ptype, value, trace):
+        if self._block._empty_prefix:
+            return
+        _BlockScope._current.value = self._old_scope
+
+
+class _NameManager(threading.local):
+    def __init__(self):
+        self._counter = {}
+
+    def get(self, hint):
+        count = self._counter.get(hint, 0)
+        self._counter[hint] = count + 1
+        return f"{hint}{count}"
+
+
+_NM = _NameManager()
+_tls = threading.local()
+
+
+def state_writes_dropped():
+    """True inside :func:`drop_state_writes` (layers then skip their
+    running-statistics update)."""
+    return getattr(_tls, "drop_state", False)
+
+
+@contextlib.contextmanager
+def drop_state_writes():
+    """Scope in which layers compute but do not store state updates.
+
+    The reference's ``parallel.functionalize`` swaps traced values into
+    the block and runs its forward; the BatchNorm layer's running-stat
+    ``_adopt`` lands on those traced values and is lost, so a
+    ``make_train_step`` step leaves running statistics unchanged
+    (ROADMAP §C).  The port's ``functionalize`` reproduces that with
+    this scope."""
+    prev = state_writes_dropped()
+    _tls.drop_state = True
+    try:
+        yield
+    finally:
+        _tls.drop_state = prev
+
+
+class Block(nn.Module):
+    """Base class for all layers and models."""
+
+    def __init__(self, prefix=None, params=None):
+        super().__init__()
+        if params is not None:
+            raise MXNetError("parameter sharing (params=) is not ported")
+        self._empty_prefix = prefix == ""
+        self._prefix = _BlockScope.create(prefix, self._alias())
+        self._name = self._prefix[:-1] if self._prefix.endswith("_") \
+            else self._prefix
+        self._scope = _BlockScope(self)
+        self._params = ParameterDict(self._prefix)
+        self._reg_params = OrderedDict()
+        self.training = False
+
+    def _alias(self):
+        return self.__class__.__name__.lower()
+
+    def __setattr__(self, name, value):
+        if isinstance(value, Parameter):
+            value._bind(self, name)
+            tensor = torch.empty(value.shape,
+                                 dtype=getattr(torch, value.dtype))
+            if value.grad_req == "null":
+                self.register_buffer(name, tensor)
+            else:
+                super().__setattr__(name, nn.Parameter(tensor))
+            self._reg_params[name] = value
+            return
+        super().__setattr__(name, value)
+
+    def register_child(self, block, name=None):
+        self.add_module(str(len(self._modules)) if name is None else name,
+                        block)
+
+    @property
+    def _children(self):
+        return OrderedDict((k, v) for k, v in self._modules.items()
+                           if v is not None)
+
+    @property
+    def prefix(self):
+        return self._prefix
+
+    @property
+    def name(self):
+        return self._name
+
+    @property
+    def params(self):
+        return self._params
+
+    def name_scope(self):
+        return self._scope
+
+    def collect_params(self):
+        """``{full name: Parameter}`` of this block and its
+        descendants, in :func:`_collect_all_params` order."""
+        return OrderedDict((p.name, p) for p in _collect_all_params(self))
+
+    def initialize(self, init=None, device=None, generator=None):
+        """Fill every parameter and move the block to ``device``.
+
+        A parameter's own initializer (BatchNorm's ``ones``/``zeros``)
+        wins; the others take ``init`` (default ``Uniform()``), which
+        dispatches on the name suffix like the reference.  Values are
+        drawn on the host from ``generator`` (a ``torch.Generator``;
+        None = torch's default one), then moved to ``device``
+        (default ``cuda:0``; a CUDA device without a card raises)."""
+        from .. import initializer as init_mod
+        from ..context import resolve_device
+
+        dev = resolve_device(device)
+        default_init = init_mod.create(
+            init if init is not None else init_mod.Uniform())
+        with torch.no_grad():
+            for p in _collect_all_params(self):
+                initializer = init_mod.create(
+                    p.init if p.init is not None else default_init)
+                value = initializer(init_mod.InitDesc(p.name), p.shape,
+                                    generator=generator)
+                p.data().copy_(value.to(p.data().dtype))
+        self.to(dev)
+        return self
+
+    def hybridize(self, active=True, **kwargs):
+        for child in self._children.values():
+            child.hybridize(active, **kwargs)
+
+
+class HybridBlock(Block):
+    """A Block the reference can compile (``hybridize``); the port runs
+    it eagerly."""
+
+
+def _collect_all_params(block):
+    """Flat list of subtree Parameters in deterministic registry order —
+    the order the reference's functionalize and bucket plan use."""
+    result = list(block._reg_params.values())
+    for child in block._children.values():
+        result.extend(_collect_all_params(child))
+    return result

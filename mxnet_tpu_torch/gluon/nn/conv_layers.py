@@ -1,0 +1,91 @@
+"""Convolution and pooling blocks (counterpart of
+``mxnet_tpu/gluon/nn/conv_layers.py``): Conv2D, MaxPool2D,
+GlobalAvgPool2D.  Channel-last weights are ``O*kI``; ``in_channels`` is
+required (no deferred shape inference)."""
+from __future__ import annotations
+
+from ...ops.conv import convolution, pooling
+from ..block import HybridBlock
+from .layout import is_channel_last, resolve_layout
+
+__all__ = ["Conv2D", "MaxPool2D", "GlobalAvgPool2D"]
+
+
+def _tup(val, n):
+    if isinstance(val, int):
+        return (int(val),) * n
+    return tuple(int(v) for v in val)
+
+
+class _Conv(HybridBlock):
+    def __init__(self, channels, kernel_size, strides, padding, dilation,
+                 groups, layout, in_channels=0, use_bias=True,
+                 weight_initializer=None, bias_initializer="zeros",
+                 prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        ndim = len(kernel_size)
+        layout = resolve_layout(layout, ndim)
+        self._kwargs = {
+            "kernel": tuple(kernel_size), "stride": _tup(strides, ndim),
+            "dilate": _tup(dilation, ndim), "pad": _tup(padding, ndim),
+            "num_filter": channels, "num_group": groups,
+            "no_bias": not use_bias, "layout": layout,
+        }
+        with self.name_scope():
+            cig = in_channels // groups if in_channels else 0
+            if is_channel_last(layout):
+                wshape = (channels,) + tuple(kernel_size) + (cig,)
+            else:
+                wshape = (channels, cig) + tuple(kernel_size)
+            self.weight = self.params.get(
+                "weight", shape=wshape, init=weight_initializer)
+            if use_bias:
+                self.bias = self.params.get(
+                    "bias", shape=(channels,), init=bias_initializer)
+            else:
+                self.bias = None
+
+    def forward(self, x):
+        return convolution(x, self.weight, self.bias, **self._kwargs)
+
+
+class Conv2D(_Conv):
+    def __init__(self, channels, kernel_size, strides=(1, 1), padding=(0, 0),
+                 dilation=(1, 1), groups=1, layout=None, use_bias=True,
+                 weight_initializer=None, bias_initializer="zeros",
+                 in_channels=0, **kwargs):
+        super().__init__(channels, _tup(kernel_size, 2), strides, padding,
+                         dilation, groups, layout, in_channels, use_bias,
+                         weight_initializer, bias_initializer, **kwargs)
+
+
+class _Pooling(HybridBlock):
+    def __init__(self, pool_size, strides, padding, global_pool=False,
+                 pool_type="max", layout=None, **kwargs):
+        super().__init__(**kwargs)
+        if strides is None:
+            strides = pool_size
+        ndim = len(pool_size)
+        self._kwargs = {
+            "kernel": pool_size, "stride": _tup(strides, ndim),
+            "pad": _tup(padding, ndim), "global_pool": global_pool,
+            "pool_type": pool_type, "layout": resolve_layout(layout, ndim),
+        }
+
+    def _alias(self):
+        return "pool"
+
+    def forward(self, x):
+        return pooling(x, **self._kwargs)
+
+
+class MaxPool2D(_Pooling):
+    def __init__(self, pool_size=(2, 2), strides=None, padding=0,
+                 layout=None, **kwargs):
+        super().__init__(_tup(pool_size, 2), strides, _tup(padding, 2),
+                         False, "max", layout, **kwargs)
+
+
+class GlobalAvgPool2D(_Pooling):
+    def __init__(self, layout=None, **kwargs):
+        super().__init__((1, 1), None, 0, True, "avg", layout, **kwargs)

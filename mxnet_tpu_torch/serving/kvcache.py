@@ -35,16 +35,17 @@ __all__ = ["PagedKVPool"]
 
 class PagedKVPool:
     """Fixed pool of physical KV pages under a byte budget, on
-    ``device`` (a ``torch.device``; the server passes its own)."""
+    ``device`` (default ``cuda:0``; the server passes its own)."""
 
     def __init__(self, layers, heads, head_dim, page_tokens=None,
-                 budget_bytes=None, dtype=None, device="cpu"):
+                 budget_bytes=None, dtype=None, device=None):
         from ..config import get_env
+        from ..context import resolve_device
 
         self.layers = int(layers)
         self.heads = int(heads)
         self.head_dim = int(head_dim)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.page_tokens = int(page_tokens if page_tokens is not None
                                else get_env("MXNET_KV_PAGE_TOKENS"))
         budget = int(budget_bytes if budget_bytes is not None

@@ -5,9 +5,11 @@ package, so on the card's host it runs without the repo's conftest:
     python -m pytest --noconftest -p no:cacheprovider -m cuda \\
         tests/test_torch_cuda.py
 
-The kernel is held against its plain version on the same inputs (fp32
-1e-4: another exp/sum order; bf16 2e-2: one bf16 rounding of the
-output); fully masked rows must be exactly 0.
+Each kernel is held against its plain version on the same inputs:
+flash attention fp32 1e-4 (another exp/sum order) and bf16 2e-2 (one
+bf16 rounding of the output), with fully masked rows exactly 0; the
+fused BN-ReLU-conv backward as its test states; the bucket SGD kernel
+bit for bit.  A train step of a tiny ResNet shows the launch counts.
 """
 import numpy as onp
 import pytest
@@ -95,3 +97,149 @@ def test_server_tokens_equal_on_card_and_host(card):
         finally:
             srv.close()
     assert outs[str(card)] == outs["cpu"]
+
+
+# ------------------------------------------- the ResNet training slice
+def _brc_inputs(m, ci, co, dtype, device, seed=5):
+    rng = onp.random.RandomState(seed)
+    dt = getattr(torch, dtype)
+
+    def t(*shape, scale=1.0, cast=True):
+        a = torch.from_numpy((rng.randn(*shape) * scale).astype("float32"))
+        return a.to(device, dt if cast else torch.float32)
+
+    w = t(co, ci, scale=0.1)
+    return (t(m, co), t(m, ci), w.t(), t(1, ci, cast=False).abs() + 0.5,
+            t(1, ci, scale=0.3, cast=False), t(1, ci, scale=0.1, cast=False),
+            t(1, ci, cast=False).abs() + 0.5)
+
+
+@pytest.mark.parametrize("case", [
+    (300, 8, 24, "float32"), (4133, 64, 256, "float32"),
+    (4133, 64, 256, "bfloat16"), (1000, 512, 2048, "bfloat16"),
+    (77, 100, 70, "float32"),
+])
+def test_bnreluconv_kernel_matches_plain(card, case):
+    """d_bn: fp32 1e-5 of the largest value, bf16 one ulp of each value
+    plus 1e-5 of the largest (a d_act that cancels to near zero differs
+    between fp32 sums in other orders by more than its bf16 ulp);
+    dW/s1/s2 1e-4 (fp32 sums in another order)."""
+    from mxnet_tpu_torch.ops import pallas_conv as pc
+
+    m, ci, co, dtype = case
+    args = _brc_inputs(m, ci, co, dtype, card)
+    before = pc.bnreluconv_bwd.launches
+    got = pc.bnreluconv_bwd(*args)
+    want = pc._bwd_pass1_reference(*args)
+    torch.cuda.synchronize()
+    assert pc.bnreluconv_bwd.launches == before + 1
+    d_bn, ref = got[0].float(), want[0].float()
+    if dtype == "float32":
+        assert float((d_bn - ref).abs().max()) <= 1e-5 * float(
+            ref.abs().max())
+    else:
+        assert bool(((d_bn - ref).abs() <= ref.abs() * 2.0 ** -7
+                     + 1e-5 * ref.abs().max()).all())
+    for a, b in zip(got[1:], want[1:]):
+        assert a.shape == b.shape
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+    again = pc.bnreluconv_bwd(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))  # no atomics
+
+
+@pytest.mark.parametrize("bad", ["dtype", "contiguity", "shape"])
+def test_bnreluconv_kernel_refuses(card, bad):
+    from mxnet_tpu_torch.ops import pallas_conv as pc
+
+    dy, u, w2, g, b, mu, inv = _brc_inputs(64, 8, 16, "float32", card)
+    if bad == "dtype":
+        u = u.half()
+    elif bad == "contiguity":
+        dy = dy.t().contiguous().t()
+    else:
+        w2 = w2[:4]
+    before = pc.bnreluconv_bwd.launches
+    with pytest.raises(MXNetError):
+        pc.bnreluconv_bwd(dy, u, w2, g, b, mu, inv)
+    assert pc.bnreluconv_bwd.launches == before
+
+
+@pytest.mark.parametrize("case", [
+    ("float32", 0.9, 1000003), ("float32", 0.0, 4099),
+    ("bfloat16", 0.9, 2049), ("bfloat16", 0.0, 77),
+])
+def test_bucket_kernel_bit_identical_to_plain(card, case):
+    from mxnet_tpu_torch.ops import pallas_opt as po
+    from mxnet_tpu_torch.optimizer.optimizer import scalar_as
+
+    dtype, momentum, n = case
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=card).manual_seed(n)
+    w = torch.randn(n, generator=gen, device=card).to(dt)
+    m = torch.randn(n, generator=gen, device=card).to(dt)
+    g = torch.randn(n, generator=gen, device=card)
+    g[[1, n // 2, n - 1]] = torch.tensor([float("nan"), float("inf"),
+                                          float("-inf")], device=card)
+    # hyper-parameters rounded to the bucket's dtype, as bucket_update
+    # passes them (the kernel's contract)
+    lr, wd, clip = (scalar_as(v, dt) for v in (0.1, 1e-4, 0.3))
+    hyper = dict(lr=lr, wd=wd, rescale=0.5, clip=clip, with_finite=True)
+    mom = scalar_as(momentum, dt)
+    want = po._sgd_reference(w, g, m if momentum else None, lr, wd, mom,
+                             0.5, clip, True)
+    if momentum:
+        before = po.bucket_sgd_mom.launches
+        got = po.bucket_sgd_mom(w, g, m, momentum=mom, **hyper)
+        assert po.bucket_sgd_mom.launches == before + 1
+        pairs = [(got[0], want[0]), (got[1], want[1])]
+    else:
+        before = po.bucket_sgd.launches
+        got = po.bucket_sgd(w, g, **hyper)
+        assert po.bucket_sgd.launches == before + 1
+        pairs = [(got[0], want[0])]
+    torch.cuda.synchronize()
+    for a, b in pairs:
+        nan = torch.isnan(b)
+        assert torch.equal(torch.isnan(a), nan)
+        assert torch.equal(a[~nan], b[~nan])
+    assert int(got[-1]) == int(want[2]) == 3
+
+
+def test_resnet_train_step_launches_kernels(card):
+    """A tiny NHWC ResNetV1 trains on the card through both kernels:
+    one bnreluconv launch per bottleneck per step, one bucket launch
+    per bucket per step, finite falling losses, running statistics
+    unchanged."""
+    from mxnet_tpu_torch import autotune, initializer, parallel
+    from mxnet_tpu_torch.gluon import loss, nn
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet
+    from mxnet_tpu_torch.ops import pallas_conv as pc
+    from mxnet_tpu_torch.ops import pallas_opt as po
+
+    with nn.default_layout("NHWC"):
+        net = resnet.ResNetV1(resnet.BottleneckV1, [1, 1, 1, 1],
+                              [8, 16, 32, 64, 128], classes=10,
+                              no_bias=True)
+    net.initialize(initializer.Xavier(), device=card,
+                   generator=torch.Generator().manual_seed(0))
+    rng = onp.random.RandomState(0)
+    x = torch.from_numpy(rng.randn(8, 64, 64, 3).astype("float32"))
+    y = torch.from_numpy(rng.randint(0, 10, 8).astype("float32"))
+    with autotune.force(pallas_bnreluconv="pallas", fused_bucket_opt=True):
+        step, p, s = parallel.make_train_step(
+            net, loss.SoftmaxCrossEntropyLoss(), "sgd", learning_rate=0.1,
+            momentum=0.9, mesh=parallel.get_mesh(), loss_scale="dynamic",
+            compute_dtype="bfloat16", optimizer_sharding="ps",
+            bucket_bound=30000)
+        stats = {n: v.clone() for n, v in p.items()
+                 if n.endswith(("running_mean", "running_var"))}
+        b0, m0 = pc.bnreluconv_bwd.launches, po.bucket_sgd_mom.launches
+        losses = []
+        for i in range(3):
+            loss_v, p, s = step(p, s, x, y, None, float(i + 1))
+            losses.append(float(loss_v))
+    assert pc.bnreluconv_bwd.launches - b0 == 4 * 3
+    assert po.bucket_sgd_mom.launches - m0 == len(step.zero_plan) * 3
+    assert all(onp.isfinite(losses)) and losses[-1] < losses[0]
+    for n, v in stats.items():
+        assert torch.equal(p[n], v), n

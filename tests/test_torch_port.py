@@ -38,7 +38,15 @@ _MODULES = ["mxnet_tpu_torch", "mxnet_tpu_torch.autotune",
             "mxnet_tpu_torch.quantization",
             "mxnet_tpu_torch.resilience.faultsim",
             "mxnet_tpu_torch.serving",
-            "mxnet_tpu_torch.telemetry.opstats"]
+            "mxnet_tpu_torch.telemetry.opstats",
+            "mxnet_tpu_torch.initializer",
+            "mxnet_tpu_torch.gluon",
+            "mxnet_tpu_torch.gluon.model_zoo.vision.resnet",
+            "mxnet_tpu_torch.ops.conv", "mxnet_tpu_torch.ops.nn",
+            "mxnet_tpu_torch.ops.pallas_conv",
+            "mxnet_tpu_torch.ops.pallas_opt",
+            "mxnet_tpu_torch.optimizer",
+            "mxnet_tpu_torch.parallel", "mxnet_tpu_torch.parallel.zero"]
 _FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(?:jax|jaxlib|mxnet_tpu)"
                         r"(?:\.|\s|$)", re.M)
 
@@ -72,7 +80,9 @@ _PORT_ENV = ["MXNET_AUTOTUNE", "MXNET_AUTOTUNE_CACHE_DIR",
              "MXNET_FLASH_ATTENTION", "MXNET_FAULT_SPEC",
              "MXNET_KV_PAGE_TOKENS", "MXNET_KV_POOL_BUDGET",
              "MXNET_DECODE_SLOTS", "MXNET_KV_DTYPE",
-             "MXNET_PAGED_ATTENTION"]
+             "MXNET_PAGED_ATTENTION", "MXNET_BNRELUCONV_VARIANT",
+             "MXNET_PALLAS_OPT", "MXNET_KVSTORE_BIGARRAY_BOUND",
+             "MXNET_BAD_STEP_LIMIT"]
 
 
 @pytest.mark.parametrize("name", _PORT_ENV)
@@ -155,6 +165,18 @@ def test_paged_override_matches_reference(raw, monkeypatch):
         j_autotune.variant_choice("paged_decode_attention", default="x")
 
 
+@pytest.mark.parametrize("op,var,raw", [
+    ("pallas_bnreluconv", "MXNET_BNRELUCONV_VARIANT", raw)
+    for raw in ("stock", "JNP", "pallas", "1", "auto", "")] + [
+    ("fused_bucket_opt", "MXNET_PALLAS_OPT", raw)
+    for raw in ("1", "on", "0", "off", "pallas", "")])
+def test_train_slice_overrides_match_reference(op, var, raw, monkeypatch):
+    assert t_autotune.VARIANT_OPS[op] == j_autotune.VARIANT_OPS[op]
+    monkeypatch.setenv(var, raw)
+    assert t_autotune.variant_choice(op, default="x") == \
+        j_autotune.variant_choice(op, default="x")
+
+
 def test_force_scope_wins_and_unwinds(monkeypatch):
     monkeypatch.setenv("MXNET_FLASH_ATTENTION", "naive")
     assert t_autotune.variant_choice("flash_attention") == "naive"
@@ -222,10 +244,22 @@ def test_devices():
             t_context.resolve_device(None)
 
 
+def test_kv_pool_defaults_to_the_card():
+    from mxnet_tpu_torch.serving.kvcache import PagedKVPool
+
+    pool = PagedKVPool(1, 1, 8, page_tokens=4, budget_bytes=1 << 12,
+                       device="cpu")
+    assert pool.device == torch.device("cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(MXNetError, match="no CUDA card"):
+            PagedKVPool(1, 1, 8, page_tokens=4, budget_bytes=1 << 12)
+
+
 def test_kernel_sources_and_missing_nvcc(monkeypatch, tmp_path):
     """Every CUDA source is listed for the build; without nvcc the
     build raises instead of running anything."""
-    assert "flash_attention" in _kernels.sources()
+    assert {"flash_attention", "bnreluconv_bwd", "bucket_sgd"} <= set(
+        _kernels.sources())
     assert "sm_90a" in " ".join(_kernels.NVCC_FLAGS)
     key = _kernels._key("flash_attention")
     assert len(key) == 16 and key == _kernels._key("flash_attention")
