@@ -7,10 +7,12 @@ Builds every CUDA kernel from ``mxnet_tpu_torch/csrc`` with nvcc, holds
 each kernel against its plain PyTorch version on the card, serves the
 generative decoder end to end through ``GenerativeServer`` at the width
 of the repo's generate benchmark and at a wide configuration, then
-trains ResNet-50 v1 (full width and depth, batch 128, bf16) through
-``parallel.make_train_step`` with the fused BN-ReLU-1x1-conv backward
-and the flat-bucket SGD kernels, and checks one fp32 step on the card
-against the host, checking the results.  Each phase prints one JSON
+trains ResNet-50 v1 (full width and depth, bf16) with the fused
+BN-ReLU-1x1-conv backward and the flat-bucket optimizer kernels three
+ways: SGD through ``parallel.make_train_step`` (batch 128), LARS
+through ``parallel.DataParallelTrainer`` (batch 256) and Adam (batch
+128), and checks one fp32 step per optimizer on the card against the
+host, checking the results.  Each phase prints one JSON
 line on stdout
 (progress goes to stderr); ``--out`` also appends them to FILE.  Any
 failed check exits non-zero.  The last line is
@@ -100,14 +102,15 @@ def time_ms(fn, budget_ms=300.0):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, calls=50, attempts=3):
+def device_ms(fn, calls=50, attempts=3, by_kernel=False):
     """Device time per call of ``fn``: the summed self device time of
     every kernel it launches over ``calls`` calls under torch.profiler,
-    over ``calls``.  Unlike CUDA events around back-to-back calls it
-    leaves out the host's launch cost, which dominates kernels of a few
-    tens of microseconds.  A profiler session that records no device
-    activity at all (seen once in a run of many sessions) is run again,
-    up to ``attempts`` sessions."""
+    over ``calls`` (``by_kernel``: a dict of it by kernel name).  Unlike
+    CUDA events around back-to-back calls it leaves out the host's
+    launch cost, which dominates kernels of a few tens of microseconds.
+    A profiler session that records no device activity at all (seen
+    once in a run of many sessions) is run again, up to ``attempts``
+    sessions."""
     import torch
 
     fn()
@@ -119,17 +122,35 @@ def device_ms(fn, calls=50, attempts=3):
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        total_us = 0.0
+        per = {}
         for evt in prof.key_averages():
             t_us = getattr(evt, "self_device_time_total", None)
             if t_us is None:
                 t_us = getattr(evt, "self_cuda_time_total", 0.0)
-            total_us += max(t_us, 0.0)
-        if total_us > 0:
-            return total_us / 1e3 / calls
+            if t_us > 0:
+                per[evt.key] = per.get(evt.key, 0.0) + t_us / 1e3 / calls
+        if per:
+            return per if by_kernel else sum(per.values())
         log("[device_ms] the profiler recorded no device time; again")
     raise CheckFailed(f"the profiler recorded no device time in "
                       f"{attempts} sessions")
+
+
+def rotating(tensors):
+    """``next_set()`` over copies of ``tensors`` that together span
+    ``COLD_BYTES``, so that each timed call reads its inputs from HBM,
+    as in a train step, and not from the 50 MB L2."""
+    n_sets = max(2, math.ceil(COLD_BYTES / sum(t.nbytes for t in tensors)))
+    sets = [tuple(t.clone() for t in tensors) for _ in range(n_sets)]
+    turn = [0]
+
+    def next_set():
+        turn[0] += 1
+        return sets[turn[0] % n_sets]
+
+    next_set.n_sets = n_sets
+    next_set.sets = sets
+    return next_set
 
 
 # ------------------------------------------------------------ kernels
@@ -510,10 +531,7 @@ def bucket_case(n, dtype, momentum, path, seed):
     w = torch.randn(n, generator=gen, device=dev).to(tdt)
     m = torch.randn(n, generator=gen, device=dev).to(tdt)
     g = torch.randn(n, generator=gen, device=dev)
-    bad = sorted({0, 7, n // 3, n // 2, n - 1})
-    g[bad] = torch.tensor([float("nan"), float("inf"), float("-inf"),
-                           float("nan"), float("inf")][:len(bad)],
-                          device=dev)
+    n_bad = planted_nonfinite(g)
     hyper = dict(lr=0.1, wd=1e-4, rescale=1.0, clip=None)
     wrapper = po.bucket_sgd_mom if momentum else po.bucket_sgd
 
@@ -529,26 +547,15 @@ def bucket_case(n, dtype, momentum, path, seed):
                              hyper["wd"], momentum, 1.0, None, True)
     torch.cuda.synchronize()
     check(wrapper.launches == n0 + 1, "bucket kernel not launched")
-    outs = list(zip(got[:-1], want[:2]))
-    for a, r in outs:
-        nan = torch.isnan(r)
-        check(torch.equal(torch.isnan(a), nan) and
-              torch.equal(a[~nan], r[~nan]),
-              f"bucket kernel {n} {dtype} momentum={momentum} is not "
-              "bit-identical to the plain version")
-    check(int(got[-1]) == int(want[2]) == len(bad),
+    check(all(same_bits(a, r) for a, r in zip(got[:-1], want[:2])),
+          f"bucket kernel {n} {dtype} momentum={momentum} is not "
+          "bit-identical to the plain version")
+    check(int(got[-1]) == int(want[2]) == n_bad,
           f"non-finite count {int(got[-1])}, plain {int(want[2])}, "
-          f"planted {len(bad)}")
+          f"planted {n_bad}")
     g.nan_to_num_(0.0, 0.0, 0.0)  # timing on finite data
-    # the timed calls cycle through copies that together span COLD_BYTES,
-    # so each reads its inputs from HBM, as in a train step
-    n_sets = max(2, math.ceil(COLD_BYTES / (w.nbytes + m.nbytes + g.nbytes)))
-    sets = [(w.clone(), g.clone(), m.clone()) for _ in range(n_sets)]
-    turn = [0]
-
-    def next_set():
-        turn[0] += 1
-        return sets[turn[0] % n_sets]
+    next_set = rotating((w, g, m))
+    n_sets = next_set.n_sets
 
     def kernel_cold():
         ws, gs, ms_ = next_set()
@@ -564,15 +571,12 @@ def bucket_case(n, dtype, momentum, path, seed):
                                  None, True)
 
     opts = []
-    for ws, gs, _ in sets:
+    for ws, gs, _ in next_set.sets:
         wl = ws.float().requires_grad_(True)
         wl.grad = gs
         opts.append(torch.optim.SGD([wl], lr=0.1, momentum=momentum,
                                     weight_decay=1e-4, fused=True))
-
-    def library():
-        turn[0] += 1
-        opts[turn[0] % n_sets].step()
+    library = rotating_steps(opts)
 
     # device time per call: at these sizes the kernel takes tens of
     # microseconds and CUDA events around back-to-back calls would time
@@ -586,7 +590,7 @@ def bucket_case(n, dtype, momentum, path, seed):
     bound_ms, bound_by = bound((6.0 if momentum else 4.0) * n, nbytes,
                                "float32")
     return {"path": path, "n": n, "dtype": dtype, "momentum": momentum,
-            "bit_identical": True, "nonfinite_planted": len(bad),
+            "bit_identical": True, "nonfinite_planted": n_bad,
             "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms,
@@ -599,6 +603,222 @@ def bucket_case(n, dtype, momentum, path, seed):
                        "to rounding, no non-finite count; the port never "
                        "calls it)",
             "bytes": nbytes}
+
+
+def rotating_steps(opts):
+    """``step()`` of the next of ``opts`` (one per rotating set)."""
+    turn = [0]
+
+    def step():
+        turn[0] += 1
+        opts[turn[0] % len(opts)].step()
+
+    return step
+
+
+def planted_nonfinite(g):
+    """Plants NaN and ±inf at five known positions of ``g`` (in place);
+    returns their count."""
+    import torch
+
+    n = g.numel()
+    bad = sorted({0, 7, n // 3, n // 2, n - 1})
+    g[bad] = torch.tensor([float("nan"), float("inf"), float("-inf"),
+                           float("nan"), float("inf")][:len(bad)],
+                          device=g.device)
+    return len(bad)
+
+
+def same_bits(a, r):
+    """Equal element for element, NaN where the other has NaN."""
+    import torch
+
+    nan = torch.isnan(r)
+    return torch.equal(torch.isnan(a), nan) and torch.equal(a[~nan], r[~nan])
+
+
+#: Adam's hyper-parameters in the kernel checks (bench.py:1840's lr/wd)
+ADAM_HYPER = dict(lr=1e-3, wd=1e-4, beta1=0.9, beta2=0.999, eps=1e-8)
+
+
+def adam_case(n, t, path, seed, planted=False):
+    """The bucket Adam kernel at one size and step count: bit-identical
+    to the plain version on the same inputs, the non-finite count exact
+    (NaN and ±inf planted when ``planted``); device times with inputs
+    cold in L2, and the bound."""
+    import torch
+
+    from mxnet_tpu_torch.ops import pallas_opt as po
+    from mxnet_tpu_torch.optimizer.optimizer import adam_lr_t
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    w, g, m = (torch.randn(n, generator=gen, device=dev) for _ in range(3))
+    v = torch.randn(n, generator=gen, device=dev).abs()
+    n_bad = planted_nonfinite(g) if planted else 0
+    hp = dict(ADAM_HYPER)
+    lr_t = adam_lr_t(hp.pop("lr"), hp["beta1"], hp["beta2"], t)
+    kw = dict(hp, lr_t=lr_t, rescale=1.0, clip=None, with_finite=True)
+
+    def plain(ws, gs, ms_, vs):
+        return po._adam_reference(ws, gs, ms_, vs, lr_t, hp["wd"],
+                                  hp["beta1"], hp["beta2"], hp["eps"], 1.0,
+                                  None, True)
+
+    n0 = po.bucket_adam.launches
+    got = po.bucket_adam(w, g, m, v, **kw)
+    want = plain(w, g, m, v)
+    torch.cuda.synchronize()
+    check(po.bucket_adam.launches == n0 + 1, "bucket_adam not launched")
+    check(all(same_bits(a, r) for a, r in zip(got[:3], want[:3])),
+          f"bucket_adam {n} t={t} is not bit-identical to the plain version")
+    check(int(got[3]) == int(want[3]) == n_bad,
+          f"adam non-finite count {int(got[3])}, plain {int(want[3])}, "
+          f"planted {n_bad}")
+    g.nan_to_num_(0.0, 0.0, 0.0)  # timing on finite data
+    next_set = rotating((w, g, m, v))
+    opts = []
+    for ws, gs, _, _ in next_set.sets:
+        wl = ws.requires_grad_(True)
+        wl.grad = gs
+        opts.append(torch.optim.Adam([wl], lr=1e-3, weight_decay=1e-4,
+                                     fused=True))
+    library = rotating_steps(opts)
+    with torch.no_grad():
+        ms, plain_ms, library_ms = (device_ms(f) for f in (
+            lambda: po.bucket_adam(*next_set(), **kw),
+            lambda: plain(*next_set()), library))
+    nbytes = 28.0 * n  # read w, g, m, v; write w, m, v (fp32)
+    bound_ms, bound_by = bound(16.0 * n, nbytes, "float32")
+    return {"path": path, "n": n, "t": t, "lr_t": lr_t,
+            "bit_identical": True, "nonfinite_planted": n_bad,
+            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms,
+            "timing": f"device time per call, inputs cold in L2 "
+                      f"({next_set.n_sets} rotating copies)",
+            "library": "yardstick: torch.optim.Adam(fused=True).step() on "
+                       "one fp32 tensor of the same size (same update up "
+                       "to rounding and bias correction on the card, no "
+                       "non-finite count; the port never calls it)",
+            "bytes": nbytes}
+
+
+#: LARS's hyper-parameters in the kernel checks and the LARS training
+#: phase: the MLPerf ResNet-50 recipe's momentum, eta and weight decay;
+#: no lr schedule (the fused step evaluates lr once), and an lr at which
+#: the loss on the fixed batch falls
+LARS_HYPER = dict(lr=5.0, wd=5e-5, eta=0.001, eps=0.0, momentum=0.9)
+#: whole LARS update, kernels against plain (the reference's tolerance
+#: between its kernel and its jnp rule: the norms are sums in other
+#: orders)
+LARS_TOL = dict(rtol=1e-6, atol=1e-6)
+
+
+def lars_case(ids, nseg, path, seed):
+    """The LARS kernels on one bucket: phase (c) bit-identical to the
+    plain version given the same per-segment lr, the whole update within
+    ``LARS_TOL`` of the plain version, two runs bit-identical, the
+    non-finite count exact; device time of each phase, inputs cold."""
+    import torch
+
+    from mxnet_tpu_torch.ops import pallas_opt as po
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n = ids.numel()
+    w = torch.randn(n, generator=gen, device=dev)
+    g = torch.randn(n, generator=gen, device=dev) * 0.01
+    m = torch.randn(n, generator=gen, device=dev) * 0.01
+    hp = dict(LARS_HYPER)
+    mom = hp.pop("momentum")
+    norm_kw = dict(hp, rescale=1.0, clip=None, with_finite=True)
+    up_kw = dict(wd=hp["wd"], momentum=mom, rescale=1.0, clip=None)
+
+    def kernels(ws, gs, ms_, ids_):
+        slr = po.bucket_lars_norms(ws, gs, ids_, nseg, **norm_kw)
+        return slr, po.bucket_lars_update(ws, gs, ms_, ids_, slr[0],
+                                          **up_kw)
+
+    def plain(ws, gs, ms_, ids_):
+        w_ss, g_ss, nf = po._lars_norms_reference(ws, gs, ids_, nseg, 1.0,
+                                                  None, True)
+        slr = po._lars_trust_reference(w_ss, g_ss, hp["lr"], hp["wd"],
+                                       hp["eta"], hp["eps"])
+        return (slr, w_ss, g_ss, nf), po._lars_update_reference(
+            ws, gs, ms_, ids_, slr, hp["wd"], mom, 1.0, None)
+
+    counts = lambda: (po.bucket_lars_norms.launches,  # noqa: E731
+                      po.bucket_lars_norms.trust_launches,
+                      po.bucket_lars_update.launches)
+    n0 = counts()
+    (slr, w_ss, g_ss, nf), (nw, nm) = kernels(w, g, m, ids)
+    (slr2, w_ss2, _, nf2), (nw2, nm2) = kernels(w, g, m, ids)
+    (rslr, rw_ss, rg_ss, rnf), (rw, rm) = plain(w, g, m, ids)
+    cw, cm = po._lars_update_reference(w, g, m, ids, slr, hp["wd"], mom, 1.0,
+                                       None)
+    torch.cuda.synchronize()
+    check(counts() == tuple(c + 2 for c in n0), f"lars launches {counts()} "
+          f"after {n0}")
+    check(torch.equal(nw, cw) and torch.equal(nm, cm),
+          f"lars phase (c) {n}/{nseg} is not bit-identical to the plain "
+          "version given the same slr")
+    check(torch.allclose(nw, rw, **LARS_TOL) and
+          torch.allclose(nm, rm, **LARS_TOL),
+          f"lars update {n}/{nseg} off the plain version: w "
+          f"{float((nw - rw).abs().max())}, m {float((nm - rm).abs().max())}")
+    check(all(torch.equal(a, b) for a, b in ((slr, slr2), (w_ss, w_ss2),
+                                            (nw, nw2), (nm, nm2), (nf, nf2))),
+          f"lars kernels {n}/{nseg} differ between two runs")
+    check(int(nf) == int(rnf) == 0, f"lars non-finite count {int(nf)}")
+    rel = lambda a, r: float(((a - r).abs() / r.abs().clamp_min(  # noqa: E731
+        1e-30)).max())
+    # why the plain norms sum in float64: an fp32 index_add_ drifts
+    fp32_ss = torch.zeros(nseg, device=dev).index_add_(0, ids, w * w)
+    next_set = rotating((w, g, m, ids))
+    per = device_ms(lambda: kernels(*next_set()), by_kernel=True)
+    phase = {k: sum(t for name, t in per.items() if k in name)
+             for k in ("lars_norms_kernel", "lars_trust_kernel",
+                       "lars_update_kernel")}
+    # phase (c) alone, cold: after phase (a) in the same call it finds
+    # w, g and the ids of a bucket of up to 50 MB still in L2, as in the
+    # step
+    update_cold_ms = device_ms(lambda: po.bucket_lars_update(
+        *next_set(), slr, **up_kw))
+    plain_per = device_ms(lambda: plain(*next_set()), by_kernel=True)
+    plain_ms = sum(plain_per.values())
+    # the plain update alone: the last six elementwise ops and the gather
+    # are not separable by name, so time it on its own
+    plain_update_ms = device_ms(lambda: po._lars_update_reference(
+        *next_set(), slr, hp["wd"], mom, 1.0, None))
+    # phase (a) reads w, g, seg; phase (c) w, g, m, seg and writes w, m:
+    # 36 bytes an element over the two passes, 24 if each input were
+    # read once
+    b_norms = bound(4.0 * n, 12.0 * n, "float32")
+    b_update = bound(7.0 * n, 24.0 * n, "float32")
+    return {"path": path, "n": n, "nseg": nseg,
+            "phase_c_bit_identical": True, "deterministic": True,
+            "tol_whole_update": LARS_TOL,
+            "max_abs_err": max(float((nw - rw).abs().max()),
+                               float((nm - rm).abs().max())),
+            "norms_max_rel_err": max(rel(w_ss, rw_ss), rel(g_ss, rg_ss)),
+            "fp32_index_add_norms_rel_err": rel(fp32_ss, rw_ss),
+            "slr_max_rel_err": rel(slr, rslr),
+            "slr_max_abs_err": float((slr - rslr).abs().max()),
+            "ms_norms": phase["lars_norms_kernel"],
+            "ms_trust": phase["lars_trust_kernel"],
+            "ms_update": phase["lars_update_kernel"],
+            "ms_update_cold": update_cold_ms,
+            "ms": sum(per.values()), "plain_ms": plain_ms,
+            "plain_update_ms": plain_update_ms,
+            "plain_norms_trust_ms": plain_ms - plain_update_ms,
+            "bound_ms": b_norms[0] + b_update[0], "bound_by": "bytes",
+            "bound_norms_ms": b_norms[0], "bound_update_ms": b_update[0],
+            "library_ms": None,
+            "library": "none: no single PyTorch call computes LARS",
+            "timing": f"device time per call by kernel name, inputs cold "
+                      f"in L2 ({next_set.n_sets} rotating copies)",
+            "bytes": 36.0 * n}
 
 
 def resnet50(device, seed):
@@ -614,21 +834,85 @@ def resnet50(device, seed):
                           generator=torch.Generator().manual_seed(seed))
 
 
-def train_phase(batch, warmup, steps, seed=0):
-    """Drive the ResNet-50 training step on the card through the port's
-    entry points (bf16 compute, SGD momentum 0.9 / lr 0.1, dynamic loss
-    scaling, the sharded-bucket arm on the one-card mesh, both kernel
-    arms forced).  Launch counts are set to 0 just before the first
+def bucket_counters(optimizer):
+    """``{name: (wrapper, attribute)}`` of the launch counts of the bucket
+    kernels that a step of ``optimizer`` runs once per bucket."""
+    from mxnet_tpu_torch.ops import pallas_opt as po
+
+    return {
+        "sgd": {"bucket_sgd_mom": (po.bucket_sgd_mom, "launches")},
+        "sgd0": {"bucket_sgd": (po.bucket_sgd, "launches")},
+        "lars": {"bucket_lars_norms": (po.bucket_lars_norms, "launches"),
+                 "bucket_lars_trust": (po.bucket_lars_norms,
+                                       "trust_launches"),
+                 "bucket_lars_update": (po.bucket_lars_update, "launches")},
+        "adam": {"bucket_adam": (po.bucket_adam, "launches")},
+    }[optimizer]
+
+
+#: the training phases: optimizer, its settings, batch, and whether the
+#: step is driven through ``DataParallelTrainer.fit_batch`` (else
+#: ``make_train_step``'s step function)
+TRAIN_PHASES = {
+    "train_resnet50": dict(
+        optimizer="sgd", batch=128, trainer=False,
+        opt=dict(learning_rate=0.1, momentum=0.9)),
+    "train_resnet50_lars": dict(
+        optimizer="lars", batch=256, trainer=True,
+        opt=dict(learning_rate=LARS_HYPER["lr"],
+                 momentum=LARS_HYPER["momentum"],
+                 lars_eta=LARS_HYPER["eta"], wd=LARS_HYPER["wd"])),
+    "train_resnet50_adam": dict(
+        optimizer="adam", batch=128, trainer=False,
+        opt=dict(learning_rate=ADAM_HYPER["lr"], wd=ADAM_HYPER["wd"])),
+}
+
+
+def lars_stats_after(stats, applied, cfg):
+    """What LARS makes of the running statistics over the steps
+    ``applied`` (a bool per step: the dynamic loss scale skips the
+    others).  They have no gradient, so each is its own segment with
+    trust 1 and moves by the weight-decay term alone (ROADMAP §C); the
+    plain update, which the kernel equals bit for bit, gives the exact
+    result."""
+    import torch
+
+    from mxnet_tpu_torch.ops import pallas_opt as po
+
+    out = {}
+    for name, w in stats.items():
+        w = w.reshape(-1).clone()
+        mom, zero = torch.zeros_like(w), torch.zeros_like(w)
+        seg = torch.zeros(w.numel(), dtype=torch.int32, device=w.device)
+        slr = torch.full((1,), po._f32(cfg["learning_rate"]),
+                         device=w.device)
+        for ok in applied:
+            if ok:
+                w, mom = po._lars_update_reference(
+                    w, zero, mom, seg, slr, cfg["wd"], cfg["momentum"], 1.0,
+                    None)
+        out[name] = w.view(stats[name].shape)
+    return out
+
+
+def train_phase(name, warmup, steps, seed=0):
+    """Drive ResNet-50 training on the card through the port's entry
+    points (bf16 compute, dynamic loss scaling, the sharded-bucket arm
+    on the one-card mesh, both kernel arms forced) with one of
+    ``TRAIN_PHASES``.  Launch counts are set to 0 just before the first
     step and read after the last timed one; three more steps then run
     under torch.profiler (device activity only) for kernel time by
-    name."""
+    name.  Running statistics: unchanged without weight decay; under
+    LARS exactly what its weight-decay term makes of them."""
     import torch
 
     from mxnet_tpu_torch import autotune, parallel
     from mxnet_tpu_torch.gluon import loss
     from mxnet_tpu_torch.ops import pallas_conv as pc
-    from mxnet_tpu_torch.ops import pallas_opt as po
 
+    cfg = TRAIN_PHASES[name]
+    batch, optimizer = cfg["batch"], cfg["optimizer"]
+    counters = bucket_counters(optimizer)
     dev = torch.device("cuda", 0)
     net = resnet50(dev, seed)
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
@@ -638,59 +922,85 @@ def train_phase(batch, warmup, steps, seed=0):
     torch.cuda.reset_peak_memory_stats()
     with autotune.force(pallas_bnreluconv="pallas", fused_bucket_opt=True):
         t0 = time.perf_counter()
-        step, params, state = parallel.make_train_step(
-            net, loss.SoftmaxCrossEntropyLoss(), "sgd", learning_rate=0.1,
-            momentum=0.9, mesh=parallel.get_mesh(),
-            compute_dtype="bfloat16", loss_scale="dynamic",
-            optimizer_sharding="ps")
+        kw = dict(cfg["opt"], mesh=parallel.get_mesh(),
+                  compute_dtype="bfloat16", loss_scale="dynamic",
+                  optimizer_sharding="ps")
+        if cfg["trainer"]:
+            trainer = parallel.DataParallelTrainer(
+                net, loss.SoftmaxCrossEntropyLoss(), optimizer, **kw)
+            plan, params = trainer.step_fn.zero_plan, trainer.params
+
+            def step(i):
+                return trainer.fit_batch(x, y), trainer.params, \
+                    trainer.opt_state
+        else:
+            step_fn, params, state = parallel.make_train_step(
+                net, loss.SoftmaxCrossEntropyLoss(), optimizer, **kw)
+            plan, carry = step_fn.zero_plan, [params, state]
+
+            def step(i):
+                lv, carry[0], carry[1] = step_fn(*carry, x, y, None,
+                                                 float(i + 1))
+                return lv, carry[0], carry[1]
         build_s = time.perf_counter() - t0
-        plan = step.zero_plan
         stats = {n: v.clone() for n, v in params.items()
                  if n.endswith(("running_mean", "running_var"))}
         pc.bnreluconv_bwd.launches = 0
-        po.bucket_sgd_mom.launches = 0
-        losses = []
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+        losses, goods = [], []
         for i in range(warmup):
-            lv, params, state = step(params, state, x, y, None, float(i + 1))
+            lv, params, state = step(i)
             losses.append(lv)
+            goods.append(state["_loss_scale"][1])
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         for i in range(warmup, warmup + steps):
-            lv, params, state = step(params, state, x, y, None, float(i + 1))
+            lv, params, state = step(i)
             losses.append(lv)
+            goods.append(state["_loss_scale"][1])
         end.record()
         end.synchronize()
         n_brc = pc.bnreluconv_bwd.launches
-        n_sgd = po.bucket_sgd_mom.launches
+        launches = {k: getattr(fn, attr) for k, (fn, attr) in
+                    counters.items()}
         scale, good = (float(v) for v in state["_loss_scale"])
+        stats_after = {n: params[n].clone() for n in stats}
         prof = torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CUDA])
         with prof:
             t1 = time.perf_counter()
             for i in range(3):
-                lv, params, state = step(params, state, x, y, None,
-                                         float(warmup + steps + i + 1))
+                step(warmup + steps + i)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t1
     total = warmup + steps
     losses = [float(v) for v in losses]
+    applied = [int(v) > 0 for v in goods]  # the count resets on a skip
     ms_step = start.elapsed_time(end) / steps
     res = {
-        "phase": "train_resnet50", "batch": batch, "image": 224,
-        "compute_dtype": "bfloat16", "optimizer": "sgd momentum 0.9 lr 0.1",
+        "phase": name, "batch": batch, "image": 224,
+        "compute_dtype": "bfloat16", "optimizer": optimizer,
+        "optimizer_settings": cfg["opt"],
+        "driver": "DataParallelTrainer.fit_batch" if cfg["trainer"]
+        else "make_train_step",
         "warmup_steps": warmup, "timed_steps": steps,
         "ms_per_step": ms_step, "img_s": batch / ms_step * 1e3,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
         "buckets": len(plan), "params": sum(b.size for b in plan),
         "losses": losses, "loss_scale": scale, "good_steps": good,
-        "bnreluconv_launches": n_brc, "bucket_sgd_mom_launches": n_sgd,
+        "steps_applied": sum(applied),
+        "bnreluconv_launches": n_brc,
+        **{f"{k}_launches": v for k, v in launches.items()},
         "build_s": build_s,
         "profile_3_steps": device_profile(prof, wall, top=25, shares={
             "bnreluconv_bwd": ("dact_kernel", "dw_kernel", "reduce_dw",
                                "reduce_s"),
-            "bucket_sgd": ("bucket_sgd_kernel",),
+            "bucket_update": ("bucket_sgd_kernel", "bucket_adam_kernel",
+                              "lars_norms_kernel", "lars_trust_kernel",
+                              "lars_update_kernel"),
             "convolution": ("cudnn", "xmma", "convolve", "conv2d", "wgrad",
                             "dgrad", "fprop"),
             "elementwise": ("elementwise", "vectorized", "unrolled"),
@@ -699,16 +1009,28 @@ def train_phase(batch, warmup, steps, seed=0):
     check(all(math.isfinite(v) for v in losses), f"loss not finite: "
           f"{losses}")
     check(sum(losses[-3:]) / 3 < losses[0],
-          f"loss did not fall on the fixed batch: {losses}")
+          f"{name}: loss did not fall on the fixed batch: {losses}")
     check(n_brc == 16 * total, f"bnreluconv launches {n_brc} != 16 x "
           f"{total} steps")
-    check(n_sgd == len(plan) * total, f"bucket launches {n_sgd} != "
-          f"{len(plan)} buckets x {total} steps")
+    for k, v in launches.items():
+        check(v == len(plan) * total, f"{name}: {k} launches {v} != "
+              f"{len(plan)} buckets x {total} steps")
     check((scale == 2.0 ** 16 and good == total) or
           (scale < 2.0 ** 16 and good < total),
           f"loss scale {scale} after {good} good of {total} steps")
-    for n, v in stats.items():
-        check(torch.equal(params[n], v), f"running statistic {n} changed")
+    if optimizer == "lars":
+        want = lars_stats_after(stats, applied, cfg["opt"])
+        res["running_stats"] = "moved by LARS's weight decay alone, exactly"
+    elif not cfg["opt"].get("wd"):
+        want = stats
+        res["running_stats"] = "unchanged"
+    else:
+        want = None
+        res["running_stats"] = "moved by the rule's weight decay (not " \
+                               "checked)"
+    for n, v in (want or {}).items():
+        check(torch.equal(stats_after[n], v),
+              f"{name}: running statistic {n} is not {res['running_stats']}")
     return res
 
 
@@ -720,15 +1042,32 @@ def train_phase(batch, warmup, steps, seed=0):
 #: fixed bound: each parameter's update may be no farther from its
 #: float64 update than twice the host's fp32 update of that parameter
 #: is, plus 1e-3.  The forward is well conditioned: losses within 1e-5.
+#: Adam is held on its first moment instead (its state after the step:
+#: (1 - beta1) * g, linear in the gradient like SGD's update): the
+#: step itself is lr * sign(g) wherever |g| is well above eps, so an
+#: element whose gradient is within fp32 noise of zero steps either way
+#: on card and host alike, and one such element moves a small
+#: parameter's update norm by far more than the gradient's error.  The
+#: update's readings are reported beside it.
 CUDA_CPU_TOL = {"loss": 1e-5,
-                "update_vs_f64": "per parameter: 2 x host fp32 + 1e-3"}
+                "update_vs_f64": "per parameter: 2 x host fp32 + 1e-3",
+                "adam": "the same rule on the first moment"}
 
 
-def cuda_vs_cpu_phase(batch=4, seed=3):
-    """One fp32 step of ResNet-50 on the card (the kernels) and on the
-    host (the plain versions) from the same weights, TF32 off, and a
-    float64 host step as the yardstick: SGD without momentum, so the
-    bucket update is the momentum-0 kernel."""
+#: the card-vs-host steps: SGD without momentum (the momentum-0 bucket
+#: kernel), LARS and Adam with the settings of their training phases
+CUDA_CPU_STEPS = {
+    "sgd0": ("sgd", dict(learning_rate=0.1, momentum=0.0)),
+    "lars": ("lars", TRAIN_PHASES["train_resnet50_lars"]["opt"]),
+    "adam": ("adam", TRAIN_PHASES["train_resnet50_adam"]["opt"]),
+}
+
+
+def cuda_vs_cpu_phase(which, host, batch=4, seed=3):
+    """One fp32 step of ResNet-50 (``host``, a net on the host) on the
+    card (the kernels) and on the host (the plain versions) from the same
+    weights, TF32 off, and a float64 host step as the yardstick, with
+    one of ``CUDA_CPU_STEPS``."""
     import copy
 
     import torch
@@ -736,9 +1075,10 @@ def cuda_vs_cpu_phase(batch=4, seed=3):
     from mxnet_tpu_torch import autotune, parallel
     from mxnet_tpu_torch.gluon import loss
     from mxnet_tpu_torch.ops import pallas_conv as pc
-    from mxnet_tpu_torch.ops import pallas_opt as po
+    from mxnet_tpu_torch.parallel import zero
 
-    host = resnet50("cpu", seed)
+    optimizer, opt_kw = CUDA_CPU_STEPS[which]
+    counters = bucket_counters(which)
     gen = torch.Generator().manual_seed(seed + 1)
     x = torch.randn((batch, 224, 224, 3), generator=gen)
     y = torch.randint(0, 1000, (batch,), generator=gen).float()
@@ -753,27 +1093,35 @@ def cuda_vs_cpu_phase(batch=4, seed=3):
         with autotune.force(pallas_bnreluconv=arms[0],
                             fused_bucket_opt=arms[1]):
             step, params, state = parallel.make_train_step(
-                net, loss.SoftmaxCrossEntropyLoss(), "sgd",
-                learning_rate=0.1, momentum=0.0,
+                net, loss.SoftmaxCrossEntropyLoss(), optimizer,
                 mesh=parallel.get_mesh(devices=[where]),
-                optimizer_sharding="ps")
+                optimizer_sharding="ps", **opt_kw)
             # a copy: the step updates params in place (donation), and
             # .double() of a float64 tensor is the tensor itself
             before = {n: v.detach().to("cpu", torch.float64, copy=True)
                       for n, v in params.items()}
             if key == "cuda":
                 pc.bnreluconv_bwd.launches = 0
-                po.bucket_sgd.launches = 0
+                for fn, attr in counters.values():
+                    setattr(fn, attr, 0)
             lv, params, state = step(params, state, x.to(dtype), y, None,
                                      1.0)
             if key == "cuda":
                 torch.cuda.synchronize()
                 launches = (pc.bnreluconv_bwd.launches,
-                            po.bucket_sgd.launches, len(step.zero_plan))
+                            {k: getattr(fn, attr) for k, (fn, attr)
+                             in counters.items()}, len(step.zero_plan))
+        moment = {}
+        if optimizer == "adam":
+            for i, b in enumerate(step.zero_plan):
+                moment.update(zero.unflatten_bucket(
+                    b, state[f"_bucket{i}"][0]))
         out[key] = (float(lv),
                     {n: v.detach().to("cpu", torch.float64, copy=True)
-                     for n, v in params.items()}, before)
-        del net, params, state
+                     for n, v in params.items()}, before,
+                    {n: v.to("cpu", torch.float64, copy=True)
+                     for n, v in moment.items()})
+        del net, params, state, moment
 
     trained = [n for n in out["cpu"][1]
                if not n.endswith(("running_mean", "running_var"))]
@@ -784,41 +1132,63 @@ def cuda_vs_cpu_phase(batch=4, seed=3):
                          .norm() / (ref[1][n] - ref[2][n]).norm()
                          .clamp_min(1e-30)) for n in trained}
 
+    def moment_err(a, ref):
+        """{parameter: norm error of a's first moment against ref's}."""
+        return {n: float((a[3][n] - ref[3][n]).norm()
+                         / ref[3][n].norm().clamp_min(1e-30))
+                for n in trained}
+
+    def over_limit(card, host):
+        return {n: (card[n], host[n]) for n in trained
+                if card[n] > 2 * host[n] + 1e-3}
+
     gpu, cpu, f64 = out["cuda"], out["cpu"], out["cpu64"]
     loss_rel = abs(gpu[0] - cpu[0]) / abs(cpu[0])
     param_rel = max(float((gpu[1][n] - cpu[1][n]).abs().max()
                           / cpu[1][n].abs().max().clamp_min(1e-30))
                     for n in cpu[1])
-    card_err, host_err = update_err(gpu, f64), update_err(cpu, f64)
-    over = {n: (card_err[n], host_err[n]) for n in trained
-            if card_err[n] > 2 * host_err[n] + 1e-3}
+    card_upd, host_upd = update_err(gpu, f64), update_err(cpu, f64)
+    held = "update"
+    card_err, host_err = card_upd, host_upd
+    if optimizer == "adam":
+        held = "first moment"
+        card_err, host_err = moment_err(gpu, f64), moment_err(cpu, f64)
+    over = over_limit(card_err, host_err)
     worst = max(trained, key=lambda n: card_err[n] - 2 * host_err[n])
     # the card's error over the host's, where the host's is above the
     # 1e-3 floor of the limit
     ratio = max([card_err[n] / host_err[n] for n in trained
                  if host_err[n] > 1e-3], default=None)
-    res = {"phase": "train_cuda_vs_cpu", "batch": batch, "dtype": "float32",
+    res = {"phase": "train_cuda_vs_cpu", "optimizer": optimizer,
+           "optimizer_settings": opt_kw, "batch": batch, "dtype": "float32",
+           "held": held,
            "loss_cuda": gpu[0], "loss_cpu": cpu[0], "loss_cpu_f64": f64[0],
            "loss_rel": loss_rel,
            # element-wise, for information: the per-parameter norm
            # errors below are what is checked
            "param_max_rel_cuda_vs_cpu": param_rel,
-           "update_err_cuda_vs_f64_max": max(card_err.values()),
-           "update_err_cpu_vs_f64_max": max(host_err.values()),
+           "held_err_cuda_vs_f64_max": max(card_err.values()),
+           "held_err_cpu_vs_f64_max": max(host_err.values()),
+           "update_err_cuda_vs_f64_max": max(card_upd.values()),
+           "update_err_cpu_vs_f64_max": max(host_upd.values()),
            "update_err_cuda_vs_cpu_max": max(update_err(gpu, cpu).values()),
+           "update_params_over_limit": len(over_limit(card_upd, host_upd)),
            "closest_to_limit": {"param": worst, "cuda_vs_f64":
                                 card_err[worst], "cpu_vs_f64":
                                 host_err[worst]},
            "max_ratio_cuda_over_cpu_error": ratio,
            "params_checked": len(trained), "params_over_limit": len(over),
            "tol": CUDA_CPU_TOL, "bnreluconv_launches": launches[0],
-           "bucket_sgd_launches": launches[1], "buckets": launches[2]}
+           **{f"{k}_launches": v for k, v in launches[1].items()},
+           "buckets": launches[2],
+           "over_limit": {n: list(v) for n, v in list(over.items())[:8]}}
     emit(res)
     check(loss_rel <= CUDA_CPU_TOL["loss"] and not over,
-          f"cuda vs cpu: loss rel {loss_rel}; parameters whose update "
-          f"error against float64 exceeds 2 x the host's + 1e-3 "
+          f"cuda vs cpu ({which}): loss rel {loss_rel}; parameters whose "
+          f"{held} error against float64 exceeds 2 x the host's + 1e-3 "
           f"(card, host): {dict(list(over.items())[:8])}")
-    check(launches[0] == 16 and launches[1] == launches[2],
+    check(launches[0] == 16 and all(v == launches[2] for v in
+                                    launches[1].values()),
           f"cuda step launches {launches}")
     return res
 
@@ -904,7 +1274,8 @@ def run(profile=False):
             f"bound={c['bound_ms']:.4f}")
     emit({"phase": "kernels_bnreluconv", "cases": brc})
 
-    sizes = resnet50_bucket_sizes()
+    plan = resnet50_plan()
+    sizes = [b.size for b in plan]
     big, mid = max(sizes), sorted(sizes)[len(sizes) // 2]
     sgd = [bucket_case(big, "float32", 0.9, "resnet50_bucket", 200),
            bucket_case(mid, "float32", 0.9, "resnet50_bucket", 201),
@@ -918,11 +1289,48 @@ def run(profile=False):
     emit({"phase": "kernels_bucket_sgd", "bucket_sizes": sizes,
           "cases": sgd})
 
-    train = train_phase(batch=128, warmup=2, steps=10)
-    log(f"[train_resnet50] {train['ms_per_step']:.2f} ms/step "
-        f"{train['img_s']:.1f} img/s losses {train['losses']}")
-    emit(train)
-    cvc = cuda_vs_cpu_phase()
+    adam = [adam_case(big, 1, "resnet50_bucket", 300),
+            adam_case(big, 1000, "resnet50_bucket", 301),
+            adam_case(mid, 1, "resnet50_bucket", 302),
+            adam_case(1000003, 7, "check", 303),
+            adam_case(mid, 2, "check", 304, planted=True)]
+    for c in adam:
+        log(f"[bucket_adam] n={c['n']} t={c['t']} ms={c['ms']:.4f} "
+            f"plain={c['plain_ms']:.4f} fused_adam={c['library_ms']:.4f} "
+            f"bound={c['bound_ms']:.4f}")
+    emit({"phase": "kernels_bucket_adam", "cases": adam})
+
+    dev = torch.device("cuda", 0)
+    segs = [zero_segments(b, dev) for b in plan]
+    one = next(s for b, s in zip(plan, segs) if b.size == big)
+    many = max(segs, key=lambda s: s[1])
+    arbitrary = (torch.randint(0, 128, (1000003,), device=dev,
+                               dtype=torch.int32,
+                               generator=torch.Generator(device=dev)
+                               .manual_seed(7)), 128)
+    lars = [lars_case(*one, "resnet50_bucket", 400),
+            lars_case(*many, "resnet50_bucket", 401),
+            lars_case(*arbitrary, "check_arbitrary_ids", 402)]
+    for c in lars:
+        log(f"[bucket_lars] n={c['n']} nseg={c['nseg']} norms="
+            f"{c['ms_norms']:.4f} trust={c['ms_trust']:.4f} update="
+            f"{c['ms_update']:.4f} (cold {c['ms_update_cold']:.4f}) "
+            f"plain={c['plain_ms']:.4f} "
+            f"bound={c['bound_ms']:.4f}")
+    emit({"phase": "kernels_bucket_lars", "cases": lars})
+
+    trains = {}
+    for name, (warmup, steps) in (("train_resnet50", (2, 10)),
+                                  ("train_resnet50_lars", (2, 10)),
+                                  ("train_resnet50_adam", (2, 10))):
+        trains[name] = train_phase(name, warmup, steps)
+        log(f"[{name}] {trains[name]['ms_per_step']:.2f} ms/step "
+            f"{trains[name]['img_s']:.1f} img/s losses "
+            f"{trains[name]['losses']}")
+        emit(trains[name])
+    train, t_lars, t_adam = trains.values()
+    host = resnet50("cpu", 3)
+    cvc = {k: cuda_vs_cpu_phase(k, host) for k in CUDA_CPU_STEPS}
 
     main = [c for c in cases if c["path"] != "check"]
     head = next(c for c in cases if c["path"] == "serve_wide"
@@ -931,6 +1339,7 @@ def run(profile=False):
     brc_head = brc_main[0]  # stage 1, bf16: the largest launch per step
     mom_head = sgd[0]
     plain_head = sgd[3]
+    lars_head = lars[0]  # the largest bucket
 
     def entry(name, source, replaces, launches, err, c):
         return {"name": name, "route": "cuda",
@@ -954,20 +1363,48 @@ def run(profile=False):
               train["bucket_sgd_mom_launches"], 0.0, mom_head),
         entry("bucket_sgd", "bucket_sgd.cu",
               "mxnet_tpu/ops/pallas_opt.py:145",
-              cvc["bucket_sgd_launches"], 0.0, plain_head)]})
+              cvc["sgd0"]["bucket_sgd_launches"], 0.0, plain_head),
+        entry("bucket_adam", "bucket_adam.cu",
+              "mxnet_tpu/ops/pallas_opt.py:173",
+              t_adam["bucket_adam_launches"], 0.0, adam[0]),
+        entry("bucket_lars_norms", "bucket_lars.cu",
+              "mxnet_tpu/ops/pallas_opt.py:194",
+              t_lars["bucket_lars_norms_launches"],
+              max(c["slr_max_abs_err"] for c in lars), {
+                  "ms": lars_head["ms_norms"] + lars_head["ms_trust"],
+                  "plain_ms": lars_head["plain_norms_trust_ms"],
+                  "bound_ms": lars_head["bound_norms_ms"],
+                  "bound_by": "bytes", "library_ms": None}),
+        entry("bucket_lars_update", "bucket_lars.cu",
+              "mxnet_tpu/ops/pallas_opt.py:231",
+              t_lars["bucket_lars_update_launches"],
+              max(c["max_abs_err"] for c in lars), {
+                  "ms": lars_head["ms_update_cold"],
+                  "plain_ms": lars_head["plain_update_ms"],
+                  "bound_ms": lars_head["bound_update_ms"],
+                  "bound_by": "bytes", "library_ms": None})]})
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": emit_dev}), flush=True)
 
 
-def resnet50_bucket_sizes():
-    """Element counts of ResNet-50's flat buckets (the default
+def resnet50_plan():
+    """ResNet-50's flat buckets (the default
     ``MXNET_KVSTORE_BIGARRAY_BOUND`` split), from the shapes alone."""
     from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
     from mxnet_tpu_torch.parallel import zero
 
     net = resnet50_v1(classes=1000, layout="NHWC", no_bias=True)
     params = {n: p.data() for n, p in net.collect_params().items()}
-    return [b.size for b in zero.plan_buckets(params, 1)]
+    return zero.plan_buckets(params, 1)
+
+
+def zero_segments(bucket, device):
+    """``(ids on device, nseg)`` of one bucket, as the ps step makes
+    them."""
+    from mxnet_tpu_torch.parallel import zero
+
+    ids, nseg = zero.bucket_segments(bucket)
+    return ids.to(device), nseg
 
 
 def main(argv=None):

@@ -1,4 +1,4 @@
 """Optimizers (counterpart of ``mxnet_tpu/optimizer``)."""
-from .optimizer import SGD, Optimizer, register  # noqa: F401
+from .optimizer import LARS, SGD, Adam, Optimizer, register  # noqa: F401
 
-__all__ = ["Optimizer", "SGD", "register"]
+__all__ = ["Optimizer", "SGD", "Adam", "LARS", "register"]

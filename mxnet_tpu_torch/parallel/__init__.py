@@ -10,8 +10,9 @@ opt_state)`` with the reference's contract:
 - the ``optimizer_sharding="ps"`` arm on a one-card :class:`Mesh`: the
   parameters live in flat buckets (``parallel.zero``), each updated in
   one pass — the ``fused_bucket_opt`` kernel arm runs the hand-written
-  bucket kernel, whose fused non-finite count is the dynamic loss
-  scale's verdict;
+  bucket kernels (SGD, Adam, LARS), whose fused non-finite count is the
+  dynamic loss scale's verdict; a rule that reduces per tensor (LARS)
+  gets each bucket's segment ids;
 - ``compute_dtype="bfloat16"`` casts every parameter but the norm
   affine/statistics (``NORM_STAT_SUFFIXES``) and the input;
 - dynamic or static loss scaling, and ``nan_guard`` (skip the update
@@ -48,8 +49,8 @@ from ..context import resolve_device
 from . import zero
 
 __all__ = ["Mesh", "get_mesh", "functionalize", "make_train_step",
-           "load_jax_params", "NORM_STAT_SUFFIXES", "amp_cast_params",
-           "zero"]
+           "DataParallelTrainer", "load_jax_params", "NORM_STAT_SUFFIXES",
+           "amp_cast_params", "zero"]
 
 #: parameter-name suffixes that stay fp32 under mixed precision (norm
 #: affine and statistics)
@@ -324,6 +325,10 @@ def make_train_step(block, loss_fn, optimizer="sgd", learning_rate=0.01,
         params = {n: views[n] for n in names}
         opt_state = {bk: opt.fused_state(flat)
                      for bk, flat in zip(bucket_keys, flats)}
+        # per-tensor reductions (LARS) need each element's tensor index
+        seg_info = None if opt.fused_elementwise else [
+            (ids.to(dev), nseg) for ids, nseg in map(zero.bucket_segments,
+                                                     plan)]
     else:
         params = {n: v.to(dev, copy=True) for n, v in params.items()}
         opt_state = {n: opt.fused_state(v) for n, v in params.items()}
@@ -409,7 +414,7 @@ def make_train_step(block, loss_fn, optimizer="sgd", learning_rate=0.01,
             elif dynamic:
                 finite = torch.ones((), dtype=torch.bool, device=dev)
             staged = []
-            for bk, b in zip(bucket_keys, plan):
+            for i, (bk, b) in enumerate(zip(bucket_keys, plan)):
                 w_flat = _bucket_flat(b, params_) if donate else None
                 state = opt_state_[bk]
                 if w_flat is None:
@@ -422,6 +427,7 @@ def make_train_step(block, loss_fn, optimizer="sgd", learning_rate=0.01,
                     g32 = g32 * inv
                 res = zero.bucket_shard_update(
                     b, opt, params_, g32, state, t, n_shards=n_sh, idx=0,
+                    seg=None if seg_info is None else seg_info[i],
                     pallas=ps_pallas, want_finite=check_finite, w_sh=w_flat,
                     out=None if check_finite else (w_flat, *state))
                 if check_finite:
@@ -470,3 +476,47 @@ def make_train_step(block, loss_fn, optimizer="sgd", learning_rate=0.01,
         step_fn.zero_stage = 2
         step_fn.zero_plan = plan
     return step_fn, params, opt_state
+
+
+class DataParallelTrainer:
+    """The fused training driver: one object owning the parameters, the
+    optimizer state and the step of :func:`make_train_step` (same
+    arguments).  Call :meth:`fit_batch` per batch and
+    :meth:`sync_to_block` to write the weights back into the block.
+    ZeRO stage 3, whose parameters live as bucket shards, is not ported
+    (``make_train_step`` raises)."""
+
+    def __init__(self, block, loss_fn, optimizer="sgd", mesh=None,
+                 **opt_kwargs):
+        self._block = block
+        self._step_fn, self._params, self._opt_state = make_train_step(
+            block, loss_fn, optimizer=optimizer, mesh=mesh, **opt_kwargs)
+        self._t = 0
+
+    @property
+    def step_fn(self):
+        return self._step_fn
+
+    def fit_batch(self, x, y):
+        """One step on the batch ``(x, y)``; returns the loss tensor."""
+        self._t += 1
+        loss, self._params, self._opt_state = self._step_fn(
+            self._params, self._opt_state, x, y, None, float(self._t))
+        return loss
+
+    @property
+    def params(self):
+        return self._params
+
+    @property
+    def opt_state(self):
+        return self._opt_state
+
+    def sync_to_block(self):
+        """Copy the trained parameters into the block's tensors."""
+        from ..gluon.block import _collect_all_params
+
+        with torch.no_grad():
+            for p in _collect_all_params(self._block):
+                if p.name in self._params:
+                    p.data().copy_(self._params[p.name])

@@ -20,7 +20,7 @@ from ..base import MXNetError
 
 __all__ = ["Bucket", "plan_buckets", "flatten_bucket", "unflatten_bucket",
            "shard_slice", "bucket_shard_update", "check_bucket_rule",
-           "resolve_bucket_variant", "stage3_param_keys"]
+           "resolve_bucket_variant", "stage3_param_keys", "bucket_segments"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,6 +103,18 @@ def unflatten_bucket(bucket, flat):
                                         bucket.offsets)}
 
 
+def bucket_segments(bucket):
+    """Per-element segment ids of a bucket, for rules that reduce per
+    tensor (LARS): element ``i`` gets the index of its tensor in
+    ``bucket.names``, and the padding an inert extra segment.  Returns
+    ``(ids, num_segments)``: an int32 CPU tensor of length ``padded``
+    and ``len(names) + 1``."""
+    sizes = [math.prod(shape) for shape in bucket.shapes] + [bucket.pad]
+    ids = torch.repeat_interleave(
+        torch.arange(len(sizes), dtype=torch.int32), torch.tensor(sizes))
+    return ids, len(bucket.names) + 1
+
+
 def shard_slice(flat, n_shards, idx):
     """Shard ``idx``'s slice of a flat padded bucket."""
     return flat.view(n_shards, -1)[idx]
@@ -110,47 +122,66 @@ def shard_slice(flat, n_shards, idx):
 
 def check_bucket_rule(optimizer):
     """A bucket slices through many parameters, so the rule must be
-    elementwise."""
-    if not getattr(optimizer, "fused_elementwise", True):
+    elementwise or provide its own bucket-aware ``fused_bucket_update``
+    (LARS)."""
+    from ..optimizer.optimizer import Optimizer
+
+    if getattr(optimizer, "fused_elementwise", True):
+        return
+    if type(optimizer).fused_bucket_update is Optimizer.fused_bucket_update:
         raise MXNetError(
-            f"optimizer {type(optimizer).__name__} is not elementwise — it "
-            "cannot run on flat bucket shards (optimizer_sharding='ps')")
+            f"optimizer {type(optimizer).__name__} is not elementwise and "
+            "provides no fused_bucket_update — it cannot run on flat "
+            "bucket shards (optimizer_sharding='ps')")
 
 
 def bucket_shard_update(bucket, opt, params, g_sh, state, t, *, n_shards,
-                        idx, pallas=None, want_finite=False, w_sh=None,
-                        out=None):
+                        idx, seg=None, pallas=None, want_finite=False,
+                        w_sh=None, out=None):
     """The per-bucket update: ``(w_sh, new_w_sh, new_state[, finite])``.
 
     ``w_sh`` is this shard of the flat parameter bucket (sliced from
     ``params`` when None); ``g_sh`` the gradient shard, cast to the
-    bucket's dtype here.  ``pallas``: True runs the fused kernel arm
-    (:func:`ops.pallas_opt.bucket_update`), False the plain
-    ``opt.fused_bucket_update``, None asks
-    :func:`resolve_bucket_variant`.  A kernel arm that cannot run this bucket raises — the
-    port never falls back.  ``want_finite`` adds the verdict of the raw
-    gradient: the kernel's fused count, or None on the plain arm (the
-    caller checks).  ``out`` (tensors like ``(w_sh, *state)``) asks the
-    kernel arm to write its results there."""
+    bucket's dtype here.  ``seg`` = ``(ids, num_segments)`` of the whole
+    bucket (:func:`bucket_segments`), for a rule that reduces per
+    tensor; the shard's ids are sliced here.  ``pallas``: True runs the
+    fused kernel arm (:func:`ops.pallas_opt.bucket_update`), False the
+    plain ``opt.fused_bucket_update``, None asks
+    :func:`resolve_bucket_variant`.  A kernel arm that cannot run this
+    bucket raises — the port never falls back.  ``want_finite`` adds
+    the verdict of the raw gradient: the kernel's fused count, or None
+    on the plain arm (the caller checks).  ``out`` (tensors like
+    ``(w_sh, *state)``) asks the kernel arm to write its results
+    there."""
     if n_shards != 1:
         raise MXNetError("bucket shards over more than one card are not "
                          "ported yet (ROADMAP §A item 9)")
     if w_sh is None:
         w_sh = shard_slice(flatten_bucket(bucket, params), n_shards, idx)
+    seg_sh = None
+    if seg is not None:
+        ids, nseg = seg
+        seg_sh = (shard_slice(ids, n_shards, idx), nseg)
     if pallas is None:
         pallas = resolve_bucket_variant()
     if pallas:
         from ..ops import pallas_opt
 
         res = pallas_opt.bucket_update(opt, w_sh, g_sh, state, t,
-                                       with_finite=want_finite, out=out)
+                                       seg=seg_sh, with_finite=want_finite,
+                                       out=out)
         if res is None:
+            nseg = None if seg is None else seg[1]
             raise MXNetError(
                 "the fused_bucket_opt kernel arm cannot run this bucket: "
-                + pallas_opt.supported(opt, w_sh.dtype))
+                + (pallas_opt.supported(opt, w_sh.dtype, nseg)
+                   or "the rule needs the bucket's segment ids"))
         uw, us, finite = res
         return (w_sh, uw, us, finite) if want_finite else (w_sh, uw, us)
-    uw, us = opt.fused_bucket_update(w_sh, g_sh.to(w_sh.dtype), state, t)
+    kwargs = {} if seg_sh is None else dict(seg_ids=seg_sh[0],
+                                            num_segments=seg_sh[1])
+    uw, us = opt.fused_bucket_update(w_sh, g_sh.to(w_sh.dtype), state, t,
+                                     **kwargs)
     return (w_sh, uw, us, None) if want_finite else (w_sh, uw, us)
 
 

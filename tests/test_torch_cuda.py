@@ -8,8 +8,11 @@ package, so on the card's host it runs without the repo's conftest:
 Each kernel is held against its plain version on the same inputs:
 flash attention fp32 1e-4 (another exp/sum order) and bf16 2e-2 (one
 bf16 rounding of the output), with fully masked rows exactly 0; the
-fused BN-ReLU-conv backward as its test states; the bucket SGD kernel
-bit for bit.  A train step of a tiny ResNet shows the launch counts.
+fused BN-ReLU-conv backward as its test states; the bucket SGD and Adam
+kernels bit for bit; the LARS update (phase c) bit for bit given the
+same per-segment lr, and the whole LARS update to rtol/atol 1e-6 (the
+norms are sums in other orders), the same bits on two runs.  Train
+steps of a tiny ResNet show the launch counts.
 """
 import numpy as onp
 import pytest
@@ -243,3 +246,148 @@ def test_resnet_train_step_launches_kernels(card):
     assert all(onp.isfinite(losses)) and losses[-1] < losses[0]
     for n, v in stats.items():
         assert torch.equal(p[n], v), n
+
+
+def _same_bits(a, b):
+    nan = torch.isnan(b)
+    return torch.equal(torch.isnan(a), nan) and torch.equal(a[~nan],
+                                                            b[~nan])
+
+
+@pytest.mark.parametrize("n,t,clip", [(1000003, 1, None), (4099, 1000, 0.3),
+                                      (77, 3, None), (1, 2, 0.5)])
+def test_adam_kernel_bit_identical_to_plain(card, n, t, clip):
+    from mxnet_tpu_torch.ops import pallas_opt as po
+    from mxnet_tpu_torch.optimizer.optimizer import adam_lr_t
+
+    gen = torch.Generator(device=card).manual_seed(n)
+    w, g, m = (torch.randn(n, generator=gen, device=card) for _ in range(3))
+    v = torch.randn(n, generator=gen, device=card).abs()
+    bad = sorted({0, n // 2, n - 1})
+    g[bad] = torch.tensor([float("nan"), float("inf"), float("-inf")][
+        :len(bad)], device=card)
+    lr_t = adam_lr_t(1e-3, 0.9, 0.999, t)
+    hyper = dict(wd=1e-4, beta1=0.9, beta2=0.999, eps=1e-8)
+    before = po.bucket_adam.launches
+    got = po.bucket_adam(w, g, m, v, lr_t=lr_t, rescale=0.5, clip=clip,
+                         with_finite=True, **hyper)
+    want = po._adam_reference(w, g, m, v, lr_t, *hyper.values(), 0.5, clip,
+                              True)
+    torch.cuda.synchronize()
+    assert po.bucket_adam.launches == before + 1
+    assert all(_same_bits(a, b) for a, b in zip(got[:3], want[:3]))
+    assert int(got[3]) == int(want[3]) == len(bad)
+
+
+@pytest.mark.parametrize("n,nseg,kind", [(100003, 128, "arbitrary"),
+                                         (4099, 5, "sorted"),
+                                         (33, 2, "sorted")])
+def test_lars_kernels_match_plain_and_repeat(card, n, nseg, kind):
+    from mxnet_tpu_torch.ops import pallas_opt as po
+
+    gen = torch.Generator(device=card).manual_seed(n)
+    if kind == "arbitrary":
+        ids = torch.randint(0, nseg, (n,), generator=gen, device=card,
+                            dtype=torch.int32)
+    else:
+        ids = (torch.arange(n, device=card) * nseg // n).to(torch.int32)
+    w = torch.randn(n, generator=gen, device=card)
+    g = torch.randn(n, generator=gen, device=card) * 0.01
+    m = torch.randn(n, generator=gen, device=card)
+    g[ids == nseg - 1] = 0.0  # a segment without gradient: trust 1
+    g[n // 3] = float("nan")
+    hp = dict(lr=5.0, wd=5e-5, eta=0.001, eps=0.0)
+    runs = []
+    for _ in range(2):
+        slr, w_ss, g_ss, nf = po.bucket_lars_norms(
+            w, g, ids, nseg, rescale=0.5, clip=0.02, with_finite=True, **hp)
+        new = po.bucket_lars_update(w, g, m, ids, slr, wd=hp["wd"],
+                                    momentum=0.9, rescale=0.5, clip=0.02)
+        runs.append((slr, w_ss, g_ss, nf, *new))
+    rw_ss, rg_ss, rnf = po._lars_norms_reference(w, g, ids, nseg, 0.5, 0.02,
+                                                 True)
+    rslr = po._lars_trust_reference(rw_ss, rg_ss, **hp)
+    same_slr = po._lars_update_reference(w, g, m, ids, runs[0][0], hp["wd"],
+                                         0.9, 0.5, 0.02)
+    whole = po._lars_update_reference(w, g, m, ids, rslr, hp["wd"], 0.9, 0.5,
+                                      0.02)
+    torch.cuda.synchronize()
+    assert all(_same_bits(a, b) for a, b in zip(runs[0], runs[1]))
+    assert all(_same_bits(a, b) for a, b in zip(runs[0][4:], same_slr))
+    assert int(runs[0][3]) == int(rnf) == 1
+    finite = torch.isfinite(rg_ss)
+    assert torch.allclose(runs[0][1], rw_ss, rtol=1e-6, atol=0)
+    assert torch.allclose(runs[0][2][finite], rg_ss[finite], rtol=1e-6,
+                          atol=0)
+    for a, b in zip(runs[0][4:], whole):
+        assert torch.allclose(a, b, rtol=1e-6, atol=1e-6, equal_nan=True)
+
+
+def test_bucket_kernels_refuse_instead_of_falling_back(card):
+    from mxnet_tpu_torch.ops import pallas_opt as po
+    from mxnet_tpu_torch.optimizer import LARS, Adam
+    from mxnet_tpu_torch.parallel import zero
+
+    x16 = torch.zeros(300, device=card, dtype=torch.bfloat16)
+    x32 = torch.zeros(300, device=card)
+    ids = torch.zeros(300, device=card, dtype=torch.int32)
+    counts = (po.bucket_adam.launches, po.bucket_lars_norms.launches,
+              po.bucket_lars_update.launches)
+    with pytest.raises(MXNetError, match="float32"):
+        po.bucket_adam(x16, x16, x16, x16, lr_t=0.1, wd=0.0, beta1=0.9,
+                       beta2=0.999, eps=1e-8)
+    with pytest.raises(MXNetError, match="segments"):
+        po.bucket_lars_norms(x32, x32, ids, 129, lr=1.0, wd=0.0, eta=0.001,
+                             eps=0.0)
+    with pytest.raises(MXNetError, match="segments"):
+        po.bucket_lars_update(x32, x32, x32, ids, torch.zeros(
+            129, device=card), wd=0.0, momentum=0.9)
+    (b,) = zero.plan_buckets({"a_weight": torch.zeros(300)}, 1)
+    with pytest.raises(MXNetError, match="adam kernel supports float32"):
+        zero.bucket_shard_update(b, Adam(), None, x16, (x16, x16), 1,
+                                 n_shards=1, idx=0, pallas=True, w_sh=x16)
+    with pytest.raises(MXNetError, match="129 segments"):
+        zero.bucket_shard_update(b, LARS(momentum=0.9), None, x32, (x32,), 1,
+                                 n_shards=1, idx=0, seg=(ids, 129),
+                                 pallas=True, w_sh=x32)
+    assert counts == (po.bucket_adam.launches, po.bucket_lars_norms.launches,
+                      po.bucket_lars_update.launches)
+
+
+@pytest.mark.parametrize("opt", ["lars", "adam"])
+def test_lars_adam_train_steps_launch_kernels(card, opt):
+    """A tiny NHWC ResNetV1 trains on the card through
+    ``DataParallelTrainer``: one launch of each bucket kernel per bucket
+    per step, finite falling losses."""
+    from mxnet_tpu_torch import autotune, initializer, parallel
+    from mxnet_tpu_torch.gluon import loss, nn
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet
+    from mxnet_tpu_torch.ops import pallas_opt as po
+
+    with nn.default_layout("NHWC"):
+        net = resnet.ResNetV1(resnet.BottleneckV1, [1, 1, 1, 1],
+                              [8, 16, 32, 64, 128], classes=10,
+                              no_bias=True)
+    net.initialize(initializer.Xavier(), device=card,
+                   generator=torch.Generator().manual_seed(0))
+    rng = onp.random.RandomState(0)
+    x = torch.from_numpy(rng.randn(8, 64, 64, 3).astype("float32"))
+    y = torch.from_numpy(rng.randint(0, 10, 8).astype("float32"))
+    kw = dict(learning_rate=2.0, momentum=0.9, wd=5e-5, lars_eta=0.01) \
+        if opt == "lars" else dict(learning_rate=1e-3, wd=1e-4)
+    counters = [(po.bucket_lars_norms, "launches"),
+                (po.bucket_lars_norms, "trust_launches"),
+                (po.bucket_lars_update, "launches")] if opt == "lars" \
+        else [(po.bucket_adam, "launches")]
+    with autotune.force(pallas_bnreluconv="pallas", fused_bucket_opt=True):
+        trainer = parallel.DataParallelTrainer(
+            net, loss.SoftmaxCrossEntropyLoss(), opt,
+            mesh=parallel.get_mesh(), loss_scale="dynamic",
+            compute_dtype="bfloat16", optimizer_sharding="ps",
+            bucket_bound=30000, **kw)
+        before = [getattr(f, a) for f, a in counters]
+        losses = [float(trainer.fit_batch(x, y)) for _ in range(3)]
+    n_b = len(trainer.step_fn.zero_plan)
+    assert [getattr(f, a) - b for (f, a), b in zip(counters, before)] == \
+        [n_b * 3] * len(counters)
+    assert all(onp.isfinite(losses)) and losses[-1] < losses[0]

@@ -196,16 +196,14 @@ def test_supported_and_forced_arm_refusal():
     assert t_po.supported(TSGD(momentum=0.9), torch.float32) is None
     assert t_po.supported(TSGD(), torch.bfloat16) is None
     assert "float16" in t_po.supported(TSGD(), torch.float16)
-    for name in ("Adam", "LARS"):
-        opt = type(name, (Optimizer,), {})()
-        assert "not ported yet (ROADMAP §B)" in t_po.supported(
-            opt, torch.float32)
-        plan = t_zero.plan_buckets({"a_weight": torch.zeros(4)}, 1)
-        w = torch.zeros(4)
-        with pytest.raises(MXNetError, match="not ported yet"):
-            t_zero.bucket_shard_update(plan[0], opt, None, w, (), 1.0,
-                                       n_shards=1, idx=0, pallas=True,
-                                       w_sh=w)
+    # a rule without a bucket kernel: the forced kernel arm raises
+    opt = type("Ftml", (Optimizer,), {})()
+    assert t_po.supported(opt, torch.float32) == "no bucket kernel for Ftml"
+    plan = t_zero.plan_buckets({"a_weight": torch.zeros(4)}, 1)
+    w = torch.zeros(4)
+    with pytest.raises(MXNetError, match="no bucket kernel for Ftml"):
+        t_zero.bucket_shard_update(plan[0], opt, None, w, (), 1.0,
+                                   n_shards=1, idx=0, pallas=True, w_sh=w)
     assert t_po.bucket_update(TSGD(), torch.zeros(4, dtype=torch.float16),
                               torch.zeros(4), (), 1.0) is None
 
