@@ -6,14 +6,17 @@
 Builds every CUDA kernel from ``mxnet_tpu_torch/csrc`` with nvcc, holds
 each kernel against its plain PyTorch version on the card, serves the
 generative decoder end to end through ``GenerativeServer`` at the width
-of the repo's generate benchmark and at a wide configuration, then
-trains ResNet-50 v1 (full width and depth, bf16) with the fused
-BN-ReLU-1x1-conv backward and the flat-bucket optimizer kernels three
-ways: SGD through ``parallel.make_train_step`` (batch 128), LARS
+of the repo's generate benchmark and at a wide configuration, drives
+the imperative front end (the operator plugin through
+``mx.library.load``, ``mx.nd.plugin_scaled_add`` under ``autograd`` on
+``mx.gpu(0)`` at ResNet-50's residual shapes, a manual ``mx.nd``
+training loop against the same loop on the host, a ``.params`` round
+trip), then trains ResNet-50 v1 (full width and depth, bf16) with the
+fused BN-ReLU-1x1-conv backward and the flat-bucket optimizer kernels
+three ways: SGD through ``parallel.make_train_step`` (batch 128), LARS
 through ``parallel.DataParallelTrainer`` (batch 256) and Adam (batch
 128), and checks one fp32 step per optimizer on the card against the
-host, checking the results.  Each phase prints one JSON
-line on stdout
+host, checking the results.  Each phase prints one JSON line on stdout
 (progress goes to stderr); ``--out`` also appends them to FILE.  Any
 failed check exits non-zero.  The last line is
 ``{"ok": true, "device": {...}}``.
@@ -136,11 +139,14 @@ def device_ms(fn, calls=50, attempts=3, by_kernel=False):
                       f"{attempts} sessions")
 
 
-def rotating(tensors):
+def rotating(tensors, max_sets=256):
     """``next_set()`` over copies of ``tensors`` that together span
     ``COLD_BYTES``, so that each timed call reads its inputs from HBM,
-    as in a train step, and not from the 50 MB L2."""
-    n_sets = max(2, math.ceil(COLD_BYTES / sum(t.nbytes for t in tensors)))
+    as in a train step, and not from the 50 MB L2.  At most
+    ``max_sets`` copies: a call on so few bytes is timed by its
+    launch, cold or not."""
+    nbytes = max(1, sum(t.nbytes for t in tensors))
+    n_sets = min(max_sets, max(2, math.ceil(COLD_BYTES / nbytes)))
     sets = [tuple(t.clone() for t in tensors) for _ in range(n_sets)]
     turn = [0]
 
@@ -821,6 +827,317 @@ def lars_case(ids, nseg, path, seed):
             "bytes": 36.0 * n}
 
 
+# ------------------------------------------- the imperative front end
+#: ResNet-50 v1's residual adds at batch 128, channel-last: one shape
+#: per stage (the bottleneck's output and its shortcut)
+RESIDUAL_SHAPES = [(128, 56, 56, 256), (128, 28, 28, 512),
+                   (128, 14, 14, 1024), (128, 7, 7, 2048)]
+PLUGIN = os.path.join("mxnet_tpu_torch", "example", "plugin", "cuda_ops.py")
+
+
+def load_plugin():
+    """``(mx, plugin module)``: the port's operator plugin through
+    ``mx.library.load``, as a user loads it."""
+    import mxnet_tpu_torch as mx
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    return mx, mx.library.load(os.path.join(here, PLUGIN), verbose=False)
+
+
+def scaled_add_case(mod, shape, dtype, path, seed, y_shape=None,
+                    transposed=False):
+    """The scaled-add kernel at one shape: bit-identical to its plain
+    version ``x + y * s`` on the same inputs (y broadcast to x's shape
+    first, as the op does; a 2-D shape given ``transposed`` is a
+    transposed view); device times with inputs cold in L2 and the
+    bound."""
+    import torch
+
+    dev = torch.device("cuda", 0)
+    tdt = getattr(torch, dtype)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(shp):
+        t = torch.randn(shp, generator=gen, device=dev)
+        return t.to(tdt) if tdt.is_floating_point else (t * 1000).to(tdt)
+
+    x, y = rnd(shape), rnd(y_shape or shape)
+    if transposed:
+        x, y = x.t(), y.t()
+    n = x.numel()
+    scale = 0.5 if tdt.is_floating_point else 3
+    s = mod._scale_tensor(scale, tdt)
+    n0 = mod.scaled_add.launches
+    got = mod.scaled_add(x, y.broadcast_to(x.shape), scale)
+    want = mod._scaled_add_plain(x, y.broadcast_to(x.shape), s)
+    torch.cuda.synchronize()
+    check(mod.scaled_add.launches == n0 + (1 if n else 0),
+          f"scaled_add {shape} {dtype}: launches {mod.scaled_add.launches}"
+          f" after {n0}")
+    check(got.shape == x.shape and got.dtype == tdt
+          and torch.equal(got, want),
+          f"scaled_add {shape} {dtype} is not bit-identical to the plain "
+          "version")
+    size = x.element_size()
+    nbytes = float(size * (2 * n + y.numel()))
+    bound_ms, bound_by = bound(2.0 * n, nbytes, "float32")
+    res = {"path": path, "shape": list(x.shape), "dtype": dtype,
+           "y_shape": list(y.shape), "transposed": transposed,
+           "bit_identical": True, "max_abs_err": 0.0,
+           "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+           "library": "yardstick: torch.add(x, y, alpha=s), one PyTorch "
+                      "call, its rounding not pinned (the port never "
+                      "calls it)"}
+    if n == 0:
+        return dict(res, ms=None, plain_ms=None, library_ms=None,
+                    timing="nothing to time: no launch for 0 elements")
+    next_set = rotating((x, y))
+
+    def kernel():
+        xs, ys = next_set()
+        return mod.scaled_add(xs, ys.broadcast_to(xs.shape), scale)
+
+    def plain():
+        xs, ys = next_set()
+        return mod._scaled_add_plain(xs, ys.broadcast_to(xs.shape), s)
+
+    def library():
+        return torch.add(*next_set(), alpha=scale)
+
+    ms, plain_ms, library_ms = (time_ms(f, budget_ms=100.0)
+                                for f in (kernel, plain, library))
+    dev = [device_ms(f, calls=20) for f in (kernel, plain, library)]
+    return dict(res, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                device_ms=dev[0], plain_device_ms=dev[1],
+                library_device_ms=dev[2],
+                timing=f"CUDA events around back-to-back calls (a copy "
+                       f"of a strided view included), inputs cold in L2 "
+                       f"({next_set.n_sets} rotating copies); *device_ms: "
+                       f"the profiler's kernel time per call")
+
+
+def scaled_add_cases(mod):
+    """The residual shapes in bf16 and fp32, then the edge cases."""
+    big, mid = RESIDUAL_SHAPES[0], RESIDUAL_SHAPES[1]
+    todo = [(shape, dtype, "resnet50_residual", 500 + i, {})
+            for i, shape in enumerate(RESIDUAL_SHAPES)
+            for dtype in ("bfloat16", "float32")]
+    todo += [(big, "float16", "check", 510, {}),
+             (big, "int32", "check", 511, {}),
+             ((1000003,), "bfloat16", "check", 512, {}),
+             ((1,), "bfloat16", "check", 513, {}),
+             ((0,), "bfloat16", "check", 514, {}),
+             ((4096, 3136), "bfloat16", "check", 515,
+              {"transposed": True}),
+             (mid, "bfloat16", "check", 516, {"y_shape": (mid[-1],)})]
+    cases = []
+    for shape, dtype, path, seed, kw in todo:
+        c = scaled_add_case(mod, shape, dtype, path, seed, **kw)
+        log(f"[scaled_add] {c['shape']} {c['dtype']} y={c['y_shape']} "
+            f"ms={c['ms']} plain={c['plain_ms']} add={c['library_ms']} "
+            f"device={c.get('device_ms')} bound={c['bound_ms']:.4f}")
+        cases.append(c)
+    return cases
+
+
+def host_ms(fn, iters):
+    """Wall milliseconds per call of ``fn``, the card drained at the
+    end: what a caller waits for."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def dispatch_us(fn, iters=2000):
+    """Host microseconds per call to dispatch ``fn`` (the card drains
+    after the clock stops): the dispatch cost of a call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e6 / iters
+
+
+#: the manual loop's settings: 20 steps of plain gradient descent on a
+#: 64x64 residual layer fitted to 256 samples, fp32
+RESIDUAL_LOOP = dict(n=256, d=64, steps=20, lr=20.0, seed=0)
+LOOP_RTOL = 1e-5
+
+
+def residual_loop(mx, ctx):
+    """The verify skill's eager flow on ``ctx``: ``pred = x + 0.5 *
+    dot(x, w)`` through ``plugin_scaled_add``, a mean squared error,
+    ``autograd.record()`` / ``loss.backward()`` / ``w[:] = w - lr *
+    w.grad``.  Returns the losses."""
+    import numpy as onp
+
+    c = RESIDUAL_LOOP
+    r = onp.random.RandomState(c["seed"])
+    xs = r.randn(c["n"], c["d"]).astype("float32")
+    w_true = (r.randn(c["d"], c["d"]) * 0.1).astype("float32")
+    x = mx.nd.array(xs, ctx=ctx)
+    y = mx.nd.array(xs + 0.5 * xs @ w_true, ctx=ctx)
+    w = mx.nd.array((r.randn(c["d"], c["d"]) * 0.1).astype("float32"),
+                    ctx=ctx)
+    w.attach_grad()
+    losses = []
+    for _ in range(c["steps"]):
+        with mx.autograd.record():
+            pred = mx.nd.plugin_scaled_add(x, mx.nd.dot(x, w), scale=0.5)
+            loss = ((pred - y) ** 2).mean()
+        loss.backward()
+        w[:] = w - c["lr"] * w.grad
+        losses.append(float(loss.asscalar()))
+    return losses
+
+
+def params_roundtrip(mx):
+    """``.params`` of fp32, bf16, fp16, int32, int64, uint8 and 0-d
+    arrays saved from the card load on the host and re-save
+    byte-identical; the host copies save the same bytes."""
+    import numpy as onp
+
+    gpu = mx.gpu(0)
+    r = onp.random.RandomState(7)
+    d = {"f32": mx.nd.array(r.randn(3, 4), ctx=gpu),
+         "bf16": mx.nd.array(r.randn(5), ctx=gpu, dtype="bfloat16"),
+         "f16": mx.nd.array(r.randn(2, 2), ctx=gpu, dtype="float16"),
+         "i32": mx.nd.array(r.randint(-9, 9, (2, 3)), ctx=gpu,
+                            dtype="int32"),
+         "i64": mx.nd.array(onp.array([2 ** 40, -3]), ctx=gpu,
+                            dtype="int64"),
+         "u8": mx.nd.array(onp.arange(6), ctx=gpu, dtype="uint8"),
+         "scalar": mx.nd.array(onp.float32(2.5), ctx=gpu)}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_params_")
+    try:
+        path = os.path.join(tmp, "p.params")
+        mx.nd.save(path, d)
+        with open(path, "rb") as f:
+            card_bytes = f.read()
+        host = mx.nd.load(path, ctx=mx.cpu())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(all(v.context == mx.cpu() for v in host.values()),
+          "loaded arrays not on the host")
+    check(mx.nd.save_buffer(host) == card_bytes,
+          ".params re-saved on the host differ from the card's")
+    copies = {k: v.as_in_context(mx.cpu()) for k, v in d.items()}
+    check(mx.nd.save_buffer(copies) == card_bytes,
+          ".params of the host copies differ from the card's")
+    check(str(host["bf16"].dtype) == "float32" and host["scalar"].shape
+          == () and str(host["i64"].dtype) == "int64",
+          f"loaded dtypes {[(k, str(v.dtype)) for k, v in host.items()]}")
+    return {"arrays": {k: [str(v.dtype), list(v.shape)]
+                       for k, v in d.items()},
+            "bytes": len(card_bytes), "card_eq_host_bytes": True}
+
+
+def nd_plugin_phase(mx, mod):
+    """The front end's path on the card: ``mx.library.load`` ->
+    ``mx.nd.plugin_scaled_add`` on ``mx.gpu(0)`` under
+    ``autograd.record()`` at the four residual shapes in bf16 (one
+    launch per call, exact gradients), the manual training loop on the
+    card against the host, then per-call times through ``mx.nd`` and
+    the raw wrapper, and the ``.params`` round trip."""
+    import numpy as onp
+    import torch
+
+    gpu = mx.gpu(0)
+    scale = 0.5
+    s = mod._scale_tensor(scale, torch.bfloat16)
+    n_max = max(1024, *(math.prod(sh) for sh in RESIDUAL_SHAPES))
+    base = onp.random.default_rng(600).standard_normal(n_max + 1,
+                                                       dtype=onp.float32)
+    arrays = []
+    mod.scaled_add.launches = 0  # the main path starts here
+    for shape in RESIDUAL_SHAPES:
+        n = math.prod(shape)
+        a = mx.nd.array(base[:n].reshape(shape), ctx=gpu, dtype="bfloat16")
+        b = mx.nd.array(base[1:n + 1].reshape(shape), ctx=gpu,
+                        dtype="bfloat16")
+        a.attach_grad()
+        b.attach_grad()
+        n0 = mod.scaled_add.launches
+        with mx.autograd.record():
+            out = mx.nd.plugin_scaled_add(a, b, scale=scale)
+        out.backward()
+        ad, bd = a._data.detach(), b._data.detach()
+        check(torch.equal(out._data, ad + bd * s),
+              f"mx.nd.plugin_scaled_add {shape} differs from x + y * s")
+        check(bool((a.grad._data == 1).all())
+              and bool((b.grad._data == s).all()),
+              f"plugin_scaled_add {shape}: gradients not 1 and s")
+        with mx.autograd.record():
+            out = mx.nd.plugin_scaled_add(a, b, scale=scale)
+            loss = (out * out).sum()
+        loss.backward()
+        two = out._data.detach() * 2  # d loss / d out, exact
+        check(torch.equal(a.grad._data, two)
+              and torch.equal(b.grad._data, two * s),
+              f"plugin_scaled_add {shape}: loss gradients differ")
+        torch.cuda.synchronize()
+        check(mod.scaled_add.launches == n0 + 2,
+              f"{mod.scaled_add.launches - n0} launches for 2 calls")
+        arrays.append((shape, a, b))
+        log(f"[nd_plugin] {shape} bf16: 2 launches, exact gradients")
+    loop_card = residual_loop(mx, gpu)
+    launches = mod.scaled_add.launches  # the main path ends here
+    loop_host = residual_loop(mx, mx.cpu())
+    rel = max(abs(c - h) / abs(h) for c, h in zip(loop_card, loop_host))
+    check(launches == 2 * len(RESIDUAL_SHAPES) + RESIDUAL_LOOP["steps"],
+          f"main path launched the kernel {launches} times")
+    check(all(math.isfinite(v) for v in loop_card)
+          and sum(loop_card[-3:]) / 3 < loop_card[0],
+          f"the loop's loss does not fall: {loop_card}")
+    check(rel <= LOOP_RTOL, f"card vs host loop losses differ by {rel}")
+    per_call = []
+    for shape, a, b in arrays:
+        ad, bd = a._data.detach(), b._data.detach()
+
+        def nd_call():
+            return mx.nd.plugin_scaled_add(a, b, scale=scale)
+
+        def raw_call():
+            return mod.scaled_add(ad, bd, scale)
+
+        per_call.append({
+            "shape": list(shape),
+            "nd_host_ms": host_ms(nd_call, 20),
+            "wrapper_host_ms": host_ms(raw_call, 20),
+            "nd_device_ms": device_ms(nd_call, calls=20),
+            "wrapper_device_ms": device_ms(raw_call, calls=20)})
+    del arrays
+    small = [mx.nd.array(base[i:i + 1024], ctx=gpu, dtype="bfloat16")
+             for i in (0, 1)]
+    sd = [t._data for t in small]
+    dispatch = {
+        "nd_dispatch_us": dispatch_us(
+            lambda: mx.nd.plugin_scaled_add(*small, scale=scale)),
+        "wrapper_dispatch_us": dispatch_us(
+            lambda: mod.scaled_add(*sd, scale)),
+        "nd_add_dispatch_us": dispatch_us(lambda: small[0] + small[1]),
+        "torch_add_dispatch_us": dispatch_us(lambda: sd[0] + sd[1])}
+    params = params_roundtrip(mx)
+    torch.cuda.empty_cache()
+    return {"phase": "nd_plugin", "scaled_add_launches": launches,
+            "residual_shapes": [list(sh) for sh in RESIDUAL_SHAPES],
+            "loop": dict(RESIDUAL_LOOP, losses_card=loop_card,
+                         losses_host=loop_host, max_rel_diff=rel,
+                         rtol=LOOP_RTOL),
+            "per_call": per_call, **dispatch, "params": params}
+
+
 def resnet50(device, seed):
     """ResNet-50 v1 at full width and depth, channel-last, bias-free
     1x1 convs, random Xavier weights from ``seed``."""
@@ -1319,6 +1636,23 @@ def run(profile=False):
             f"bound={c['bound_ms']:.4f}")
     emit({"phase": "kernels_bucket_lars", "cases": lars})
 
+    mx, plugin = load_plugin()
+    t0 = time.perf_counter()
+    sa = scaled_add_cases(plugin)
+    emit({"phase": "kernels_scaled_add", "cases": sa})
+    t1 = time.perf_counter()
+    plug = nd_plugin_phase(mx, plugin)
+    plug["seconds"] = time.perf_counter() - t1
+    log(f"[scaled_add] phases took {t1 - t0:.1f} s and "
+        f"{plug['seconds']:.1f} s")
+    log(f"[nd_plugin] launches={plug['scaled_add_launches']} loop "
+        f"{plug['loop']['losses_card'][0]:.4f} -> "
+        f"{plug['loop']['losses_card'][-1]:.4f} (host rel "
+        f"{plug['loop']['max_rel_diff']:.2e}), nd dispatch "
+        f"{plug['nd_dispatch_us']:.1f} us, wrapper "
+        f"{plug['wrapper_dispatch_us']:.1f} us")
+    emit(plug)
+
     trains = {}
     for name, (warmup, steps) in (("train_resnet50", (2, 10)),
                                   ("train_resnet50_lars", (2, 10)),
@@ -1382,7 +1716,11 @@ def run(profile=False):
                   "ms": lars_head["ms_update_cold"],
                   "plain_ms": lars_head["plain_update_ms"],
                   "bound_ms": lars_head["bound_update_ms"],
-                  "bound_by": "bytes", "library_ms": None})]})
+                  "bound_by": "bytes", "library_ms": None}),
+        entry("scaled_add", "scaled_add.cu",
+              "example/plugin/pallas_ops.py:14",
+              plug["scaled_add_launches"],
+              max(c["max_abs_err"] for c in sa), sa[0])]})
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": emit_dev}), flush=True)
 

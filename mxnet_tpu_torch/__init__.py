@@ -2,26 +2,34 @@
 
 Each module mirrors the module of the same path in ``mxnet_tpu`` (the
 JAX package, which stays the reference) and computes the same thing
-with ``torch`` tensors on an explicit ``torch.device``.  Where the
-reference runs a Pallas kernel for the TPU, the port runs a kernel
-written by hand for Hopper (``csrc/``), built with ``nvcc`` on first
-use, beside a plain PyTorch version of the same math that the CPU
-takes.
+with ``torch`` tensors on an explicit device.  Where the reference
+runs a Pallas kernel for the TPU, the port runs a kernel written by
+hand for Hopper (``csrc/``), built with ``nvcc`` on first use, beside a
+plain PyTorch version of the same math that the CPU takes.
 
-Entry points run on ``cuda:0`` unless the caller passes
-``device="cpu"``; asking for CUDA where there is none raises.
+Entry points run on ``cuda:0`` (``mx.gpu(0)``, the default context)
+unless the caller passes ``device="cpu"``, ``ctx=mx.cpu()`` or enters
+``with mx.cpu():``; asking for CUDA where there is none raises.
 
 The slices ported so far are the generative decode server
-(:mod:`mxnet_tpu_torch.serving`) and ResNet v1 training
-(:mod:`mxnet_tpu_torch.gluon`, :mod:`mxnet_tpu_torch.parallel`), with
-what they run.
+(:mod:`mxnet_tpu_torch.serving`), ResNet v1 training
+(:mod:`mxnet_tpu_torch.gluon`, :mod:`mxnet_tpu_torch.parallel`) and the
+imperative front end (``mx.nd``, :mod:`~mxnet_tpu_torch.autograd`,
+``.params`` files, :mod:`~mxnet_tpu_torch.library`), with what they
+run.
 """
 __version__ = "0.1.0"
 
 from . import base  # noqa: F401
 from . import config  # noqa: F401
 from .base import MXNetError  # noqa: F401
-from .context import cpu, default_device, gpu, resolve_device  # noqa: F401
+from .context import (Context, cpu, current_context, default_device,  # noqa: F401
+                      gpu, num_gpus, resolve_device)
+from . import autograd  # noqa: F401
+from . import ndarray  # noqa: F401
+from . import ndarray as nd  # noqa: F401
+from . import library  # noqa: F401
 
-__all__ = ["MXNetError", "cpu", "gpu", "default_device",
-           "resolve_device"]
+__all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
+           "num_gpus", "default_device", "resolve_device", "nd",
+           "ndarray", "autograd", "library"]

@@ -391,3 +391,90 @@ def test_lars_adam_train_steps_launch_kernels(card, opt):
     assert [getattr(f, a) - b for (f, a), b in zip(counters, before)] == \
         [n_b * 3] * len(counters)
     assert all(onp.isfinite(losses)) and losses[-1] < losses[0]
+
+
+# ------------------------------------------------- the plugin's scaled add
+def _plugin():
+    import os
+
+    import mxnet_tpu_torch as mx
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    return mx, mx.library.load(os.path.join(
+        root, "mxnet_tpu_torch", "example", "plugin", "cuda_ops.py"),
+        verbose=False)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16",
+                                   "int32", "int64"])
+@pytest.mark.parametrize("shape", ["one", "seven", "ragged", "empty",
+                                   "transposed", "permuted", "strided",
+                                   "misaligned"])
+def test_scaled_add_bit_identical_to_plain(card, dtype, shape):
+    """The kernel against ``x + y * s`` on the card, bit for bit and in
+    the same layout: one element, an odd count, a ragged million, none,
+    a transposed and a permuted view (taken as they lie), a strided
+    view (copied first) and a view one element off 16-byte alignment
+    (the scalar path)."""
+    _, mod = _plugin()
+    tdt = getattr(torch, dtype)
+    gen = torch.Generator(device=card).manual_seed(5)
+    n = {"one": 1, "seven": 7, "ragged": 1000003, "empty": 0,
+         "transposed": 64 * 33, "permuted": 4 * 8 * 33, "strided": 2 * 999,
+         "misaligned": 4099}[shape]
+    raw = [torch.randn(n + 1, generator=gen, device=card) * 1000
+           for _ in range(2)]
+    x, y = (r.to(tdt) for r in raw)
+    if shape == "misaligned":
+        x, y = x[1:], y[1:]
+    else:
+        x, y = x[:n], y[:n]
+    if shape == "transposed":
+        x, y = x.reshape(64, 33).t(), y.reshape(64, 33).t()
+    if shape == "permuted":
+        x, y = (t.reshape(4, 8, 33).permute(2, 0, 1) for t in (x, y))
+    if shape == "strided":
+        x, y = x[::2], y[::2]
+    scale = 0.1 if tdt.is_floating_point else 3.7
+    before = mod.scaled_add.launches
+    got = mod.scaled_add(x, y, scale)
+    want = mod._scaled_add_plain(x, y, mod._scale_tensor(scale, tdt))
+    torch.cuda.synchronize()
+    assert got.shape == x.shape and got.dtype == tdt
+    assert torch.equal(got, want)
+    if shape != "strided":
+        assert got.stride() == want.stride()
+    assert mod.scaled_add.launches == before + (1 if n else 0)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "uint8", "bool"])
+def test_scaled_add_refuses_other_dtypes(card, dtype):
+    _, mod = _plugin()
+    x = torch.ones(8, device=card, dtype=getattr(torch, dtype))
+    with pytest.raises(MXNetError, match="scaled_add kernel takes"):
+        mod.scaled_add(x, x, 2.0)
+    with pytest.raises(MXNetError, match="one shape"):
+        mod.scaled_add(torch.ones(8, device=card), torch.ones(4, device=card),
+                       2.0)
+
+
+def test_nd_plugin_scaled_add_launches_the_kernel(card):
+    mx, mod = _plugin()
+    rng = onp.random.RandomState(2)
+    a = mx.nd.array(rng.randn(4, 6, 8), ctx=mx.gpu(0), dtype="bfloat16")
+    b = mx.nd.array(rng.randn(8), ctx=mx.gpu(0), dtype="bfloat16")
+    a.attach_grad()
+    b.attach_grad()
+    before = mod.scaled_add.launches
+    with mx.autograd.record():
+        out = mx.nd.plugin_scaled_add(a, b, scale=0.5)
+    out.backward()
+    torch.cuda.synchronize()
+    assert mod.scaled_add.launches == before + 1
+    assert out.context == mx.gpu(0)
+    want = a._data.detach() + b._data.detach() * torch.tensor(
+        0.5, dtype=torch.bfloat16)
+    assert torch.equal(out._data.detach(), want)
+    assert torch.equal(a.grad._data, torch.ones_like(a._data))
+    assert torch.equal(b.grad._data.float(),
+                       torch.full((8,), 4 * 6 * 0.5, device=card))

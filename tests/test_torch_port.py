@@ -46,7 +46,13 @@ _MODULES = ["mxnet_tpu_torch", "mxnet_tpu_torch.autotune",
             "mxnet_tpu_torch.ops.pallas_conv",
             "mxnet_tpu_torch.ops.pallas_opt",
             "mxnet_tpu_torch.optimizer",
-            "mxnet_tpu_torch.parallel", "mxnet_tpu_torch.parallel.zero"]
+            "mxnet_tpu_torch.parallel", "mxnet_tpu_torch.parallel.zero",
+            "mxnet_tpu_torch.dtype", "mxnet_tpu_torch.autograd",
+            "mxnet_tpu_torch.ops.registry", "mxnet_tpu_torch.ops.elemwise",
+            "mxnet_tpu_torch.ops.reduce", "mxnet_tpu_torch.ops.shape_ops",
+            "mxnet_tpu_torch.ndarray", "mxnet_tpu_torch.ndarray.ndarray",
+            "mxnet_tpu_torch.library",
+            "mxnet_tpu_torch.example.plugin.cuda_ops"]
 _FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(?:jax|jaxlib|mxnet_tpu)"
                         r"(?:\.|\s|$)", re.M)
 
