@@ -3,8 +3,11 @@
 
     python3 chip_smoke.py [--out FILE] [--profile]
 
-Builds every CUDA kernel from ``mxnet_tpu_torch/csrc`` with nvcc, holds
-each kernel against its plain PyTorch version on the card, serves the
+Builds every CUDA kernel from ``mxnet_tpu_torch/csrc`` with nvcc,
+checks that the flash kernel runs on the tensor cores (TF32 HMMA in
+the SASS of each fp32 instantiation, bf16 HMMA in each bf16 one, no
+register spills at head_dim 128), holds each kernel against
+its plain PyTorch version on the card, serves the
 generative decoder end to end through ``GenerativeServer`` at the width
 of the repo's generate benchmark and at a wide configuration, drives
 the imperative front end (the operator plugin through
@@ -42,10 +45,23 @@ import traceback
 #: the CUDA cores, bf16 on the tensor cores, and HBM3 bandwidth
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 PEAK_BYTES = 3.35e12
+#: dense TF32 on the tensor cores: fp32-accurate attention takes three
+#: TF32 products per product (split TF32), so its bound is 3 x FLOPs
+#: over this rate
+PEAK_TF32 = 494.7e12
 #: bytes a timing loop cycles through so that no call finds its inputs
 #: in the H100's 50 MB L2 cache: four times its size
 COLD_BYTES = 4 * 50 * 2 ** 20
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+#: bf16 attention is also held row by row: a row's largest error over
+#: its largest |value| of the plain version.  The kernel rounds P to
+#: bf16 before P V (the plain version keeps it in fp32) and each rounds
+#: its output to bf16 once, so a sound row is off by about one bf16 ulp
+#: of its largest value (2^-8 to 2^-7 of it); 2^-6 is two such ulps.  A
+#: fault in a long row (a key tile dropped, a missed rescale) moves the
+#: row by much more, yet can stay under the absolute limit when the
+#: row's values are small
+BF16_ROW_TOL = 2.0 ** -6
 
 _out_file = None
 
@@ -169,6 +185,19 @@ def bound(flops, nbytes, dtype):
                                  else "bytes")
 
 
+def attention_bound(flops, nbytes, dtype):
+    """(bound_ms, bound_by) of attention: bytes over the HBM rate
+    against, for fp32, 3 x FLOPs over dense TF32 (the split-TF32
+    products that keep fp32 accuracy; the fp32 CUDA-core rate is no
+    least time), for bf16 FLOPs over the bf16 tensor-core rate."""
+    if dtype == "float32":
+        t_ops, label = 3.0 * flops / PEAK_TF32 * 1e3, "operations_3xtf32"
+    else:
+        t_ops, label = flops / PEAK_FLOPS[dtype] * 1e3, "operations"
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), (label if t_ops >= t_bytes else "bytes")
+
+
 def attention_work(bh, sq, sk, d, causal, dtype):
     """(flops, bytes) the function needs on these inputs: 2 FLOPs per
     multiply-add in QK^T and in PV over the visible (query, key) pairs;
@@ -182,7 +211,18 @@ def attention_work(bh, sq, sk, d, causal, dtype):
     return 4.0 * bh * pairs * d, float(size * bh * d * (2 * sq + 2 * sk))
 
 
-def kernel_case(b, h, sq, sk, d, dtype, causal, path, seed):
+def row_rel_err(out, ref):
+    """The largest over rows (the last axis) of a row's max |out - ref|
+    over its max |ref|; a row whose reference is all 0 divides by 1."""
+    import torch
+
+    o, r = out.float(), ref.float()
+    scale = r.abs().amax(-1)
+    scale = torch.where(scale > 0, scale, torch.ones_like(scale))
+    return float(((o - r).abs().amax(-1) / scale).max())
+
+
+def kernel_case(b, h, sq, sk, d, dtype, causal, path, seed, names=False):
     import torch
     import torch.nn.functional as F
 
@@ -214,6 +254,10 @@ def kernel_case(b, h, sq, sk, d, dtype, causal, path, seed):
     check(math.isfinite(err) and err <= TOL[dtype],
           f"flash kernel vs plain {b, h, sq, sk, d} {dtype} "
           f"causal={causal}: max abs err {err} > {TOL[dtype]}")
+    row_err = row_rel_err(out, ref)
+    check(dtype != "bfloat16" or row_err <= BF16_ROW_TOL,
+          f"flash kernel vs plain {b, h, sq, sk, d} bf16 causal={causal}: "
+          f"row-relative err {row_err} > {BF16_ROW_TOL}")
     masked_rows = 0
     if causal and sq > sk:
         masked_rows = sq - sk  # rows i with i + (sk - sq) < 0
@@ -234,13 +278,20 @@ def kernel_case(b, h, sq, sk, d, dtype, causal, path, seed):
     plain_ms = time_ms(plain)
     library_ms = time_ms(lib)
     flops, nbytes = attention_work(b * h, sq, sk, d, causal, dtype)
-    bound_ms, bound_by = bound(flops, nbytes, dtype)
-    return {"path": path, "shape": [b, h, sq, sk, d], "dtype": dtype,
-            "causal": causal, "max_abs_err": err, "tol": TOL[dtype],
-            "masked_rows_exact_zero": masked_rows, "ms": ms,
-            "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "flops": flops, "bytes": nbytes}
+    bound_ms, bound_by = attention_bound(flops, nbytes, dtype)
+    res = {"path": path, "shape": [b, h, sq, sk, d], "dtype": dtype,
+           "causal": causal, "max_abs_err": err, "tol": TOL[dtype],
+           "row_rel_err": row_err,
+           "row_tol": BF16_ROW_TOL if dtype == "bfloat16" else None,
+           "masked_rows_exact_zero": masked_rows, "ms": ms,
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "flops": flops, "bytes": nbytes}
+    if names:  # which kernels the port's launch and SDPA's call run
+        res["kernel_device_ms"] = device_ms(kernel, calls=10,
+                                            by_kernel=True)
+        res["library_kernels"] = device_ms(lib, calls=10, by_kernel=True)
+    return res
 
 
 def kernel_cases():
@@ -253,11 +304,66 @@ def kernel_cases():
         for dtype in ("float32", "bfloat16"):
             for causal in (True, False):
                 cases.append((2, 16, s, s, 128, dtype, causal, "check"))
-    for sq in (1, 7):  # bottom-right alignment against a long cache
+    for sq in (1, 7, 16):  # bottom-right alignment against a long cache:
+        # the key-split arm
         cases.append((2, 16, sq, 2048, 128, "float32", True, "check"))
+    cases.append((2, 16, 1, 2048, 128, "bfloat16", True, "check"))
     cases.append((2, 16, 300, 100, 128, "float32", True, "check"))
     cases.append((1, 2, 20, 5, 8, "float32", True, "check"))
+    for causal in (True, False):  # bf16 D = 8: the depth padded to 16
+        cases.append((1, 2, 70, 70, 8, "bfloat16", causal, "check"))
     return cases
+
+
+#: the shapes whose kernel names are recorded (the port's and SDPA's)
+NAMED_CASES = {(1, 16, 2048, 2048, 128, "float32", True),
+               (2, 16, 2048, 2048, 128, "bfloat16", True)}
+
+
+def sass_hmma(name):
+    """{kernel function: {"hmma": n, "tf32": n, "bf16": n}}: the HMMA
+    (tensor-core MMA) instructions in each function's SASS in the built
+    library ``name``, all and those of TF32 and of bf16 operands, by
+    ``cuobjdump -sass`` from the CUDA toolkit."""
+    from mxnet_tpu_torch import _kernels
+
+    tool = os.path.join(os.path.dirname(_kernels._nvcc()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", _kernels._lib_path(name)],
+                         capture_output=True, text=True, timeout=300)
+    check(out.returncode == 0, f"cuobjdump -sass {name} failed: "
+                               f"{out.stderr[-2000:]}")
+    counts, fn = {}, None
+    for line in out.stdout.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts.setdefault(fn, {"hmma": 0, "tf32": 0, "bf16": 0})
+        elif fn is not None and "HMMA" in line:
+            c = counts[fn]
+            c["hmma"] += 1
+            c["tf32"] += "TF32" in line
+            c["bf16"] += "BF16" in line
+    return counts
+
+
+def ptxas_spills(log, fragment):
+    """{entry: [spill store bytes, spill load bytes, registers]} from
+    nvcc's ``-Xptxas=-v`` log, for the entries whose name holds
+    ``fragment``."""
+    spills, entry = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1] if "'" in line else line
+        elif not entry or fragment not in entry:
+            continue
+        elif "spill stores" in line:
+            nums = [int(w) for w in line.replace(",", " ").split()
+                    if w.isdigit()]
+            # "N bytes stack frame, N bytes spill stores, N bytes spill
+            # loads"
+            spills[entry] = [nums[1], nums[2], None]
+        elif "Used" in line and "registers" in line and entry in spills:
+            spills[entry][2] = int(line.split("Used")[1].split()[0])
+    return spills
 
 
 # ------------------------------------------------------------ serving
@@ -306,7 +412,8 @@ def device_profile(prof, wall_s, top=12, shares=None):
     busy_us = sum(r[0] for r in rows)
     if busy_us <= 0:
         return {"device_time": "not measured"}
-    shares = shares or {"flash_attention": ("flash_fwd_kernel",)}
+    shares = shares or {"flash_attention": ("flash_fwd_kernel",
+                                            "flash_combine_kernel")}
     return {
         "wall_ms": wall_s * 1e3, "device_busy_ms": busy_us / 1e3,
         "device_idle_share": max(0.0, 1.0 - busy_us / 1e6 / wall_s),
@@ -1533,14 +1640,41 @@ def run(profile=False):
         for line in (_kernels.build_log(name) or "").splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[ptxas {name}] {line.strip()}")
+    # the flash kernel runs on the tensor cores, and its D = 128
+    # instantiations keep everything in registers
+    # per instantiation of the forward kernel: the fp32 ones (the main
+    # path's) take TF32 MMAs, the bf16 ones bf16 MMAs
+    sass = sass_hmma("flash_attention")
+    fwd = {f: c for f, c in sass.items() if "flash_fwd_kernel" in f}
+    f32 = {f: c for f, c in fwd.items() if "bfloat16" not in f}
+    b16 = {f: c for f, c in fwd.items() if "bfloat16" in f}
+    hmma = sum(c["hmma"] for c in sass.values())
+    spills = ptxas_spills(_kernels.build_log("flash_attention") or "",
+                          "Li128E")
+    for f, c in sorted(fwd.items()):
+        log(f"[sass flash_attention] {f}: {c}")
+    log(f"[sass flash_attention] {hmma} HMMA instructions; D = 128 "
+        f"(spill store, spill load bytes, registers): "
+        f"{sorted(map(tuple, spills.values()))}")
     emit({"phase": "build", "sources": _kernels.sources(),
-          "compiled": built, "seconds": build_s})
+          "compiled": built, "seconds": build_s,
+          "flash_sass_hmma": hmma, "flash_sass_by_function": fwd,
+          "flash_d128_spills": spills})
+    # one instantiation per head_dim 8, 16, 32, 64, 128 and dtype
+    check(len(f32) == 5 and all(c["tf32"] > 0 for c in f32.values()),
+          f"an fp32 flash kernel holds no TF32 HMMA: {f32}")
+    check(len(b16) == 5 and all(c["bf16"] > 0 for c in b16.values()),
+          f"a bf16 flash kernel holds no bf16 HMMA: {b16}")
+    check(len(spills) >= 2 and all(v[:2] == [0, 0]
+                                   for v in spills.values()),
+          f"flash D = 128 instantiations spill: {spills}")
 
     cases = []
     for i, case in enumerate(kernel_cases()):
-        res = kernel_case(*case, seed=i)
+        res = kernel_case(*case, seed=i, names=case[:7] in NAMED_CASES)
         log(f"[kernels] {res['shape']} {res['dtype']} "
             f"causal={res['causal']} err={res['max_abs_err']:.3g} "
+            f"row_rel={res['row_rel_err']:.3g} "
             f"ms={res['ms']:.4f} plain={res['plain_ms']:.4f} "
             f"sdpa={res['library_ms']:.4f} bound={res['bound_ms']:.4f}")
         cases.append(res)
@@ -1676,12 +1810,17 @@ def run(profile=False):
     lars_head = lars[0]  # the largest bucket
 
     def entry(name, source, replaces, launches, err, c):
-        return {"name": name, "route": "cuda",
-                "source": f"mxnet_tpu_torch/csrc/{source}",
-                "replaces": replaces, "launches": launches,
-                "max_abs_err": err, "ms": c["ms"], "plain_ms": c["plain_ms"],
-                "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
-                "library_ms": c["library_ms"]}
+        kind = c["bound_by"]
+        res = {"name": name, "route": "cuda",
+               "source": f"mxnet_tpu_torch/csrc/{source}",
+               "replaces": replaces, "launches": launches,
+               "max_abs_err": err, "ms": c["ms"], "plain_ms": c["plain_ms"],
+               "bound_ms": c["bound_ms"],
+               "bound_by": "bytes" if kind == "bytes" else "operations",
+               "library_ms": c["library_ms"]}
+        if kind not in ("bytes", "operations"):
+            res["bound_kind"] = kind  # e.g. operations_3xtf32
+        return res
 
     emit({"kernels": [
         entry("flash_attention", "flash_attention.cu",

@@ -1,4 +1,4 @@
-// Flash-attention forward for Hopper (sm_90a), CUDA C++.
+// Flash-attention forward for Hopper (sm_90a), CUDA C++, on the tensor cores.
 //
 // Replaces the Pallas TPU kernel mxnet_tpu/ops/flash_attention.py:
 // _flash_kernel (launched by _flash_forward_pallas) and computes what it
@@ -10,23 +10,48 @@
 // The TPU kernel's pallas_pad shim (pad to 128, kv_valid / q_valid, slice)
 // has no counterpart here: ragged lengths are bounds checks.
 //
-// Layout: q (BH, Sq, D), k/v (BH, Sk, D), contiguous, fp32 or bf16; output
-// in q's dtype; arithmetic in fp32.  D is a template parameter over
-// {8, 16, 32, 64, 128}.
+// Layout: q (BH, Sq, D), k/v (BH, Sk, D), contiguous and 16-byte aligned,
+// fp32 or bf16; output in q's dtype; softmax and accumulators in fp32.  D is
+// a template parameter over {8, 16, 32, 64, 128}.
 //
-// Design (simple first): one CTA of 256 threads per (BH, 64-row q tile).
-// Four consecutive threads own one query row, each a strided quarter of
-// head_dim for q and acc (registers); a score is their partial dot products
-// summed by two xor shuffles.  K and V tiles of 32 keys are staged through
-// shared memory as fp32 and every product is an fp32 FMA: no tensor cores,
-// no TMA, no wgmma.
+// What bounds it on an H100: at D = 128 and long sequences, operations,
+// 4 * BH * pairs * D FLOPs over the visible (query, key) pairs.  bf16 runs
+// them once on the tensor cores (989 TFLOP/s dense).  fp32 must keep fp32
+// accuracy: one TF32 pass is 1e-3 off, so every product is split TF32,
+// x = hi + lo with hi = tf32(x), lo = tf32(x - hi), and a*b is taken as
+// lo_a*hi_b + hi_a*lo_b + hi_a*hi_b: three TF32 MMAs (495 TFLOP/s dense), so
+// the fp32 bound is 3 x FLOPs / 495e12.  At the generative server's bench
+// width (D = 8, Sq <= 16) the work is tiny and the launch is the time.
 //
-// What bounds it on an H100: at the generative server's bench width
-// (D = 8, Sq <= 16) the work is a few thousand FLOPs and the kernel is
-// bound by its launch.  At D = 128, S = 2048 it is bound by operations:
-// 4 * BH * Sq * Sk * D FLOPs (halved for causal) on the fp32 FMA pipes,
-// against 67 TFLOP/s fp32 or 989 TFLOP/s bf16 on the tensor cores.  A
-// redesign on wgmma with TMA-fed K/V tiles is queued (ROADMAP.md).
+// Design (FlashAttention-2 on mma.sync):
+// - A CTA of kWarps warps owns 16 * kMT * kWarps query rows, kMT m-tiles
+//   of 16 rows per warp (fp32: 8 warps x 1, bf16: 4 warps x 2, so that a
+//   bf16 K or V fragment serves 32 rows).  The Q tile is loaded once;
+//   key/value tiles of kBK keys stream through a ring of kStages stages in
+//   dynamic shared memory, filled by 16-byte cp.async.cg copies with
+//   commit/wait groups, so the next tile loads while this one is
+//   multiplied.  Rows past Sq or Sk are zero-filled; m-tiles wholly past
+//   Sq skip the math.
+// - S = Q K^T and O += P V are mma.sync: m16n8k8 TF32 (three passes, the
+//   operands split as fragments are read from fp32 shared memory) or
+//   m16n8k16 bf16 (one pass, fragments by ldmatrix; D = 8 is padded to a
+//   depth of 16 with zeros for Q K^T).  fp32 rows are padded by 4 words and
+//   bf16 rows by 16 bytes, so that fragment reads hit 32 distinct banks.
+// - The online softmax runs in registers on the S accumulators: row max by
+//   quad shuffles, exp2f with sm_scale * log2(e) folded in, the
+//   reference's -inf guards.  P is the A operand of P V without a trip
+//   through shared memory: for bf16 the C fragment is the A fragment; for
+//   TF32 the 8 keys of a k-step are taken in the order (0, 2, 4, 6, 1, 3,
+//   5, 7), which makes the C fragment the A fragment too, and V's rows are
+//   read in the same order.
+// - Work items come from the wrapper's plan: (q tile, key tiles [kt0, kt1),
+//   slot), heaviest first.  When BH * q tiles would leave SMs idle (a few
+//   queries against a long cache) the plan splits a q tile's key range
+//   over several items, each writes its (m, l, acc) partial to scratch,
+//   and flash_combine_kernel merges them in a fixed order: the result is
+//   deterministic and a fully masked row stays exactly 0.
+// wgmma/TMA are not used: TF32 wgmma wants K-major B operands in shared
+// memory, which V's tile (keys x D, D contiguous) is not.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -34,160 +59,633 @@
 
 namespace {
 
-constexpr int kBlockQ = 64;                    // query rows per CTA
-constexpr int kBlockK = 32;                    // keys per shared-memory tile
-constexpr int kThreadsPerRow = 4;              // threads sharing one row
-constexpr int kThreads = kBlockQ * kThreadsPerRow;
+constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ float load_f32(const float* p) { return *p; }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void store_f32(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_f32(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
+// Tile configuration per dtype: warps per CTA, 16-row m-tiles per warp,
+// keys per tile, ring stages (the fastest of the configurations timed on
+// the card, PERF.md).
+template <typename T, int D>
+struct Cfg;
+template <int D>
+struct Cfg<float, D> {
+  static constexpr int kWarps = 8;
+  static constexpr int kMT = 1;  // 16-row m-tiles a warp
+  static constexpr int kBK = 64;
+  static constexpr int kStages = 2;
+  static constexpr int kDK = D;         // depth of the Q K^T product
+  static constexpr int kPitch = D + 4;  // row pitch in shared memory
+};
+template <int D>
+struct Cfg<__nv_bfloat16, D> {
+  static constexpr int kWarps = 4;
+  static constexpr int kMT = 2;
+  static constexpr int kBK = 64;
+  static constexpr int kStages = 2;
+  static constexpr int kDK = D < 16 ? 16 : D;
+  static constexpr int kPitch = kDK + 8;
+};
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+struct Tiles {
+  using C = Cfg<T, D>;
+  static constexpr int kThreads = 32 * C::kWarps;
+  static constexpr int kBQ = 16 * C::kMT * C::kWarps;
+  static constexpr int kTile = C::kBK * C::kPitch;  // elements of K or V
+  static constexpr size_t kSmem =
+      sizeof(T) * ((size_t)kBQ * C::kPitch + 2 * C::kStages * kTile);
+};
+
+// ------------------------------------------------------------ PTX helpers
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes global -> shared; src_bytes 0 writes zeros and reads nothing
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4],
+                                         const uint32_t b[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+// the split product, small terms first
+__device__ __forceinline__ void mma_3xtf32(float c[4], const uint32_t ah[4],
+                                           const uint32_t al[4],
+                                           const uint32_t bh[2],
+                                           const uint32_t bl[2]) {
+  mma_tf32(c, al, bh);
+  mma_tf32(c, ah, bl);
+  mma_tf32(c, ah, bh);
+}
+
+__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t r[2],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// rows [row0, row0 + n_rows) of a (rows, D) matrix into shared memory of
+// pitch P; rows at or past `limit` are zero-filled
+template <typename T, int D, int P, int kThreads>
+__device__ __forceinline__ void load_rows(T* dst, const T* src, int row0,
+                                          int n_rows, int limit) {
+  constexpr int kChunks = D * (int)sizeof(T) / 16;  // per row
+  for (int idx = threadIdx.x; idx < n_rows * kChunks; idx += kThreads) {
+    const int r = idx / kChunks;
+    const int c = idx % kChunks;
+    const bool ok = row0 + r < limit;
+    const T* from = ok ? src + (int64_t)(row0 + r) * D + c * (16 / sizeof(T))
+                       : src;
+    cp_async16(dst + r * P + c * (16 / sizeof(T)), from, ok ? 16 : 0);
+  }
+}
+
+// ------------------------------------------------------------- the kernel
+// One key tile for the first A of this warp's kMT m-tiles (16 rows each;
+// A < kMT when the rest of the warp's rows lie past Sq): S = Q K^T, the
+// online softmax, O += P V.  Every K or V fragment read from shared memory
+// (and, for TF32, split) is used by all A m-tiles.
+template <typename T, int D, int A>
+__device__ __forceinline__ void tile_step(
+    const T* __restrict__ q_w, const T* __restrict__ ks,
+    const T* __restrict__ vs, int k0, int rw, int sk, int diag, int causal,
+    float scale_log2, float (&acc)[Cfg<T, D>::kMT][D / 8][4],
+    float (&mrow)[Cfg<T, D>::kMT][2], float (&lrow)[Cfg<T, D>::kMT][2]) {
+  using C = Cfg<T, D>;
+  constexpr int P = C::kPitch;
+  constexpr int BK = C::kBK;
+  constexpr int NT = BK / 8;  // S accumulator tiles (8 keys each)
+  constexpr int NO = D / 8;   // O accumulator tiles (8 columns each)
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;  // fragment row group
+  const int t = lane % 4;  // thread in group
+
+  // ---- S = Q K^T
+  float s[A][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < A; ++mt)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+      s[mt][j][0] = s[mt][j][1] = s[mt][j][2] = s[mt][j][3] = 0.f;
+  if constexpr (sizeof(T) == 4) {
+    const float* qr = reinterpret_cast<const float*>(q_w) + g * P + t;
+    const float* kr = reinterpret_cast<const float*>(ks) + g * P + t;
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      uint32_t ah[A][4], al[A][4];
+#pragma unroll
+      for (int mt = 0; mt < A; ++mt) {
+        const float* qm = qr + mt * 16 * P + kk * 8;
+        split_tf32(qm[0], ah[mt][0], al[mt][0]);
+        split_tf32(qm[8 * P], ah[mt][1], al[mt][1]);
+        split_tf32(qm[4], ah[mt][2], al[mt][2]);
+        split_tf32(qm[8 * P + 4], ah[mt][3], al[mt][3]);
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        uint32_t bh[2], bl[2];
+        split_tf32(kr[j * 8 * P + kk * 8], bh[0], bl[0]);
+        split_tf32(kr[j * 8 * P + kk * 8 + 4], bh[1], bl[1]);
+#pragma unroll
+        for (int mt = 0; mt < A; ++mt)
+          mma_3xtf32(s[mt][j], ah[mt], al[mt], bh, bl);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < C::kDK / 16; ++kk) {
+      uint32_t a[A][4];
+#pragma unroll
+      for (int mt = 0; mt < A; ++mt)
+        ldmatrix_x4(a[mt], q_w + (mt * 16 + ((lane >> 3) & 1) * 8 +
+                                  (lane & 7)) * P +
+                               kk * 16 + (lane >> 4) * 8);
+#pragma unroll
+      for (int j = 0; j < NT; j += 2) {
+        uint32_t b[4];
+        ldmatrix_x4(b, ks + (8 * (j + (lane >> 4)) + (lane & 7)) * P +
+                           kk * 16 + ((lane >> 3) & 1) * 8);
+#pragma unroll
+        for (int mt = 0; mt < A; ++mt) {
+          mma_bf16(s[mt][j], a[mt], b[0], b[1]);
+          mma_bf16(s[mt][j + 1], a[mt], b[2], b[3]);
+        }
+      }
+    }
+  }
+
+  // ---- online softmax on the accumulators (exp2 domain)
+#pragma unroll
+  for (int mt = 0; mt < A; ++mt) {
+    const int r0 = rw + mt * 16;  // this m-tile's first row
+    const bool need_mask =
+        k0 + BK > sk || (causal && k0 + BK - 1 > r0 + diag);
+    float mx0 = -CUDART_INF_F, mx1 = -CUDART_INF_F;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[mt][j][e] * scale_log2;
+        if (need_mask) {
+          const int key = k0 + 8 * j + 2 * t + (e & 1);
+          const int row = r0 + g + (e >> 1) * 8;
+          if (key >= sk || (causal && key > row + diag)) x = -CUDART_INF_F;
+        }
+        s[mt][j][e] = x;
+      }
+      mx0 = fmaxf(mx0, fmaxf(s[mt][j][0], s[mt][j][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[mt][j][2], s[mt][j][3]));
+    }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    // the -inf guards of the reference: a row with nothing seen keeps
+    // m = -inf, and -inf - -inf is never formed
+    const float n0 = fmaxf(mrow[mt][0], mx0), n1 = fmaxf(mrow[mt][1], mx1);
+    const float b0 = n0 == -CUDART_INF_F ? 0.f : n0;
+    const float b1 = n1 == -CUDART_INF_F ? 0.f : n1;
+    const float alpha0 = exp2f(mrow[mt][0] - b0);
+    const float alpha1 = exp2f(mrow[mt][1] - b1);
+    mrow[mt][0] = n0;
+    mrow[mt][1] = n1;
+    lrow[mt][0] *= alpha0;
+    lrow[mt][1] *= alpha1;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      acc[mt][n][0] *= alpha0;
+      acc[mt][n][1] *= alpha0;
+      acc[mt][n][2] *= alpha1;
+      acc[mt][n][3] *= alpha1;
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      s[mt][j][0] = exp2f(s[mt][j][0] - b0);
+      s[mt][j][1] = exp2f(s[mt][j][1] - b0);
+      s[mt][j][2] = exp2f(s[mt][j][2] - b1);
+      s[mt][j][3] = exp2f(s[mt][j][3] - b1);
+      lrow[mt][0] += s[mt][j][0] + s[mt][j][1];
+      lrow[mt][1] += s[mt][j][2] + s[mt][j][3];
+    }
+  }
+
+  // ---- O += P V
+  if constexpr (sizeof(T) == 4) {
+    // k-step j takes keys 8j + (0, 2, 4, 6, 1, 3, 5, 7): A's column t is
+    // key 2t (c0, c2) and column t + 4 key 2t + 1 (c1, c3)
+    const float* vr = reinterpret_cast<const float*>(vs) + 2 * t * P + g;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      uint32_t ah[A][4], al[A][4];
+#pragma unroll
+      for (int mt = 0; mt < A; ++mt) {
+        split_tf32(s[mt][j][0], ah[mt][0], al[mt][0]);
+        split_tf32(s[mt][j][2], ah[mt][1], al[mt][1]);
+        split_tf32(s[mt][j][1], ah[mt][2], al[mt][2]);
+        split_tf32(s[mt][j][3], ah[mt][3], al[mt][3]);
+      }
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        uint32_t bh[2], bl[2];
+        split_tf32(vr[j * 8 * P + n * 8], bh[0], bl[0]);
+        split_tf32(vr[(j * 8 + 1) * P + n * 8], bh[1], bl[1]);
+#pragma unroll
+        for (int mt = 0; mt < A; ++mt)
+          mma_3xtf32(acc[mt][n], ah[mt], al[mt], bh, bl);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int kp = 0; kp < NT / 2; ++kp) {  // 16 keys a k-step
+      uint32_t a[A][4];
+#pragma unroll
+      for (int mt = 0; mt < A; ++mt) {
+        a[mt][0] = pack_bf16(s[mt][2 * kp][0], s[mt][2 * kp][1]);
+        a[mt][1] = pack_bf16(s[mt][2 * kp][2], s[mt][2 * kp][3]);
+        a[mt][2] = pack_bf16(s[mt][2 * kp + 1][0], s[mt][2 * kp + 1][1]);
+        a[mt][3] = pack_bf16(s[mt][2 * kp + 1][2], s[mt][2 * kp + 1][3]);
+      }
+      const T* vrow =
+          vs + (16 * kp + ((lane >> 3) & 1) * 8 + (lane & 7)) * P;
+      if constexpr (NO % 2 == 0) {
+#pragma unroll
+        for (int n = 0; n < NO; n += 2) {
+          uint32_t b[4];
+          ldmatrix_x4_trans(b, vrow + 8 * (n + (lane >> 4)));
+#pragma unroll
+          for (int mt = 0; mt < A; ++mt) {
+            mma_bf16(acc[mt][n], a[mt], b[0], b[1]);
+            mma_bf16(acc[mt][n + 1], a[mt], b[2], b[3]);
+          }
+        }
+      } else {
+        uint32_t b[2];
+        ldmatrix_x2_trans(b, vrow);
+#pragma unroll
+        for (int mt = 0; mt < A; ++mt) mma_bf16(acc[mt][0], a[mt], b[0], b[1]);
+      }
+    }
+  }
+}
+
+// One CTA per (work item, batch*head): blockIdx.x = item * bh_count + bh,
+// items heaviest first.  item = (q tile, first key tile, end key tile,
+// scratch slot).  part == nullptr: write the normalised output; else write
+// the (m, l, acc) partial of this key range to slot `item.w`.
+template <typename T, int D>
+__global__ void __launch_bounds__(Tiles<T, D>::kThreads, 1)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int sq, int sk,
-                 int n_qtiles, int causal, float sm_scale) {
-  static_assert(D % kThreadsPerRow == 0, "head_dim must split over a row");
-  constexpr int kPerThread = D / kThreadsPerRow;
-  __shared__ float k_tile[kBlockK][D];
-  __shared__ float v_tile[kBlockK][D];
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ part, const int4* __restrict__ items,
+                 int bh_count, int sq, int sk, int causal, float scale_log2,
+                 int n_slots) {
+  using C = Cfg<T, D>;
+  using X = Tiles<T, D>;
+  constexpr int P = C::kPitch;
+  constexpr int BK = C::kBK;
+  constexpr int BQ = X::kBQ;
+  constexpr int MT = C::kMT;
+  constexpr int NO = D / 8;
 
-  const int bh = blockIdx.x / n_qtiles;
-  const int q0 = (blockIdx.x % n_qtiles) * kBlockQ;
-  const int tid = threadIdx.x;
-  const int lane = tid % kThreadsPerRow;  // this thread's slice of head_dim
-  const int qi = q0 + tid / kThreadsPerRow;
-  const bool row_ok = qi < sq;
-  const int diag = sk - sq;  // bottom-right causal alignment
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* q_s = reinterpret_cast<T*>(smem_raw);
+  T* kv_s = q_s + BQ * P;  // stage s: K at kv_s + 2 s tile, V after it
 
-  const int64_t q_row = ((int64_t)bh * sq + (row_ok ? qi : 0)) * D;
-  const int64_t kv_base = (int64_t)bh * sk * D;
+  const int4 item = items[blockIdx.x / bh_count];
+  const int bh = blockIdx.x % bh_count;
+  const int q0 = item.x * BQ;
+  const int kt0 = item.y;
+  const int n_tiles = item.z - item.y;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int qw = q0 + warp * 16 * MT;  // this warp's first row
+  const int diag = sk - sq;            // bottom-right causal alignment
+  // m-tiles of this warp with a row before Sq
+  const int active = min(MT, max(0, (sq - qw + 15) / 16));
 
-  // element i of this thread's slice is head_dim index i * 4 + lane: the
-  // four threads of a row read neighbouring words, the eight rows of a
-  // warp read the same ones (a broadcast), so shared reads never conflict
-  float q_reg[kPerThread], acc[kPerThread];
-#pragma unroll
-  for (int i = 0; i < kPerThread; ++i) {
-    q_reg[i] = row_ok ? load_f32(q + q_row + i * kThreadsPerRow + lane) : 0.f;
-    acc[i] = 0.f;
-  }
-  float m = -CUDART_INF_F;
-  float l = 0.f;
+  const T* qb = q + (int64_t)bh * sq * D;
+  const T* kb = k + (int64_t)bh * sk * D;
+  const T* vb = v + (int64_t)bh * sk * D;
 
-  // the last key any row of this tile may see; tiles past it are skipped
-  int last_key = sk - 1;
-  if (causal) last_key = min(last_key, min(q0 + kBlockQ, sq) - 1 + diag);
-  const int n_ktiles = last_key >= 0 ? last_key / kBlockK + 1 : 0;
-
-  for (int kt = 0; kt < n_ktiles; ++kt) {
-    const int k0 = kt * kBlockK;
-    __syncthreads();  // every row is done with the previous tile
-    for (int idx = tid; idx < kBlockK * D; idx += kThreads) {
-      const int j = idx / D;
-      const int d = idx % D;
-      const bool ok = k0 + j < sk;
-      const int64_t at = kv_base + (int64_t)(k0 + j) * D + d;
-      k_tile[j][d] = ok ? load_f32(k + at) : 0.f;
-      v_tile[j][d] = ok ? load_f32(v + at) : 0.f;
+  if constexpr (C::kDK > D) {  // zero the depth padding once: cp.async
+    // never writes it
+    for (int idx = threadIdx.x; idx < (BQ + C::kStages * BK) * C::kDK;
+         idx += X::kThreads) {
+      const int r = idx / C::kDK, c = idx % C::kDK;
+      if (c < D) continue;
+      T* row = r < BQ ? q_s + r * P
+                      : kv_s + ((r - BQ) / BK) * 2 * X::kTile +
+                            ((r - BQ) % BK) * P;
+      row[c] = T(0.f);
     }
-    __syncthreads();
-
-    float s[kBlockK];
-    float tile_max = -CUDART_INF_F;
-#pragma unroll
-    for (int j = 0; j < kBlockK; ++j) {
-      float part = 0.f;
-#pragma unroll
-      for (int i = 0; i < kPerThread; ++i)
-        part = fmaf(q_reg[i], k_tile[j][i * kThreadsPerRow + lane], part);
-      // every lane of the warp takes part: the tile loop is uniform per CTA
-      part += __shfl_xor_sync(0xffffffffu, part, 1);
-      part += __shfl_xor_sync(0xffffffffu, part, 2);
-      const int key = k0 + j;
-      const bool seen = key < sk && (!causal || key <= qi + diag);
-      s[j] = seen ? part * sm_scale : -CUDART_INF_F;
-      tile_max = fmaxf(tile_max, s[j]);
-    }
-    // the -inf guards of the reference: a row with nothing seen yet keeps
-    // m = -inf, and exp(-inf - -inf) is never formed
-    const float m_new = fmaxf(m, tile_max);
-    const float m_safe = isfinite(m_new) ? m_new : 0.f;
-    const float alpha = isfinite(m) ? expf(m - m_safe) : 0.f;
-#pragma unroll
-    for (int i = 0; i < kPerThread; ++i) acc[i] *= alpha;
-    float p_sum = 0.f;
-#pragma unroll
-    for (int j = 0; j < kBlockK; ++j) {
-      const float p = isfinite(s[j]) ? expf(s[j] - m_safe) : 0.f;
-      p_sum += p;
-#pragma unroll
-      for (int i = 0; i < kPerThread; ++i)
-        acc[i] = fmaf(p, v_tile[j][i * kThreadsPerRow + lane], acc[i]);
-    }
-    l = l * alpha + p_sum;
-    m = m_new;
   }
 
-  if (row_ok) {
-    const float denom = fmaxf(l, 1e-30f);
+  auto load_tile = [&](int i) {  // key tile kt0 + i into stage i % kStages
+    T* ks = kv_s + (i % C::kStages) * 2 * X::kTile;
+    const int k0 = (kt0 + i) * BK;
+    load_rows<T, D, P, X::kThreads>(ks, kb, k0, BK, sk);
+    load_rows<T, D, P, X::kThreads>(ks + X::kTile, vb, k0, BK, sk);
+  };
+
+  if (n_tiles > 0) {
+    load_rows<T, D, P, X::kThreads>(q_s, qb, q0, BQ, sq);
+    load_tile(0);
+    cp_async_commit();
 #pragma unroll
-    for (int i = 0; i < kPerThread; ++i)
-      store_f32(o + q_row + i * kThreadsPerRow + lane, acc[i] / denom);
+    for (int i = 1; i < C::kStages - 1; ++i) {
+      if (i < n_tiles) load_tile(i);
+      cp_async_commit();
+    }
+  }
+
+  float acc[MT][NO][4];
+  float mrow[MT][2], lrow[MT][2];  // rows g and g + 8 of each m-tile;
+  // lrow holds this thread's share of the row sums
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+      acc[mt][n][0] = acc[mt][n][1] = acc[mt][n][2] = acc[mt][n][3] = 0.f;
+    mrow[mt][0] = mrow[mt][1] = -CUDART_INF_F;
+    lrow[mt][0] = lrow[mt][1] = 0.f;
+  }
+  const T* q_w = q_s + warp * 16 * MT * P;
+
+  for (int i = 0; i < n_tiles; ++i) {
+    cp_async_wait<C::kStages - 2>();
+    __syncthreads();  // tile i landed; every warp is done with tile i - 1
+    if (i + C::kStages - 1 < n_tiles) load_tile(i + C::kStages - 1);
+    cp_async_commit();
+    const T* ks = kv_s + (i % C::kStages) * 2 * X::kTile;
+    const int k0 = (kt0 + i) * BK;
+    if (active == MT)
+      tile_step<T, D, MT>(q_w, ks, ks + X::kTile, k0, qw, sk, diag, causal,
+                          scale_log2, acc, mrow, lrow);
+    else if (MT > 1 && active > 0)  // rows past Sq: nothing to compute
+      tile_step<T, D, 1>(q_w, ks, ks + X::kTile, k0, qw, sk, diag, causal,
+                         scale_log2, acc, mrow, lrow);
+  }
+
+  // ---- epilogue
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    float l0 = lrow[mt][0], l1 = lrow[mt][1];
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+    const int r0 = warp * 16 * MT + mt * 16 + g;  // row within the tile
+    const bool ok0 = q0 + r0 < sq, ok1 = q0 + r0 + 8 < sq;
+    if (part == nullptr) {
+      const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+      T* ob = o + (int64_t)bh * sq * D;
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        if (ok0)
+          store2(ob + (int64_t)(q0 + r0) * D + 8 * n + 2 * t,
+                 acc[mt][n][0] / d0, acc[mt][n][1] / d0);
+        if (ok1)
+          store2(ob + (int64_t)(q0 + r0 + 8) * D + 8 * n + 2 * t,
+                 acc[mt][n][2] / d1, acc[mt][n][3] / d1);
+      }
+    } else {
+      float* pb = part + ((int64_t)bh * n_slots + item.w) * BQ * (D + 2);
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        if (ok0)
+          store2(pb + r0 * D + 8 * n + 2 * t, acc[mt][n][0], acc[mt][n][1]);
+        if (ok1)
+          store2(pb + (r0 + 8) * D + 8 * n + 2 * t, acc[mt][n][2],
+                 acc[mt][n][3]);
+      }
+      if (t == 0) {
+        pb[BQ * D + r0] = mrow[mt][0];
+        pb[BQ * D + r0 + 8] = mrow[mt][1];
+        pb[BQ * D + BQ + r0] = l0;
+        pb[BQ * D + BQ + r0 + 8] = l1;
+      }
+    }
   }
 }
 
+// Merge the key-split partials of every output element, slots in order:
+// ranges[qt] = (first slot, count).  Deterministic; a row no split saw
+// (m = -inf everywhere) comes out exactly 0.
+template <typename T>
+__global__ void __launch_bounds__(256)
+flash_combine_kernel(const float* __restrict__ part,
+                     const int2* __restrict__ ranges, T* __restrict__ o,
+                     int sq, int d, int bq, int n_slots, int64_t total) {
+  const int64_t idx = (int64_t)blockIdx.x * 256 + threadIdx.x;
+  if (idx >= total) return;
+  const int col = (int)(idx % d);
+  const int64_t row_g = idx / d;
+  const int row = (int)(row_g % sq);
+  const int64_t bh = row_g / sq;
+  const int2 rg = ranges[row / bq];
+  const int r = row % bq;
+  const int64_t stride = (int64_t)bq * (d + 2);
+  const float* pb = part + (bh * n_slots + rg.x) * stride;
+  float m = -CUDART_INF_F;
+  for (int s = 0; s < rg.y; ++s) m = fmaxf(m, pb[s * stride + bq * d + r]);
+  const float base = m == -CUDART_INF_F ? 0.f : m;
+  float l = 0.f, a = 0.f;
+  for (int s = 0; s < rg.y; ++s) {
+    const float* ps = pb + s * stride;
+    const float w = exp2f(ps[bq * d + r] - base);
+    l += w * ps[bq * d + bq + r];
+    a += w * ps[r * d + col];
+  }
+  const float out = a / fmaxf(l, 1e-30f);
+  if constexpr (sizeof(T) == 4)
+    o[idx] = out;
+  else
+    o[idx] = __float2bfloat16(out);
+}
+
 template <typename T, int D>
-void launch(const void* q, const void* k, const void* v, void* o, int sq,
-            int sk, int n_qtiles, unsigned blocks, int causal, float sm_scale,
-            cudaStream_t stream) {
-  flash_fwd_kernel<T, D><<<blocks, kThreads, 0, stream>>>(
+int launch(const void* q, const void* k, const void* v, void* o,
+           float* part, const int4* items, int n_items, int bh, int sq,
+           int sk, int causal, float scale_log2, int n_slots,
+           cudaStream_t stream) {
+  using X = Tiles<T, D>;
+  static bool smem_set[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (!smem_set[dev]) {
+    err = cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)X::kSmem);
+    if (err != cudaSuccess) return (int)err;
+    smem_set[dev] = true;
+  }
+  const long long blocks = (long long)n_items * bh;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  flash_fwd_kernel<T, D><<<(unsigned)blocks, X::kThreads, X::kSmem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), sq, sk, n_qtiles, causal,
-      sm_scale);
+      static_cast<const T*>(v), static_cast<T*>(o), part, items, bh, sq, sk,
+      causal, scale_log2, n_slots);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
-bool dispatch_d(int d, const void* q, const void* k, const void* v, void* o,
-                int sq, int sk, int n_qtiles, unsigned blocks, int causal,
-                float sm_scale, cudaStream_t stream) {
+int dispatch_d(int d, const void* q, const void* k, const void* v, void* o,
+               float* part, const int4* items, int n_items, int bh, int sq,
+               int sk, int causal, float scale_log2, int n_slots,
+               cudaStream_t st) {
+#define MXT_FLASH_CASE(DD)                                                 \
+  case DD:                                                                 \
+    return launch<T, DD>(q, k, v, o, part, items, n_items, bh, sq, sk,     \
+                         causal, scale_log2, n_slots, st);
   switch (d) {
-    case 8: launch<T, 8>(q, k, v, o, sq, sk, n_qtiles, blocks, causal, sm_scale, stream); return true;
-    case 16: launch<T, 16>(q, k, v, o, sq, sk, n_qtiles, blocks, causal, sm_scale, stream); return true;
-    case 32: launch<T, 32>(q, k, v, o, sq, sk, n_qtiles, blocks, causal, sm_scale, stream); return true;
-    case 64: launch<T, 64>(q, k, v, o, sq, sk, n_qtiles, blocks, causal, sm_scale, stream); return true;
-    case 128: launch<T, 128>(q, k, v, o, sq, sk, n_qtiles, blocks, causal, sm_scale, stream); return true;
-    default: return false;
+    MXT_FLASH_CASE(8)
+    MXT_FLASH_CASE(16)
+    MXT_FLASH_CASE(32)
+    MXT_FLASH_CASE(64)
+    MXT_FLASH_CASE(128)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef MXT_FLASH_CASE
+}
+
+template <typename T>
+int combine(const float* part, const int2* ranges, void* o, int bh, int sq,
+            int d, int bq, int n_slots, cudaStream_t st) {
+  const int64_t total = (int64_t)bh * sq * d;
+  const int64_t blocks = (total + 255) / 256;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  flash_combine_kernel<T><<<(unsigned)blocks, 256, 0, st>>>(
+      part, ranges, static_cast<T*>(o), sq, d, bq, n_slots, total);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int block_sizes(int d, int* bq, int* bk) {
+  switch (d) {
+    case 8: *bq = Tiles<T, 8>::kBQ; *bk = Cfg<T, 8>::kBK; return 0;
+    case 16: *bq = Tiles<T, 16>::kBQ; *bk = Cfg<T, 16>::kBK; return 0;
+    case 32: *bq = Tiles<T, 32>::kBQ; *bk = Cfg<T, 32>::kBK; return 0;
+    case 64: *bq = Tiles<T, 64>::kBQ; *bk = Cfg<T, 64>::kBK; return 0;
+    case 128: *bq = Tiles<T, 128>::kBQ; *bk = Cfg<T, 128>::kBK; return 0;
+    default: return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// C interface, loaded with ctypes.  dtype: 0 = fp32, 1 = bf16.  Returns the
-// cudaError_t of the launch (0 = launched).
+// C interface, loaded with ctypes.  dtype: 0 = fp32, 1 = bf16.
+
+// The query rows and keys per tile of the (dtype, head_dim) kernel, which
+// the wrapper's work plan is made of.  Returns 0, or cudaErrorInvalidValue.
+extern "C" int mxt_flash_block_sizes(int dtype, int head_dim, int* block_q,
+                                     int* block_k) {
+  if (dtype == 0) return block_sizes<float>(head_dim, block_q, block_k);
+  if (dtype == 1)
+    return block_sizes<__nv_bfloat16>(head_dim, block_q, block_k);
+  return (int)cudaErrorInvalidValue;
+}
+
+// plan (int32, on the card): n_items rows of (q tile, kt0, kt1, slot),
+// heaviest first, then n_qtiles rows of (first slot, count).  scratch ==
+// NULL: every q tile is one item and writes the output.  Otherwise every
+// item writes a partial to scratch (bh * n_items * block_q * (head_dim + 2)
+// floats) and a second kernel merges them.  Returns the cudaError_t of the
+// launches (0 = launched).
 extern "C" int mxt_flash_attention_fwd(const void* q, const void* k,
                                        const void* v, void* o, int bh,
                                        int sq, int sk, int head_dim,
                                        int dtype, int causal, float sm_scale,
-                                       void* stream) {
-  if (bh <= 0 || sq <= 0 || sk <= 0) return (int)cudaErrorInvalidValue;
-  const int n_qtiles = (sq + kBlockQ - 1) / kBlockQ;
-  const long long blocks = (long long)n_qtiles * bh;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+                                       const void* plan, int n_items,
+                                       void* scratch, void* stream) {
+  if (bh <= 0 || sq <= 0 || sk <= 0 || n_items <= 0 || plan == nullptr)
+    return (int)cudaErrorInvalidValue;
+  if ((((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o |
+        (uintptr_t)plan) % 16) != 0)
+    return (int)cudaErrorMisalignedAddress;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  bool ok = false;
+  const int4* items = static_cast<const int4*>(plan);
+  float* part = static_cast<float*>(scratch);
+  const float scale_log2 = sm_scale * kLog2e;
+  int bq = 0, bk = 0;
+  int rc = mxt_flash_block_sizes(dtype, head_dim, &bq, &bk);
+  if (rc != 0) return rc;
   if (dtype == 0)
-    ok = dispatch_d<float>(head_dim, q, k, v, o, sq, sk, n_qtiles,
-                           (unsigned)blocks, causal, sm_scale, st);
-  else if (dtype == 1)
-    ok = dispatch_d<__nv_bfloat16>(head_dim, q, k, v, o, sq, sk, n_qtiles,
-                                   (unsigned)blocks, causal, sm_scale, st);
-  if (!ok) return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+    rc = dispatch_d<float>(head_dim, q, k, v, o, part, items, n_items, bh,
+                           sq, sk, causal, scale_log2, n_items, st);
+  else
+    rc = dispatch_d<__nv_bfloat16>(head_dim, q, k, v, o, part, items,
+                                   n_items, bh, sq, sk, causal, scale_log2,
+                                   n_items, st);
+  if (rc != 0 || part == nullptr) return rc;
+  const int2* ranges = reinterpret_cast<const int2*>(items + n_items);
+  if (dtype == 0)
+    return combine<float>(part, ranges, o, bh, sq, head_dim, bq, n_items,
+                          st);
+  return combine<__nv_bfloat16>(part, ranges, o, bh, sq, head_dim, bq,
+                                n_items, st);
 }

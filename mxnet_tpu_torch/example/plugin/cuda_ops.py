@@ -19,6 +19,7 @@ in plain PyTorch (the reference has no backward kernel either).
 """
 import ctypes
 import functools
+import struct
 import threading
 
 import torch
@@ -36,6 +37,25 @@ def _scale_tensor(scale, dtype):
     """The scale rounded to ``dtype``: a 0-d CPU tensor (torch takes it
     beside a tensor on any device without a copy to the card)."""
     return torch.tensor(scale, dtype=dtype)
+
+
+@functools.lru_cache(maxsize=256)
+def _cached_scale(key, dtype):
+    scale = struct.unpack("<d", key)[0] if isinstance(key, bytes) else key
+    return _scale_tensor(scale, dtype).item()
+
+
+def _scale_value(scale, dtype):
+    """The scale rounded to ``dtype`` as a Python number, the value of
+    :func:`_scale_tensor`; a plain number is rounded once per (value,
+    dtype) and then looked up.  A float is looked up by its bits, so
+    that -0.0 and 0.0 (equal as keys) stay apart, and an int by its
+    value, never as the float it equals."""
+    if isinstance(scale, float):
+        return _cached_scale(struct.pack("<d", scale), dtype)
+    if isinstance(scale, int):
+        return _cached_scale(int(scale), dtype)
+    return _scale_tensor(scale, dtype).item()
 
 
 def _scaled_add_plain(x, y, s):
@@ -72,36 +92,46 @@ def scaled_add(x, y, scale):
     as a transposed view is) go as they are and the output takes their
     layout, as PyTorch's elementwise ops give it; others are copied
     to contiguous first."""
-    s = _scale_tensor(scale, x.dtype)
-    if x.device.type == "cpu":
-        return _scaled_add_plain(x, y, s)
-    if y.shape != x.shape or y.dtype != x.dtype or y.device != x.device:
+    dev = x.device
+    if dev.type == "cpu":
+        return _scaled_add_plain(x, y, _scale_tensor(scale, x.dtype))
+    if y.shape != x.shape or y.dtype != x.dtype or y.device != dev:
         raise MXNetError(f"scaled_add takes x and y of one shape, dtype "
                          f"and device, got {tuple(x.shape)} {x.dtype} "
-                         f"{x.device} and {tuple(y.shape)} {y.dtype} "
+                         f"{dev} and {tuple(y.shape)} {y.dtype} "
                          f"{y.device}")
     code = _KERNEL_DTYPES.get(x.dtype)
     if code is None:
         raise MXNetError(f"scaled_add kernel takes "
                          f"{'/'.join(map(str, _KERNEL_DTYPES))}, not "
                          f"{x.dtype}")
-    order = _dense_order(x)
-    if order is None or y.stride() != x.stride():
-        x, y = x.contiguous(), y.contiguous()
-        order = list(range(x.dim()))
-    out = torch.empty_like(x)  # x's strides: x, y and out align in memory
-    if x.numel() == 0:
+    if x.is_contiguous() and y.is_contiguous():  # the common case
+        out = o = torch.empty_like(x)
+    else:
+        order = _dense_order(x)
+        if order is None or y.stride() != x.stride():
+            x, y = x.contiguous(), y.contiguous()
+            order = list(range(x.dim()))
+        out = torch.empty_like(x)  # x's strides: x, y, out align in memory
+        x, y, o = (t.permute(order) for t in (x, y, out))  # contiguous
+    n = x.numel()
+    if n == 0:
         return out
-    x, y, o = (t.permute(order) for t in (x, y, out))  # contiguous views
+    s = _scale_value(scale, x.dtype)
     is_int = code >= 3
-    with torch.cuda.device(x.device):
-        rc = _kernel()(x.data_ptr(), y.data_ptr(), o.data_ptr(),
-                       x.numel(), code, 0.0 if is_int else float(s),
-                       int(s) if is_int else 0,
-                       torch.cuda.current_stream(x.device).cuda_stream)
+    # the raw handle of the device's current stream, without building a
+    # torch.cuda.Stream object
+    args = (x.data_ptr(), y.data_ptr(), o.data_ptr(), n, code,
+            0.0 if is_int else s, s if is_int else 0,
+            torch._C._cuda_getCurrentRawStream(dev.index))
+    if dev.index == torch.cuda.current_device():
+        rc = _kernel()(*args)
+    else:
+        with torch.cuda.device(dev):
+            rc = _kernel()(*args)
     if rc != 0:
         raise MXNetError(f"scaled_add kernel launch failed (cudaError_t "
-                         f"{rc}) on {x.numel()} {x.dtype} elements")
+                         f"{rc}) on {n} {x.dtype} elements")
     with _count_lock:
         scaled_add.launches += 1
     return out
@@ -136,7 +166,7 @@ def register_ops(registry):
     @registry.register_op("plugin_scaled_add")
     def plugin_scaled_add(x, y, *, scale=1.0):
         dt = torch.promote_types(x.dtype, y.dtype)
-        s = _scale_tensor(scale, x.dtype).item()  # jnp.asarray(scale, x.dtype)
+        s = _scale_value(scale, x.dtype)  # jnp.asarray(scale, x.dtype)
         return _ScaledAdd.apply(x.to(dt), y.to(dt), s)
 
     @registry.register_op("plugin_swish")

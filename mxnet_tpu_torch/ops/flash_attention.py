@@ -15,6 +15,7 @@ PyTorch here, with both of its walks (``gather`` and ``paged``).
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import threading
 
@@ -95,26 +96,136 @@ def _check_kernel_operands(q, k, v):
     if q.numel() == 0 or k.numel() == 0:
         raise MXNetError("flash_attention kernel takes non-empty "
                          "operands")
+    if (q.data_ptr() | k.data_ptr() | v.data_ptr()) % 16:
+        raise MXNetError("flash_attention kernel takes 16-byte aligned "
+                         "operands (its cp.async copies need them); got a "
+                         "view at an odd storage offset")
+
+
+@functools.cache
+def _kernel():
+    """The C entry points of ``csrc/flash_attention.cu``, built on first
+    use: ``(mxt_flash_attention_fwd, mxt_flash_block_sizes)``."""
+    from .. import _kernels
+
+    lib = _kernels.load("flash_attention")
+    fwd = lib.mxt_flash_attention_fwd
+    fwd.restype = ctypes.c_int
+    fwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+        ctypes.c_float, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p]
+    sizes = lib.mxt_flash_block_sizes
+    sizes.restype = ctypes.c_int
+    sizes.argtypes = [ctypes.c_int, ctypes.c_int,
+                      ctypes.POINTER(ctypes.c_int),
+                      ctypes.POINTER(ctypes.c_int)]
+    return fwd, sizes
+
+
+@functools.cache
+def _block_sizes(code, head_dim):
+    """(query rows, keys) per tile of the kernel for dtype ``code``."""
+    bq, bk = ctypes.c_int(), ctypes.c_int()
+    rc = _kernel()[1](code, head_dim, ctypes.byref(bq), ctypes.byref(bk))
+    if rc != 0:
+        raise MXNetError(f"flash_attention kernel has no tiles for dtype "
+                         f"code {code}, head_dim {head_dim}")
+    return bq.value, bk.value
+
+
+def _split_plan(bh, sq, sk, causal, block_q, block_k, n_sm):
+    """The kernel's work items: ``(items, ranges, split)``.
+
+    Query tile ``qt`` sees key tiles ``[0, tiles[qt])`` (causal: up to
+    the diagonal of its last row; a tile with no visible key has 0).
+    Each q tile is one item unless ``bh`` times the q tiles is below
+    ``n_sm``: then the key range of every q tile is cut into near-equal
+    chunks of at most ``chunk`` tiles, each chunk an item that writes a
+    partial for the combine kernel.  ``chunk`` is the one, among those
+    giving at least ``n_sm`` CTAs, with the fewest waves of ``n_sm``
+    CTAs times tiles per CTA (then the fewest items); 1 when none
+    gives ``n_sm`` CTAs.  An item is ``(qt, kt0, kt1, slot)``, the slots
+    of one q tile contiguous; items are ordered heaviest first
+    (stable), which is the launch order.  ``ranges[qt]`` is ``(first
+    slot, count)``; ``split`` says whether any q tile has more than one
+    item."""
+    n_qt = -(-sq // block_q)
+    diag = sk - sq
+    tiles = []
+    for qt in range(n_qt):
+        last = sk - 1
+        if causal:
+            last = min(last, min((qt + 1) * block_q, sq) - 1 + diag)
+        tiles.append(last // block_k + 1 if last >= 0 else 0)
+
+    def parts(t, c):
+        return max(1, -(-t // c))
+
+    chunk = max(max(tiles), 1)
+    if bh * n_qt < n_sm:
+        costs = []
+        for c in range(1, chunk + 1):
+            n_items = sum(parts(t, c) for t in tiles)
+            if bh * n_items >= n_sm:
+                longest = max(-(-t // parts(t, c)) for t in tiles)
+                costs.append((-(-bh * n_items // n_sm) * longest, n_items,
+                              c))
+        chunk = min(costs)[2] if costs else 1
+    items, ranges = [], []
+    for qt, t in enumerate(tiles):
+        n = parts(t, chunk)
+        ranges.append((len(items), n))
+        for p in range(n):
+            items.append((qt, t * p // n, t * (p + 1) // n, len(items)))
+    items.sort(key=lambda it: it[1] - it[2])
+    return items, ranges, len(items) > n_qt
+
+
+@functools.lru_cache(maxsize=1024)
+def _plan_on(device, bh, sq, sk, causal, code, head_dim):
+    """``(plan tensor on device, n_items, split, block_q)`` for a call;
+    the plan is int32 ``items`` rows then ``ranges`` rows, the kernel's
+    layout."""
+    bq, bk = _block_sizes(code, head_dim)
+    items, ranges, split = _split_plan(bh, sq, sk, causal, bq, bk,
+                                       _sm_count(device))
+    flat = [x for it in items for x in it] + [x for r in ranges for x in r]
+    plan = torch.tensor(flat, dtype=torch.int32, device=device)
+    return plan, len(items), split, bq
+
+
+@functools.cache
+def _sm_count(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _flash_forward_cuda(q, k, v, causal, sm_scale):
     """Launch ``csrc/flash_attention.cu`` on the current stream of q's
     device; q/k/v are viewed as ``(batch*heads, seq, head_dim)``."""
-    from .. import _kernels
-
     _check_kernel_operands(q, k, v)
     b, h, sq, d = q.shape
     sk = k.shape[2]
-    fn = _kernels.load("flash_attention").mxt_flash_attention_fwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
-        ctypes.c_float, ctypes.c_void_p]
+    code = _KERNEL_DTYPES[q.dtype]
+    fwd = _kernel()[0]
+    plan, n_items, split, bq = _plan_on(q.device, b * h, sq, sk,
+                                        bool(causal), code, d)
     out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                b * h, sq, sk, d, _KERNEL_DTYPES[q.dtype], int(causal),
-                float(sm_scale), stream)
+    scratch = torch.empty(b * h * n_items * bq * (d + 2),
+                          dtype=torch.float32, device=q.device) \
+        if split else None
+    dev = q.device
+    # the raw handle of the device's current stream, without building a
+    # torch.cuda.Stream object
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            b * h, sq, sk, d, code, int(causal), float(sm_scale),
+            plan.data_ptr(), n_items,
+            None if scratch is None else scratch.data_ptr(),
+            torch._C._cuda_getCurrentRawStream(dev.index))
+    if dev.index == torch.cuda.current_device():
+        rc = fwd(*args)
+    else:
+        with torch.cuda.device(dev):
+            rc = fwd(*args)
     if rc != 0:
         raise MXNetError(f"flash_attention kernel launch failed "
                          f"(cudaError_t {rc}) for q {tuple(q.shape)} "

@@ -7,7 +7,8 @@ package, so on the card's host it runs without the repo's conftest:
 
 Each kernel is held against its plain version on the same inputs:
 flash attention fp32 1e-4 (another exp/sum order) and bf16 2e-2 (one
-bf16 rounding of the output), with fully masked rows exactly 0; the
+bf16 rounding of the output) and, row by row, 2^-6 of the row's largest
+value (``chip_smoke.row_rel_err``), with fully masked rows exactly 0; the
 fused BN-ReLU-conv backward as its test states; the bucket SGD and Adam
 kernels bit for bit; the LARS update (phase c) bit for bit given the
 same per-segment lr, and the whole LARS update to rtol/atol 1e-6 (the
@@ -18,6 +19,7 @@ import numpy as onp
 import pytest
 import torch
 
+from chip_smoke import BF16_ROW_TOL, row_rel_err
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.ops import flash_attention as tfa
 
@@ -38,6 +40,13 @@ def _qkv(b, h, sq, sk, d, dtype, device, seed=3):
                  for s in (sq, sk, sk))
 
 
+def _assert_close(got, want, dtype):
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    assert float((got.float() - want.float()).abs().max()) <= tol
+    if dtype == "bfloat16":
+        assert row_rel_err(got, want) <= BF16_ROW_TOL
+
+
 @pytest.mark.parametrize("case", [
     (1, 2, 16, 16, 8, "float32", True),
     (1, 2, 5, 37, 16, "float32", True),
@@ -54,10 +63,60 @@ def test_kernel_matches_plain(card, case):
     torch.cuda.synchronize()
     assert tfa.flash_attention.launches == before + 1
     assert got.dtype == q.dtype and got.shape == q.shape
-    tol = 1e-4 if dtype == "float32" else 2e-2
-    assert float((got.float() - want.float()).abs().max()) <= tol
+    _assert_close(got, want, dtype)
     if causal and sq > sk:
         assert bool((got[:, :, :sq - sk] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sq,sk,d", [(63, 63, 64), (65, 65, 64),
+                                     (130, 67, 128), (67, 130, 128),
+                                     (33, 33, 8), (70, 150, 16),
+                                     (100, 129, 32)])
+def test_kernel_tile_edges_and_depths(card, sq, sk, d, dtype, causal):
+    """Ragged q and key tiles on both sides of the 64-row edges, every
+    head_dim (bf16 D = 8 pads its depth to 16), held against the plain
+    version; fully masked rows exactly 0."""
+    q, k, v = _qkv(2, 3, sq, sk, d, dtype, card, seed=sq + sk)
+    before = tfa.flash_attention.launches
+    got = tfa.flash_attention(q, k, v, causal=causal)
+    want = tfa.flash_attention_reference(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention.launches == before + 1
+    _assert_close(got, want, dtype)
+    if causal and sq > sk:
+        assert bool((got[:, :, :sq - sk] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("sq", [1, 16])
+def test_key_split_arm_matches_plain_and_repeats(card, sq, dtype):
+    """Sq << Sk takes the key-split arm (partials merged in a fixed
+    order): within tolerance of the plain version, the same bits on
+    two runs."""
+    q, k, v = _qkv(2, 16, sq, 2048, 128, dtype, card)
+    _, _, split, _ = tfa._plan_on(q.device, 32, sq, 2048, True,
+                                  tfa._KERNEL_DTYPES[q.dtype], 128)
+    assert split
+    got = tfa.flash_attention(q, k, v, causal=True)
+    again = tfa.flash_attention(q, k, v, causal=True)
+    want = tfa.flash_attention_reference(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    _assert_close(got, want, dtype)
+    assert torch.equal(got, again)
+
+
+def test_kernel_refuses_a_misaligned_view(card):
+    """A contiguous view one element past its storage's start is not
+    16-byte aligned: the wrapper raises and launches nothing."""
+    q, k, v = _qkv(1, 2, 8, 8, 8, "float32", card)
+    q = torch.zeros(q.numel() + 1, device=card)[1:].view(q.shape)
+    assert q.is_contiguous()
+    before = tfa.flash_attention.launches
+    with pytest.raises(MXNetError, match="aligned"):
+        tfa.flash_attention(q, k, v, causal=True)
+    assert tfa.flash_attention.launches == before
 
 
 def test_naive_variant_launches_nothing(card):
@@ -445,6 +504,23 @@ def test_scaled_add_bit_identical_to_plain(card, dtype, shape):
     if shape != "strided":
         assert got.stride() == want.stride()
     assert mod.scaled_add.launches == before + (1 if n else 0)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_scaled_add_many_waves_bit_identical(card, dtype):
+    """ResNet-50's second residual shape, 128x28x28x512 (51.4 M
+    elements, many waves of CTAs), bit for bit."""
+    _, mod = _plugin()
+    tdt = getattr(torch, dtype)
+    gen = torch.Generator(device=card).manual_seed(9)
+    x, y = (torch.randn((128, 28, 28, 512), generator=gen, device=card)
+            .to(tdt) for _ in range(2))
+    before = mod.scaled_add.launches
+    got = mod.scaled_add(x, y, 0.3)
+    want = mod._scaled_add_plain(x, y, mod._scale_tensor(0.3, tdt))
+    torch.cuda.synchronize()
+    assert mod.scaled_add.launches == before + 1
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("dtype", ["float64", "uint8", "bool"])

@@ -130,7 +130,7 @@ def test_unknown_variant_raises():
 
 
 @pytest.mark.parametrize("bad", ["head_dim", "dtype", "contiguity",
-                                 "shape", "empty"])
+                                 "shape", "empty", "alignment"])
 def test_kernel_operand_checks_raise(bad):
     """What the wrapper refuses before a launch (checked on host
     tensors: the checks are plain Python)."""
@@ -143,10 +143,224 @@ def test_kernel_operand_checks_raise(bad):
         q = q.transpose(1, 2).contiguous().transpose(1, 2)
     elif bad == "shape":
         k = k[:, :1].contiguous()
+    elif bad == "alignment":  # contiguous, one element past the start
+        q = torch.zeros(q.numel() + 1)[1:].view(q.shape)
+        assert q.is_contiguous()
     else:
         q = q[:, :, :0].contiguous()
     with pytest.raises(MXNetError):
         tfa._check_kernel_operands(q, k, v)
+
+
+# ------------------------------------- the kernel's plan and its numerics
+def _plan_shapes():
+    # (bh, sq, sk, causal): the server's prefills, the card checks, the
+    # key-split shapes (Sq << Sk), fully masked q tiles (Sq > Sk)
+    return [(2, 16, 16, True), (16, 128, 128, True), (16, 512, 512, True),
+            (16, 2048, 2048, True), (32, 1, 2048, True), (32, 7, 2048, True),
+            (32, 16, 2048, True), (32, 2048, 2048, False),
+            (32, 300, 100, True), (2, 20, 5, True), (1, 65, 130, False),
+            (3, 130, 67, True), (1, 1, 1, False)]
+
+
+@pytest.mark.parametrize("shape", _plan_shapes(),
+                         ids=lambda s: "x".join(map(str, s)))
+def test_split_plan_covers_every_key_tile_once(shape):
+    """Every key tile a q tile sees is in exactly one of its items, no
+    item is empty unless its q tile sees no key, the slots of a q tile
+    are contiguous, items run heaviest first, and the grid has at least
+    132 CTAs where the shape has that much work."""
+    bh, sq, sk, causal = shape
+    bq, bk, n_sm = 64, 64, 132
+    items, ranges, split = tfa._split_plan(bh, sq, sk, causal, bq, bk, n_sm)
+    n_qt = -(-sq // bq)
+    assert len(ranges) == n_qt
+    sizes = [it[2] - it[1] for it in items]
+    assert sizes == sorted(sizes, reverse=True)
+    by_slot = {it[3]: it for it in items}
+    assert sorted(by_slot) == list(range(len(items)))
+    for qt, (first, count) in enumerate(ranges):
+        mine = [by_slot[first + i] for i in range(count)]
+        assert all(it[0] == qt for it in mine)
+        last = sk - 1
+        if causal:
+            last = min(last, min((qt + 1) * bq, sq) - 1 + (sk - sq))
+        want = last // bk + 1 if last >= 0 else 0
+        covered = sorted(kt for it in mine for kt in range(it[1], it[2]))
+        assert covered == list(range(want))
+        if want == 0:
+            assert count == 1 and mine[0][1] == mine[0][2] == 0
+        else:
+            assert all(it[2] > it[1] for it in mine)
+    assert split == (len(items) > n_qt)
+    most = sum(max(1, it) for it in (
+        (min(sk - 1, min((qt + 1) * bq, sq) - 1 + sk - sq) if causal
+         else sk - 1) // bk + 1 for qt in range(n_qt)))
+    if bh * n_qt >= n_sm:
+        assert not split
+    elif bh * most >= n_sm:
+        assert bh * len(items) >= n_sm
+    else:
+        assert len(items) == most  # every tile its own item
+
+
+def _tf32(x):
+    """cvt.rna.tf32.f32: the float32 mantissa rounded to 10 bits, ties
+    away from zero."""
+    b = x.contiguous().view(torch.int32)
+    return ((b + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _emulate_kernel(q, k, v, causal, scale, passes, n_sm=132, bq=64,
+                    bk=64, fault=None):
+    """The kernel's algorithm in float32 torch ops on (bh, s, d)
+    operands: the wrapper's plan, key tiles of ``bk``, the online
+    softmax in the exp2 domain with the -inf guards, every product
+    taken from TF32-rounded operands in ``passes`` passes (3: lo*hi +
+    hi*lo + hi*hi) or, for ``passes="bf16"``, from bf16 operands (P
+    rounded to bf16 before P V), key-split partials merged in slot
+    order.  ``fault`` plants a defect: "drop_tile" skips key tile 8,
+    "no_rescale" leaves the accumulator unscaled when the row max
+    grows."""
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    c = scale * 1.4426950408889634
+    ninf = torch.tensor(-math.inf)
+
+    def prod(a, b):
+        if passes == "bf16":
+            return (a.to(torch.bfloat16).float() @
+                    b.to(torch.bfloat16).float())
+        ah, bh_ = _tf32(a), _tf32(b)
+        if passes == 1:
+            return ah @ bh_
+        al, bl = _tf32(a - ah), _tf32(b - bh_)
+        return al @ bh_ + ah @ bl + ah @ bh_
+
+    items, ranges, split = tfa._split_plan(bh, sq, sk, causal, bq, bk, n_sm)
+    out = torch.zeros_like(q)
+    parts = {}
+    for qt, kt0, kt1, slot in items:
+        rows = torch.arange(qt * bq, min((qt + 1) * bq, sq))
+        m = torch.full((bh, len(rows)), -math.inf)
+        l = torch.zeros((bh, len(rows)))
+        acc = torch.zeros((bh, len(rows), d))
+        for kt in range(kt0, kt1):
+            if fault == "drop_tile" and kt == 8:
+                continue
+            keys = torch.arange(kt * bk, min((kt + 1) * bk, sk))
+            s = prod(q[:, rows], k[:, keys].transpose(1, 2)) * c
+            if causal:
+                seen = keys[None, :] <= rows[:, None] + (sk - sq)
+                s = torch.where(seen, s, ninf)
+            m_new = torch.maximum(m, s.amax(-1))
+            base = torch.where(m_new == -math.inf, 0.0, m_new)
+            alpha = torch.exp2(m - base)
+            p = torch.exp2(s - base[..., None])
+            l = l * alpha + p.sum(-1)
+            if fault != "no_rescale":
+                acc = acc * alpha[..., None]
+            acc = acc + prod(p, v[:, keys])
+            m = m_new
+        if split:
+            parts[slot] = (m, l, acc)
+        else:
+            out[:, rows] = acc / torch.clamp(l, min=1e-30)[..., None]
+    if split:
+        for qt, (first, count) in enumerate(ranges):
+            rows = torch.arange(qt * bq, min((qt + 1) * bq, sq))
+            ps = [parts[first + i] for i in range(count)]
+            m = torch.stack([p_[0] for p_ in ps]).amax(0)
+            base = torch.where(m == -math.inf, 0.0, m)
+            l = torch.zeros_like(m)
+            acc = torch.zeros((bh, len(rows), d))
+            for pm, pl, pa in ps:
+                w = torch.exp2(pm - base)
+                l = l + w * pl
+                acc = acc + w[..., None] * pa
+            out[:, rows] = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out
+
+
+def _float64_attention(q, k, v, causal, scale):
+    s = torch.einsum("bqd,bkd->bqk", q.double(), k.double()) * scale
+    sq, sk = q.shape[1], k.shape[1]
+    keep = torch.ones(sq, sk, dtype=torch.bool)
+    if causal:
+        keep = torch.arange(sk)[None, :] <= torch.arange(sq)[:, None] + (
+            sk - sq)
+    s = s.masked_fill(~keep, -math.inf)
+    p = torch.softmax(s, -1)
+    p = torch.where(keep.any(-1, keepdim=True), p, torch.zeros_like(p))
+    return p @ v.double()
+
+
+def test_split_tf32_numerics_hold_fp32_accuracy():
+    """The fp32 kernel's products are three TF32 passes: at (1, 4, 256,
+    256, 128) causal they are within 1e-5 of float64, where one TF32
+    pass is further off than the card's fp32 tolerance of 1e-4 (the
+    reason for the split)."""
+    rng = onp.random.RandomState(0)
+    q, k, v = (torch.from_numpy(rng.randn(4, 256, 128).astype("float32"))
+               for _ in range(3))
+    scale = 1.0 / math.sqrt(128)
+    want = _float64_attention(q, k, v, True, scale)
+    err3 = float((_emulate_kernel(q, k, v, True, scale, 3).double()
+                  - want).abs().max())
+    err1 = float((_emulate_kernel(q, k, v, True, scale, 1).double()
+                  - want).abs().max())
+    assert err3 <= 1e-5, err3
+    assert err1 > 1e-4, err1  # one pass: 1e-3 class
+
+
+@pytest.mark.parametrize("shape", [(4, 1, 700, True), (4, 7, 700, True),
+                                   (2, 130, 67, True), (2, 300, 200, True),
+                                   (2, 65, 200, False)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_key_split_partials_merge_to_the_reference(shape):
+    """The key-split arm (partials per key range, merged in slot order)
+    gives the plain version's result, and fully masked rows exactly 0."""
+    bh, sq, sk, causal = shape
+    rng = onp.random.RandomState(sq + sk)
+    q, k, v = (torch.from_numpy(rng.randn(bh, s, 32).astype("float32"))
+               for s in (sq, sk, sk))
+    scale = 1.0 / math.sqrt(32)
+    items, _, split = tfa._split_plan(bh, sq, sk, causal, 64, 64, 132)
+    got = _emulate_kernel(q, k, v, causal, scale, 3)
+    want = tfa.flash_attention_reference(q[None], k[None], v[None],
+                                         causal=causal, sm_scale=scale)[0]
+    assert split
+    assert float((got - want).abs().max()) <= 1e-5
+    if causal and sq > sk:
+        assert (got[:, :sq - sk] == 0).all()
+
+
+@pytest.mark.parametrize("fault", [None, "drop_tile", "no_rescale"])
+def test_bf16_card_check_passes_the_kernel_and_fails_planted_faults(
+        fault):
+    """The card's bf16 check (``chip_smoke.py``: max abs 2e-2 and, row
+    by row, ``BF16_ROW_TOL`` of the row's largest value) against the
+    bf16 kernel's numerics at (1, 2, 1024, 1024, 128) causal: the
+    kernel as built passes; a dropped key tile (rows of 513 keys and
+    more) or a missed rescale of the accumulator fails it row by row."""
+    from chip_smoke import BF16_ROW_TOL, TOL, row_rel_err
+
+    rng = onp.random.RandomState(5)
+    q, k, v = (torch.from_numpy(rng.randn(2, 1024, 128).astype("float32"))
+               .to(torch.bfloat16).float() for _ in range(3))
+    scale = 1.0 / math.sqrt(128)
+    # one SM: no key split, each q tile walks all its key tiles
+    got = _emulate_kernel(q, k, v, True, scale, "bf16", n_sm=1,
+                          fault=fault).to(torch.bfloat16)
+    want = tfa.flash_attention_reference(
+        *(t.to(torch.bfloat16)[None] for t in (q, k, v)), causal=True,
+        sm_scale=scale)[0]
+    rel = row_rel_err(got, want)
+    err = float((got.float() - want.float()).abs().max())
+    if fault is None:
+        assert rel <= BF16_ROW_TOL and err <= TOL["bfloat16"], (rel, err)
+    else:
+        assert rel > BF16_ROW_TOL, (rel, err)
 
 
 # ------------------------------------------------ paged decode attention

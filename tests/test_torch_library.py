@@ -15,6 +15,7 @@ sums in fp32 and rounds once, so each is held exactly to its own sum.  ``plugin_
 atol 1e-7 in fp32 (another sigmoid and its derivative); in bf16 one
 ulp for the value, four for its gradient.
 """
+import math
 import os
 
 import numpy as onp
@@ -232,3 +233,24 @@ def test_wrapper_takes_the_plain_version_on_the_cpu(plugin):
     assert plugin.scaled_add.launches == before  # no kernel on the CPU
     t = x.t()  # a transposed view
     assert torch.equal(plugin.scaled_add(t, t, 2.0), t + t * 2.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16, torch.int32, torch.int64])
+def test_scale_value_is_the_scale_tensors_value(plugin, dtype):
+    """The wrapper's cached scale equals the 0-d tensor the plain version
+    multiplies by (the reference's ``jnp.asarray(scale, x.dtype)``),
+    for random and edge values, twice (the second a cache hit)."""
+    rng = onp.random.RandomState(4)
+    values = [0.5, 0.1, 1.0 / 3, -2.75, 7, 0, 1e-8, 65504.0, 3.7, -3.7]
+    values += [float(v) for v in rng.randn(50) * 10.0 ** rng.randint(
+        -6, 4, 50)]
+    # -0.0 after 0.0 (and back) is looked up apart from it: equal as
+    # floats, they differ in the sign the product carries
+    values += [0.0, -0.0, 0.0, -0.0, 1, 1.0, True]
+    for v in values:
+        want = plugin._scale_tensor(v, dtype).item()
+        for _ in range(2):
+            got = plugin._scale_value(v, dtype)
+            assert got == want and type(got) is type(want)
+            assert math.copysign(1.0, got) == math.copysign(1.0, want)
