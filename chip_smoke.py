@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (``mxnet_tpu_torch``) on one CUDA card.
 
-    python3 chip_smoke.py [--out FILE] [--profile]
+    python3 chip_smoke.py [--out FILE] [--profile] [--old-brc SOURCE]
 
 Builds every CUDA kernel from ``mxnet_tpu_torch/csrc`` with nvcc,
 checks that the flash kernel runs on the tensor cores (TF32 HMMA in
 the SASS of each fp32 instantiation, bf16 HMMA in each bf16 one, no
-register spills at head_dim 128), holds each kernel against
+register spills at head_dim 128) and so do the bf16 product kernels of
+the fused backward (bf16 MMAs, no spills), holds each kernel against
 its plain PyTorch version on the card, serves the
 generative decoder end to end through ``GenerativeServer`` at the width
 of the repo's generate benchmark and at a wide configuration, drives
@@ -321,10 +322,11 @@ NAMED_CASES = {(1, 16, 2048, 2048, 128, "float32", True),
 
 
 def sass_hmma(name):
-    """{kernel function: {"hmma": n, "tf32": n, "bf16": n}}: the HMMA
-    (tensor-core MMA) instructions in each function's SASS in the built
-    library ``name``, all and those of TF32 and of bf16 operands, by
-    ``cuobjdump -sass`` from the CUDA toolkit."""
+    """{kernel function: {"hmma": n, "tf32": n, "bf16": n}}: the
+    tensor-core MMA instructions (``HMMA`` of mma.sync, ``HGMMA`` of
+    wgmma) in each function's SASS in the built library ``name``, all
+    and those of TF32 and of bf16 operands, by ``cuobjdump -sass`` from
+    the CUDA toolkit."""
     from mxnet_tpu_torch import _kernels
 
     tool = os.path.join(os.path.dirname(_kernels._nvcc()), "cuobjdump")
@@ -337,7 +339,7 @@ def sass_hmma(name):
         if "Function :" in line:
             fn = line.split("Function :", 1)[1].strip()
             counts.setdefault(fn, {"hmma": 0, "tf32": 0, "bf16": 0})
-        elif fn is not None and "HMMA" in line:
+        elif fn is not None and ("HMMA" in line or "HGMMA" in line):
             c = counts[fn]
             c["hmma"] += 1
             c["tf32"] += "TF32" in line
@@ -567,9 +569,60 @@ BRC_STAGES = [(128 * 56 * 56, 64, 256, 3), (128 * 28 * 28, 128, 512, 4),
 BRC_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (2.0 ** -7, 1e-3)}
 
 
-def brc_case(m, ci, co, dtype, path, seed):
+def old_brc_runner(source, workdir):
+    """``fn(dy, u, w2, g, b, mu, inv)`` that launches the fused backward
+    built from ``source``, an earlier version of
+    ``csrc/bnreluconv_bwd.cu`` with the same C interface, under that
+    version's own launch plan (64-row tiles, about four CTAs an SM, dW
+    splits of 256 rows or more): to time it beside the current kernel
+    in one run.  Its launches are not counted."""
+    import ctypes
+
+    import torch
+
+    from mxnet_tpu_torch import _kernels
+
+    lib = os.path.join(workdir, "libbnreluconv_bwd_old.so")
+    out = subprocess.run([_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-o", lib,
+                          source], capture_output=True, text=True,
+                         timeout=600)
+    check(out.returncode == 0, f"building {source} failed: "
+                               f"{(out.stdout + out.stderr)[-3000:]}")
+    fn = ctypes.CDLL(lib).mxt_bnreluconv_bwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [
+        ctypes.c_void_p]
+
+    def run(dy, u, w2, g, b, mu, inv):
+        m, co = dy.shape
+        ci = u.shape[1]
+        ci_tiles, co_tiles = -(-ci // 64), -(-co // 64)
+        groups = max(1, min(-(-m // 64), -(-528 // ci_tiles)))
+        splits = max(1, min(-(-m // 256), -(-528 // (ci_tiles * co_tiles))))
+        f32 = dict(dtype=torch.float32, device=dy.device)
+        d_bn = torch.empty_like(u)
+        dw = torch.empty((ci, co), **f32)
+        s = torch.empty((2, ci), **f32)
+        s_part = torch.empty((2, groups, ci), **f32)
+        dw_part = torch.empty((splits, ci, co), **f32)
+        rc = fn(dy.data_ptr(), u.data_ptr(), w2.t().data_ptr(),
+                g.data_ptr(), b.data_ptr(), mu.data_ptr(), inv.data_ptr(),
+                d_bn.data_ptr(), dw.data_ptr(), s.data_ptr(),
+                s_part.data_ptr(), dw_part.data_ptr(), m, ci, co, groups,
+                splits, 0 if dy.dtype == torch.float32 else 1,
+                torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"the earlier fused backward did not launch "
+                       f"(cudaError_t {rc})")
+        return d_bn, dw, s[0:1], s[1:2]
+
+    return run
+
+
+def brc_case(m, ci, co, dtype, path, seed, old=None):
     """The fused BN-ReLU-1x1-conv backward (pass 1) at one shape: kernel
-    against plain on the same inputs, times, and the bound."""
+    against plain on the same inputs, times, and the bound; with
+    ``old`` (an :func:`old_brc_runner`), that kernel's time and error
+    too."""
     import torch
 
     from mxnet_tpu_torch.ops import pallas_conv as pc
@@ -615,6 +668,20 @@ def brc_case(m, ci, co, dtype, path, seed):
     ms = time_ms(lambda: pc.bnreluconv_bwd(*args))
     plain_ms = time_ms(lambda: pc._bwd_pass1_reference(*args))
     matmul_ms = time_ms(lambda: (dy @ w2.t(), relu_act.t() @ dy))
+    if path == "resnet50_stage":  # device time of each of its kernels
+        earlier = {"kernel_device_ms": device_ms(
+            lambda: pc.bnreluconv_bwd(*args), calls=10, by_kernel=True)}
+    else:
+        earlier = {}
+    if old is not None:
+        prev = old(*args)
+        torch.cuda.synchronize()
+        earlier.update({
+            "earlier_kernel_ms": time_ms(lambda: old(*args)),
+            "earlier_kernel_max_abs_err": max(
+                float((a.float() - r.float()).abs().max())
+                for a, r in zip(prev, want)),
+            "ms_again": time_ms(lambda: pc.bnreluconv_bwd(*args))})
     size = 2 if dtype == "bfloat16" else 4
     flops = 4.0 * m * ci * co
     nbytes = float(size * (m * co + 2 * m * ci + ci * co) + 4 * ci * co)
@@ -627,7 +694,7 @@ def brc_case(m, ci, co, dtype, path, seed):
             "library": "none: no single PyTorch call computes this "
                        "function",
             "yardstick_two_matmuls_ms": matmul_ms, "flops": flops,
-            "bytes": nbytes}
+            "bytes": nbytes, **earlier}
 
 
 def bucket_case(n, dtype, momentum, path, seed):
@@ -1420,7 +1487,8 @@ def train_phase(name, warmup, steps, seed=0):
         **{f"{k}_launches": v for k, v in launches.items()},
         "build_s": build_s,
         "profile_3_steps": device_profile(prof, wall, top=25, shares={
-            "bnreluconv_bwd": ("dact_kernel", "dw_kernel", "reduce_dw",
+            "bnreluconv_bwd": ("dact_mma_kernel", "dw_mma_kernel",
+                               "dact_kernel", "dw_kernel", "reduce_dw",
                                "reduce_s"),
             "bucket_update": ("bucket_sgd_kernel", "bucket_adam_kernel",
                               "lars_norms_kernel", "lars_trust_kernel",
@@ -1617,7 +1685,7 @@ def cuda_vs_cpu_phase(which, host, batch=4, seed=3):
     return res
 
 
-def run(profile=False):
+def run(profile=False, old_brc=None, workdir=None):
     import torch
 
     dev = "cuda"
@@ -1656,10 +1724,23 @@ def run(profile=False):
     log(f"[sass flash_attention] {hmma} HMMA instructions; D = 128 "
         f"(spill store, spill load bytes, registers): "
         f"{sorted(map(tuple, spills.values()))}")
+    # the bf16 fused backward runs on the tensor cores: each
+    # instantiation of its two product kernels (16-byte copies and
+    # element loads) holds bf16 MMAs and spills nothing
+    brc_sass = {f: c for f, c in sass_hmma("bnreluconv_bwd").items()
+                if "mma_kernel" in f}
+    brc_spills = ptxas_spills(_kernels.build_log("bnreluconv_bwd") or "",
+                              "mma_kernel")
+    for f, c in sorted(brc_sass.items()):
+        log(f"[sass bnreluconv_bwd] {f}: {c}")
+    log(f"[sass bnreluconv_bwd] (spill store, spill load bytes, "
+        f"registers): {sorted(map(tuple, brc_spills.values()))}")
     emit({"phase": "build", "sources": _kernels.sources(),
           "compiled": built, "seconds": build_s,
           "flash_sass_hmma": hmma, "flash_sass_by_function": fwd,
-          "flash_d128_spills": spills})
+          "flash_d128_spills": spills,
+          "bnreluconv_sass_by_function": brc_sass,
+          "bnreluconv_mma_spills": brc_spills})
     # one instantiation per head_dim 8, 16, 32, 64, 128 and dtype
     check(len(f32) == 5 and all(c["tf32"] > 0 for c in f32.values()),
           f"an fp32 flash kernel holds no TF32 HMMA: {f32}")
@@ -1668,6 +1749,13 @@ def run(profile=False):
     check(len(spills) >= 2 and all(v[:2] == [0, 0]
                                    for v in spills.values()),
           f"flash D = 128 instantiations spill: {spills}")
+    check(len(brc_sass) == 4 and all(c["bf16"] > 0 and c["tf32"] == 0
+                                     for c in brc_sass.values()),
+          f"a bf16 fused-backward product kernel holds no bf16 tensor-core "
+          f"MMA: {brc_sass}")
+    check(len(brc_spills) == 4 and all(v[:2] == [0, 0]
+                                       for v in brc_spills.values()),
+          f"fused-backward product kernels spill: {brc_spills}")
 
     cases = []
     for i, case in enumerate(kernel_cases()):
@@ -1710,19 +1798,24 @@ def run(profile=False):
           f"wide prefill cuda vs cpu max abs {errs} > {WIDE_PREFILL_TOL}")
     del wide_params
 
+    old = None if old_brc is None else old_brc_runner(old_brc, workdir)
     brc = []
     for i, (m, ci, co, _per_step) in enumerate(BRC_STAGES):
         for dtype in ("bfloat16", "float32"):
             brc.append(brc_case(m, ci, co, dtype, "resnet50_stage",
-                                seed=100 + i))
+                                seed=100 + i, old=old))
     for j, dtype in enumerate(("bfloat16", "float32")):
         # ragged M, and the smallest Ci/Co the path uses
         brc.append(brc_case(100003, 64, 256, dtype, "check", seed=110 + j))
+    # bf16 with Co not a multiple of 8: the element-load arm
+    brc.append(brc_case(4133, 64, 250, "bfloat16", "check", seed=112))
     for c in brc:
         log(f"[bnreluconv] {c['shape']} {c['dtype']} err={c['max_abs_err']:.3g}"
             f" ms={c['ms']:.4f} plain={c['plain_ms']:.4f} "
             f"matmuls={c['yardstick_two_matmuls_ms']:.4f} "
-            f"bound={c['bound_ms']:.4f}")
+            f"bound={c['bound_ms']:.4f}" +
+            (f" earlier={c['earlier_kernel_ms']:.4f} "
+             f"again={c['ms_again']:.4f}" if "ms_again" in c else ""))
     emit({"phase": "kernels_bnreluconv", "cases": brc})
 
     plan = resnet50_plan()
@@ -1894,6 +1987,11 @@ def main(argv=None):
                          "name, device idle share); slows the campaign. "
                          "The training phase always profiles three extra "
                          "steps")
+    ap.add_argument("--old-brc", default=None, metavar="SOURCE",
+                    help="also time an earlier version of "
+                         "csrc/bnreluconv_bwd.cu (same C interface), "
+                         "built from SOURCE, at the fused backward's "
+                         "stage shapes")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -1915,7 +2013,9 @@ def main(argv=None):
     cache_dir = tempfile.mkdtemp(prefix="chip_smoke_autotune_")
     os.environ["MXNET_AUTOTUNE_CACHE_DIR"] = cache_dir
     try:
-        run(profile=args.profile)
+        run(profile=args.profile,
+            old_brc=args.old_brc and os.path.abspath(args.old_brc),
+            workdir=cache_dir)
     except Exception:  # any failed phase fails the run, loudly
         log(traceback.format_exc())
         return 1

@@ -6,7 +6,11 @@ launches the hand-written Hopper kernel ``csrc/flash_attention.cu``,
 the port of the reference's Pallas ``_flash_kernel``; on a CPU tensor
 it computes :func:`flash_attention_reference`, the plain PyTorch
 version of the same math.  A CUDA tensor never falls back: the kernel
-launches, or the wrapper raises.
+launches, or the wrapper raises.  The kernel has tiles for head dims 8,
+16, 32, 64 and 128; any other head_dim up to 128 runs it at the next of
+those depths, q, k and v zero-padded (which adds exact zeros to every
+score) and the output sliced back.  It has no backward yet, so on a CUDA
+tensor an operand that requires grad raises rather than getting none.
 
 :func:`paged_decode_attention` is the decode step's attention over the
 paged KV cache.  It is plain ``jnp`` in the reference, so it is plain
@@ -30,6 +34,7 @@ __all__ = ["flash_attention", "flash_attention_reference",
 #: three kernel variants (block sizes and the padding shim on the TPU)
 #: all mean the one hand-written kernel on a CUDA tensor
 _VARIANTS = ("naive", "pallas", "pallas_b256", "pallas_pad")
+#: the depths the kernel has tiles for; other head dims pad to the next
 _KERNEL_HEAD_DIMS = (8, 16, 32, 64, 128)
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _count_lock = threading.Lock()
@@ -78,9 +83,10 @@ def _check_kernel_operands(q, k, v):
         raise MXNetError(f"flash_attention shapes disagree: q "
                          f"{tuple(q.shape)}, k {tuple(k.shape)}, v "
                          f"{tuple(v.shape)}")
-    if d not in _KERNEL_HEAD_DIMS:
-        raise MXNetError(f"flash_attention kernel takes head_dim in "
-                         f"{_KERNEL_HEAD_DIMS}, got {d}")
+    if not 1 <= d <= _KERNEL_HEAD_DIMS[-1]:
+        raise MXNetError(f"flash_attention kernel takes head_dim 1 to "
+                         f"{_KERNEL_HEAD_DIMS[-1]} (its deepest tiles), "
+                         f"got {d}")
     if q.dtype not in _KERNEL_DTYPES or k.dtype != q.dtype or \
             v.dtype != q.dtype:
         raise MXNetError(f"flash_attention kernel takes float32 or "
@@ -100,6 +106,28 @@ def _check_kernel_operands(q, k, v):
         raise MXNetError("flash_attention kernel takes 16-byte aligned "
                          "operands (its cp.async copies need them); got a "
                          "view at an odd storage offset")
+
+
+def _check_no_grad(q, k, v):
+    """Raise where autograd would need the kernel's backward, which is
+    not written yet: grad mode on and an operand that requires grad.
+    Without this the output would carry no autograd node, and q, k and
+    v would silently get no gradient."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise MXNetError("flash_attention's CUDA kernel has no backward "
+                         "yet: call it under torch.no_grad() or on "
+                         "operands that do not require grad, or ask for "
+                         "the plain version with variant='naive'")
+
+
+def _kernel_depth(d):
+    """The kernel depth a head_dim of ``d`` (1 to 128) runs at."""
+    return next(x for x in _KERNEL_HEAD_DIMS if x >= d)
+
+
+def _pad_depth(x, depth):
+    """``x`` zero-padded along its last axis to ``depth`` (contiguous)."""
+    return torch.nn.functional.pad(x, (0, depth - x.shape[-1]))
 
 
 @functools.cache
@@ -201,10 +229,16 @@ def _sm_count(device):
 
 def _flash_forward_cuda(q, k, v, causal, sm_scale):
     """Launch ``csrc/flash_attention.cu`` on the current stream of q's
-    device; q/k/v are viewed as ``(batch*heads, seq, head_dim)``."""
+    device; q/k/v are viewed as ``(batch*heads, seq, head_dim)``.  A
+    head_dim without tiles of its own runs at the next depth that has
+    them, zero-padded, and the output is sliced back."""
     _check_kernel_operands(q, k, v)
-    b, h, sq, d = q.shape
+    _check_no_grad(q, k, v)
+    b, h, sq, head_dim = q.shape
     sk = k.shape[2]
+    d = _kernel_depth(head_dim)
+    if d != head_dim:
+        q, k, v = (_pad_depth(t, d) for t in (q, k, v))
     code = _KERNEL_DTYPES[q.dtype]
     fwd = _kernel()[0]
     plan, n_items, split, bq = _plan_on(q.device, b * h, sq, sk,
@@ -232,7 +266,7 @@ def _flash_forward_cuda(q, k, v, causal, sm_scale):
                          f"{q.dtype}, k {tuple(k.shape)}")
     with _count_lock:
         flash_attention.launches += 1
-    return out
+    return out if d == head_dim else out[..., :head_dim].contiguous()
 
 
 def _resolve_variant(variant):
@@ -254,8 +288,11 @@ def flash_attention(q, k, v, causal=False, sm_scale=None, variant=None):
     On a CUDA tensor every kernel variant (``pallas``, ``pallas_b256``,
     ``pallas_pad``, or None) launches the hand-written kernel and
     ``naive`` computes the plain version; on a CPU tensor the plain
-    version runs whatever the variant.  ``flash_attention.launches``
-    counts kernel launches."""
+    version runs whatever the variant.  The kernel takes head_dim up to
+    128 and, having no backward yet, raises on an operand that requires
+    grad while grad mode is on.  ``sm_scale`` defaults to
+    ``1/sqrt(head_dim)`` of the operands as given.
+    ``flash_attention.launches`` counts kernel launches."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     variant = _resolve_variant(variant)

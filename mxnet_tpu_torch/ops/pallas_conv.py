@@ -38,10 +38,19 @@ from .nn import _bn_stats
 __all__ = ["enabled", "fused_bn_relu_conv1x1", "bnreluconv_bwd"]
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: the kernel's output tile (rows and columns) and the CTA count it
-#: aims its split of M at: four per SM of an H100 (132 SMs)
-_TILE = 64
-_TARGET_CTAS = 4 * 132
+#: the kernel's tiles per dtype (``csrc/bnreluconv_bwd.cu``): rows of a
+#: d_act block, (Ci, Co) of a dW tile, and the d_act Ci tile.  bf16 runs
+#: on the tensor cores, fp32 on the CUDA cores
+_TILES = {torch.bfloat16: dict(rows=128, ci=64, co=128, dact_ci=64),
+          torch.float32: dict(rows=64, ci=64, co=64, dact_ci=64)}
+#: a dW split's rows are a multiple of this (``kSplitAlign``)
+_SPLIT_ALIGN = 32
+#: CTAs the plan aims each pass at: two waves of three CTAs on each of an
+#: H100's 132 SMs
+_TARGET_CTAS = 2 * 3 * 132
+#: fewest rows a dW split takes, so that a split's partial is worth its
+#: write and its read in the reduce
+_MIN_SPLIT_ROWS = 256
 _count_lock = threading.Lock()
 
 
@@ -106,14 +115,35 @@ def _bwd_pass1_reference(dy, u, w2, g, b, mu, inv):
     return d_bnout32.to(dy.dtype), dw, s1, s2
 
 
-def _bwd_plan(m, ci, co):
-    """(row groups of the d_act pass, M splits of the dW pass): enough
-    CTAs for about four per SM, never more than the rows allow."""
-    ci_tiles = -(-ci // _TILE)
-    co_tiles = -(-co // _TILE)
-    groups = max(1, min(-(-m // _TILE), -(-_TARGET_CTAS // ci_tiles)))
-    splits = max(1, min(-(-m // 256),
-                        -(-_TARGET_CTAS // (ci_tiles * co_tiles))))
+def _split_rows(m, splits):
+    """Rows per dW split, as the kernel computes them (``split_rows``):
+    split ``s`` covers ``[s * rows, (s + 1) * rows)`` clipped to M."""
+    rows = -(-m // splits)
+    return -(-rows // _SPLIT_ALIGN) * _SPLIT_ALIGN
+
+
+def _group_blocks(n_blocks, groups):
+    """Row blocks per d_act group, as the kernel computes them: group
+    ``g`` walks blocks ``[g * per, (g + 1) * per)`` clipped to the
+    count."""
+    return -(-n_blocks // groups)
+
+
+def _bwd_plan(m, ci, co, dtype):
+    """(row groups of the d_act pass, M splits of the dW pass) for the
+    kernel's ``dtype`` tiles: about ``_TARGET_CTAS`` CTAs in each pass,
+    no split under ``_MIN_SPLIT_ROWS`` rows, and neither a group nor a
+    split left without rows (each is trimmed to the count its share
+    needs, which sizes the scratch exactly)."""
+    t = _TILES[dtype]
+    n_blocks = -(-m // t["rows"])
+    dact_tiles = -(-ci // t["dact_ci"])
+    groups = max(1, min(n_blocks, -(-_TARGET_CTAS // dact_tiles)))
+    groups = -(-n_blocks // _group_blocks(n_blocks, groups))
+    dw_tiles = -(-ci // t["ci"]) * -(-co // t["co"])
+    splits = max(1, min(-(-m // _MIN_SPLIT_ROWS),
+                        -(-_TARGET_CTAS // dw_tiles)))
+    splits = -(-m // _split_rows(m, splits))
     return groups, splits
 
 
@@ -157,7 +187,7 @@ def _bwd_pass1_cuda(dy, u, w2, g, b, mu, inv):
     _check_operands(dy, u, w2, (g, b, mu, inv))
     m, co = dy.shape
     ci = u.shape[1]
-    groups, splits = _bwd_plan(m, ci, co)
+    groups, splits = _bwd_plan(m, ci, co, dy.dtype)
     fn = _kernels.load("bnreluconv_bwd").mxt_bnreluconv_bwd
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [

@@ -129,8 +129,8 @@ def test_naive_variant_launches_nothing(card):
 @pytest.mark.parametrize("bad", ["head_dim", "dtype", "contiguity"])
 def test_kernel_refuses_what_it_does_not_take(card, bad):
     q, k, v = _qkv(1, 2, 8, 8, 8, "float32", card)
-    if bad == "head_dim":
-        q, k, v = _qkv(1, 2, 8, 8, 12, "float32", card)
+    if bad == "head_dim":  # past the deepest tiles (128)
+        q, k, v = _qkv(1, 2, 8, 8, 256, "float32", card)
     elif bad == "dtype":
         q, k, v = q.half(), k.half(), v.half()
     else:
@@ -141,24 +141,86 @@ def test_kernel_refuses_what_it_does_not_take(card, bad):
     assert tfa.flash_attention.launches == before
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [24, 40, 96])
+def test_kernel_runs_head_dims_without_tiles(card, d, causal, dtype):
+    """A head_dim between the kernel's depths runs the kernel at the
+    next depth, zero-padded, and comes back at its own depth: held
+    against the plain version under the usual tolerances."""
+    q, k, v = _qkv(2, 3, 70, 90, d, dtype, card, seed=d)
+    before = tfa.flash_attention.launches
+    got = tfa.flash_attention(q, k, v, causal=causal)
+    want = tfa.flash_attention_reference(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention.launches == before + 1
+    assert got.shape == q.shape and got.dtype == q.dtype
+    assert got.is_contiguous()
+    _assert_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("needs", ["q", "k", "v"])
+def test_kernel_refuses_operands_that_require_grad(card, needs):
+    """The kernel has no backward: an operand that requires grad raises
+    and launches nothing, where it would otherwise get no gradient;
+    under torch.no_grad() the kernel runs."""
+    ops = dict(zip("qkv", _qkv(1, 2, 16, 16, 32, "float32", card)))
+    ops[needs].requires_grad_(True)
+    before = tfa.flash_attention.launches
+    with pytest.raises(MXNetError, match="no backward"):
+        tfa.flash_attention(ops["q"], ops["k"], ops["v"], causal=True)
+    assert tfa.flash_attention.launches == before
+    with torch.no_grad():
+        out = tfa.flash_attention(ops["q"], ops["k"], ops["v"], causal=True)
+    assert tfa.flash_attention.launches == before + 1
+    assert not out.requires_grad
+
+
+def _tensors(tree):
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tensors(v)
+
+
+def _served_tokens(params, device, head_dim=8):
+    from mxnet_tpu_torch.serving import GenerativeServer
+
+    srv = GenerativeServer(params=params, device=device, head_dim=head_dim,
+                           prompt_buckets=(4, 8), max_new=6, slots=4,
+                           page_tokens=4, pool_budget=1 << 16,
+                           kv_dtype="float32")
+    srv.start(warm=True)
+    try:
+        return [srv.submit(p, max_new=6).result(timeout=60)
+                for p in ([1, 2, 3], [5], [7, 3, 9, 2, 11])]
+    finally:
+        srv.close()
+
+
 def test_server_tokens_equal_on_card_and_host(card):
-    from mxnet_tpu_torch.serving import GenerativeServer, toy_decoder_params
+    from mxnet_tpu_torch.serving import toy_decoder_params
 
     params = toy_decoder_params(seed=0, device="cpu")
-    outs = {}
-    for device in (card, "cpu"):
-        srv = GenerativeServer(params=params, device=device,
-                               prompt_buckets=(4, 8), max_new=6, slots=4,
-                               page_tokens=4, pool_budget=1 << 16,
-                               kv_dtype="float32")
-        srv.start(warm=True)
-        try:
-            outs[str(device)] = [
-                srv.submit(p, max_new=6).result(timeout=60)
-                for p in ([1, 2, 3], [5], [7, 3, 9, 2, 11])]
-        finally:
-            srv.close()
-    assert outs[str(card)] == outs["cpu"]
+    assert _served_tokens(params, card) == _served_tokens(params, "cpu")
+
+
+def test_server_serves_a_padded_head_dim_with_the_grad_guard(card):
+    """head_dim 24 prefills through the kernel at depth 32, and serving
+    runs with the gradient guard in place (its parameters require no
+    grad): the same tokens as on the host."""
+    from mxnet_tpu_torch.serving import toy_decoder_params
+
+    params = toy_decoder_params(seed=0, head_dim=24, device="cpu")
+    assert not any(t.requires_grad for t in _tensors(params))
+    before = tfa.flash_attention.launches
+    on_card = _served_tokens(params, card, head_dim=24)
+    assert tfa.flash_attention.launches > before
+    assert on_card == _served_tokens(params, "cpu", head_dim=24)
 
 
 # ------------------------------------------- the ResNet training slice
@@ -180,6 +242,10 @@ def _brc_inputs(m, ci, co, dtype, device, seed=5):
     (300, 8, 24, "float32"), (4133, 64, 256, "float32"),
     (4133, 64, 256, "bfloat16"), (1000, 512, 2048, "bfloat16"),
     (77, 100, 70, "float32"),
+    # bf16 on the tensor cores: ragged widths and an unaligned Co (the
+    # element-load arm), and a stage-4-like shape
+    (77, 100, 70, "bfloat16"), (300, 8, 24, "bfloat16"),
+    (4133, 64, 250, "bfloat16"), (6272, 512, 2048, "bfloat16"),
 ])
 def test_bnreluconv_kernel_matches_plain(card, case):
     """d_bn: fp32 1e-5 of the largest value, bf16 one ulp of each value

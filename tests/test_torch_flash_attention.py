@@ -135,8 +135,8 @@ def test_kernel_operand_checks_raise(bad):
     """What the wrapper refuses before a launch (checked on host
     tensors: the checks are plain Python)."""
     q, k, v = (torch.from_numpy(a) for a in _qkv(1, 2, 8, 8, 8, 0))
-    if bad == "head_dim":
-        q, k, v = (torch.zeros(1, 2, 8, 12) for _ in range(3))
+    if bad == "head_dim":  # past the deepest tiles (128)
+        q, k, v = (torch.zeros(1, 2, 8, 256) for _ in range(3))
     elif bad == "dtype":
         q, k, v = q.half(), k.half(), v.half()
     elif bad == "contiguity":
@@ -148,8 +148,72 @@ def test_kernel_operand_checks_raise(bad):
         assert q.is_contiguous()
     else:
         q = q[:, :, :0].contiguous()
-    with pytest.raises(MXNetError):
+    with pytest.raises(MXNetError, match="128" if bad == "head_dim"
+                       else None):
         tfa._check_kernel_operands(q, k, v)
+
+
+@pytest.mark.parametrize("d", [1, 5, 8, 12, 24, 40, 96, 100, 128])
+def test_head_dims_up_to_128_pass_the_checks(d):
+    """Every head_dim from 1 to 128 is taken: it runs at the next depth
+    the kernel has tiles for."""
+    q, k, v = (torch.zeros(1, 2, 8, d) for _ in range(3))
+    tfa._check_kernel_operands(q, k, v)
+    depth = tfa._kernel_depth(d)
+    assert depth in tfa._KERNEL_HEAD_DIMS and d <= depth
+    assert depth == 8 or depth // 2 < d
+
+
+@pytest.mark.parametrize("needs", ["q", "k", "v"])
+def test_grad_guard_raises_when_an_operand_requires_grad(needs):
+    """The kernel has no backward: with grad mode on, an operand that
+    requires grad raises (checked on host tensors: the guard is plain
+    Python, and the kernel path calls it before any launch)."""
+    ops = {n: torch.from_numpy(a) for n, a in
+           zip("qkv", _qkv(1, 2, 8, 8, 8, 0))}
+    ops[needs].requires_grad_(True)
+    with pytest.raises(MXNetError, match="no backward"):
+        tfa._check_no_grad(ops["q"], ops["k"], ops["v"])
+    with torch.no_grad():  # nothing will be differentiated: silent
+        tfa._check_no_grad(ops["q"], ops["k"], ops["v"])
+
+
+def test_grad_guard_is_silent_without_grads():
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 2, 8, 8, 8, 0))
+    tfa._check_no_grad(q, k, v)
+    with torch.inference_mode():
+        tfa._check_no_grad(q, k, v)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [5, 24, 40, 96])
+def test_padded_depth_equals_unpadded(d, causal):
+    """What the kernel path does for a head_dim without tiles: q, k, v
+    zero-padded to the next depth, sm_scale from the original head_dim,
+    the output sliced back.  Zero columns add exact zeros to every
+    score, so on the plain version the padded result equals the
+    unpadded one to 1e-6; both equal the reference's _naive_attention
+    to 1e-5 (another summation order)."""
+    qn, kn, vn = _qkv(2, 3, 37, 45, d, seed=d)
+    q, k, v = (torch.from_numpy(a) for a in (qn, kn, vn))
+    depth = tfa._kernel_depth(d)
+    assert depth > d
+    scale = 1.0 / math.sqrt(d)
+    plain = tfa.flash_attention_reference(q, k, v, causal=causal,
+                                          sm_scale=scale)
+    padded = tfa.flash_attention_reference(
+        *(tfa._pad_depth(t, depth) for t in (q, k, v)), causal=causal,
+        sm_scale=scale)
+    assert padded.shape == (2, 3, 37, depth)
+    assert bool((padded[..., d:] == 0).all())
+    sliced = padded[..., :d].contiguous()
+    onp.testing.assert_allclose(sliced.numpy(), plain.numpy(), rtol=1e-6,
+                                atol=1e-6)
+    want = onp.asarray(jfa._naive_attention(
+        jnp.asarray(qn), jnp.asarray(kn), jnp.asarray(vn), causal, scale))
+    for got in (plain, sliced):
+        onp.testing.assert_allclose(got.numpy(), want, rtol=1e-5,
+                                    atol=1e-5)
 
 
 # ------------------------------------- the kernel's plan and its numerics

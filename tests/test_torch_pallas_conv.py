@@ -93,6 +93,49 @@ def test_pass1_reference_matches_pallas_and_jnp(m, dtype):
             assert _rel(a.numpy(), b) <= 1e-5
 
 
+#: ResNet-50's four stage shapes (M, Ci, Co) at batch 128, and two ragged
+_PLAN_SHAPES = [(401408, 64, 256), (100352, 128, 512), (25088, 256, 1024),
+                (6272, 512, 2048), (77, 100, 70), (4133, 64, 250)]
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("shape", _PLAN_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_bwd_plan_covers_every_row_once(shape, dtype):
+    """The kernel's plan: its d_act row groups and its dW splits, walked
+    as the kernel walks them, cover every row exactly once and none is
+    without rows, so the grid is exactly the scratch the wrapper sizes
+    (s_part [2, groups, Ci], dw_part [splits, Ci, Co]); at the stage
+    shapes each pass has two waves of CTAs or more on 132 SMs."""
+    m, ci, co = shape
+    tdt = _DT[dtype][1]
+    groups, splits = t_pc._bwd_plan(m, ci, co, tdt)
+    tiles = t_pc._TILES[tdt]
+    assert 1 <= groups <= 65535 and 1 <= splits <= 65535
+    block = tiles["rows"]
+    n_blocks = -(-m // block)
+    per = t_pc._group_blocks(n_blocks, groups)
+    seen = onp.zeros(m, dtype=int)
+    for grp in range(groups):
+        b0, b1 = grp * per, min(n_blocks, (grp + 1) * per)
+        assert b1 > b0, f"group {grp} has no rows"
+        seen[b0 * block:min(m, b1 * block)] += 1
+    assert (seen == 1).all()
+    rows = t_pc._split_rows(m, splits)
+    assert rows % t_pc._SPLIT_ALIGN == 0
+    seen[:] = 0
+    for split in range(splits):
+        r0 = min(m, split * rows)
+        r1 = min(m, r0 + rows)
+        assert r1 > r0, f"split {split} has no rows"
+        seen[r0:r1] += 1
+    assert (seen == 1).all()
+    if shape in _PLAN_SHAPES[:4]:
+        dact_ctas = groups * -(-ci // tiles["dact_ci"])
+        dw_ctas = splits * -(-ci // tiles["ci"]) * -(-co // tiles["co"])
+        assert min(dact_ctas, dw_ctas) >= 2 * 132
+
+
 def _fused_inputs(seed, dtype):
     rng = onp.random.RandomState(seed)
     u = rng.randn(2, 5, 7, 16).astype("float32")
