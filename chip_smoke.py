@@ -6,21 +6,27 @@
 Builds every CUDA kernel from ``mxnet_tpu_torch/csrc`` with nvcc,
 checks that the flash kernel runs on the tensor cores (TF32 HMMA in
 the SASS of each fp32 instantiation, bf16 HMMA in each bf16 one, no
-register spills at head_dim 128) and so do the bf16 product kernels of
+register spills at head_dim 128 nor in the slab kernel that runs head
+dims above 128) and so do the bf16 product kernels of
 the fused backward (bf16 MMAs, no spills), holds each kernel against
-its plain PyTorch version on the card, serves the
-generative decoder end to end through ``GenerativeServer`` at the width
-of the repo's generate benchmark and at a wide configuration, drives
+its plain PyTorch version on the card (flash up to head_dim 256), serves
+the generative decoder end to end through ``GenerativeServer`` at the
+width of the repo's generate benchmark, at that width with head_dim 256
+and at a wide configuration, drives
 the imperative front end (the operator plugin through
 ``mx.library.load``, ``mx.nd.plugin_scaled_add`` under ``autograd`` on
 ``mx.gpu(0)`` at ResNet-50's residual shapes, a manual ``mx.nd``
 training loop against the same loop on the host, a ``.params`` round
-trip), then trains ResNet-50 v1 (full width and depth, bf16) with the
-fused BN-ReLU-1x1-conv backward and the flat-bucket optimizer kernels
-three ways: SGD through ``parallel.make_train_step`` (batch 128), LARS
-through ``parallel.DataParallelTrainer`` (batch 256) and Adam (batch
-128), and checks one fp32 step per optimizer on the card against the
-host, checking the results.  Each phase prints one JSON line on stdout
+trip), then trains ResNet-50 (full width and depth, bf16) with the
+flat-bucket optimizer kernels five ways: v1 in the kernel-arm
+configuration (channel-last, bias-free 1x1 convs, the fused
+BN-ReLU-1x1-conv backward) with SGD through
+``parallel.make_train_step`` (batch 128), LARS through
+``parallel.DataParallelTrainer`` (batch 256) and Adam (batch 128), and
+``get_model("resnet50_v1")`` and ``get_model("resnet50_v2")`` at the
+reference's defaults (channel-first, the zoo's biases) with SGD (batch
+128), and checks one fp32 step of each on the card against the host,
+checking the results.  Each phase prints one JSON line on stdout
 (progress goes to stderr); ``--out`` also appends them to FILE.  Any
 failed check exits non-zero.  The last line is
 ``{"ok": true, "device": {...}}``.
@@ -280,6 +286,11 @@ def kernel_case(b, h, sq, sk, d, dtype, causal, path, seed, names=False):
     library_ms = time_ms(lib)
     flops, nbytes = attention_work(b * h, sq, sk, d, causal, dtype)
     bound_ms, bound_by = attention_bound(flops, nbytes, dtype)
+    # what the kernel computes: at a depth above 128 each 128-wide slab
+    # of the output sums Q K^T over the whole (padded) depth again
+    depth = -(-d // 128) * 128 if d > 128 else d
+    slabs = max(1, depth // 128)
+    kernel_flops = flops / d * depth * (slabs + 1) / 2
     res = {"path": path, "shape": [b, h, sq, sk, d], "dtype": dtype,
            "causal": causal, "max_abs_err": err, "tol": TOL[dtype],
            "row_rel_err": row_err,
@@ -287,7 +298,8 @@ def kernel_case(b, h, sq, sk, d, dtype, causal, path, seed, names=False):
            "masked_rows_exact_zero": masked_rows, "ms": ms,
            "plain_ms": plain_ms, "library_ms": library_ms,
            "bound_ms": bound_ms, "bound_by": bound_by,
-           "flops": flops, "bytes": nbytes}
+           "flops": flops, "bytes": nbytes, "kernel_flops": kernel_flops,
+           "kernel_flops_over_flops": kernel_flops / flops}
     if names:  # which kernels the port's launch and SDPA's call run
         res["kernel_device_ms"] = device_ms(kernel, calls=10,
                                             by_kernel=True)
@@ -313,12 +325,23 @@ def kernel_cases():
     cases.append((1, 2, 20, 5, 8, "float32", True, "check"))
     for causal in (True, False):  # bf16 D = 8: the depth padded to 16
         cases.append((1, 2, 70, 70, 8, "bfloat16", causal, "check"))
+    # head dims above 128: the slab kernel (160 and 192 padded to 256)
+    for d in (160, 192, 256):
+        for dtype in ("float32", "bfloat16"):
+            for causal in (True, False):
+                cases.append((2, 8, 1000, 1000, d, dtype, causal, "check"))
+    for dtype in ("float32", "bfloat16"):
+        # the main shape at head_dim 256, and its key-split arm
+        cases.append((1, 16, 2048, 2048, 256, dtype, True, "head_dim_256"))
+        cases.append((2, 16, 16, 2048, 256, dtype, True, "check"))
     return cases
 
 
 #: the shapes whose kernel names are recorded (the port's and SDPA's)
 NAMED_CASES = {(1, 16, 2048, 2048, 128, "float32", True),
-               (2, 16, 2048, 2048, 128, "bfloat16", True)}
+               (2, 16, 2048, 2048, 128, "bfloat16", True),
+               (1, 16, 2048, 2048, 256, "float32", True),
+               (1, 16, 2048, 2048, 256, "bfloat16", True)}
 
 
 def sass_hmma(name):
@@ -539,6 +562,36 @@ def fixed_prompt_tokens(cfg, params, device, prompts, max_new):
         srv.close()
 
 
+def deep_head_phase():
+    """The bench-width decoder at head_dim 256 (Gemma's head width),
+    fp32 KV: the fixed prompts' greedy tokens on the card, through the
+    flash slab kernel, equal the host's.  The flash launch count is set
+    to 0 just before the card's server and read after it."""
+    from mxnet_tpu_torch.ops.flash_attention import flash_attention
+    from mxnet_tpu_torch.serving import toy_decoder_params
+
+    params = toy_decoder_params(seed=0, vocab=DEEP_CFG["vocab"],
+                                layers=DEEP_CFG["layers"],
+                                heads=DEEP_CFG["heads"],
+                                head_dim=DEEP_CFG["head_dim"], device="cpu")
+    flash_attention.launches = 0
+    on_card = fixed_prompt_tokens(DEEP_CFG, params, "cuda", FIXED_PROMPTS,
+                                  12)
+    launches = flash_attention.launches
+    on_host = fixed_prompt_tokens(DEEP_CFG, params, "cpu", FIXED_PROMPTS,
+                                  12)
+    res = {"phase": "serve_head_dim_256",
+           "config": {k: v for k, v in DEEP_CFG.items()},
+           "flash_launches": launches, "tokens_cuda": on_card,
+           "tokens_cuda_eq_cpu": on_card == on_host}
+    check(on_card == on_host, f"head_dim 256: fp32-KV tokens differ, cuda "
+                              f"{on_card} vs cpu {on_host}")
+    # each prompt's prefill runs the kernel once per layer, at least
+    check(launches >= len(FIXED_PROMPTS) * DEEP_CFG["layers"],
+          f"head_dim 256: {launches} flash launches")
+    return res
+
+
 BENCH_CFG = dict(  # bench.py:_measure_generate, full (not smoke)
     vocab=32, layers=2, heads=2, head_dim=8, prompt_buckets=(4, 8, 16),
     max_new=12, slots=8, page_tokens=4, pool_budget=64 * 1024,
@@ -549,6 +602,11 @@ WIDE_CFG = dict(
     prompt_buckets=(128, 512, 2048), max_new=32, slots=8,
     page_tokens=16, pool_budget=512 * 2 ** 20, kv_dtype="int8",
     evict_after_ms=25.0, slo_ms=60000.0, name="wide-generate")
+
+#: the bench-width decoder at a head width of 256 (Gemma's), fp32 KV;
+#: the pool's byte budget scaled with the head, the same pages
+DEEP_CFG = dict(BENCH_CFG, head_dim=256, pool_budget=32 * 64 * 1024,
+                kv_dtype="float32", name="deep-head-generate")
 
 WIDE_PREFILL_TOL = 1e-3
 
@@ -1312,17 +1370,44 @@ def nd_plugin_phase(mx, mod):
             "per_call": per_call, **dispatch, "params": params}
 
 
-def resnet50(device, seed):
-    """ResNet-50 v1 at full width and depth, channel-last, bias-free
-    1x1 convs, random Xavier weights from ``seed``."""
+#: the ResNet-50 nets the training phases build: the model-zoo name,
+#: its arguments and the input layout.  "kernel_arm" is the
+#: configuration of bench.py's step (channel-last, bias-free 1x1 convs:
+#: the fused BN-ReLU-conv tail applies); "zoo_v1" and "zoo_v2" are what
+#: get_model builds at the reference's defaults (channel-first, the
+#: zoo's biases; example/image-classification/train_imagenet.py trains
+#: them), where the fused tail does not apply
+NETS = {
+    "kernel_arm": ("resnet50_v1", dict(layout="NHWC", no_bias=True), "NHWC"),
+    "zoo_v1": ("resnet50_v1", {}, "NCHW"),
+    "zoo_v2": ("resnet50_v2", {}, "NCHW"),
+}
+
+
+def resnet50(device, seed, net="kernel_arm"):
+    """A ResNet-50 of ``NETS`` at full width and depth, random Xavier
+    weights from ``seed``."""
     import torch
 
     from mxnet_tpu_torch import initializer
-    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+    from mxnet_tpu_torch.gluon.model_zoo.vision import get_model
 
-    net = resnet50_v1(classes=1000, layout="NHWC", no_bias=True)
-    return net.initialize(initializer.Xavier(), device=device,
-                          generator=torch.Generator().manual_seed(seed))
+    name, kwargs, _ = NETS[net]
+    block = get_model(name, classes=1000, **kwargs)
+    return block.initialize(initializer.Xavier(), device=device,
+                            generator=torch.Generator().manual_seed(seed))
+
+
+def image_batch(batch, net, generator, device):
+    """(x, y): a random image batch in ``net``'s layout and labels."""
+    import torch
+
+    shape = (batch, 224, 224, 3) if NETS[net][2] == "NHWC" \
+        else (batch, 3, 224, 224)
+    x = torch.randn(shape, generator=generator, device=device)
+    y = torch.randint(0, 1000, (batch,), generator=generator,
+                      device=device).float()
+    return x, y
 
 
 def bucket_counters(optimizer):
@@ -1341,22 +1426,35 @@ def bucket_counters(optimizer):
     }[optimizer]
 
 
-#: the training phases: optimizer, its settings, batch, and whether the
-#: step is driven through ``DataParallelTrainer.fit_batch`` (else
-#: ``make_train_step``'s step function)
+#: the training phases: the net (``NETS``), optimizer, its settings,
+#: batch, and whether the step is driven through
+#: ``DataParallelTrainer.fit_batch`` (else ``make_train_step``'s step
+#: function)
 TRAIN_PHASES = {
     "train_resnet50": dict(
-        optimizer="sgd", batch=128, trainer=False,
+        net="kernel_arm", optimizer="sgd", batch=128, trainer=False,
         opt=dict(learning_rate=0.1, momentum=0.9)),
     "train_resnet50_lars": dict(
-        optimizer="lars", batch=256, trainer=True,
+        net="kernel_arm", optimizer="lars", batch=256, trainer=True,
         opt=dict(learning_rate=LARS_HYPER["lr"],
                  momentum=LARS_HYPER["momentum"],
                  lars_eta=LARS_HYPER["eta"], wd=LARS_HYPER["wd"])),
     "train_resnet50_adam": dict(
-        optimizer="adam", batch=128, trainer=False,
+        net="kernel_arm", optimizer="adam", batch=128, trainer=False,
         opt=dict(learning_rate=ADAM_HYPER["lr"], wd=ADAM_HYPER["wd"])),
+    "train_resnet50_nchw": dict(
+        net="zoo_v1", optimizer="sgd", batch=128, trainer=False,
+        opt=dict(learning_rate=0.1, momentum=0.9)),
+    "train_resnet50_v2": dict(
+        net="zoo_v2", optimizer="sgd", batch=128, trainer=False,
+        opt=dict(learning_rate=0.1, momentum=0.9)),
 }
+
+
+def brc_per_step(net):
+    """Fused-backward launches a step of ``net`` makes: one per
+    bottleneck (16) where the fused tail applies, else 0."""
+    return 16 if net == "kernel_arm" else 0
 
 
 def lars_stats_after(stats, applied, cfg):
@@ -1405,11 +1503,9 @@ def train_phase(name, warmup, steps, seed=0):
     batch, optimizer = cfg["batch"], cfg["optimizer"]
     counters = bucket_counters(optimizer)
     dev = torch.device("cuda", 0)
-    net = resnet50(dev, seed)
+    net = resnet50(dev, seed, cfg["net"])
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
-    x = torch.randn((batch, 224, 224, 3), generator=gen, device=dev)
-    y = torch.randint(0, 1000, (batch,), generator=gen,
-                      device=dev).float()
+    x, y = image_batch(batch, cfg["net"], gen, dev)
     torch.cuda.reset_peak_memory_stats()
     with autotune.force(pallas_bnreluconv="pallas", fused_bucket_opt=True):
         t0 = time.perf_counter()
@@ -1472,7 +1568,9 @@ def train_phase(name, warmup, steps, seed=0):
     applied = [int(v) > 0 for v in goods]  # the count resets on a skip
     ms_step = start.elapsed_time(end) / steps
     res = {
-        "phase": name, "batch": batch, "image": 224,
+        "phase": name, "net": cfg["net"],
+        "model": {"name": NETS[cfg["net"]][0], **NETS[cfg["net"]][1]},
+        "layout": NETS[cfg["net"]][2], "batch": batch, "image": 224,
         "compute_dtype": "bfloat16", "optimizer": optimizer,
         "optimizer_settings": cfg["opt"],
         "driver": "DataParallelTrainer.fit_batch" if cfg["trainer"]
@@ -1502,8 +1600,9 @@ def train_phase(name, warmup, steps, seed=0):
           f"{losses}")
     check(sum(losses[-3:]) / 3 < losses[0],
           f"{name}: loss did not fall on the fixed batch: {losses}")
-    check(n_brc == 16 * total, f"bnreluconv launches {n_brc} != 16 x "
-          f"{total} steps")
+    per_step = brc_per_step(cfg["net"])
+    check(n_brc == per_step * total, f"{name}: bnreluconv launches {n_brc}"
+          f" != {per_step} x {total} steps")
     for k, v in launches.items():
         check(v == len(plan) * total, f"{name}: {k} launches {v} != "
               f"{len(plan)} buckets x {total} steps")
@@ -1546,20 +1645,45 @@ CUDA_CPU_TOL = {"loss": 1e-5,
                 "adam": "the same rule on the first moment"}
 
 
-#: the card-vs-host steps: SGD without momentum (the momentum-0 bucket
-#: kernel), LARS and Adam with the settings of their training phases
+#: the card-vs-host steps: (launch counters, optimizer, settings, net,
+#: batches).  The kernel-arm net with SGD without momentum (the
+#: momentum-0 bucket kernel), LARS and Adam with the settings of their
+#: training phases, one batch each; the zoo's v1 and v2 (channel-first)
+#: with SGD momentum, as they train, on three batches, each parameter
+#: held by its median error over them.  One batch is a single draw of
+#: fp32 noise: at random init a relu mask that flips near zero moves a
+#: late BatchNorm gamma's gradient by a whole term, so the host's own
+#: fp32 error of one parameter differs several times over between
+#: inputs an ulp or two apart, and on one batch its luckiest reading
+#: would set the card's limit
 CUDA_CPU_STEPS = {
-    "sgd0": ("sgd", dict(learning_rate=0.1, momentum=0.0)),
-    "lars": ("lars", TRAIN_PHASES["train_resnet50_lars"]["opt"]),
-    "adam": ("adam", TRAIN_PHASES["train_resnet50_adam"]["opt"]),
+    "sgd0": ("sgd0", "sgd", dict(learning_rate=0.1, momentum=0.0),
+             "kernel_arm", 1),
+    "lars": ("lars", "lars", TRAIN_PHASES["train_resnet50_lars"]["opt"],
+             "kernel_arm", 1),
+    "adam": ("adam", "adam", TRAIN_PHASES["train_resnet50_adam"]["opt"],
+             "kernel_arm", 1),
+    "nchw": ("sgd", "sgd", TRAIN_PHASES["train_resnet50_nchw"]["opt"],
+             "zoo_v1", 3),
+    "v2": ("sgd", "sgd", TRAIN_PHASES["train_resnet50_v2"]["opt"],
+           "zoo_v2", 3),
 }
+#: a parameter whose float64 update is below this share of the whole
+#: update's norm is not held: its gradient is 0 by construction, so its
+#: update is summation noise.  The zoo's conv biases, which a BatchNorm
+#: follows; the gamma of v2's input BatchNorm, which has no scale; and
+#: at init (beta 0) that of v2's stem BatchNorm, whose output the first
+#: block's BatchNorm normalizes (relu and max pool scale with it)
+INERT_SHARE = 1e-6
 
 
-def cuda_vs_cpu_phase(which, host, batch=4, seed=3):
-    """One fp32 step of ResNet-50 (``host``, a net on the host) on the
-    card (the kernels) and on the host (the plain versions) from the same
-    weights, TF32 off, and a float64 host step as the yardstick, with
-    one of ``CUDA_CPU_STEPS``."""
+def _card_host_steps(host, optimizer, opt_kw, counters, x, y):
+    """One fp32 step from ``host``'s weights on the card (the kernels),
+    on the host (the plain versions) and in float64 on the host (the
+    unfused layers and the plain bucket rule: the kernels take fp32/bf16
+    only): ``({key: (loss, params after, params before, Adam's first
+    moment)}, the card step's launches (fused backward, {bucket kernel:
+    n}, buckets))``."""
     import copy
 
     import torch
@@ -1569,14 +1693,7 @@ def cuda_vs_cpu_phase(which, host, batch=4, seed=3):
     from mxnet_tpu_torch.ops import pallas_conv as pc
     from mxnet_tpu_torch.parallel import zero
 
-    optimizer, opt_kw = CUDA_CPU_STEPS[which]
-    counters = bucket_counters(which)
-    gen = torch.Generator().manual_seed(seed + 1)
-    x = torch.randn((batch, 224, 224, 3), generator=gen)
-    y = torch.randint(0, 1000, (batch,), generator=gen).float()
     out, launches = {}, None
-    # the float64 yardstick runs the unfused layers and the plain bucket
-    # rule (the kernels take fp32/bf16 only)
     for key, where, dtype, arms in (
             ("cuda", "cuda", torch.float32, ("pallas", True)),
             ("cpu", "cpu", torch.float32, ("pallas", True)),
@@ -1614,9 +1731,38 @@ def cuda_vs_cpu_phase(which, host, batch=4, seed=3):
                     {n: v.to("cpu", torch.float64, copy=True)
                      for n, v in moment.items()})
         del net, params, state, moment
+    return out, launches
 
-    trained = [n for n in out["cpu"][1]
-               if not n.endswith(("running_mean", "running_var"))]
+
+def cuda_vs_cpu_phase(which, host, batch=4, seed=3):
+    """fp32 steps of ResNet-50 (``host``, a net on the host) on the card
+    (the kernels) and on the host (the plain versions) from the same
+    weights, TF32 off, with a float64 host step as the yardstick, with
+    one of ``CUDA_CPU_STEPS``, on its number of batches; each
+    parameter's error is the median over the batches."""
+    import statistics
+
+    import torch
+
+    counter_key, optimizer, opt_kw, net_kind, n_batches = \
+        CUDA_CPU_STEPS[which]
+    counters = bucket_counters(counter_key)
+    runs, trained, inert = [], None, None
+    for b in range(n_batches):
+        gen = torch.Generator().manual_seed(seed + 1 + b)
+        x, y = image_batch(batch, net_kind, gen, "cpu")
+        out, launches = _card_host_steps(host, optimizer, opt_kw, counters,
+                                         x, y)
+        runs.append((out, launches))
+        if trained is None:
+            f64 = out["cpu64"]
+            moved = {n: float((f64[1][n] - f64[2][n]).norm())
+                     for n in f64[1]
+                     if not n.endswith(("running_mean", "running_var"))}
+            whole = math.sqrt(sum(v * v for v in moved.values()))
+            trained = [n for n, v in moved.items()
+                       if v >= INERT_SHARE * whole]
+            inert = sorted(set(moved) - set(trained))
 
     def update_err(a, ref):
         """{parameter: norm error of a's update against ref's}."""
@@ -1634,26 +1780,39 @@ def cuda_vs_cpu_phase(which, host, batch=4, seed=3):
         return {n: (card[n], host[n]) for n in trained
                 if card[n] > 2 * host[n] + 1e-3}
 
-    gpu, cpu, f64 = out["cuda"], out["cpu"], out["cpu64"]
-    loss_rel = abs(gpu[0] - cpu[0]) / abs(cpu[0])
-    param_rel = max(float((gpu[1][n] - cpu[1][n]).abs().max()
-                          / cpu[1][n].abs().max().clamp_min(1e-30))
-                    for n in cpu[1])
-    card_upd, host_upd = update_err(gpu, f64), update_err(cpu, f64)
-    held = "update"
-    card_err, host_err = card_upd, host_upd
-    if optimizer == "adam":
-        held = "first moment"
-        card_err, host_err = moment_err(gpu, f64), moment_err(cpu, f64)
+    def median(errs):
+        return {n: statistics.median(e[n] for e in errs) for n in trained}
+
+    held = "first moment" if optimizer == "adam" else "update"
+    held_err = moment_err if optimizer == "adam" else update_err
+    per = {k: [] for k in ("card_upd", "host_upd", "card", "host", "cvc")}
+    loss_rels = []
+    for out, _ in runs:
+        gpu, cpu, f64 = out["cuda"], out["cpu"], out["cpu64"]
+        loss_rels.append(abs(gpu[0] - cpu[0]) / abs(cpu[0]))
+        per["card_upd"].append(update_err(gpu, f64))
+        per["host_upd"].append(update_err(cpu, f64))
+        per["card"].append(held_err(gpu, f64))
+        per["host"].append(held_err(cpu, f64))
+        per["cvc"].append(update_err(gpu, cpu))
+    gpu, cpu, f64 = (runs[0][0][k] for k in ("cuda", "cpu", "cpu64"))
+    launches = runs[0][1]
+    card_upd, host_upd = median(per["card_upd"]), median(per["host_upd"])
+    card_err, host_err = median(per["card"]), median(per["host"])
     over = over_limit(card_err, host_err)
     worst = max(trained, key=lambda n: card_err[n] - 2 * host_err[n])
     # the card's error over the host's, where the host's is above the
     # 1e-3 floor of the limit
     ratio = max([card_err[n] / host_err[n] for n in trained
                  if host_err[n] > 1e-3], default=None)
-    res = {"phase": "train_cuda_vs_cpu", "optimizer": optimizer,
+    loss_rel = max(loss_rels)
+    param_rel = max(float((gpu[1][n] - cpu[1][n]).abs().max()
+                          / cpu[1][n].abs().max().clamp_min(1e-30))
+                    for n in cpu[1])
+    res = {"phase": "train_cuda_vs_cpu", "step": which, "net": net_kind,
+           "optimizer": optimizer,
            "optimizer_settings": opt_kw, "batch": batch, "dtype": "float32",
-           "held": held,
+           "batches": n_batches, "held": held, "not_held_inert": inert,
            "loss_cuda": gpu[0], "loss_cpu": cpu[0], "loss_cpu_f64": f64[0],
            "loss_rel": loss_rel,
            # element-wise, for information: the per-parameter norm
@@ -1663,7 +1822,7 @@ def cuda_vs_cpu_phase(which, host, batch=4, seed=3):
            "held_err_cpu_vs_f64_max": max(host_err.values()),
            "update_err_cuda_vs_f64_max": max(card_upd.values()),
            "update_err_cpu_vs_f64_max": max(host_upd.values()),
-           "update_err_cuda_vs_cpu_max": max(update_err(gpu, cpu).values()),
+           "update_err_cuda_vs_cpu_max": max(median(per["cvc"]).values()),
            "update_params_over_limit": len(over_limit(card_upd, host_upd)),
            "closest_to_limit": {"param": worst, "cuda_vs_f64":
                                 card_err[worst], "cpu_vs_f64":
@@ -1674,14 +1833,21 @@ def cuda_vs_cpu_phase(which, host, batch=4, seed=3):
            **{f"{k}_launches": v for k, v in launches[1].items()},
            "buckets": launches[2],
            "over_limit": {n: list(v) for n, v in list(over.items())[:8]}}
+    if n_batches > 1:  # each batch on its own, for information
+        res["per_batch"] = [
+            {"loss_rel": lr, "over_limit": {
+                n: [c[n], h[n]] for n in trained
+                if c[n] > 2 * h[n] + 1e-3}}
+            for lr, c, h in zip(loss_rels, per["card"], per["host"])]
     emit(res)
     check(loss_rel <= CUDA_CPU_TOL["loss"] and not over,
           f"cuda vs cpu ({which}): loss rel {loss_rel}; parameters whose "
           f"{held} error against float64 exceeds 2 x the host's + 1e-3 "
           f"(card, host): {dict(list(over.items())[:8])}")
-    check(launches[0] == 16 and all(v == launches[2] for v in
-                                    launches[1].values()),
-          f"cuda step launches {launches}")
+    for _, launches in runs:
+        check(launches[0] == brc_per_step(net_kind) and
+              all(v == launches[2] for v in launches[1].values()),
+              f"cuda step launches ({which}) {launches}")
     return res
 
 
@@ -1712,18 +1878,23 @@ def run(profile=False, old_brc=None, workdir=None):
     # instantiations keep everything in registers
     # per instantiation of the forward kernel: the fp32 ones (the main
     # path's) take TF32 MMAs, the bf16 ones bf16 MMAs
+    # and so do the two instantiations of the slab kernel (head dims
+    # above 128), with no spill either
     sass = sass_hmma("flash_attention")
     fwd = {f: c for f, c in sass.items() if "flash_fwd_kernel" in f}
     f32 = {f: c for f, c in fwd.items() if "bfloat16" not in f}
     b16 = {f: c for f, c in fwd.items() if "bfloat16" in f}
+    slab = {f: c for f, c in sass.items() if "flash_fwd_slab_kernel" in f}
     hmma = sum(c["hmma"] for c in sass.values())
-    spills = ptxas_spills(_kernels.build_log("flash_attention") or "",
-                          "Li128E")
-    for f, c in sorted(fwd.items()):
+    flash_log = _kernels.build_log("flash_attention") or ""
+    spills = ptxas_spills(flash_log, "Li128E")
+    slab_spills = ptxas_spills(flash_log, "flash_fwd_slab_kernel")
+    for f, c in sorted(fwd.items()) + sorted(slab.items()):
         log(f"[sass flash_attention] {f}: {c}")
-    log(f"[sass flash_attention] {hmma} HMMA instructions; D = 128 "
-        f"(spill store, spill load bytes, registers): "
-        f"{sorted(map(tuple, spills.values()))}")
+    log(f"[sass flash_attention] {hmma} HMMA instructions; D = 128 and "
+        f"slab (spill store, spill load bytes, registers): "
+        f"{sorted(map(tuple, spills.values()))} "
+        f"{sorted(map(tuple, slab_spills.values()))}")
     # the bf16 fused backward runs on the tensor cores: each
     # instantiation of its two product kernels (16-byte copies and
     # element loads) holds bf16 MMAs and spills nothing
@@ -1739,6 +1910,8 @@ def run(profile=False, old_brc=None, workdir=None):
           "compiled": built, "seconds": build_s,
           "flash_sass_hmma": hmma, "flash_sass_by_function": fwd,
           "flash_d128_spills": spills,
+          "flash_slab_sass_by_function": slab,
+          "flash_slab_spills": slab_spills,
           "bnreluconv_sass_by_function": brc_sass,
           "bnreluconv_mma_spills": brc_spills})
     # one instantiation per head_dim 8, 16, 32, 64, 128 and dtype
@@ -1749,6 +1922,14 @@ def run(profile=False, old_brc=None, workdir=None):
     check(len(spills) >= 2 and all(v[:2] == [0, 0]
                                    for v in spills.values()),
           f"flash D = 128 instantiations spill: {spills}")
+    check(len(slab) == 2 and all(
+        (c["bf16"] > 0 and c["tf32"] == 0) if "bfloat16" in f
+        else (c["tf32"] > 0 and c["bf16"] == 0) for f, c in slab.items()),
+          f"a flash slab kernel holds no tensor-core MMA of its dtype: "
+          f"{slab}")
+    check(len(slab_spills) == 2 and all(v[:2] == [0, 0]
+                                        for v in slab_spills.values()),
+          f"flash slab kernels spill: {slab_spills}")
     check(len(brc_sass) == 4 and all(c["bf16"] > 0 and c["tf32"] == 0
                                      for c in brc_sass.values()),
           f"a bf16 fused-backward product kernel holds no bf16 tensor-core "
@@ -1783,6 +1964,11 @@ def run(profile=False, old_brc=None, workdir=None):
     emit(bench)
     check(on_card == on_host,
           f"fp32-KV tokens differ, cuda {on_card} vs cpu {on_host}")
+
+    deep = deep_head_phase()
+    log(f"[serve_head_dim_256] flash launches {deep['flash_launches']}, "
+        f"tokens equal: {deep['tokens_cuda_eq_cpu']}")
+    emit(deep)
 
     wide_params = toy_decoder_params(seed=0, vocab=32000, layers=4,
                                      heads=16, head_dim=128, device=dev)
@@ -1881,19 +2067,25 @@ def run(profile=False, old_brc=None, workdir=None):
     emit(plug)
 
     trains = {}
-    for name, (warmup, steps) in (("train_resnet50", (2, 10)),
-                                  ("train_resnet50_lars", (2, 10)),
-                                  ("train_resnet50_adam", (2, 10))):
-        trains[name] = train_phase(name, warmup, steps)
+    for name in TRAIN_PHASES:
+        trains[name] = train_phase(name, warmup=2, steps=10)
         log(f"[{name}] {trains[name]['ms_per_step']:.2f} ms/step "
-            f"{trains[name]['img_s']:.1f} img/s losses "
+            f"{trains[name]['img_s']:.1f} img/s peak "
+            f"{trains[name]['peak_mem_gib']:.2f} GiB losses "
             f"{trains[name]['losses']}")
         emit(trains[name])
-    train, t_lars, t_adam = trains.values()
-    host = resnet50("cpu", 3)
-    cvc = {k: cuda_vs_cpu_phase(k, host) for k in CUDA_CPU_STEPS}
+        torch.cuda.empty_cache()
+    train, t_lars, t_adam = (trains[n] for n in (
+        "train_resnet50", "train_resnet50_lars", "train_resnet50_adam"))
+    sgd_trains = [t for t in trains.values() if t["optimizer"] == "sgd"]
+    hosts = {}
+    cvc = {}
+    for k, (_, _, _, net_kind, _) in CUDA_CPU_STEPS.items():
+        if net_kind not in hosts:
+            hosts[net_kind] = resnet50("cpu", 3, net_kind)
+        cvc[k] = cuda_vs_cpu_phase(k, hosts[net_kind])
 
-    main = [c for c in cases if c["path"] != "check"]
+    main = [c for c in cases if c["path"].startswith("serve")]
     head = next(c for c in cases if c["path"] == "serve_wide"
                 and c["shape"][2] == 2048)
     brc_main = [c for c in brc if c["path"] == "resnet50_stage"]
@@ -1918,15 +2110,17 @@ def run(profile=False, old_brc=None, workdir=None):
     emit({"kernels": [
         entry("flash_attention", "flash_attention.cu",
               "mxnet_tpu/ops/flash_attention.py:87",
-              bench["flash_launches"] + wide["flash_launches"],
+              bench["flash_launches"] + deep["flash_launches"]
+              + wide["flash_launches"],
               max(c["max_abs_err"] for c in main), head),
         entry("bnreluconv_bwd", "bnreluconv_bwd.cu",
               "mxnet_tpu/ops/pallas_conv.py:83",
-              train["bnreluconv_launches"],
+              sum(t["bnreluconv_launches"] for t in trains.values()),
               max(c["max_abs_err"] for c in brc_main), brc_head),
         entry("bucket_sgd_mom", "bucket_sgd.cu",
               "mxnet_tpu/ops/pallas_opt.py:157",
-              train["bucket_sgd_mom_launches"], 0.0, mom_head),
+              sum(t["bucket_sgd_mom_launches"] for t in sgd_trains), 0.0,
+              mom_head),
         entry("bucket_sgd", "bucket_sgd.cu",
               "mxnet_tpu/ops/pallas_opt.py:145",
               cvc["sgd0"]["bucket_sgd_launches"], 0.0, plain_head),

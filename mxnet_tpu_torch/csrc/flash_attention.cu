@@ -12,7 +12,10 @@
 //
 // Layout: q (BH, Sq, D), k/v (BH, Sk, D), contiguous and 16-byte aligned,
 // fp32 or bf16; output in q's dtype; softmax and accumulators in fp32.  D is
-// a template parameter over {8, 16, 32, 64, 128}.
+// a template parameter over {8, 16, 32, 64, 128}; a D that is a multiple of
+// 128 above it runs flash_fwd_slab_kernel, which has the D = 128 kernel's
+// registers and shared memory (128-wide slabs of O, S summed over 128-deep
+// chunks; see there).
 //
 // What bounds it on an H100: at D = 128 and long sequences, operations,
 // 4 * BH * pairs * D FLOPs over the visible (query, key) pairs.  bf16 runs
@@ -60,6 +63,8 @@
 namespace {
 
 constexpr float kLog2e = 1.4426950408889634f;
+// the widest tile depth; deeper heads run in slabs of this width
+constexpr int kSlab = 128;
 
 // Tile configuration per dtype: warps per CTA, 16-row m-tiles per warp,
 // keys per tile, ring stages (the fastest of the configurations timed on
@@ -184,49 +189,42 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-// rows [row0, row0 + n_rows) of a (rows, D) matrix into shared memory of
-// pitch P; rows at or past `limit` are zero-filled
+// D columns of rows [row0, row0 + n_rows) of a matrix whose rows are `ld`
+// elements apart into shared memory of pitch P; rows at or past `limit` are
+// zero-filled
 template <typename T, int D, int P, int kThreads>
 __device__ __forceinline__ void load_rows(T* dst, const T* src, int row0,
-                                          int n_rows, int limit) {
+                                          int n_rows, int limit, int ld) {
   constexpr int kChunks = D * (int)sizeof(T) / 16;  // per row
   for (int idx = threadIdx.x; idx < n_rows * kChunks; idx += kThreads) {
     const int r = idx / kChunks;
     const int c = idx % kChunks;
     const bool ok = row0 + r < limit;
-    const T* from = ok ? src + (int64_t)(row0 + r) * D + c * (16 / sizeof(T))
+    const T* from = ok ? src + (int64_t)(row0 + r) * ld + c * (16 / sizeof(T))
                        : src;
     cp_async16(dst + r * P + c * (16 / sizeof(T)), from, ok ? 16 : 0);
   }
 }
 
 // ------------------------------------------------------------- the kernel
-// One key tile for the first A of this warp's kMT m-tiles (16 rows each;
-// A < kMT when the rest of the warp's rows lie past Sq): S = Q K^T, the
-// online softmax, O += P V.  Every K or V fragment read from shared memory
-// (and, for TF32, split) is used by all A m-tiles.
+// The S accumulator tiles of one key tile: kMT m-tiles x kBK / 8 keys.
+template <typename T, int D>
+using STile = float[Cfg<T, D>::kMT][Cfg<T, D>::kBK / 8][4];
+
+// s += Q K^T over one kDK-deep chunk, for the first A of this warp's kMT
+// m-tiles (16 rows each; A < kMT when the rest of the warp's rows lie past
+// Sq).  q_w and ks have pitch kPitch.  Every K fragment read from shared
+// memory (and, for TF32, split) is used by all A m-tiles.
 template <typename T, int D, int A>
-__device__ __forceinline__ void tile_step(
-    const T* __restrict__ q_w, const T* __restrict__ ks,
-    const T* __restrict__ vs, int k0, int rw, int sk, int diag, int causal,
-    float scale_log2, float (&acc)[Cfg<T, D>::kMT][D / 8][4],
-    float (&mrow)[Cfg<T, D>::kMT][2], float (&lrow)[Cfg<T, D>::kMT][2]) {
+__device__ __forceinline__ void qk_product(const T* __restrict__ q_w,
+                                           const T* __restrict__ ks,
+                                           STile<T, D>& s) {
   using C = Cfg<T, D>;
   constexpr int P = C::kPitch;
-  constexpr int BK = C::kBK;
-  constexpr int NT = BK / 8;  // S accumulator tiles (8 keys each)
-  constexpr int NO = D / 8;   // O accumulator tiles (8 columns each)
+  constexpr int NT = C::kBK / 8;  // S accumulator tiles (8 keys each)
   const int lane = threadIdx.x % 32;
   const int g = lane / 4;  // fragment row group
   const int t = lane % 4;  // thread in group
-
-  // ---- S = Q K^T
-  float s[A][NT][4];
-#pragma unroll
-  for (int mt = 0; mt < A; ++mt)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-      s[mt][j][0] = s[mt][j][1] = s[mt][j][2] = s[mt][j][3] = 0.f;
   if constexpr (sizeof(T) == 4) {
     const float* qr = reinterpret_cast<const float*>(q_w) + g * P + t;
     const float* kr = reinterpret_cast<const float*>(ks) + g * P + t;
@@ -273,6 +271,25 @@ __device__ __forceinline__ void tile_step(
       }
     }
   }
+}
+
+// The rest of one key tile for the first A m-tiles, once S = Q K^T is in
+// s: the online softmax, then O += P V with V's tile vs (pitch kPitch, D
+// columns).  Every V fragment is used by all A m-tiles.
+template <typename T, int D, int A>
+__device__ __forceinline__ void softmax_pv(
+    STile<T, D>& s, const T* __restrict__ vs, int k0, int rw, int sk,
+    int diag, int causal, float scale_log2,
+    float (&acc)[Cfg<T, D>::kMT][D / 8][4], float (&mrow)[Cfg<T, D>::kMT][2],
+    float (&lrow)[Cfg<T, D>::kMT][2]) {
+  using C = Cfg<T, D>;
+  constexpr int P = C::kPitch;
+  constexpr int BK = C::kBK;
+  constexpr int NT = BK / 8;  // S accumulator tiles (8 keys each)
+  constexpr int NO = D / 8;   // O accumulator tiles (8 columns each)
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;  // fragment row group
+  const int t = lane % 4;  // thread in group
 
   // ---- online softmax on the accumulators (exp2 domain)
 #pragma unroll
@@ -388,6 +405,84 @@ __device__ __forceinline__ void tile_step(
   }
 }
 
+// One key tile of a D <= 128 kernel (Q and K each one chunk deep).
+template <typename T, int D, int A>
+__device__ __forceinline__ void tile_step(
+    const T* __restrict__ q_w, const T* __restrict__ ks,
+    const T* __restrict__ vs, int k0, int rw, int sk, int diag, int causal,
+    float scale_log2, float (&acc)[Cfg<T, D>::kMT][D / 8][4],
+    float (&mrow)[Cfg<T, D>::kMT][2], float (&lrow)[Cfg<T, D>::kMT][2]) {
+  STile<T, D> s;
+#pragma unroll
+  for (int mt = 0; mt < A; ++mt)
+#pragma unroll
+    for (int j = 0; j < Cfg<T, D>::kBK / 8; ++j)
+      s[mt][j][0] = s[mt][j][1] = s[mt][j][2] = s[mt][j][3] = 0.f;
+  qk_product<T, D, A>(q_w, ks, s);
+  softmax_pv<T, D, A>(s, vs, k0, rw, sk, diag, causal, scale_log2, acc, mrow,
+                      lrow);
+}
+
+// The epilogue of one CTA: its q tile's rows of O (columns [col0, col0 + D)
+// of rows `ld` elements apart), normalised, or with `part` the (m, l, acc)
+// partial of its key range in scratch slot `slot` (acc rows `ld` wide; m
+// and l written only where `write_ml`, by one CTA of the q tile).
+template <typename T, int D>
+__device__ __forceinline__ void write_result(
+    float (&acc)[Cfg<T, D>::kMT][D / 8][4], float (&mrow)[Cfg<T, D>::kMT][2],
+    float (&lrow)[Cfg<T, D>::kMT][2], T* __restrict__ o,
+    float* __restrict__ part, int slot, int bh, int q0, int sq, int ld,
+    int col0, bool write_ml, int n_slots) {
+  using C = Cfg<T, D>;
+  constexpr int BQ = Tiles<T, D>::kBQ;
+  constexpr int MT = C::kMT;
+  constexpr int NO = D / 8;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    float l0 = lrow[mt][0], l1 = lrow[mt][1];
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+    const int r0 = warp * 16 * MT + mt * 16 + g;  // row within the tile
+    const bool ok0 = q0 + r0 < sq, ok1 = q0 + r0 + 8 < sq;
+    if (part == nullptr) {
+      const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+      T* ob = o + (int64_t)bh * sq * ld + col0;
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        if (ok0)
+          store2(ob + (int64_t)(q0 + r0) * ld + 8 * n + 2 * t,
+                 acc[mt][n][0] / d0, acc[mt][n][1] / d0);
+        if (ok1)
+          store2(ob + (int64_t)(q0 + r0 + 8) * ld + 8 * n + 2 * t,
+                 acc[mt][n][2] / d1, acc[mt][n][3] / d1);
+      }
+    } else {
+      float* pb = part + ((int64_t)bh * n_slots + slot) * BQ * (ld + 2);
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        if (ok0)
+          store2(pb + r0 * ld + col0 + 8 * n + 2 * t, acc[mt][n][0],
+                 acc[mt][n][1]);
+        if (ok1)
+          store2(pb + (r0 + 8) * ld + col0 + 8 * n + 2 * t, acc[mt][n][2],
+                 acc[mt][n][3]);
+      }
+      if (t == 0 && write_ml) {
+        pb[BQ * ld + r0] = mrow[mt][0];
+        pb[BQ * ld + r0 + 8] = mrow[mt][1];
+        pb[BQ * ld + BQ + r0] = l0;
+        pb[BQ * ld + BQ + r0 + 8] = l1;
+      }
+    }
+  }
+}
+
 // One CTA per (work item, batch*head): blockIdx.x = item * bh_count + bh,
 // items heaviest first.  item = (q tile, first key tile, end key tile,
 // scratch slot).  part == nullptr: write the normalised output; else write
@@ -417,9 +512,6 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kt0 = item.y;
   const int n_tiles = item.z - item.y;
   const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;
-  const int t = lane % 4;
   const int qw = q0 + warp * 16 * MT;  // this warp's first row
   const int diag = sk - sq;            // bottom-right causal alignment
   // m-tiles of this warp with a row before Sq
@@ -445,12 +537,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   auto load_tile = [&](int i) {  // key tile kt0 + i into stage i % kStages
     T* ks = kv_s + (i % C::kStages) * 2 * X::kTile;
     const int k0 = (kt0 + i) * BK;
-    load_rows<T, D, P, X::kThreads>(ks, kb, k0, BK, sk);
-    load_rows<T, D, P, X::kThreads>(ks + X::kTile, vb, k0, BK, sk);
+    load_rows<T, D, P, X::kThreads>(ks, kb, k0, BK, sk, D);
+    load_rows<T, D, P, X::kThreads>(ks + X::kTile, vb, k0, BK, sk, D);
   };
 
   if (n_tiles > 0) {
-    load_rows<T, D, P, X::kThreads>(q_s, qb, q0, BQ, sq);
+    load_rows<T, D, P, X::kThreads>(q_s, qb, q0, BQ, sq, D);
     load_tile(0);
     cp_async_commit();
 #pragma unroll
@@ -488,46 +580,131 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          scale_log2, acc, mrow, lrow);
   }
 
-  // ---- epilogue
+  write_result<T, D>(acc, mrow, lrow, o, part, item.w, bh, q0, sq, D, 0,
+                     true, n_slots);
+}
+
+// Head dims above 128 (depth = n_chunks * 128): one CTA per (work item,
+// batch*head) in blockIdx.x, as above, and per 128-wide slab of V and O in
+// blockIdx.y.  The registers and shared memory are those of the D = 128
+// kernel: the accumulator is acc[kMT][16][4], and S = Q K^T is summed over
+// 128-deep chunks of Q and K.  Each key tile is n_chunks + 1 steps through
+// the same cp.async ring: step c < n_chunks brings chunk c of the Q tile
+// and of the K tile (BQ + BK rows of a stage) and adds its product to S;
+// the last brings the K tile's rows of this slab of V (BK rows) and runs
+// the online softmax and O += P V.  Every slab's CTA sums S in the same
+// order, so m and l agree bit for bit across slabs; slab 0 alone writes
+// them to a key-split partial.  Q K^T is recomputed once per slab: at a
+// depth of 256 the FLOPs are 1.5 x the ideal 4 * pairs * depth.
+template <typename T>
+__global__ void __launch_bounds__(Tiles<T, 128>::kThreads, 1)
+flash_fwd_slab_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, T* __restrict__ o,
+                      float* __restrict__ part,
+                      const int4* __restrict__ items, int bh_count, int sq,
+                      int sk, int causal, float scale_log2, int n_slots,
+                      int depth) {
+  constexpr int D = kSlab;
+  using C = Cfg<T, D>;
+  using X = Tiles<T, D>;
+  constexpr int P = C::kPitch;
+  constexpr int BK = C::kBK;
+  constexpr int BQ = X::kBQ;
+  constexpr int MT = C::kMT;
+  constexpr int NO = D / 8;
+  constexpr int NT = BK / 8;
+  constexpr int kStage = (BQ + BK) * P;  // elements of a ring stage
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* ring = reinterpret_cast<T*>(smem_raw);
+
+  const int4 item = items[blockIdx.x / bh_count];
+  const int bh = blockIdx.x % bh_count;
+  const int slab = blockIdx.y;
+  const int q0 = item.x * BQ;
+  const int kt0 = item.y;
+  const int n_chunks = depth / D;
+  const int steps = (item.z - item.y) * (n_chunks + 1);
+  const int warp = threadIdx.x / 32;
+  const int qw = q0 + warp * 16 * MT;  // this warp's first row
+  const int diag = sk - sq;            // bottom-right causal alignment
+  const int active = min(MT, max(0, (sq - qw + 15) / 16));
+
+  const T* qb = q + (int64_t)bh * sq * depth;
+  const T* kb = k + (int64_t)bh * sk * depth;
+  const T* vb = v + (int64_t)bh * sk * depth + slab * D;
+
+  // the next step to load: its chunk (n_chunks = the V slab) and key row;
+  // counters, not a division by n_chunks + 1, keep the loop in registers
+  int ld_c = 0, ld_k0 = kt0 * BK;
+  auto load_next = [&](int stage) {
+    T* st = ring + stage * kStage;
+    if (ld_c < n_chunks) {
+      load_rows<T, D, P, X::kThreads>(st, qb + ld_c * D, q0, BQ, sq, depth);
+      load_rows<T, D, P, X::kThreads>(st + BQ * P, kb + ld_c * D, ld_k0, BK,
+                                      sk, depth);
+      ++ld_c;
+    } else {
+      load_rows<T, D, P, X::kThreads>(st, vb, ld_k0, BK, sk, depth);
+      ld_c = 0;
+      ld_k0 += BK;
+    }
+  };
+
+#pragma unroll
+  for (int i = 0; i < C::kStages - 1; ++i) {
+    if (i < steps) load_next(i);
+    cp_async_commit();
+  }
+
+  float acc[MT][NO][4];
+  float mrow[MT][2], lrow[MT][2];
+  STile<T, D> s;
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt) {
-    float l0 = lrow[mt][0], l1 = lrow[mt][1];
-    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-    const int r0 = warp * 16 * MT + mt * 16 + g;  // row within the tile
-    const bool ok0 = q0 + r0 < sq, ok1 = q0 + r0 + 8 < sq;
-    if (part == nullptr) {
-      const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
-      T* ob = o + (int64_t)bh * sq * D;
 #pragma unroll
-      for (int n = 0; n < NO; ++n) {
-        if (ok0)
-          store2(ob + (int64_t)(q0 + r0) * D + 8 * n + 2 * t,
-                 acc[mt][n][0] / d0, acc[mt][n][1] / d0);
-        if (ok1)
-          store2(ob + (int64_t)(q0 + r0 + 8) * D + 8 * n + 2 * t,
-                 acc[mt][n][2] / d1, acc[mt][n][3] / d1);
-      }
+    for (int n = 0; n < NO; ++n)
+      acc[mt][n][0] = acc[mt][n][1] = acc[mt][n][2] = acc[mt][n][3] = 0.f;
+    mrow[mt][0] = mrow[mt][1] = -CUDART_INF_F;
+    lrow[mt][0] = lrow[mt][1] = 0.f;
+  }
+
+  int c = 0, k0 = kt0 * BK;  // this step's chunk and key row
+  for (int j = 0; j < steps; ++j) {
+    cp_async_wait<C::kStages - 2>();
+    __syncthreads();  // step j landed; every warp is done with step j - 1
+    if (j + C::kStages - 1 < steps)
+      load_next((j + C::kStages - 1) % C::kStages);
+    cp_async_commit();
+    const T* st = ring + (j % C::kStages) * kStage;
+    if (c == 0) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int jj = 0; jj < NT; ++jj)
+          s[mt][jj][0] = s[mt][jj][1] = s[mt][jj][2] = s[mt][jj][3] = 0.f;
+    }
+    if (c < n_chunks) {
+      const T* q_w = st + warp * 16 * MT * P;
+      if (active == MT)
+        qk_product<T, D, MT>(q_w, st + BQ * P, s);
+      else if (MT > 1 && active > 0)  // rows past Sq: nothing to compute
+        qk_product<T, D, 1>(q_w, st + BQ * P, s);
+      ++c;
     } else {
-      float* pb = part + ((int64_t)bh * n_slots + item.w) * BQ * (D + 2);
-#pragma unroll
-      for (int n = 0; n < NO; ++n) {
-        if (ok0)
-          store2(pb + r0 * D + 8 * n + 2 * t, acc[mt][n][0], acc[mt][n][1]);
-        if (ok1)
-          store2(pb + (r0 + 8) * D + 8 * n + 2 * t, acc[mt][n][2],
-                 acc[mt][n][3]);
-      }
-      if (t == 0) {
-        pb[BQ * D + r0] = mrow[mt][0];
-        pb[BQ * D + r0 + 8] = mrow[mt][1];
-        pb[BQ * D + BQ + r0] = l0;
-        pb[BQ * D + BQ + r0 + 8] = l1;
-      }
+      if (active == MT)
+        softmax_pv<T, D, MT>(s, st, k0, qw, sk, diag, causal, scale_log2,
+                             acc, mrow, lrow);
+      else if (MT > 1 && active > 0)
+        softmax_pv<T, D, 1>(s, st, k0, qw, sk, diag, causal, scale_log2, acc,
+                            mrow, lrow);
+      c = 0;
+      k0 += BK;
     }
   }
+
+  write_result<T, D>(acc, mrow, lrow, o, part, item.w, bh, q0, sq, depth,
+                     slab * D, slab == 0, n_slots);
 }
 
 // Merge the key-split partials of every output element, slots in order:
@@ -593,6 +770,41 @@ int launch(const void* q, const void* k, const void* v, void* o,
 }
 
 template <typename T>
+int launch_slabs(const void* q, const void* k, const void* v, void* o,
+                 float* part, const int4* items, int n_items, int bh, int sq,
+                 int sk, int causal, float scale_log2, int n_slots, int depth,
+                 cudaStream_t stream) {
+  using X = Tiles<T, kSlab>;
+  constexpr size_t kSmem =
+      sizeof(T) * Cfg<T, kSlab>::kStages * (X::kBQ + Cfg<T, kSlab>::kBK) *
+      Cfg<T, kSlab>::kPitch;
+  static_assert(kSmem == X::kSmem, "the slab kernel's ring is the D = 128 "
+                "kernel's shared memory");
+  static bool smem_set[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (!smem_set[dev]) {
+    err = cudaFuncSetAttribute(flash_fwd_slab_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)kSmem);
+    if (err != cudaSuccess) return (int)err;
+    smem_set[dev] = true;
+  }
+  const long long blocks = (long long)n_items * bh;
+  const int slabs = depth / kSlab;
+  if (blocks > 0x7fffffffLL || slabs > 65535)
+    return (int)cudaErrorInvalidValue;
+  flash_fwd_slab_kernel<T>
+      <<<dim3((unsigned)blocks, (unsigned)slabs), X::kThreads, kSmem,
+         stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
+                   static_cast<const T*>(v), static_cast<T*>(o), part, items,
+                   bh, sq, sk, causal, scale_log2, n_slots, depth);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
 int dispatch_d(int d, const void* q, const void* k, const void* v, void* o,
                float* part, const int4* items, int n_items, int bh, int sq,
                int sk, int causal, float scale_log2, int n_slots,
@@ -601,6 +813,9 @@ int dispatch_d(int d, const void* q, const void* k, const void* v, void* o,
   case DD:                                                                 \
     return launch<T, DD>(q, k, v, o, part, items, n_items, bh, sq, sk,     \
                          causal, scale_log2, n_slots, st);
+  if (d > kSlab && d % kSlab == 0)
+    return launch_slabs<T>(q, k, v, o, part, items, n_items, bh, sq, sk,
+                           causal, scale_log2, n_slots, d, st);
   switch (d) {
     MXT_FLASH_CASE(8)
     MXT_FLASH_CASE(16)
@@ -632,7 +847,12 @@ int block_sizes(int d, int* bq, int* bk) {
     case 32: *bq = Tiles<T, 32>::kBQ; *bk = Cfg<T, 32>::kBK; return 0;
     case 64: *bq = Tiles<T, 64>::kBQ; *bk = Cfg<T, 64>::kBK; return 0;
     case 128: *bq = Tiles<T, 128>::kBQ; *bk = Cfg<T, 128>::kBK; return 0;
-    default: return (int)cudaErrorInvalidValue;
+    default:
+      if (d <= kSlab || d % kSlab != 0) return (int)cudaErrorInvalidValue;
+      // a depth of several slabs runs the D = 128 tiles
+      *bq = Tiles<T, kSlab>::kBQ;
+      *bk = Cfg<T, kSlab>::kBK;
+      return 0;
   }
 }
 
@@ -641,7 +861,9 @@ int block_sizes(int d, int* bq, int* bk) {
 // C interface, loaded with ctypes.  dtype: 0 = fp32, 1 = bf16.
 
 // The query rows and keys per tile of the (dtype, head_dim) kernel, which
-// the wrapper's work plan is made of.  Returns 0, or cudaErrorInvalidValue.
+// the wrapper's work plan is made of: head_dim 8, 16, 32, 64, 128 or a
+// multiple of 128 (the slab kernel, whose tiles are the D = 128 ones).
+// Returns 0, or cudaErrorInvalidValue.
 extern "C" int mxt_flash_block_sizes(int dtype, int head_dim, int* block_q,
                                      int* block_k) {
   if (dtype == 0) return block_sizes<float>(head_dim, block_q, block_k);

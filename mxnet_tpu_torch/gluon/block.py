@@ -196,6 +196,58 @@ class Block(nn.Module):
         for child in self._children.values():
             child.hybridize(active, **kwargs)
 
+    def _collect_params_with_prefix(self, prefix=""):
+        """``{structural name: Parameter}``: each parameter under the
+        attribute path that reaches it (``features.0.weight``), the keys
+        that the reference's ``save_parameters`` writes."""
+        if prefix:
+            prefix += "."
+        ret = {prefix + k: v for k, v in self._reg_params.items()}
+        for name, child in self._children.items():
+            ret.update(child._collect_params_with_prefix(prefix + name))
+        return ret
+
+    def load_parameters(self, filename, allow_missing=False,
+                        ignore_extra=False):
+        """Copy the arrays of a ``.params`` file into the parameters, in
+        place, each cast to its parameter's dtype on its device (reference
+        ``Block.load_parameters``).  The file is keyed by structural name
+        (the reference's ``save_parameters``) or, as older files and
+        ``ParameterDict.save`` are, by full name
+        (``resnetv10_conv0_weight``); ``arg:``/``aux:`` prefixes are
+        dropped.  A missing, extra or mis-shaped entry raises unless
+        allowed."""
+        from ..context import cpu
+        from ..ndarray.ndarray import load
+
+        loaded = load(filename, ctx=cpu())
+        if not isinstance(loaded, dict):
+            raise MXNetError(f"{filename} holds no parameter names")
+        loaded = {k.split(":", 1)[1] if k.startswith(("arg:", "aux:"))
+                  else k: v for k, v in loaded.items()}
+        if loaded and not any("." in k for k in loaded):
+            params = self.collect_params()
+        else:
+            params = self._collect_params_with_prefix()
+        missing = [n for n in params if n not in loaded]
+        extra = [n for n in loaded if n not in params]
+        if missing and not allow_missing:
+            raise MXNetError(f"Parameter '{missing[0]}' is missing in file "
+                             f"'{filename}'")
+        if extra and not ignore_extra:
+            raise MXNetError(f"Parameter '{extra[0]}' loaded from file "
+                             f"'{filename}' is not present in this Block")
+        with torch.no_grad():
+            for name, param in params.items():
+                if name not in loaded:
+                    continue
+                src, dst = loaded[name]._data, param.data()
+                if tuple(src.shape) != tuple(dst.shape):
+                    raise MXNetError(f"Parameter '{name}' has shape "
+                                     f"{tuple(src.shape)} in '{filename}', "
+                                     f"{tuple(dst.shape)} here")
+                dst.copy_(src.to(dst.device, dst.dtype))
+
 
 class HybridBlock(Block):
     """A Block the reference can compile (``hybridize``); the port runs

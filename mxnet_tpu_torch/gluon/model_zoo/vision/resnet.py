@@ -1,13 +1,17 @@
-"""ResNet v1 (counterpart of
+"""ResNet v1 and v2 (counterpart of
 ``mxnet_tpu/gluon/model_zoo/vision/resnet.py``).
 
 The same structure and parameter names as the reference
-(BasicBlockV1 / BottleneckV1, the 18/34/50/101/152 layer configs), so
-its weights carry across by name.  ``in_channels`` is threaded through
-every layer (the port has no deferred shape inference).  A channel-last
-BottleneckV1 built with ``no_bias=True`` runs its bn2 → relu → conv3
-tail through the fused op (``ops/pallas_conv.py``) when that is enabled
-and the block trains.  ResNet v2 is not ported yet (ROADMAP §A).
+(BasicBlockV1 / BottleneckV1 / BasicBlockV2 / BottleneckV2, the
+18/34/50/101/152 layer configs), so its weights carry across by name.
+``in_channels`` is threaded through every layer (the port has no
+deferred shape inference).  The default layout is the reference's,
+channel-first (NCHW inputs, OIHW weights); ``layout="NHWC"`` builds the
+net channel-last.  A channel-last BottleneckV1 built with
+``no_bias=True`` runs its bn2 → relu → conv3 tail through the fused op
+(``ops/pallas_conv.py``) when that is enabled and the block trains; in
+any other layout or with the zoo's biases the tail runs layer by layer,
+as in the reference.
 """
 from __future__ import annotations
 
@@ -15,9 +19,11 @@ from ....base import MXNetError
 from ... import nn
 from ...block import HybridBlock
 
-__all__ = ["ResNetV1", "BasicBlockV1", "BottleneckV1", "get_resnet",
+__all__ = ["ResNetV1", "ResNetV2", "BasicBlockV1", "BasicBlockV2",
+           "BottleneckV1", "BottleneckV2", "get_resnet",
            "resnet18_v1", "resnet34_v1", "resnet50_v1", "resnet101_v1",
-           "resnet152_v1"]
+           "resnet152_v1", "resnet18_v2", "resnet34_v2", "resnet50_v2",
+           "resnet101_v2", "resnet152_v2"]
 
 
 def _conv3x3(channels, stride, in_channels):
@@ -139,6 +145,68 @@ class BottleneckV1(HybridBlock):
         return (x + residual).relu()
 
 
+class BasicBlockV2(HybridBlock):
+    # pre-activation: bn -> relu -> conv, twice; the projection shortcut
+    # takes the first activation.  no_bias is accepted for API
+    # uniformity: every conv here is already bias-free
+    def __init__(self, channels, stride, downsample=False, in_channels=0,
+                 no_bias=False, **kwargs):
+        super().__init__(**kwargs)
+        self.bn1 = nn.BatchNorm(in_channels=in_channels)
+        self.conv1 = _conv3x3(channels, stride, in_channels)
+        self.bn2 = nn.BatchNorm(in_channels=channels)
+        self.conv2 = _conv3x3(channels, 1, channels)
+        if downsample:
+            self.downsample = nn.Conv2D(channels, 1, stride, use_bias=False,
+                                        in_channels=in_channels)
+        else:
+            self.downsample = None
+
+    def forward(self, x):
+        residual = x
+        x = self.bn1(x).relu()
+        if self.downsample is not None:
+            residual = self.downsample(x)
+        x = self.conv1(x)
+        x = self.bn2(x).relu()
+        x = self.conv2(x)
+        return x + residual
+
+
+class BottleneckV2(HybridBlock):
+    # pre-activation bottleneck; the stride is on the 3x3 conv.  no_bias
+    # is accepted for API uniformity: every conv here is bias-free
+    def __init__(self, channels, stride, downsample=False, in_channels=0,
+                 no_bias=False, **kwargs):
+        super().__init__(**kwargs)
+        mid = channels // 4
+        self.bn1 = nn.BatchNorm(in_channels=in_channels)
+        self.conv1 = nn.Conv2D(mid, kernel_size=1, strides=1,
+                               use_bias=False, in_channels=in_channels)
+        self.bn2 = nn.BatchNorm(in_channels=mid)
+        self.conv2 = _conv3x3(mid, stride, mid)
+        self.bn3 = nn.BatchNorm(in_channels=mid)
+        self.conv3 = nn.Conv2D(channels, kernel_size=1, strides=1,
+                               use_bias=False, in_channels=mid)
+        if downsample:
+            self.downsample = nn.Conv2D(channels, 1, stride, use_bias=False,
+                                        in_channels=in_channels)
+        else:
+            self.downsample = None
+
+    def forward(self, x):
+        residual = x
+        x = self.bn1(x).relu()
+        if self.downsample is not None:
+            residual = self.downsample(x)
+        x = self.conv1(x)
+        x = self.bn2(x).relu()
+        x = self.conv2(x)
+        x = self.bn3(x).relu()
+        x = self.conv3(x)
+        return x + residual
+
+
 class ResNetV1(HybridBlock):
     def __init__(self, block, layers, channels, classes=1000,
                  thumbnail=False, no_bias=False, **kwargs):
@@ -181,6 +249,46 @@ class ResNetV1(HybridBlock):
         return self.output(self.features(x))
 
 
+class ResNetV2(HybridBlock):
+    def __init__(self, block, layers, channels, classes=1000,
+                 thumbnail=False, no_bias=False, **kwargs):
+        super().__init__(**kwargs)
+        if len(layers) != len(channels) - 1:
+            raise MXNetError("ResNetV2 needs one more channel count than "
+                             "stages")
+        self._no_bias = no_bias
+        with self.name_scope():
+            self.features = nn.HybridSequential(prefix="")
+            # normalizes the input image: no affine, statistics only
+            self.features.add(nn.BatchNorm(scale=False, center=False,
+                                           in_channels=3))
+            if thumbnail:
+                self.features.add(_conv3x3(channels[0], 1, 3))
+            else:
+                self.features.add(nn.Conv2D(channels[0], 7, 2, 3,
+                                            use_bias=False, in_channels=3))
+                self.features.add(nn.BatchNorm(in_channels=channels[0]))
+                self.features.add(nn.Activation("relu"))
+                self.features.add(nn.MaxPool2D(3, 2, 1))
+            in_channels = channels[0]
+            for i, num_layer in enumerate(layers):
+                stride = 1 if i == 0 else 2
+                self.features.add(self._make_layer(
+                    block, num_layer, channels[i + 1], stride, i + 1,
+                    in_channels=in_channels))
+                in_channels = channels[i + 1]
+            self.features.add(nn.BatchNorm(in_channels=in_channels))
+            self.features.add(nn.Activation("relu"))
+            self.features.add(nn.GlobalAvgPool2D())
+            self.features.add(nn.Flatten())
+            self.output = nn.Dense(classes, in_units=in_channels)
+
+    _make_layer = ResNetV1._make_layer
+
+    def forward(self, x):
+        return self.output(self.features(x))
+
+
 resnet_spec = {
     18: ("basic_block", [2, 2, 2, 2], [64, 64, 128, 256, 512]),
     34: ("basic_block", [3, 4, 6, 3], [64, 64, 128, 256, 512]),
@@ -189,27 +297,33 @@ resnet_spec = {
     152: ("bottle_neck", [3, 8, 36, 3], [64, 256, 512, 1024, 2048]),
 }
 
-_BLOCKS = {"basic_block": BasicBlockV1, "bottle_neck": BottleneckV1}
+resnet_net_versions = [ResNetV1, ResNetV2]
+resnet_block_versions = [
+    {"basic_block": BasicBlockV1, "bottle_neck": BottleneckV1},
+    {"basic_block": BasicBlockV2, "bottle_neck": BottleneckV2},
+]
 
 
 def get_resnet(version, num_layers, pretrained=False, layout=None,
                **kwargs):
-    """``layout="NHWC"`` builds the net channel-last (inputs NHWC); the
-    default follows the ``nn.default_layout`` scope (NCHW, which the
-    port's convolutions do not take yet)."""
+    """ResNet ``version`` 1 or 2 with ``num_layers`` layers.
+    ``layout="NHWC"`` builds the net channel-last (inputs NHWC); the
+    default follows the ``nn.default_layout`` scope (NCHW)."""
     if num_layers not in resnet_spec:
         raise MXNetError(
             f"Invalid number of layers: {num_layers}. "
             f"Options are {sorted(resnet_spec.keys())}")
-    if version != 1:
-        raise MXNetError(f"resnet version {version} is not ported yet "
-                         "(v1 only; ROADMAP §A)")
+    if version not in (1, 2):
+        raise MXNetError(f"Invalid resnet version: {version} (1 or 2)")
     if pretrained:
         raise MXNetError("pretrained weights are not downloadable; load "
-                         "them with parallel.load_jax_params")
+                         "them with Block.load_parameters or "
+                         "parallel.load_jax_params")
     block_type, layers, channels = resnet_spec[num_layers]
     with nn.default_layout(layout):
-        return ResNetV1(_BLOCKS[block_type], layers, channels, **kwargs)
+        return resnet_net_versions[version - 1](
+            resnet_block_versions[version - 1][block_type], layers,
+            channels, **kwargs)
 
 
 def resnet18_v1(**kwargs):
@@ -230,3 +344,23 @@ def resnet101_v1(**kwargs):
 
 def resnet152_v1(**kwargs):
     return get_resnet(1, 152, **kwargs)
+
+
+def resnet18_v2(**kwargs):
+    return get_resnet(2, 18, **kwargs)
+
+
+def resnet34_v2(**kwargs):
+    return get_resnet(2, 34, **kwargs)
+
+
+def resnet50_v2(**kwargs):
+    return get_resnet(2, 50, **kwargs)
+
+
+def resnet101_v2(**kwargs):
+    return get_resnet(2, 101, **kwargs)
+
+
+def resnet152_v2(**kwargs):
+    return get_resnet(2, 152, **kwargs)

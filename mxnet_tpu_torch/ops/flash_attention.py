@@ -7,10 +7,12 @@ the port of the reference's Pallas ``_flash_kernel``; on a CPU tensor
 it computes :func:`flash_attention_reference`, the plain PyTorch
 version of the same math.  A CUDA tensor never falls back: the kernel
 launches, or the wrapper raises.  The kernel has tiles for head dims 8,
-16, 32, 64 and 128; any other head_dim up to 128 runs it at the next of
-those depths, q, k and v zero-padded (which adds exact zeros to every
-score) and the output sliced back.  It has no backward yet, so on a CUDA
-tensor an operand that requires grad raises rather than getting none.
+16, 32, 64 and 128, and runs a depth that is a multiple of 128 in
+128-wide slabs of the output (one CTA per slab, each summing Q K^T over
+128-deep chunks).  Any other head_dim runs at the next of those depths,
+q, k and v zero-padded (which adds exact zeros to every score) and the
+output sliced back.  It has no backward yet, so on a CUDA tensor an
+operand that requires grad raises rather than getting none.
 
 :func:`paged_decode_attention` is the decode step's attention over the
 paged KV cache.  It is plain ``jnp`` in the reference, so it is plain
@@ -34,8 +36,12 @@ __all__ = ["flash_attention", "flash_attention_reference",
 #: three kernel variants (block sizes and the padding shim on the TPU)
 #: all mean the one hand-written kernel on a CUDA tensor
 _VARIANTS = ("naive", "pallas", "pallas_b256", "pallas_pad")
-#: the depths the kernel has tiles for; other head dims pad to the next
+#: the depths the kernel has tiles for; other head dims up to the last
+#: pad to the next
 _KERNEL_HEAD_DIMS = (8, 16, 32, 64, 128)
+#: a deeper head runs in slabs of this many output columns (the deepest
+#: tiles), its depth padded to a multiple of it
+_SLAB = _KERNEL_HEAD_DIMS[-1]
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _count_lock = threading.Lock()
 
@@ -83,9 +89,8 @@ def _check_kernel_operands(q, k, v):
         raise MXNetError(f"flash_attention shapes disagree: q "
                          f"{tuple(q.shape)}, k {tuple(k.shape)}, v "
                          f"{tuple(v.shape)}")
-    if not 1 <= d <= _KERNEL_HEAD_DIMS[-1]:
-        raise MXNetError(f"flash_attention kernel takes head_dim 1 to "
-                         f"{_KERNEL_HEAD_DIMS[-1]} (its deepest tiles), "
+    if d < 1:
+        raise MXNetError(f"flash_attention kernel takes head_dim >= 1, "
                          f"got {d}")
     if q.dtype not in _KERNEL_DTYPES or k.dtype != q.dtype or \
             v.dtype != q.dtype:
@@ -121,8 +126,19 @@ def _check_no_grad(q, k, v):
 
 
 def _kernel_depth(d):
-    """The kernel depth a head_dim of ``d`` (1 to 128) runs at."""
+    """The kernel depth a head_dim of ``d`` runs at: the next depth with
+    tiles up to 128, else the next multiple of 128."""
+    if d > _SLAB:
+        return -(-d // _SLAB) * _SLAB
     return next(x for x in _KERNEL_HEAD_DIMS if x >= d)
+
+
+def _slabs(depth):
+    """The output columns ``[(start, stop), ...]`` that the kernel's CTAs
+    of one work item write at a kernel depth of ``depth``: one range up
+    to 128, else one per 128-wide slab (the grid's second axis)."""
+    width = min(depth, _SLAB)
+    return [(c, c + width) for c in range(0, depth, width)]
 
 
 def _pad_depth(x, depth):
@@ -152,7 +168,8 @@ def _kernel():
 
 @functools.cache
 def _block_sizes(code, head_dim):
-    """(query rows, keys) per tile of the kernel for dtype ``code``."""
+    """(query rows, keys) per tile of the kernel for dtype ``code`` at a
+    kernel depth of ``head_dim`` (the D = 128 tiles for every slab)."""
     bq, bk = ctypes.c_int(), ctypes.c_int()
     rc = _kernel()[1](code, head_dim, ctypes.byref(bq), ctypes.byref(bk))
     if rc != 0:
@@ -211,12 +228,13 @@ def _split_plan(bh, sq, sk, causal, block_q, block_k, n_sm):
 
 @functools.lru_cache(maxsize=1024)
 def _plan_on(device, bh, sq, sk, causal, code, head_dim):
-    """``(plan tensor on device, n_items, split, block_q)`` for a call;
-    the plan is int32 ``items`` rows then ``ranges`` rows, the kernel's
-    layout."""
+    """``(plan tensor on device, n_items, split, block_q)`` for a call at
+    kernel depth ``head_dim``; the plan is int32 ``items`` rows then
+    ``ranges`` rows, the kernel's layout.  Each item runs one CTA per
+    batch*head and slab, so the split is planned over their product."""
     bq, bk = _block_sizes(code, head_dim)
-    items, ranges, split = _split_plan(bh, sq, sk, causal, bq, bk,
-                                       _sm_count(device))
+    items, ranges, split = _split_plan(bh * len(_slabs(head_dim)), sq, sk,
+                                       causal, bq, bk, _sm_count(device))
     flat = [x for it in items for x in it] + [x for r in ranges for x in r]
     plan = torch.tensor(flat, dtype=torch.int32, device=device)
     return plan, len(items), split, bq
@@ -230,12 +248,15 @@ def _sm_count(device):
 def _flash_forward_cuda(q, k, v, causal, sm_scale):
     """Launch ``csrc/flash_attention.cu`` on the current stream of q's
     device; q/k/v are viewed as ``(batch*heads, seq, head_dim)``.  A
-    head_dim without tiles of its own runs at the next depth that has
-    them, zero-padded, and the output is sliced back."""
+    head_dim the kernel does not take as it is runs at the next depth it
+    takes (:func:`_kernel_depth`), zero-padded, and the output is sliced
+    back."""
     _check_kernel_operands(q, k, v)
     _check_no_grad(q, k, v)
     b, h, sq, head_dim = q.shape
     sk = k.shape[2]
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(head_dim)
     d = _kernel_depth(head_dim)
     if d != head_dim:
         q, k, v = (_pad_depth(t, d) for t in (q, k, v))
@@ -288,13 +309,11 @@ def flash_attention(q, k, v, causal=False, sm_scale=None, variant=None):
     On a CUDA tensor every kernel variant (``pallas``, ``pallas_b256``,
     ``pallas_pad``, or None) launches the hand-written kernel and
     ``naive`` computes the plain version; on a CPU tensor the plain
-    version runs whatever the variant.  The kernel takes head_dim up to
-    128 and, having no backward yet, raises on an operand that requires
-    grad while grad mode is on.  ``sm_scale`` defaults to
+    version runs whatever the variant.  The kernel takes any head_dim
+    and, having no backward yet, raises on an operand that requires grad
+    while grad mode is on.  ``sm_scale`` defaults to
     ``1/sqrt(head_dim)`` of the operands as given.
     ``flash_attention.launches`` counts kernel launches."""
-    if sm_scale is None:
-        sm_scale = 1.0 / math.sqrt(q.shape[-1])
     variant = _resolve_variant(variant)
     if q.device.type == "cpu" or variant == "naive":
         return flash_attention_reference(q, k, v, causal=causal,

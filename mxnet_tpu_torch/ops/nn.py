@@ -35,12 +35,23 @@ def fully_connected(data, weight, bias=None, *, num_hidden, no_bias=False,
     return out
 
 
+_ACTIVATIONS = {
+    "relu": torch.relu,
+    "sigmoid": torch.sigmoid,
+    "tanh": torch.tanh,
+    "softrelu": torch.nn.functional.softplus,
+    "softsign": torch.nn.functional.softsign,
+}
+
+
 def activation(x, *, act_type):
-    """Reference ``Activation`` (``mxnet_tpu/ops/nn.py:35``); relu is the
-    one ResNet uses, the others are not ported yet."""
-    if act_type != "relu":
-        raise MXNetError(f"act_type {act_type!r} is not ported yet")
-    return torch.relu(x)
+    """Reference ``Activation`` (``mxnet_tpu/ops/nn.py:35``): relu,
+    sigmoid, tanh, softrelu (softplus) or softsign."""
+    fn = _ACTIVATIONS.get(act_type)
+    if fn is None:
+        raise MXNetError(f"unknown act_type {act_type!r} (one of "
+                         f"{sorted(_ACTIVATIONS)})")
+    return fn(x)
 
 
 def log_softmax(x, *, axis=-1):

@@ -138,9 +138,10 @@ def functionalize(block, train=False):
 
 def load_jax_params(net_or_params, arrays):
     """Copy the JAX package's parameters ``{name: array}`` into a port
-    block (or a ``{name: tensor}`` dict), matched by name.  Convolution
-    weights are ``O*kI`` in both packages, so every array copies as it
-    is.  Any missing, extra or mis-shaped entry raises."""
+    block (or a ``{name: tensor}`` dict), matched by name.  Both packages
+    lay convolution weights out alike (``OIHW`` in a channel-first net,
+    ``O*kI`` in a channel-last one), so every array copies as it is.
+    Any missing, extra or mis-shaped entry raises."""
     if isinstance(net_or_params, torch.nn.Module):
         targets = {n: p.data()
                    for n, p in net_or_params.collect_params().items()}

@@ -129,8 +129,8 @@ def test_naive_variant_launches_nothing(card):
 @pytest.mark.parametrize("bad", ["head_dim", "dtype", "contiguity"])
 def test_kernel_refuses_what_it_does_not_take(card, bad):
     q, k, v = _qkv(1, 2, 8, 8, 8, "float32", card)
-    if bad == "head_dim":  # past the deepest tiles (128)
-        q, k, v = _qkv(1, 2, 8, 8, 256, "float32", card)
+    if bad == "head_dim":  # no depth at all
+        q, k, v = _qkv(1, 2, 8, 8, 0, "float32", card)
     elif bad == "dtype":
         q, k, v = q.half(), k.half(), v.half()
     else:
@@ -157,6 +157,44 @@ def test_kernel_runs_head_dims_without_tiles(card, d, causal, dtype):
     assert got.shape == q.shape and got.dtype == q.dtype
     assert got.is_contiguous()
     _assert_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [160, 192, 256, 320])
+def test_kernel_runs_head_dims_above_128(card, d, causal, dtype):
+    """A head_dim above 128 runs the slab kernel (128-wide slabs of the
+    output, Q K^T over 128-deep chunks) at the next multiple of 128,
+    zero-padded, in one launch: held against the plain version under
+    the usual tolerances, across ragged q and key tiles."""
+    q, k, v = _qkv(2, 3, 150, 131, d, dtype, card, seed=d)
+    before = tfa.flash_attention.launches
+    got = tfa.flash_attention(q, k, v, causal=causal)
+    want = tfa.flash_attention_reference(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention.launches == before + 1
+    assert got.shape == q.shape and got.dtype == q.dtype
+    assert got.is_contiguous()
+    _assert_close(got, want, dtype)
+    if causal:
+        assert bool((got[:, :, :150 - 131] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("sq", [1, 16])
+def test_key_split_arm_at_head_dim_256(card, sq, dtype):
+    """Sq << Sk at head_dim 256: the key split's partials of both slabs
+    merge to the plain version's result, the same bits on two runs."""
+    q, k, v = _qkv(2, 16, sq, 2048, 256, dtype, card)
+    _, _, split, _ = tfa._plan_on(q.device, 32, sq, 2048, True,
+                                  tfa._KERNEL_DTYPES[q.dtype], 256)
+    assert split
+    got = tfa.flash_attention(q, k, v, causal=True)
+    again = tfa.flash_attention(q, k, v, causal=True)
+    want = tfa.flash_attention_reference(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    _assert_close(got, want, dtype)
+    assert torch.equal(got, again)
 
 
 @pytest.mark.parametrize("needs", ["q", "k", "v"])
@@ -187,12 +225,12 @@ def _tensors(tree):
             yield from _tensors(v)
 
 
-def _served_tokens(params, device, head_dim=8):
+def _served_tokens(params, device, head_dim=8, pool_budget=1 << 16):
     from mxnet_tpu_torch.serving import GenerativeServer
 
     srv = GenerativeServer(params=params, device=device, head_dim=head_dim,
                            prompt_buckets=(4, 8), max_new=6, slots=4,
-                           page_tokens=4, pool_budget=1 << 16,
+                           page_tokens=4, pool_budget=pool_budget,
                            kv_dtype="float32")
     srv.start(warm=True)
     try:
@@ -221,6 +259,21 @@ def test_server_serves_a_padded_head_dim_with_the_grad_guard(card):
     on_card = _served_tokens(params, card, head_dim=24)
     assert tfa.flash_attention.launches > before
     assert on_card == _served_tokens(params, "cpu", head_dim=24)
+
+
+def test_server_serves_head_dim_256(card):
+    """head_dim 256 prefills through the slab kernel: the same tokens as
+    on the host, with fp32 KV."""
+    from mxnet_tpu_torch.serving import toy_decoder_params
+
+    params = toy_decoder_params(seed=0, head_dim=256, device="cpu")
+    # the pool's byte budget scaled with the head: the same pages as at
+    # head_dim 8
+    kw = dict(head_dim=256, pool_budget=1 << 21)
+    before = tfa.flash_attention.launches
+    on_card = _served_tokens(params, card, **kw)
+    assert tfa.flash_attention.launches > before
+    assert on_card == _served_tokens(params, "cpu", **kw)
 
 
 # ------------------------------------------- the ResNet training slice

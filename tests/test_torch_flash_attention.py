@@ -135,8 +135,8 @@ def test_kernel_operand_checks_raise(bad):
     """What the wrapper refuses before a launch (checked on host
     tensors: the checks are plain Python)."""
     q, k, v = (torch.from_numpy(a) for a in _qkv(1, 2, 8, 8, 8, 0))
-    if bad == "head_dim":  # past the deepest tiles (128)
-        q, k, v = (torch.zeros(1, 2, 8, 256) for _ in range(3))
+    if bad == "head_dim":  # no depth at all
+        q, k, v = (torch.zeros(1, 2, 8, 0) for _ in range(3))
     elif bad == "dtype":
         q, k, v = q.half(), k.half(), v.half()
     elif bad == "contiguity":
@@ -148,7 +148,7 @@ def test_kernel_operand_checks_raise(bad):
         assert q.is_contiguous()
     else:
         q = q[:, :, :0].contiguous()
-    with pytest.raises(MXNetError, match="128" if bad == "head_dim"
+    with pytest.raises(MXNetError, match="head_dim" if bad == "head_dim"
                        else None):
         tfa._check_kernel_operands(q, k, v)
 
@@ -162,6 +162,23 @@ def test_head_dims_up_to_128_pass_the_checks(d):
     depth = tfa._kernel_depth(d)
     assert depth in tfa._KERNEL_HEAD_DIMS and d <= depth
     assert depth == 8 or depth // 2 < d
+    assert tfa._slabs(depth) == [(0, depth)]
+
+
+@pytest.mark.parametrize("d", [129, 160, 192, 256, 320, 512])
+def test_deep_head_dims_pass_the_checks_and_plan_whole_slabs(d):
+    """A head_dim above 128 is taken: it runs at the next multiple of
+    128, in 128-wide slabs that together write every output column of
+    that depth once, the head's own columns among them."""
+    q, k, v = (torch.zeros(1, 2, 8, d) for _ in range(3))
+    tfa._check_kernel_operands(q, k, v)
+    depth = tfa._kernel_depth(d)
+    assert depth % 128 == 0 and d <= depth < d + 128
+    slabs = tfa._slabs(depth)
+    assert all(stop - start == 128 for start, stop in slabs)
+    cols = [c for start, stop in slabs for c in range(start, stop)]
+    assert cols == list(range(depth))
+    assert len(slabs) == depth // 128 >= 2
 
 
 @pytest.mark.parametrize("needs", ["q", "k", "v"])
@@ -276,7 +293,7 @@ def _tf32(x):
 
 
 def _emulate_kernel(q, k, v, causal, scale, passes, n_sm=132, bq=64,
-                    bk=64, fault=None):
+                    bk=64, fault=None, chunk=None, cols=None, plan_bh=None):
     """The kernel's algorithm in float32 torch ops on (bh, s, d)
     operands: the wrapper's plan, key tiles of ``bk``, the online
     softmax in the exp2 domain with the -inf guards, every product
@@ -285,9 +302,14 @@ def _emulate_kernel(q, k, v, causal, scale, passes, n_sm=132, bq=64,
     rounded to bf16 before P V), key-split partials merged in slot
     order.  ``fault`` plants a defect: "drop_tile" skips key tile 8,
     "no_rescale" leaves the accumulator unscaled when the row max
-    grows."""
+    grows.  The slab kernel's CTA: ``chunk`` sums Q K^T over chunks of
+    that depth, in order; ``cols`` = (start, stop) is its slab of V's
+    and the output's columns; ``plan_bh`` the CTAs per item the plan
+    counts (default ``bh``)."""
     bh, sq, d = q.shape
     sk = k.shape[1]
+    if cols is not None:
+        v = v[..., cols[0]:cols[1]]
     c = scale * 1.4426950408889634
     ninf = torch.tensor(-math.inf)
 
@@ -301,8 +323,18 @@ def _emulate_kernel(q, k, v, causal, scale, passes, n_sm=132, bq=64,
         al, bl = _tf32(a - ah), _tf32(b - bh_)
         return al @ bh_ + ah @ bl + ah @ bh_
 
-    items, ranges, split = tfa._split_plan(bh, sq, sk, causal, bq, bk, n_sm)
-    out = torch.zeros_like(q)
+    def scores(a, b):
+        if chunk is None:
+            return prod(a, b)
+        s = prod(a[..., :chunk], b[:, :chunk])
+        for c0 in range(chunk, a.shape[-1], chunk):
+            s = s + prod(a[..., c0:c0 + chunk], b[:, c0:c0 + chunk])
+        return s
+
+    items, ranges, split = tfa._split_plan(
+        bh if plan_bh is None else plan_bh, sq, sk, causal, bq, bk, n_sm)
+    d = v.shape[-1]
+    out = torch.zeros((bh, sq, d))
     parts = {}
     for qt, kt0, kt1, slot in items:
         rows = torch.arange(qt * bq, min((qt + 1) * bq, sq))
@@ -313,7 +345,7 @@ def _emulate_kernel(q, k, v, causal, scale, passes, n_sm=132, bq=64,
             if fault == "drop_tile" and kt == 8:
                 continue
             keys = torch.arange(kt * bk, min((kt + 1) * bk, sk))
-            s = prod(q[:, rows], k[:, keys].transpose(1, 2)) * c
+            s = scores(q[:, rows], k[:, keys].transpose(1, 2)) * c
             if causal:
                 seen = keys[None, :] <= rows[:, None] + (sk - sq)
                 s = torch.where(seen, s, ninf)
@@ -397,6 +429,39 @@ def test_key_split_partials_merge_to_the_reference(shape):
     assert float((got - want).abs().max()) <= 1e-5
     if causal and sq > sk:
         assert (got[:, :sq - sk] == 0).all()
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [160, 256])
+def test_slab_kernel_order_matches_naive_attention(d, causal):
+    """The slab kernel's algorithm for a head_dim above 128: q, k, v
+    zero-padded to the kernel depth, one CTA per 128-wide slab of V and
+    the output, each summing split-TF32 Q K^T over 128-deep chunks in
+    order and running the online softmax, the key split planned over
+    batch*heads times slabs.  Its slabs, put side by side and sliced
+    back, equal the reference's _naive_attention to 1e-5; every slab
+    computes the same scores, so the sliced columns do not depend on
+    which slab wrote them."""
+    rng = onp.random.RandomState(d)
+    bh, sq, sk = 3, 150, 200
+    qn, kn, vn = (rng.randn(1, bh, s, d).astype("float32")
+                  for s in (sq, sk, sk))
+    scale = 1.0 / math.sqrt(d)
+    depth = tfa._kernel_depth(d)
+    q, k, v = (tfa._pad_depth(torch.from_numpy(a)[0], depth)
+               for a in (qn, kn, vn))
+    slabs = tfa._slabs(depth)
+    got = torch.cat([
+        _emulate_kernel(q, k, v, causal, scale, 3, bq=128, bk=64,
+                        chunk=128, cols=cols, plan_bh=bh * len(slabs))
+        for cols in slabs], dim=-1)
+    assert got.shape == (bh, sq, depth)
+    assert bool((got[..., d:] == 0).all())
+    want = onp.asarray(jfa._naive_attention(
+        jnp.asarray(qn), jnp.asarray(kn), jnp.asarray(vn), causal,
+        scale))[0]
+    onp.testing.assert_allclose(got[..., :d].numpy(), want, rtol=1e-5,
+                                atol=1e-5)
 
 
 @pytest.mark.parametrize("fault", [None, "drop_tile", "no_rescale"])
