@@ -26,7 +26,12 @@ BN-ReLU-1x1-conv backward) with SGD through
 ``get_model("resnet50_v1")`` and ``get_model("resnet50_v2")`` at the
 reference's defaults (channel-first, the zoo's biases) with SGD (batch
 128), and checks one fp32 step of each on the card against the host,
-checking the results.  Each phase prints one JSON line on stdout
+checking the results; then runs the imperative Gluon loop
+(``autograd.record()`` -> ``backward`` -> ``gluon.Trainer.step``): the
+example's LeNet on the reference's synthetic digits, the kernel-arm
+ResNet-50 with a deferred stem in bf16 with fp32 masters and an LR
+schedule (the fused backward on its path), and one fp32 Gluon step of
+it on the card against the host.  Each phase prints one JSON line on stdout
 (progress goes to stderr); ``--out`` also appends them to FILE.  Any
 failed check exits non-zero.  The last line is
 ``{"ok": true, "device": {...}}``.
@@ -1451,6 +1456,19 @@ TRAIN_PHASES = {
 }
 
 
+#: kernel families of a training step's profile, by name fragment
+STEP_SHARES = {
+    "bnreluconv_bwd": ("dact_mma_kernel", "dw_mma_kernel", "dact_kernel",
+                       "dw_kernel", "reduce_dw", "reduce_s"),
+    "bucket_update": ("bucket_sgd_kernel", "bucket_adam_kernel",
+                      "lars_norms_kernel", "lars_trust_kernel",
+                      "lars_update_kernel"),
+    "convolution": ("cudnn", "xmma", "convolve", "conv2d", "wgrad", "dgrad",
+                    "fprop"),
+    "elementwise": ("elementwise", "vectorized", "unrolled"),
+    "reduction": ("reduce_kernel", "Reduce")}
+
+
 def brc_per_step(net):
     """Fused-backward launches a step of ``net`` makes: one per
     bottleneck (16) where the fused tail applies, else 0."""
@@ -1584,17 +1602,8 @@ def train_phase(name, warmup, steps, seed=0):
         "bnreluconv_launches": n_brc,
         **{f"{k}_launches": v for k, v in launches.items()},
         "build_s": build_s,
-        "profile_3_steps": device_profile(prof, wall, top=25, shares={
-            "bnreluconv_bwd": ("dact_mma_kernel", "dw_mma_kernel",
-                               "dact_kernel", "dw_kernel", "reduce_dw",
-                               "reduce_s"),
-            "bucket_update": ("bucket_sgd_kernel", "bucket_adam_kernel",
-                              "lars_norms_kernel", "lars_trust_kernel",
-                              "lars_update_kernel"),
-            "convolution": ("cudnn", "xmma", "convolve", "conv2d", "wgrad",
-                            "dgrad", "fprop"),
-            "elementwise": ("elementwise", "vectorized", "unrolled"),
-            "reduction": ("reduce_kernel", "Reduce")}),
+        "profile_3_steps": device_profile(prof, wall, top=25,
+                                          shares=STEP_SHARES),
     }
     check(all(math.isfinite(v) for v in losses), f"loss not finite: "
           f"{losses}")
@@ -1851,6 +1860,357 @@ def cuda_vs_cpu_phase(which, host, batch=4, seed=3):
     return res
 
 
+# ------------------------------------------------ the imperative Gluon loop
+#: the reference's LeNet/MNIST baseline
+#: (example/image-classification/train_mnist.py): its synthetic digits,
+#: batch 64, 2 epochs, SGD lr 0.02 momentum 0.9; the accuracy on the
+#: synthetic validation digits it must reach (the reference's own host
+#: run reads 1.0000)
+LENET = dict(batch_size=64, epochs=2, lr=0.02, min_val_acc=0.95)
+#: the Gluon ResNet-50: bench.py's kernel-arm net (channel-last,
+#: bias-free 1x1 convs) with the reference's deferred stem, bf16 with
+#: fp32 masters, and the Trainer's settings
+GLUON_RESNET = dict(batch=128, image=224, warmup=2, steps=10, profiled=3,
+                    opt=dict(learning_rate=0.1, momentum=0.9, wd=1e-4,
+                             multi_precision=True),
+                    scheduler=dict(step=5, factor=0.9))
+
+
+def gluon_lenet_phase(seed=0):
+    """The port's train_mnist loop on ``mx.gpu(0)``: per-epoch loss and
+    accuracy, validation accuracy, ms/step."""
+    import numpy as onp
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.example import train_mnist
+
+    onp.random.seed(seed)  # the sampler's shuffle
+    torch.manual_seed(seed)  # the initializer's draws
+    res = train_mnist.train("lenet", LENET["batch_size"], LENET["epochs"],
+                            LENET["lr"], ctx=mx.gpu(0), log=log)
+    out = {"phase": "gluon_lenet", "network": "lenet",
+           "data": "synthetic digits, synth(4096, 1) / synth(512, 2)",
+           **{k: v for k, v in LENET.items() if k != "min_val_acc"},
+           "epochs_loss_acc": res["epochs"], "val_acc": res["val_acc"],
+           "ms_per_step": res["ms_per_step"],
+           "ms_per_step_by_epoch": res["ms_per_step_by_epoch"],
+           "steps": res["steps"],
+           "reference_host_run": {"train_acc": [0.5876, 0.9888],
+                                  "val_acc": 1.0}}
+    emit(out)
+    losses = [e["loss"] for e in res["epochs"]]
+    check(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+          f"gluon_lenet: the loss did not fall: {losses}")
+    check(res["val_acc"] >= LENET["min_val_acc"],
+          f"gluon_lenet: validation accuracy {res['val_acc']} < "
+          f"{LENET['min_val_acc']}")
+    return out
+
+
+def gluon_resnet50(ctx, seed, generator=None):
+    """ResNet-50 v1 (``GLUON_RESNET``'s net) with Xavier weights from
+    ``seed``; its stem's shape is deferred until the first forward."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+
+    net = resnet50_v1(classes=1000, layout="NHWC", no_bias=True,
+                      in_channels=0)
+    return net.initialize(mx.init.Xavier(), ctx=ctx,
+                          generator=generator or
+                          torch.Generator().manual_seed(seed))
+
+
+def _gluon_loss_step(net, trainer, x, y, host_ms=None):
+    """One step of the Gluon loop: forward and loss under
+    ``autograd.record()``, ``backward``, ``Trainer.step`` (its host time
+    appended to ``host_ms``).  Returns the per-sample loss."""
+    from mxnet_tpu_torch import autograd, gluon
+
+    with autograd.record():
+        loss = gluon.loss.SoftmaxCrossEntropyLoss()(net(x), y)
+    loss.backward()
+    t0 = time.perf_counter()
+    trainer.step(x.shape[0])
+    if host_ms is not None:
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+    return loss
+
+
+def gluon_resnet50_phase(seed=0):
+    """ResNet-50 trained by the imperative Gluon loop on the card (bf16,
+    multi_precision, a FactorScheduler, the fused tail's kernel arm
+    forced): ms/step by CUDA events, the host time of ``trainer.step``,
+    the idle share and kernel time by name over profiled steps.  The
+    fused-backward count is set to 0 just before the first step and
+    read after the last timed one."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, autotune, gluon, lr_scheduler
+    from mxnet_tpu_torch.ops import pallas_conv as pc
+
+    cfg = GLUON_RESNET
+    batch, warmup, steps = cfg["batch"], cfg["warmup"], cfg["steps"]
+    ctx = mx.gpu(0)
+    dev = ctx.torch_device()
+    net = gluon_resnet50(ctx, seed)
+    net.cast("bfloat16")
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    x = mx.nd.NDArray(torch.randn((batch, cfg["image"], cfg["image"], 3),
+                                  generator=gen, device=dev)
+                      .to(torch.bfloat16))
+    y = mx.nd.NDArray(torch.randint(0, 1000, (batch,), generator=gen,
+                                    device=dev, dtype=torch.int32))
+    trainer = gluon.Trainer(net.collect_params(), "sgd", dict(
+        cfg["opt"], lr_scheduler=lr_scheduler.FactorScheduler(
+            **cfg["scheduler"])))
+    torch.cuda.reset_peak_memory_stats()
+    losses, lrs, host_ms = [], [], []
+    with autotune.force(pallas_bnreluconv="pallas"):
+        pc.bnreluconv_bwd.launches = 0
+        for _ in range(warmup):
+            losses.append(_gluon_loss_step(net, trainer, x, y)._data
+                          .float().mean())
+            lrs.append(trainer.learning_rate)
+        params = net.collect_params()
+        stats = {n: p.data()._data.clone() for n, p in params.items()
+                 if n.endswith(("running_mean", "running_var"))}
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_stats()
+        marks = [torch.cuda.Event(enable_timing=True)
+                 for _ in range(steps + 1)]
+        marks[0].record()
+        for i in range(steps):
+            losses.append(_gluon_loss_step(net, trainer, x, y, host_ms)
+                          ._data.float().mean())
+            lrs.append(trainer.learning_rate)
+            marks[i + 1].record()
+        marks[-1].synchronize()
+        mem1 = torch.cuda.memory_stats()
+        n_brc = pc.bnreluconv_bwd.launches
+        moved = sum(not torch.equal(params[n].data()._data, v)
+                    for n, v in stats.items())
+        prof = torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA])
+        with prof:
+            t1 = time.perf_counter()
+            for _ in range(cfg["profiled"]):
+                _gluon_loss_step(net, trainer, x, y)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+        # trainer.step alone, the device idle before it: its host time
+        # without the launch queue's back-pressure, and its device time
+        alone_host, alone_dev = [], []
+        t_start = torch.cuda.Event(enable_timing=True)
+        t_end = torch.cuda.Event(enable_timing=True)
+        for _ in range(cfg["profiled"]):
+            with autograd.record():
+                loss = gluon.loss.SoftmaxCrossEntropyLoss()(net(x), y)
+            loss.backward()
+            torch.cuda.synchronize()
+            t_start.record()
+            t1 = time.perf_counter()
+            trainer.step(batch)
+            alone_host.append((time.perf_counter() - t1) * 1e3)
+            t_end.record()
+            t_end.synchronize()
+            alone_dev.append(t_start.elapsed_time(t_end))
+    total = warmup + steps
+    losses = [float(v) for v in losses]
+    step_ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    ms_step = marks[0].elapsed_time(marks[-1]) / steps
+    sched = lr_scheduler.FactorScheduler(**cfg["scheduler"])
+    sched.base_lr = cfg["opt"]["learning_rate"]
+    want_lrs = [sched(n) for n in range(1, total + 1)]
+    states = trainer._updaters[0].states
+    res = {
+        "phase": "gluon_resnet50", "loop": "gluon.Trainer (imperative)",
+        "model": {"name": "resnet50_v1", "layout": "NHWC", "no_bias": True,
+                  "in_channels": "deferred"},
+        "batch": batch, "image": cfg["image"], "dtype": "bfloat16",
+        "optimizer": "sgd", "optimizer_settings": cfg["opt"],
+        "lr_scheduler": {"FactorScheduler": cfg["scheduler"]},
+        "warmup_steps": warmup, "timed_steps": steps,
+        "ms_per_step": ms_step, "img_s": batch / ms_step * 1e3,
+        "step_ms": step_ms,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        # cudaMalloc calls and cache-flushing retries (each syncs the
+        # device) during the timed steps
+        "timed_cuda_mallocs": mem1.get("num_device_alloc", 0)
+        - mem0.get("num_device_alloc", 0),
+        "timed_alloc_retries": mem1.get("num_alloc_retries", 0)
+        - mem0.get("num_alloc_retries", 0),
+        "trainer_step_host_ms": sum(host_ms) / len(host_ms),
+        "trainer_step_host_ms_each": host_ms,
+        "trainer_step_alone_host_ms": sum(alone_host) / len(alone_host),
+        "trainer_step_alone_ms": sum(alone_dev) / len(alone_dev),
+        "trained_tensors": len(states),
+        "trained_elements": sum(p.data().size for p in params.values()
+                                if p.grad_req != "null"),
+        "losses": losses, "learning_rates": lrs,
+        "bnreluconv_launches": n_brc,
+        "running_stats_moved": f"{moved} of {len(stats)}",
+        "profile_3_steps": device_profile(prof, wall, top=25,
+                                          shares=STEP_SHARES),
+    }
+    emit(res)
+    check(all(math.isfinite(v) for v in losses), f"gluon_resnet50: loss "
+          f"not finite: {losses}")
+    check(sum(losses[-3:]) / 3 < losses[0],
+          f"gluon_resnet50: the loss did not fall: {losses}")
+    check(n_brc == 16 * total, f"gluon_resnet50: bnreluconv launches "
+          f"{n_brc} != 16 x {total} steps")
+    check(moved == len(stats), f"gluon_resnet50: {len(stats) - moved} "
+          "running statistics did not move")
+    check(all(math.isclose(a, b, rel_tol=1e-12)
+              for a, b in zip(lrs, want_lrs)),
+          f"gluon_resnet50: learning rates {lrs} are not the "
+          f"scheduler's {want_lrs}")
+    # bf16 weights carry (fp32 master, (momentum,)); BatchNorm's, kept
+    # fp32 by cast, (momentum,)
+    flat = [t for st in states.values() for t in
+            ((st[0], *st[1]) if len(st) == 2 else st)]
+    check(len(flat) == len(states) + sum(len(st) == 2
+                                         for st in states.values())
+          and all(t._data.dtype == torch.float32 and t._data.is_cuda
+                  for t in flat),
+          "gluon_resnet50: masters and momenta are not fp32 on the card")
+    return res
+
+
+def _gluon_card_host_steps(host, x, y):
+    """One fp32 Gluon step from ``host``'s weights on the card (the
+    kernel arm of the fused tail), on the host (its plain version) and
+    in float64 on the host (unfused): ``{key: (loss, params after,
+    params before, momenta, running statistics before and after)}`` and
+    the card step's fused-backward launches."""
+    import copy
+
+    import torch
+
+    from mxnet_tpu_torch import autotune, gluon, lr_scheduler
+    from mxnet_tpu_torch.ndarray import NDArray
+    from mxnet_tpu_torch.ops import pallas_conv as pc
+
+    out, launches = {}, None
+    for key, where, dtype, arm in (
+            ("cuda", "cuda", torch.float32, "pallas"),
+            ("cpu", "cpu", torch.float32, "pallas"),
+            ("cpu64", "cpu", torch.float64, "stock")):
+        net = copy.deepcopy(host).to(where)
+        net.cast(str(dtype).replace("torch.", ""))
+        params = net.collect_params()
+
+        def snap(stats):
+            return {n: p.data()._data.detach().to("cpu", torch.float64,
+                                                   copy=True)
+                    for n, p in params.items()
+                    if stats == n.endswith(("running_mean", "running_var"))}
+
+        before, stats0 = snap(False), snap(True)
+        trainer = gluon.Trainer(params, "sgd", dict(
+            GLUON_RESNET["opt"], lr_scheduler=lr_scheduler.FactorScheduler(
+                **GLUON_RESNET["scheduler"])))
+        with autotune.force(pallas_bnreluconv=arm):
+            if key == "cuda":
+                pc.bnreluconv_bwd.launches = 0
+            loss = _gluon_loss_step(net, trainer,
+                                    NDArray(x.to(where, dtype)),
+                                    NDArray(y.to(where)))
+            if key == "cuda":
+                torch.cuda.synchronize()
+                launches = pc.bnreluconv_bwd.launches
+        names = list(params)
+        moms = {names[i]: s._data.to("cpu", torch.float64, copy=True)
+                for i, (s,) in trainer._updaters[0].states.items()}
+        out[key] = (float(loss._data.double().mean()), snap(False), before,
+                    moms, stats0, snap(True))
+        del net, trainer, params
+    return out, launches
+
+
+def gluon_cuda_vs_cpu_phase(batch=4, seed=3, n_batches=3):
+    """One fp32 Gluon step of ``GLUON_RESNET``'s net on the card and on
+    the host from the same weights, TF32 off, held as the fused steps
+    are (``CUDA_CPU_TOL``): the loss to 1e-5; each parameter's update,
+    each momentum and each running statistic's change no farther from
+    the float64 step's than twice the host's fp32 one is, plus 1e-3,
+    each by its median over ``n_batches`` batches."""
+    import statistics
+
+    import numpy as onp
+    import torch
+
+    import mxnet_tpu_torch as mx
+
+    with mx.cpu():
+        host = gluon_resnet50(mx.cpu(), seed)
+        host(mx.nd.zeros((1, 224, 224, 3)))  # resolves the stem
+    runs = []
+    for b in range(n_batches):
+        gen = torch.Generator().manual_seed(seed + 1 + b)
+        x = torch.randn((batch, 224, 224, 3), generator=gen)
+        y = torch.from_numpy(onp.random.RandomState(seed + b).randint(
+            0, 1000, batch).astype("int32"))
+        runs.append(_gluon_card_host_steps(host, x, y))
+    f64 = runs[0][0]["cpu64"]
+    moved = {n: float((f64[1][n] - f64[2][n]).norm()) for n in f64[1]}
+    whole = math.sqrt(sum(v * v for v in moved.values()))
+    trained = [n for n, v in moved.items() if v >= INERT_SHARE * whole]
+
+    def rel(a, ref):
+        return float((a - ref).norm() / ref.norm().clamp_min(1e-30))
+
+    def errs(r, key):
+        """{quantity/name: error against float64} of one run's ``key``."""
+        run, ref = r[key], r["cpu64"]
+        e = {f"update/{n}": rel(run[1][n] - run[2][n],
+                                ref[1][n] - ref[2][n]) for n in trained}
+        e.update({f"momentum/{n}": rel(run[3][n], ref[3][n])
+                  for n in trained})
+        e.update({f"running/{n}": rel(run[5][n] - run[4][n],
+                                      ref[5][n] - ref[4][n])
+                  for n in ref[5]})
+        return e
+
+    card = [errs(r, "cuda") for r, _ in runs]
+    hosts = [errs(r, "cpu") for r, _ in runs]
+    card_m = {k: statistics.median(e[k] for e in card) for k in card[0]}
+    host_m = {k: statistics.median(e[k] for e in hosts) for k in hosts[0]}
+    over = {k: (card_m[k], host_m[k]) for k in card_m
+            if card_m[k] > 2 * host_m[k] + 1e-3}
+    loss_rel = max(abs(r["cuda"][0] - r["cpu"][0]) / abs(r["cpu"][0])
+                   for r, _ in runs)
+    worst = max(card_m, key=lambda k: card_m[k] - 2 * host_m[k])
+    res = {"phase": "gluon_cuda_vs_cpu", "net": "resnet50_v1 NHWC no_bias",
+           "loop": "gluon.Trainer", "optimizer_settings":
+           GLUON_RESNET["opt"], "batch": batch, "dtype": "float32",
+           "batches": n_batches, "loss_cuda": runs[0][0]["cuda"][0],
+           "loss_cpu": runs[0][0]["cpu"][0],
+           "loss_cpu_f64": runs[0][0]["cpu64"][0], "loss_rel": loss_rel,
+           "held": {"update": len(trained), "momentum": len(trained),
+                    "running_stat": len(runs[0][0]["cpu64"][5])},
+           "not_held_inert": sorted(set(moved) - set(trained)),
+           "err_cuda_vs_f64_max": max(card_m.values()),
+           "err_cpu_vs_f64_max": max(host_m.values()),
+           "closest_to_limit": {"quantity": worst,
+                                "cuda_vs_f64": card_m[worst],
+                                "cpu_vs_f64": host_m[worst]},
+           "over_limit": {k: list(v) for k, v in list(over.items())[:8]},
+           "tol": CUDA_CPU_TOL,
+           "bnreluconv_launches": [n for _, n in runs]}
+    emit(res)
+    check(loss_rel <= CUDA_CPU_TOL["loss"] and not over,
+          f"gluon cuda vs cpu: loss rel {loss_rel}; over the limit "
+          f"(card, host): {dict(list(over.items())[:8])}")
+    check(all(n == 16 for _, n in runs),
+          f"gluon cuda step launches {[n for _, n in runs]} != 16")
+    return res
+
+
 def run(profile=False, old_brc=None, workdir=None):
     import torch
 
@@ -2085,6 +2445,20 @@ def run(profile=False, old_brc=None, workdir=None):
             hosts[net_kind] = resnet50("cpu", 3, net_kind)
         cvc[k] = cuda_vs_cpu_phase(k, hosts[net_kind])
 
+    torch.cuda.empty_cache()
+    lenet = gluon_lenet_phase()
+    log(f"[gluon_lenet] {lenet['ms_per_step_by_epoch']} ms/step, epochs "
+        f"{lenet['epochs_loss_acc']}, val acc {lenet['val_acc']:.4f}")
+    gres = gluon_resnet50_phase()
+    log(f"[gluon_resnet50] {gres['ms_per_step']:.2f} ms/step "
+        f"{gres['img_s']:.1f} img/s peak {gres['peak_mem_gib']:.2f} GiB, "
+        f"trainer.step {gres['trainer_step_host_ms']:.2f} host ms, "
+        f"losses {gres['losses']}")
+    torch.cuda.empty_cache()
+    gcvc = gluon_cuda_vs_cpu_phase()
+    log(f"[gluon_cuda_vs_cpu] loss rel {gcvc['loss_rel']:.2e}, closest "
+        f"{gcvc['closest_to_limit']}")
+
     main = [c for c in cases if c["path"].startswith("serve")]
     head = next(c for c in cases if c["path"] == "serve_wide"
                 and c["shape"][2] == 2048)
@@ -2115,7 +2489,8 @@ def run(profile=False, old_brc=None, workdir=None):
               max(c["max_abs_err"] for c in main), head),
         entry("bnreluconv_bwd", "bnreluconv_bwd.cu",
               "mxnet_tpu/ops/pallas_conv.py:83",
-              sum(t["bnreluconv_launches"] for t in trains.values()),
+              sum(t["bnreluconv_launches"] for t in trains.values())
+              + gres["bnreluconv_launches"],
               max(c["max_abs_err"] for c in brc_main), brc_head),
         entry("bucket_sgd_mom", "bucket_sgd.cu",
               "mxnet_tpu/ops/pallas_opt.py:157",
@@ -2157,8 +2532,11 @@ def resnet50_plan():
     from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
     from mxnet_tpu_torch.parallel import zero
 
+    import torch
+
     net = resnet50_v1(classes=1000, layout="NHWC", no_bias=True)
-    params = {n: p.data() for n, p in net.collect_params().items()}
+    params = {n: torch.empty(p.shape, device="meta")
+              for n, p in net.collect_params().items()}
     return zero.plan_buckets(params, 1)
 
 

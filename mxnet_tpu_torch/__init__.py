@@ -12,11 +12,13 @@ unless the caller passes ``device="cpu"``, ``ctx=mx.cpu()`` or enters
 ``with mx.cpu():``; asking for CUDA where there is none raises.
 
 The slices ported so far are the generative decode server
-(:mod:`mxnet_tpu_torch.serving`), ResNet v1 training
-(:mod:`mxnet_tpu_torch.gluon`, :mod:`mxnet_tpu_torch.parallel`) and the
-imperative front end (``mx.nd``, :mod:`~mxnet_tpu_torch.autograd`,
-``.params`` files, :mod:`~mxnet_tpu_torch.library`), with what they
-run.
+(:mod:`mxnet_tpu_torch.serving`), ResNet training through the fused step
+(:mod:`mxnet_tpu_torch.parallel`), the imperative front end (``mx.nd``,
+:mod:`~mxnet_tpu_torch.autograd`, ``.params`` files,
+:mod:`~mxnet_tpu_torch.library`) and the imperative Gluon training loop
+(:mod:`~mxnet_tpu_torch.gluon` blocks on NDArrays, ``gluon.Trainer``,
+:mod:`~mxnet_tpu_torch.optimizer`, :mod:`~mxnet_tpu_torch.lr_scheduler`,
+:mod:`~mxnet_tpu_torch.metric`, ``gluon.data``), with what they run.
 """
 __version__ = "0.1.0"
 
@@ -29,7 +31,14 @@ from . import autograd  # noqa: F401
 from . import ndarray  # noqa: F401
 from . import ndarray as nd  # noqa: F401
 from . import library  # noqa: F401
+from . import initializer  # noqa: F401
+from . import initializer as init  # noqa: F401
+from . import lr_scheduler  # noqa: F401
+from . import metric  # noqa: F401
+from . import optimizer  # noqa: F401
+from . import gluon  # noqa: F401
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "num_gpus", "default_device", "resolve_device", "nd",
-           "ndarray", "autograd", "library"]
+           "ndarray", "autograd", "library", "gluon", "init", "initializer",
+           "lr_scheduler", "metric", "optimizer"]

@@ -8,13 +8,27 @@ registration order, then its children's).  Layers implement
 ``forward``; the reference's ``hybrid_forward(F, ...)`` indirection has
 no counterpart.
 
-Like the reference, a block predicts unless asked to train: every
-Block starts in eval mode (``block.train()`` or
-``parallel.functionalize(..., train=True)`` switch it).
+A block is called two ways:
+
+- on ``NDArray``s, the reference's imperative Gluon: the outputs are
+  NDArrays on ``mx.autograd``'s tape (taped only inside
+  ``autograd.record()``), and every layer of the block trains exactly
+  when ``autograd.is_training()`` is true for the call, so BatchNorm
+  folds batch statistics into its running averages inside ``record()``
+  and predicts with them outside it;
+- on torch tensors, the PyTorch way that ``parallel.functionalize`` and
+  ``make_train_step`` use: the mode is ``nn.Module.training``.  Like the
+  reference, a block predicts unless asked to train: every Block
+  starts in eval mode (``block.train()`` or
+  ``parallel.functionalize(..., train=True)`` switch it).
+
+A layer built without ``in_channels``/``in_units`` has a deferred
+shape: its first call (or :meth:`HybridBlock.infer_shape`) resolves it
+from the input and runs the initialization ``initialize`` recorded.
 
 ``HybridBlock.hybridize`` is a no-op for now: PyTorch runs eagerly and
 the CachedOp analog (a shape-keyed compiled program) is queued
-(ROADMAP §A).
+(ROADMAP §A item 4); the results are the reference's.
 """
 from __future__ import annotations
 
@@ -25,8 +39,10 @@ from collections import OrderedDict
 import torch
 from torch import nn
 
+from .. import autograd
 from ..base import MXNetError
-from .parameter import Parameter, ParameterDict
+from ..ndarray.ndarray import NDArray
+from .parameter import DeferredInitializationError, Parameter, ParameterDict
 
 __all__ = ["Block", "HybridBlock", "state_writes_dropped",
            "drop_state_writes"]
@@ -120,6 +136,7 @@ class Block(nn.Module):
         self._scope = _BlockScope(self)
         self._params = ParameterDict(self._prefix)
         self._reg_params = OrderedDict()
+        self._deferred_pending = False
         self.training = False
 
     def _alias(self):
@@ -128,13 +145,9 @@ class Block(nn.Module):
     def __setattr__(self, name, value):
         if isinstance(value, Parameter):
             value._bind(self, name)
-            tensor = torch.empty(value.shape,
-                                 dtype=getattr(torch, value.dtype))
-            if value.grad_req == "null":
-                self.register_buffer(name, tensor)
-            else:
-                super().__setattr__(name, nn.Parameter(tensor))
             self._reg_params[name] = value
+            if not value._shape_known():
+                self._deferred_pending = True
             return
         super().__setattr__(name, value)
 
@@ -162,35 +175,91 @@ class Block(nn.Module):
     def name_scope(self):
         return self._scope
 
-    def collect_params(self):
-        """``{full name: Parameter}`` of this block and its
-        descendants, in :func:`_collect_all_params` order."""
-        return OrderedDict((p.name, p) for p in _collect_all_params(self))
+    def collect_params(self, select=None):
+        """The :class:`ParameterDict` ``{full name: Parameter}`` of this
+        block and its descendants, in :func:`_collect_all_params` order;
+        ``select`` keeps the names a regex matches."""
+        ret = ParameterDict(self._params.prefix)
+        ret.update(OrderedDict((p.name, p)
+                               for p in _collect_all_params(self)))
+        return ret if select is None else ret.select(select)
 
-    def initialize(self, init=None, device=None, generator=None):
-        """Fill every parameter and move the block to ``device``.
+    def initialize(self, init=None, ctx=None, verbose=False,
+                   force_reinit=False, device=None, generator=None):
+        """Initialize every parameter on ``ctx`` (or ``device``; default
+        the current context, ``gpu(0)`` unless a ``with mx.cpu():``
+        scope is open; a CUDA device without a card raises).
 
         A parameter's own initializer (BatchNorm's ``ones``/``zeros``)
         wins; the others take ``init`` (default ``Uniform()``), which
         dispatches on the name suffix like the reference.  Values are
         drawn on the host from ``generator`` (a ``torch.Generator``;
-        None = torch's default one), then moved to ``device``
-        (default ``cuda:0``; a CUDA device without a card raises)."""
-        from .. import initializer as init_mod
-        from ..context import resolve_device
-
-        dev = resolve_device(device)
-        default_init = init_mod.create(
-            init if init is not None else init_mod.Uniform())
-        with torch.no_grad():
-            for p in _collect_all_params(self):
-                initializer = init_mod.create(
-                    p.init if p.init is not None else default_init)
-                value = initializer(init_mod.InitDesc(p.name), p.shape,
-                                    generator=generator)
-                p.data().copy_(value.to(p.data().dtype))
-        self.to(dev)
+        None = torch's default one), in parameter order, then placed on
+        the device.  A parameter whose shape is deferred is initialized
+        at the block's first forward."""
+        if ctx is not None and device is not None:
+            raise MXNetError("pass ctx or device, not both")
+        self.collect_params().initialize(
+            init, ctx if ctx is not None else device, verbose,
+            force_reinit, generator=generator)
         return self
+
+    def cast(self, dtype):
+        """Cast every parameter to ``dtype`` (BatchNorm keeps fp32 for
+        half types)."""
+        for child in self._children.values():
+            child.cast(dtype)
+        for param in self._reg_params.values():
+            param.cast(dtype)
+
+    # ------------------------------------------------------------- call
+    def __call__(self, *args, **kwargs):
+        if self._deferred_pending:
+            self._finish_deferred(*args)
+        if any(_is_ndarray(a) for a in args):
+            return self._call_ndarray(args, kwargs)
+        return super().__call__(*args, **kwargs)
+
+    def _finish_deferred(self, *args):
+        """Resolve this block's deferred shapes from its inputs and run
+        the initialization ``initialize`` recorded."""
+        pending = [p for p in self._reg_params.values()
+                   if p._tensor() is None]
+        if pending:
+            self._infer_param_shapes(*args)
+            for p in pending:
+                if p._deferred_init is None:
+                    p._check_init()
+                p._finish_deferred_init()
+        self._deferred_pending = False
+
+    def _infer_param_shapes(self, *args):
+        """Set the deferred parameter shapes from the inputs (layers
+        with deferrable shapes override)."""
+        raise DeferredInitializationError(
+            f"{self.name}: parameter shapes unknown and block does not "
+            "implement shape inference")
+
+    def _call_ndarray(self, args, kwargs):
+        """The imperative Gluon call: NDArrays in and out; taped when
+        ``autograd.is_recording()``, every layer in training mode when
+        ``autograd.is_training()``."""
+        for p in _collect_all_params(self):
+            if p._initialized:
+                p._wrap()  # its array is a variable backward writes
+        training = autograd.is_training()
+        modules = list(self.modules())
+        modes = [m.training for m in modules]
+        for m in modules:
+            m.training = training
+        try:
+            with torch.set_grad_enabled(autograd.is_recording()):
+                out = super().__call__(*(a._data if _is_ndarray(a) else a
+                                         for a in args), **kwargs)
+        finally:
+            for m, mode in zip(modules, modes):
+                m.training = mode
+        return _to_ndarray(out)
 
     def hybridize(self, active=True, **kwargs):
         for child in self._children.values():
@@ -211,9 +280,10 @@ class Block(nn.Module):
                         ignore_extra=False):
         """Copy the arrays of a ``.params`` file into the parameters, in
         place, each cast to its parameter's dtype on its device (reference
-        ``Block.load_parameters``).  The file is keyed by structural name
-        (the reference's ``save_parameters``) or, as older files and
-        ``ParameterDict.save`` are, by full name
+        ``Block.load_parameters``; a deferred shape takes the file's).
+        The file is keyed by structural name (the reference's
+        ``save_parameters``) or, as older files and ``ParameterDict.save``
+        are, by full name
         (``resnetv10_conv0_weight``); ``arg:``/``aux:`` prefixes are
         dropped.  A missing, extra or mis-shaped entry raises unless
         allowed."""
@@ -237,21 +307,41 @@ class Block(nn.Module):
         if extra and not ignore_extra:
             raise MXNetError(f"Parameter '{extra[0]}' loaded from file "
                              f"'{filename}' is not present in this Block")
-        with torch.no_grad():
-            for name, param in params.items():
-                if name not in loaded:
-                    continue
-                src, dst = loaded[name]._data, param.data()
-                if tuple(src.shape) != tuple(dst.shape):
-                    raise MXNetError(f"Parameter '{name}' has shape "
-                                     f"{tuple(src.shape)} in '{filename}', "
-                                     f"{tuple(dst.shape)} here")
-                dst.copy_(src.to(dst.device, dst.dtype))
+        for name, param in params.items():
+            if name not in loaded:
+                continue
+            src = loaded[name]._data
+            if param._shape_known() and tuple(src.shape) != param.shape:
+                raise MXNetError(f"Parameter '{name}' has shape "
+                                 f"{tuple(src.shape)} in '{filename}', "
+                                 f"{param.shape} here")
+            param._load(src)
 
 
 class HybridBlock(Block):
     """A Block the reference can compile (``hybridize``); the port runs
     it eagerly."""
+
+    def infer_shape(self, *args):
+        """Resolve every deferred shape of the subtree from example
+        inputs: one forward under ``autograd.pause()`` (no layer trains,
+        no running statistic moves)."""
+        with autograd.pause():
+            self(*(NDArray(a) if isinstance(a, torch.Tensor) else a
+                   for a in args))
+
+
+def _is_ndarray(x):
+    return isinstance(x, NDArray)
+
+
+def _to_ndarray(out):
+    """Tensors in a block's output (nested tuples/lists) as NDArrays."""
+    if isinstance(out, torch.Tensor):
+        return NDArray(out)
+    if isinstance(out, (tuple, list)):
+        return type(out)(_to_ndarray(o) for o in out)
+    return out
 
 
 def _collect_all_params(block):

@@ -4,14 +4,21 @@
 The same structure and parameter names as the reference
 (BasicBlockV1 / BottleneckV1 / BasicBlockV2 / BottleneckV2, the
 18/34/50/101/152 layer configs), so its weights carry across by name.
-``in_channels`` is threaded through every layer (the port has no
-deferred shape inference).  The default layout is the reference's,
+Every layer past the stem takes its input width at construction, so a
+net's shapes are known before a forward (``parallel.make_train_step``
+builds its step from them); the stem's image channels are
+``in_channels`` (default 3; 0 defers them to the first forward, as the
+reference's stem does, with the same names and shapes after it).  The
+default layout is the reference's,
 channel-first (NCHW inputs, OIHW weights); ``layout="NHWC"`` builds the
 net channel-last.  A channel-last BottleneckV1 built with
 ``no_bias=True`` runs its bn2 → relu → conv3 tail through the fused op
 (``ops/pallas_conv.py``) when that is enabled and the block trains; in
 any other layout or with the zoo's biases the tail runs layer by layer,
-as in the reference.
+as in the reference.  On NDArrays the block trains exactly when
+``autograd.is_training()`` (``gluon.block``), so in ``autograd.record()``
+the fused tail runs and bn2's running statistics move, as in the
+reference's eager Gluon.
 """
 from __future__ import annotations
 
@@ -209,7 +216,7 @@ class BottleneckV2(HybridBlock):
 
 class ResNetV1(HybridBlock):
     def __init__(self, block, layers, channels, classes=1000,
-                 thumbnail=False, no_bias=False, **kwargs):
+                 thumbnail=False, no_bias=False, in_channels=3, **kwargs):
         super().__init__(**kwargs)
         if len(layers) != len(channels) - 1:
             raise MXNetError("ResNetV1 needs one more channel count than "
@@ -218,10 +225,11 @@ class ResNetV1(HybridBlock):
         with self.name_scope():
             self.features = nn.HybridSequential(prefix="")
             if thumbnail:
-                self.features.add(_conv3x3(channels[0], 1, 3))
+                self.features.add(_conv3x3(channels[0], 1, in_channels))
             else:
                 self.features.add(nn.Conv2D(channels[0], 7, 2, 3,
-                                            use_bias=False, in_channels=3))
+                                            use_bias=False,
+                                            in_channels=in_channels))
                 self.features.add(nn.BatchNorm(in_channels=channels[0]))
                 self.features.add(nn.Activation("relu"))
                 self.features.add(nn.MaxPool2D(3, 2, 1))
@@ -251,7 +259,7 @@ class ResNetV1(HybridBlock):
 
 class ResNetV2(HybridBlock):
     def __init__(self, block, layers, channels, classes=1000,
-                 thumbnail=False, no_bias=False, **kwargs):
+                 thumbnail=False, no_bias=False, in_channels=3, **kwargs):
         super().__init__(**kwargs)
         if len(layers) != len(channels) - 1:
             raise MXNetError("ResNetV2 needs one more channel count than "
@@ -261,12 +269,13 @@ class ResNetV2(HybridBlock):
             self.features = nn.HybridSequential(prefix="")
             # normalizes the input image: no affine, statistics only
             self.features.add(nn.BatchNorm(scale=False, center=False,
-                                           in_channels=3))
+                                           in_channels=in_channels))
             if thumbnail:
-                self.features.add(_conv3x3(channels[0], 1, 3))
+                self.features.add(_conv3x3(channels[0], 1, in_channels))
             else:
                 self.features.add(nn.Conv2D(channels[0], 7, 2, 3,
-                                            use_bias=False, in_channels=3))
+                                            use_bias=False,
+                                            in_channels=in_channels))
                 self.features.add(nn.BatchNorm(in_channels=channels[0]))
                 self.features.add(nn.Activation("relu"))
                 self.features.add(nn.MaxPool2D(3, 2, 1))

@@ -2,10 +2,13 @@
 HybridSequential, Dense, BatchNorm, Flatten."""
 from __future__ import annotations
 
+import math
+
 import torch
 
 from ...ops.nn import batch_norm, fully_connected
 from ..block import HybridBlock, state_writes_dropped
+from .activations import Activation
 
 __all__ = ["HybridSequential", "Dense", "BatchNorm", "Flatten"]
 
@@ -24,30 +27,38 @@ class HybridSequential(HybridBlock):
 
 
 class Dense(HybridBlock):
-    """Fully-connected layer, ``x @ W.T + b`` over the flattened input.
-    ``in_units`` is required (no deferred shape inference)."""
+    """Fully-connected layer, ``x @ W.T + b`` over the flattened input,
+    then ``activation`` if given.  ``in_units=0`` defers the input width
+    to the first forward."""
 
-    def __init__(self, units, use_bias=True, flatten=True, dtype="float32",
-                 weight_initializer=None, bias_initializer="zeros",
-                 in_units=0, **kwargs):
+    def __init__(self, units, activation=None, use_bias=True, flatten=True,
+                 dtype="float32", weight_initializer=None,
+                 bias_initializer="zeros", in_units=0, **kwargs):
         super().__init__(**kwargs)
         self._flatten = flatten
         self._units = units
         with self.name_scope():
             self.weight = self.params.get(
                 "weight", shape=(units, in_units), init=weight_initializer,
-                dtype=dtype)
+                dtype=dtype, allow_deferred_init=True)
             if use_bias:
                 self.bias = self.params.get(
                     "bias", shape=(units,), init=bias_initializer,
-                    dtype=dtype)
+                    dtype=dtype, allow_deferred_init=True)
             else:
                 self.bias = None
+            self.act = Activation(activation, prefix=activation + "_") \
+                if activation is not None else None
+
+    def _infer_param_shapes(self, x, *args):
+        in_units = math.prod(x.shape[1:]) if self._flatten else x.shape[-1]
+        self._reg_params["weight"].shape = (self._units, in_units)
 
     def forward(self, x):
-        return fully_connected(x, self.weight, self.bias,
-                               no_bias=self.bias is None,
-                               num_hidden=self._units, flatten=self._flatten)
+        out = fully_connected(x, self.weight, self.bias,
+                              no_bias=self.bias is None,
+                              num_hidden=self._units, flatten=self._flatten)
+        return self.act(out) if self.act is not None else out
 
 
 class BatchNorm(HybridBlock):
@@ -55,7 +66,9 @@ class BatchNorm(HybridBlock):
     the batch statistics fold into the running averages
     (``m·running + (1-m)·batch``), except inside
     ``block.drop_state_writes`` — the reference's train step loses that
-    write, and the port's reproduces it.  ``in_channels`` is required.
+    write, and the port's reproduces it.  ``in_channels=0`` defers the
+    channel count to the first forward.  ``cast`` to a half type keeps
+    the parameters fp32, as in the reference.
     """
 
     def __init__(self, axis=None, momentum=0.9, epsilon=1e-5, center=True,
@@ -73,21 +86,34 @@ class BatchNorm(HybridBlock):
                         "fix_gamma": not scale,
                         "use_global_stats": use_global_stats}
         self._momentum = momentum
+        self._axis = axis
         with self.name_scope():
             self.gamma = self.params.get(
                 "gamma", grad_req="write" if scale else "null",
                 shape=(in_channels,), init=gamma_initializer,
-                differentiable=scale)
+                allow_deferred_init=True, differentiable=scale)
             self.beta = self.params.get(
                 "beta", grad_req="write" if center else "null",
                 shape=(in_channels,), init=beta_initializer,
-                differentiable=center)
+                allow_deferred_init=True, differentiable=center)
             self.running_mean = self.params.get(
                 "running_mean", grad_req="null", shape=(in_channels,),
-                init=running_mean_initializer, differentiable=False)
+                init=running_mean_initializer, allow_deferred_init=True,
+                differentiable=False)
             self.running_var = self.params.get(
                 "running_var", grad_req="null", shape=(in_channels,),
-                init=running_variance_initializer, differentiable=False)
+                init=running_variance_initializer, allow_deferred_init=True,
+                differentiable=False)
+
+    def _infer_param_shapes(self, x, *args):
+        channels = x.shape[self._axis]
+        for name in ("gamma", "beta", "running_mean", "running_var"):
+            self._reg_params[name].shape = (channels,)
+
+    def cast(self, dtype):
+        if str(dtype).replace("torch.", "") in ("float16", "bfloat16"):
+            dtype = "float32"  # statistics and affine stay fp32
+        super().cast(dtype)
 
     def update_running(self, batch_mean, batch_var):
         """Fold batch statistics into the running averages (no-op

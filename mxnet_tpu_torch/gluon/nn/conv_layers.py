@@ -1,11 +1,12 @@
 """Convolution and pooling blocks (counterpart of
 ``mxnet_tpu/gluon/nn/conv_layers.py``): Conv2D, MaxPool2D,
-GlobalAvgPool2D.  Channel-last weights are ``O*kI``; ``in_channels`` is
-required (no deferred shape inference)."""
+GlobalAvgPool2D.  Channel-last weights are ``O*kI``; ``in_channels=0``
+defers the input channel count to the first forward."""
 from __future__ import annotations
 
 from ...ops.conv import convolution, pooling
 from ..block import HybridBlock
+from .activations import Activation
 from .layout import is_channel_last, resolve_layout
 
 __all__ = ["Conv2D", "MaxPool2D", "GlobalAvgPool2D"]
@@ -19,12 +20,15 @@ def _tup(val, n):
 
 class _Conv(HybridBlock):
     def __init__(self, channels, kernel_size, strides, padding, dilation,
-                 groups, layout, in_channels=0, use_bias=True,
-                 weight_initializer=None, bias_initializer="zeros",
-                 prefix=None, params=None):
+                 groups, layout, in_channels=0, activation=None,
+                 use_bias=True, weight_initializer=None,
+                 bias_initializer="zeros", prefix=None, params=None):
         super().__init__(prefix=prefix, params=params)
         ndim = len(kernel_size)
         layout = resolve_layout(layout, ndim)
+        self._channels = channels
+        self._groups = groups
+        self._channel_last = is_channel_last(layout)
         self._kwargs = {
             "kernel": tuple(kernel_size), "stride": _tup(strides, ndim),
             "dilate": _tup(dilation, ndim), "pad": _tup(padding, ndim),
@@ -33,30 +37,44 @@ class _Conv(HybridBlock):
         }
         with self.name_scope():
             cig = in_channels // groups if in_channels else 0
-            if is_channel_last(layout):
+            if self._channel_last:
                 wshape = (channels,) + tuple(kernel_size) + (cig,)
             else:
                 wshape = (channels, cig) + tuple(kernel_size)
             self.weight = self.params.get(
-                "weight", shape=wshape, init=weight_initializer)
+                "weight", shape=wshape, init=weight_initializer,
+                allow_deferred_init=True)
             if use_bias:
                 self.bias = self.params.get(
-                    "bias", shape=(channels,), init=bias_initializer)
+                    "bias", shape=(channels,), init=bias_initializer,
+                    allow_deferred_init=True)
             else:
                 self.bias = None
+            self.act = Activation(activation, prefix=activation + "_") \
+                if activation is not None else None
+
+    def _infer_param_shapes(self, x, *args):
+        cig = (x.shape[-1] if self._channel_last else x.shape[1]) \
+            // self._groups
+        k = tuple(self._kwargs["kernel"])
+        self._reg_params["weight"].shape = \
+            (self._channels,) + k + (cig,) if self._channel_last \
+            else (self._channels, cig) + k
 
     def forward(self, x):
-        return convolution(x, self.weight, self.bias, **self._kwargs)
+        out = convolution(x, self.weight, self.bias, **self._kwargs)
+        return self.act(out) if self.act is not None else out
 
 
 class Conv2D(_Conv):
     def __init__(self, channels, kernel_size, strides=(1, 1), padding=(0, 0),
-                 dilation=(1, 1), groups=1, layout=None, use_bias=True,
-                 weight_initializer=None, bias_initializer="zeros",
-                 in_channels=0, **kwargs):
+                 dilation=(1, 1), groups=1, layout=None, activation=None,
+                 use_bias=True, weight_initializer=None,
+                 bias_initializer="zeros", in_channels=0, **kwargs):
         super().__init__(channels, _tup(kernel_size, 2), strides, padding,
-                         dilation, groups, layout, in_channels, use_bias,
-                         weight_initializer, bias_initializer, **kwargs)
+                         dilation, groups, layout, in_channels, activation,
+                         use_bias, weight_initializer, bias_initializer,
+                         **kwargs)
 
 
 class _Pooling(HybridBlock):

@@ -204,12 +204,16 @@ class NDArray:
     def detach(self):
         return NDArray(self._data.detach())
 
-    # pickle via host numpy (optimizer-state checkpointing)
+    # pickle via host numpy (optimizer-state checkpointing); a dtype
+    # numpy lacks (bfloat16) travels widened and is restored on load
     def __getstate__(self):
-        return {"data": self.asnumpy(), "stype": self._stype}
+        return {"data": self.asnumpy(), "stype": self._stype,
+                "dtype": str(self._data.dtype).replace("torch.", "")}
 
     def __setstate__(self, state):
         self._data = torch.from_numpy(state["data"])
+        if "dtype" in state:
+            self._data = self._data.to(normalize_dtype(state["dtype"]))
         self._grad = None
         self._grad_req = "null"
         self._is_var = False

@@ -1,13 +1,26 @@
 """Optimizers (counterpart of ``mxnet_tpu/optimizer/optimizer.py``): the
-``Optimizer`` base with its fused-update interface, the registry, SGD,
-Adam and LARS.  The other rules are not ported yet (ROADMAP §A item 5).
+``Optimizer`` base (learning-rate schedule, per-parameter ``lr_mult``
+and ``wd_mult``, update counts, fp32 master weights under
+``multi_precision``), the registry, the :class:`Updater` a
+``gluon.Trainer`` drives, and the rules SGD, NAG, Signum, Adam, AdamW,
+AdaGrad, RMSProp (plain and centered) and LARS.  The other rules are
+not ported yet (ROADMAP §A item 5).
 
-An update rule is a function on tensors ``(w, g, state) -> (new_w,
-new_state)`` evaluated in the reference's order (``_sgd_step``,
-``_sgd_mom_step``, ``_adam_step``, ``_lars_step``).  Hyper-parameters
-enter as Python scalars rounded to the parameter's dtype first, which
-is what the reference's weak-typed scalars do: a bf16 update multiplies
-by ``bf16(0.9)``, not by the fp32 0.9.
+Each rule is one function on tensors, :meth:`Optimizer._step` ``(w, g,
+state, lr, wd, t) -> (new_w, new_state)``, evaluated in the reference's
+order (``_sgd_step``, ``_sgd_mom_step``, ``_adam_step``, ...).  The
+fused path (``fused_update``, what ``parallel.make_train_step`` runs)
+calls it with the optimizer's own learning rate and weight decay; the
+eager path (``update``, what the Trainer runs per parameter) with the
+parameter's (``_get_lr``/``_get_wd``: the multipliers apply), and
+writes the result into the weight and state arrays.  The two paths
+therefore give the same bits for the same hyper-parameters.
+
+Hyper-parameters enter as Python scalars rounded to the parameter's
+dtype first, which is what the reference's weak-typed scalars do: a
+bf16 update multiplies by ``bf16(0.9)``, not by the fp32 0.9.  A
+scalar expression the reference evaluates inside its jitted rule
+(``1 - beta1``, ``1 - rho``) is taken in float32 first, as there.
 
 LARS's trust ratio is a per-tensor norm, so on a flat bucket of many
 tensors (``parallel.zero``) it needs each element's segment id (its
@@ -16,20 +29,36 @@ seg_ids=, num_segments=)`` recovers the tensors' norms as segment sums.
 """
 from __future__ import annotations
 
+import copy
+import pickle
+
 import numpy as onp
 import torch
 
 from ..base import MXNetError
+from ..ndarray.ndarray import NDArray
 
-__all__ = ["Optimizer", "SGD", "Adam", "LARS", "register", "scalar_as",
-           "adam_lr_t", "segment_sum"]
+__all__ = ["Optimizer", "SGD", "NAG", "Signum", "Adam", "AdamW", "AdaGrad",
+           "RMSProp", "LARS", "Updater", "create", "register",
+           "get_updater", "scalar_as", "adam_lr_t", "segment_sum"]
 
 _REGISTRY: dict[str, type] = {}
+_HALF = (torch.float16, torch.bfloat16)
 
 
 def register(klass):
     _REGISTRY[klass.__name__.lower()] = klass
     return klass
+
+
+def create(name, **kwargs):
+    """An optimizer by its registered name (case-insensitive), or the
+    instance given."""
+    if isinstance(name, Optimizer):
+        return name
+    if name.lower() not in _REGISTRY:
+        raise MXNetError(f"Cannot find optimizer {name}")
+    return _REGISTRY[name.lower()](**kwargs)
 
 
 def scalar_as(x, dtype):
@@ -38,11 +67,18 @@ def scalar_as(x, dtype):
     return float(torch.tensor(float(x), dtype=dtype))
 
 
+def _f32(x):
+    """``x`` as the float32 value a jitted rule of the reference traces
+    it as (scalar expressions inside such a rule are float32)."""
+    return onp.float32(x)
+
+
 class Optimizer:
     """Base optimizer.  ``fused_state(w)`` makes the state of one tensor
     (or flat bucket); ``fused_update`` is the pure per-tensor rule and
     ``fused_bucket_update`` its flat-bucket form (the same rule for an
-    elementwise optimizer)."""
+    elementwise optimizer).  ``create_state``/``update`` are the eager
+    forms on NDArrays, with the per-parameter multipliers."""
 
     opt_registry = _REGISTRY
 
@@ -52,24 +88,82 @@ class Optimizer:
     #: flat bucket of many parameters (parallel.zero relies on it)
     fused_elementwise = True
 
-    def __init__(self, rescale_grad=1.0, wd=0.0, clip_gradient=None,
-                 learning_rate=0.01, lr_scheduler=None,
-                 multi_precision=False):
-        if lr_scheduler is not None:
-            raise MXNetError("lr_scheduler is not ported yet "
-                             "(ROADMAP §A item 5)")
-        if multi_precision:
-            raise MXNetError("multi_precision is not ported yet")
+    def __init__(self, rescale_grad=1.0, param_idx2name=None, wd=0.0,
+                 clip_gradient=None, learning_rate=0.01, lr_scheduler=None,
+                 begin_num_update=0, multi_precision=False,
+                 param_dict=None):
         self.rescale_grad = rescale_grad
         self.lr = learning_rate
+        self.lr_scheduler = lr_scheduler
+        if lr_scheduler is not None:
+            self.lr_scheduler.base_lr = learning_rate
         self.wd = wd
+        self.lr_mult = {}
+        self.wd_mult = {}
+        self.begin_num_update = begin_num_update
+        self.num_update = begin_num_update
+        self._index_update_count = {}
         self.clip_gradient = clip_gradient
         self.multi_precision = multi_precision
+        self.idx2name = dict(param_idx2name or {})
+        self.param_dict = param_dict if param_dict else {}
+        self.set_lr_mult({})
+        self.set_wd_mult({})
+
+    # ------------------------------------------------------------ lr / wd
+    def set_learning_rate(self, lr):
+        if self.lr_scheduler is not None:
+            raise MXNetError(
+                "LRScheduler of the optimizer has already been defined. "
+                "Note that set_learning_rate can mutate the value of the "
+                "learning rate of the optimizer only when the LRScheduler "
+                "of the optimizer is undefined.")
+        self.lr = lr
 
     @property
     def learning_rate(self):
+        if self.lr_scheduler is not None:
+            return self.lr_scheduler(self.num_update)
         return self.lr
 
+    def set_lr_mult(self, args_lr_mult):
+        self.lr_mult = dict(args_lr_mult)
+
+    def set_wd_mult(self, args_wd_mult):
+        """Weight decay applies to weights and gammas by name; every
+        other named parameter gets a 0 multiplier unless given one."""
+        self.wd_mult = {n: 0.0 for n in self.idx2name.values()
+                        if not n.endswith(("_weight", "_gamma"))}
+        self.wd_mult.update(args_wd_mult)
+
+    def _get_lr(self, index):
+        lr = self.learning_rate
+        if index in self.param_dict:
+            lr *= self.param_dict[index].lr_mult
+        elif index in self.lr_mult:
+            lr *= self.lr_mult[index]
+        elif index in self.idx2name:
+            lr *= self.lr_mult.get(self.idx2name[index], 1.0)
+        return lr
+
+    def _get_wd(self, index):
+        wd = self.wd
+        if index in self.param_dict:
+            wd *= self.param_dict[index].wd_mult
+        elif index in self.wd_mult:
+            wd *= self.wd_mult[index]
+        elif index in self.idx2name:
+            wd *= self.wd_mult.get(self.idx2name[index], 1.0)
+        return wd
+
+    def _update_count(self, index):
+        if index not in self._index_update_count:
+            self._index_update_count[index] = self.begin_num_update
+        self._index_update_count[index] += 1
+        self.num_update = max(self._index_update_count[index],
+                              self.num_update)
+
+    # ------------------------------------------------------------- rules
     def _prep(self, g):
         """``g * rescale_grad``, then the symmetric clip."""
         g = g * scalar_as(self.rescale_grad, g.dtype)
@@ -78,13 +172,19 @@ class Optimizer:
             g = torch.clamp(g, -c, c)
         return g
 
+    def _step(self, w, g, state, lr, wd, t):
+        """The rule: ``(new_w, new_state)`` from the raw gradient."""
+        raise MXNetError(
+            f"{type(self).__name__} does not provide an update rule")
+
     def fused_state(self, w):
         """Initial state of ``w`` as a tuple of tensors."""
         return ()
 
     def fused_update(self, w, g, state, t, key=None):
-        raise MXNetError(
-            f"{type(self).__name__} does not provide a fused rule")
+        """The pure per-tensor rule at the optimizer's own learning rate
+        and weight decay; ``t`` is the 1-based step count."""
+        return self._step(w, g, state, self.learning_rate, self.wd, t)
 
     def fused_bucket_update(self, w, g, state, t, key=None, seg_ids=None,
                             num_segments=None, axis_name=None):
@@ -102,6 +202,46 @@ class Optimizer:
                 f"{type(self).__name__} is not elementwise and provides "
                 "no bucket-aware fused rule")
         return self.fused_update(w, g, state, t, key=key)
+
+    # ------------------------------------------------------------- eager
+    def create_state(self, index, weight):
+        """The state of the NDArray ``weight``: a tuple of NDArrays on
+        its device."""
+        return tuple(NDArray(s) for s in self.fused_state(weight._data))
+
+    def create_state_multi_precision(self, index, weight):
+        """Under ``multi_precision`` an fp16/bf16 weight gets an fp32
+        master copy, whose state is fp32: ``(master, state)``."""
+        if self.multi_precision and weight._data.dtype in _HALF:
+            master = NDArray(weight._data.detach().to(torch.float32))
+            return (master, self.create_state(index, master))
+        return self.create_state(index, weight)
+
+    def update(self, index, weight, grad, state):
+        """One eager step of parameter ``index``: the rule at its
+        learning rate and weight decay, written into ``weight`` and the
+        state arrays."""
+        self._update_count(index)
+        with torch.no_grad():
+            new_w, new_state = self._step(
+                weight._data, grad._data, tuple(s._data for s in state),
+                self._get_lr(index), self._get_wd(index),
+                self._index_update_count[index])
+        weight._adopt(new_w)
+        for s, v in zip(state, new_state):
+            s._adopt(v)
+
+    def update_multi_precision(self, index, weight, grad, state):
+        """:meth:`update` on the fp32 master of an fp16/bf16 weight
+        under ``multi_precision`` (the gradient widened to fp32), the
+        weight then re-cast from the master; else :meth:`update`."""
+        if self.multi_precision and weight._data.dtype in _HALF:
+            master, base_state = state
+            self.update(index, master, NDArray(
+                grad._data.to(torch.float32)), base_state)
+            weight._adopt(master._data.to(weight._data.dtype))
+        else:
+            self.update(index, weight, grad, state)
 
 
 def _sgd_step(w, g, lr, wd):
@@ -128,10 +268,9 @@ class SGD(Optimizer):
             return ()
         return (torch.zeros_like(w),)
 
-    def fused_update(self, w, g, state, t, key=None):
+    def _step(self, w, g, state, lr, wd, t):
         g = self._prep(g)
-        lr = scalar_as(self.learning_rate, w.dtype)
-        wd = scalar_as(self.wd, w.dtype)
+        lr, wd = scalar_as(lr, w.dtype), scalar_as(wd, w.dtype)
         if self.momentum == 0.0:
             # momentum zeroed live: any existing slot passes through
             return _sgd_step(w, g, lr, wd), state
@@ -139,6 +278,65 @@ class SGD(Optimizer):
         new_w, new_m = _sgd_mom_step(w, mom, g, lr, wd,
                                      scalar_as(self.momentum, w.dtype))
         return new_w, (new_m,)
+
+
+def _nag_step(w, mom, g, lr, wd, momentum):
+    g = g + wd * w
+    mom = momentum * mom + g
+    return w - lr * (g + momentum * mom), mom
+
+
+@register
+class NAG(SGD):
+    """Nesterov accelerated SGD: ``g += wd*w; mom = momentum*mom + g;
+    w -= lr*(g + momentum*mom)`` (without momentum, SGD's rule)."""
+
+    def __init__(self, momentum=0.0, **kwargs):
+        super().__init__(momentum=momentum, **kwargs)
+
+    def _step(self, w, g, state, lr, wd, t):
+        if self.momentum == 0.0:
+            return super()._step(w, g, state, lr, wd, t)
+        dt = w.dtype
+        (mom,) = state
+        new_w, new_m = _nag_step(w, mom, self._prep(g), scalar_as(lr, dt),
+                                 scalar_as(wd, dt),
+                                 scalar_as(self.momentum, dt))
+        return new_w, (new_m,)
+
+
+@register
+class Signum(Optimizer):
+    """signSGD / Signum: ``mom = momentum*mom - (1-momentum)*(g +
+    wd*w); w = (1 - lr*wd_lh)*w + lr*sign(mom)`` (without momentum
+    ``w = (1 - lr*wd_lh)*w - lr*sign(g + wd*w)``)."""
+
+    def __init__(self, learning_rate=0.01, momentum=0.9, wd_lh=0.0,
+                 **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.momentum = momentum
+        self.wd_lh = wd_lh
+
+    def fused_state(self, w):
+        if self.momentum == 0.0:
+            return ()
+        return (torch.zeros_like(w),)
+
+    def _step(self, w, g, state, lr, wd, t):
+        dt = w.dtype
+        g = self._prep(g)
+        if self.momentum == 0.0:
+            # the reference computes this form eagerly, its scalars in
+            # Python floats
+            decay = scalar_as(1 - lr * self.wd_lh, dt)
+            lr, wd = scalar_as(lr, dt), scalar_as(wd, dt)
+            return decay * w - lr * torch.sign(g + wd * w), state
+        (mom,) = state
+        m = _f32(self.momentum)
+        mom = scalar_as(m, dt) * mom - scalar_as(_f32(1) - m, dt) * (
+            g + scalar_as(wd, dt) * w)
+        decay = scalar_as(_f32(1) - _f32(lr) * _f32(self.wd_lh), dt)
+        return decay * w + scalar_as(lr, dt) * torch.sign(mom), (mom,)
 
 
 def adam_lr_t(lr, beta1, beta2, t):
@@ -176,21 +374,134 @@ class Adam(Optimizer):
     def fused_state(self, w):
         return (torch.zeros_like(w), torch.zeros_like(w))
 
-    def fused_update(self, w, g, state, t, key=None):
+    def _consts(self, lr, t, dt):
+        """``(lr_t, beta1, beta2, 1 - beta1, 1 - beta2, eps)`` in
+        ``dt``: the reference's rule runs jitted with its
+        hyper-parameters traced as float32 values, so 1 - beta is taken
+        from f32(beta): 0.100000024 for 0.9 (the bucket kernel's
+        constant is f32(0.1))."""
+        b1, b2 = float(_f32(self.beta1)), float(_f32(self.beta2))
+        return (scalar_as(adam_lr_t(lr, b1, b2, t), dt), scalar_as(b1, dt),
+                scalar_as(b2, dt), scalar_as(1.0 - b1, dt),
+                scalar_as(1.0 - b2, dt), scalar_as(self.epsilon, dt))
+
+    def _step(self, w, g, state, lr, wd, t):
+        m, v = state
+        lr_t, b1, b2, omb1, omb2, eps = self._consts(lr, t, w.dtype)
+        new_w, new_m, new_v = _adam_step(
+            w, m, v, self._prep(g), lr_t, scalar_as(wd, w.dtype), b1, b2,
+            omb1, omb2, eps)
+        return new_w, (new_m, new_v)
+
+
+def _adamw_step(w, m, v, g, lr_t, eta, wd, beta1, beta2, one_m_beta1,
+                one_m_beta2, eps):
+    m = beta1 * m + one_m_beta1 * g
+    v = beta2 * v + one_m_beta2 * g * g
+    return w - eta * (lr_t * m / (torch.sqrt(v) + eps) + wd * w), m, v
+
+
+@register
+class AdamW(Adam):
+    """Adam with decoupled weight decay: ``m``, ``v`` from the raw
+    gradient; ``w -= eta*(lr_t*m/(sqrt(v) + eps) + wd*w)``."""
+
+    def __init__(self, eta=1.0, **kwargs):
+        super().__init__(**kwargs)
+        self.eta = eta
+
+    def _step(self, w, g, state, lr, wd, t):
         m, v = state
         dt = w.dtype
-        b1, b2 = (scalar_as(b, torch.float32) for b in (self.beta1,
-                                                       self.beta2))
-        # the reference's rule runs jitted with its hyper-parameters
-        # traced as float32 values, so 1 - beta is taken from f32(beta):
-        # 0.100000024 for 0.9 (the bucket kernel's constant is f32(0.1))
-        new_w, new_m, new_v = _adam_step(
-            w, m, v, self._prep(g),
-            scalar_as(adam_lr_t(self.learning_rate, b1, b2, t), dt),
-            scalar_as(self.wd, dt), scalar_as(b1, dt), scalar_as(b2, dt),
-            scalar_as(1.0 - b1, dt), scalar_as(1.0 - b2, dt),
-            scalar_as(self.epsilon, dt))
+        lr_t, b1, b2, omb1, omb2, eps = self._consts(lr, t, dt)
+        new_w, new_m, new_v = _adamw_step(
+            w, m, v, self._prep(g), lr_t, scalar_as(self.eta, dt),
+            scalar_as(wd, dt), b1, b2, omb1, omb2, eps)
         return new_w, (new_m, new_v)
+
+
+def _adagrad_step(w, hist, g, lr, wd, eps):
+    # the history accumulates the raw grad^2, eps sits inside the sqrt,
+    # and wd applies as a decoupled term
+    hist = hist + g * g
+    return w - lr * (g / torch.sqrt(hist + eps) + wd * w), hist
+
+
+@register
+class AdaGrad(Optimizer):
+    """AdaGrad: ``hist += g*g; w -= lr*(g/sqrt(hist + eps) + wd*w)``."""
+
+    def __init__(self, eps=1e-7, **kwargs):
+        super().__init__(**kwargs)
+        self.float_stable_eps = eps
+
+    def fused_state(self, w):
+        return (torch.zeros_like(w),)
+
+    def _step(self, w, g, state, lr, wd, t):
+        dt = w.dtype
+        (hist,) = state
+        new_w, new_h = _adagrad_step(w, hist, self._prep(g),
+                                     scalar_as(lr, dt), scalar_as(wd, dt),
+                                     scalar_as(self.float_stable_eps, dt))
+        return new_w, (new_h,)
+
+
+def _rmsprop_step(w, n, g, lr, wd, rho, one_m_rho, eps):
+    g = g + wd * w
+    n = rho * n + one_m_rho * g * g
+    return w - lr * g / torch.sqrt(n + eps), n
+
+
+def _rmsprop_alex_step(w, n, gavg, delta, g, lr, wd, rho, one_m_rho,
+                       momentum, eps):
+    g = g + wd * w
+    n = rho * n + one_m_rho * g * g
+    gavg = rho * gavg + one_m_rho * g
+    delta = momentum * delta - lr * g / torch.sqrt(n - gavg * gavg + eps)
+    return w + delta, n, gavg, delta
+
+
+@register
+class RMSProp(Optimizer):
+    """RMSProp: ``n = gamma1*n + (1-gamma1)*g*g; w -= lr*g/sqrt(n +
+    eps)`` with ``g`` including ``wd*w``; ``centered=True`` is Alex
+    Graves' variant (a running mean of g and a momentum ``gamma2`` on
+    the step); ``clip_weights`` clips the new weight."""
+
+    def __init__(self, learning_rate=0.001, gamma1=0.9, gamma2=0.9,
+                 epsilon=1e-8, centered=False, clip_weights=None, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.gamma1 = gamma1
+        self.gamma2 = gamma2
+        self.centered = centered
+        self.epsilon = epsilon
+        self.clip_weights = clip_weights
+
+    def fused_state(self, w):
+        return tuple(torch.zeros_like(w)
+                     for _ in range(3 if self.centered else 1))
+
+    def _step(self, w, g, state, lr, wd, t):
+        dt = w.dtype
+        g = self._prep(g)
+        rho = _f32(self.gamma1)
+        h = dict(lr=scalar_as(lr, dt), wd=scalar_as(wd, dt),
+                 rho=scalar_as(rho, dt),
+                 one_m_rho=scalar_as(_f32(1) - rho, dt),
+                 eps=scalar_as(self.epsilon, dt))
+        if self.centered:
+            n, gavg, delta = state
+            new_w, *new_state = _rmsprop_alex_step(
+                w, n, gavg, delta, g,
+                momentum=scalar_as(self.gamma2, dt), **h)
+        else:
+            (n,) = state
+            new_w, *new_state = _rmsprop_step(w, n, g, **h)
+        if self.clip_weights:
+            c = scalar_as(self.clip_weights, dt)
+            new_w = torch.clamp(new_w, -c, c)
+        return new_w, tuple(new_state)
 
 
 def segment_sum(x, seg_ids, num_segments):
@@ -234,15 +545,15 @@ class LARS(Optimizer):
     def fused_state(self, w):
         return (torch.zeros_like(w),)
 
-    def _hyper(self, dt):
+    def _hyper(self, lr, wd, dt):
         return {k: scalar_as(v, dt) for k, v in (
-            ("lr", self.learning_rate), ("wd", self.wd),
-            ("eta", self.eta), ("eps", self.epsilon))}
+            ("lr", lr), ("wd", wd), ("eta", self.eta),
+            ("eps", self.epsilon))}
 
-    def fused_update(self, w, g, state, t, key=None):
+    def _step(self, w, g, state, lr, wd, t):
         (mom,) = state
         g = self._prep(g)
-        h = self._hyper(w.dtype)
+        h = self._hyper(lr, wd, w.dtype)
         slr = _lars_scaled_lr((w * w).sum(), (g * g).sum(), **h)
         new_w, new_m = _lars_momentum(w, mom, g, slr, h["wd"],
                                       scalar_as(self.momentum, w.dtype))
@@ -258,10 +569,66 @@ class LARS(Optimizer):
                              "ported yet (ROADMAP §A item 9)")
         (mom,) = state
         g = self._prep(g)
-        h = self._hyper(w.dtype)
+        h = self._hyper(self.learning_rate, self.wd, w.dtype)
         slr = _lars_scaled_lr(segment_sum(w * w, seg_ids, num_segments),
                               segment_sum(g * g, seg_ids, num_segments),
                               **h)
         new_w, new_m = _lars_momentum(w, mom, g, slr[seg_ids], h["wd"],
                                       scalar_as(self.momentum, w.dtype))
         return new_w, (new_m,)
+
+
+# ================================================================ Updater
+class Updater:
+    """Applies an optimizer to parameters by index, keeping each one's
+    state (reference ``Updater``; what ``gluon.Trainer`` drives)."""
+
+    def __init__(self, optimizer):
+        self.optimizer = optimizer
+        self.states = {}
+        self.states_synced = {}
+
+    def __call__(self, index, grad, weight):
+        if index not in self.states:
+            self.states[index] = \
+                self.optimizer.create_state_multi_precision(index, weight)
+            self.states_synced[index] = True
+        elif not self.states_synced[index]:
+            # loaded states come back on the host: each goes to its
+            # weight's device, never the weight to the host
+            self.states[index] = _on_device(self.states[index],
+                                            weight._data.device)
+            self.states_synced[index] = True
+        self.optimizer.update_multi_precision(index, weight, grad,
+                                              self.states[index])
+
+    def get_states(self, dump_optimizer=False):
+        """The states pickled, with the optimizer when
+        ``dump_optimizer`` (its live parameter handles left out)."""
+        if dump_optimizer:
+            opt = copy.copy(self.optimizer)
+            opt.param_dict = {}
+            return pickle.dumps((self.states, opt))
+        return pickle.dumps(self.states)
+
+    def set_states(self, states):
+        states = pickle.loads(states)
+        if isinstance(states, tuple) and len(states) == 2:
+            self.states, new_opt = states
+            new_opt.param_dict = getattr(self.optimizer, "param_dict", {})
+            self.optimizer = new_opt
+        else:
+            self.states = states
+        self.states_synced = dict.fromkeys(self.states.keys(), False)
+
+
+def _on_device(state, device):
+    if isinstance(state, (tuple, list)):
+        return type(state)(_on_device(s, device) for s in state)
+    if isinstance(state, NDArray) and state._data.device != device:
+        return NDArray(state._data.to(device))
+    return state
+
+
+def get_updater(optimizer):
+    return Updater(optimizer)

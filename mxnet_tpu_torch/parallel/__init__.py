@@ -115,12 +115,11 @@ def functionalize(block, train=False):
     from ..gluon.block import _collect_all_params, drop_state_writes
 
     module_path = {id(m): p for p, m in block.named_modules()}
-    paths = {}
+    paths, params = {}, {}
     for p in _collect_all_params(block):
         owner = module_path[id(p._block)]
         paths.setdefault(p.name, f"{owner}.{p._attr}" if owner else p._attr)
-    records = block.collect_params()
-    params = {n: records[n].data().detach() for n in paths}
+        params.setdefault(p.name, _shaped(p).detach())
 
     def apply_fn(param_dict, *inputs, key=None):
         del key  # no ported layer draws random numbers
@@ -138,15 +137,17 @@ def functionalize(block, train=False):
 
 def load_jax_params(net_or_params, arrays):
     """Copy the JAX package's parameters ``{name: array}`` into a port
-    block (or a ``{name: tensor}`` dict), matched by name.  Both packages
+    block (or a ``{name: tensor}`` dict), matched by name; the block's
+    parameters count as initialized after it (a deferred shape must be
+    resolved first).  Both packages
     lay convolution weights out alike (``OIHW`` in a channel-first net,
     ``O*kI`` in a channel-last one), so every array copies as it is.
     Any missing, extra or mis-shaped entry raises."""
     if isinstance(net_or_params, torch.nn.Module):
-        targets = {n: p.data()
-                   for n, p in net_or_params.collect_params().items()}
+        records = net_or_params.collect_params()
+        targets = {n: _shaped(p) for n, p in records.items()}
     else:
-        targets = dict(net_or_params)
+        records, targets = {}, dict(net_or_params)
     missing = sorted(set(targets) - set(arrays))
     extra = sorted(set(arrays) - set(targets))
     if missing or extra:
@@ -161,7 +162,22 @@ def load_jax_params(net_or_params, arrays):
                                  f"{tuple(a.shape)}, the port's "
                                  f"{tuple(t.shape)}")
             t.copy_(torch.from_numpy(a).to(t.dtype))
+    for p in records.values():
+        p._initialized = True
     return net_or_params
+
+
+def _shaped(param):
+    """A parameter's registered tensor; a shape still deferred raises
+    (a forward, or ``infer_shape``, resolves it)."""
+    from ..gluon.parameter import DeferredInitializationError
+
+    t = param._tensor()
+    if t is None:
+        raise DeferredInitializationError(
+            f"Parameter {param.name} has a deferred shape "
+            f"{param._shape}: run a forward (or infer_shape) first")
+    return t
 
 
 # ------------------------------------------------------------ train step
@@ -520,4 +536,4 @@ class DataParallelTrainer:
         with torch.no_grad():
             for p in _collect_all_params(self._block):
                 if p.name in self._params:
-                    p.data().copy_(self._params[p.name])
+                    p._tensor().copy_(self._params[p.name])

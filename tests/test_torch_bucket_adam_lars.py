@@ -173,7 +173,7 @@ def _tiny_resnet_params():
         net = t_res.ResNetV1(t_res.BottleneckV1, [1, 1, 1, 1],
                              [8, 16, 32, 64, 128], classes=10, no_bias=True,
                              prefix="resnetv10_")
-    return {n: p.data() for n, p in net.collect_params().items()}
+    return {n: p._tensor() for n, p in net.collect_params().items()}
 
 
 @pytest.mark.parametrize("bound", [2000, 30000, 10 ** 6])

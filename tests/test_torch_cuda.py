@@ -13,7 +13,9 @@ fused BN-ReLU-conv backward as its test states; the bucket SGD and Adam
 kernels bit for bit; the LARS update (phase c) bit for bit given the
 same per-segment lr, and the whole LARS update to rtol/atol 1e-6 (the
 norms are sums in other orders), the same bits on two runs.  Train
-steps of a tiny ResNet show the launch counts.
+steps of a tiny ResNet show the launch counts, through the fused step
+and through the imperative Gluon loop (``gluon.Trainer``), whose LeNet
+step on the card is held against the host's.
 """
 import numpy as onp
 import pytest
@@ -673,3 +675,144 @@ def test_nd_plugin_scaled_add_launches_the_kernel(card):
     assert torch.equal(a.grad._data, torch.ones_like(a._data))
     assert torch.equal(b.grad._data.float(),
                        torch.full((8,), 4 * 6 * 0.5, device=card))
+
+
+# ------------------------------------------------ the Gluon training loop
+def _gluon_step(net, trainer, x, y):
+    from mxnet_tpu_torch import autograd, gluon
+
+    with autograd.record():
+        loss = gluon.loss.SoftmaxCrossEntropyLoss()(net(x), y)
+    loss.backward()
+    trainer.step(x.shape[0])
+    return loss
+
+
+def test_gluon_lenet_step_on_card_matches_host(card):
+    """One Gluon step of the example's LeNet (deferred shapes, SGD
+    momentum) from the same weights on the card and on the host, TF32
+    off, with a float64 host step as the yardstick, held as
+    ``chip_smoke.py`` holds the card's ResNet steps (``CUDA_CPU_TOL``):
+    the loss to 1e-5 relative; each parameter's update and momentum no
+    farther from the float64 step's than twice the host's fp32 one,
+    plus 1e-3 of its norm.  The first convolution's weight gradient
+    takes that room: cuDNN's fp32 algorithm for it (one input channel,
+    5x5) reads 2.4e-4 off float64 with TF32 off, where the host reads
+    1.8e-6.  The parameters and states stay on the card."""
+    import copy
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.example import train_mnist
+
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = onp.random.RandomState(2)
+    xs = rng.rand(8, 1, 28, 28).astype("float32")
+    ys = rng.randint(0, 10, 8).astype("int32")
+    with mx.cpu():
+        host = train_mnist.build("lenet")
+        host.initialize(mx.init.Xavier(),
+                        generator=torch.Generator().manual_seed(0))
+        host(mx.nd.zeros((1, 1, 28, 28)))  # resolves the deferred shapes
+    before = {n: p.data().asnumpy().astype("float64")
+              for n, p in host.collect_params().items()}
+    got = {}
+    try:
+        for key, ctx, dtype in (("cpu", mx.cpu(), "float32"),
+                                ("cpu64", mx.cpu(), "float64"),
+                                ("cuda", mx.gpu(0), "float32")):
+            net = copy.deepcopy(host).to(ctx.torch_device())
+            net.cast(dtype)
+            trainer = gluon.Trainer(net.collect_params(), "sgd",
+                                    {"learning_rate": 0.02,
+                                     "momentum": 0.9})
+            loss = _gluon_step(net, trainer,
+                               mx.nd.array(xs, ctx=ctx, dtype=dtype),
+                               mx.nd.array(ys, ctx=ctx))
+            params = net.collect_params()
+            moms = trainer._updaters[0].states
+            assert all(p.data().context == ctx for p in params.values())
+            assert all(s.context == ctx for (s,) in moms.values())
+            names = list(params)
+            got[key] = (
+                float(loss.asnumpy().astype("float64").mean()),
+                {n: p.data().asnumpy().astype("float64") - before[n]
+                 for n, p in params.items()},
+                {names[i]: s.asnumpy().astype("float64")
+                 for i, (s,) in moms.items()})
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = prev
+    card, host_, exact = got["cuda"], got["cpu"], got["cpu64"]
+    assert abs(card[0] - host_[0]) <= 1e-5 * abs(host_[0])
+    for k in (1, 2):
+        for n, want in exact[k].items():
+            norm = onp.linalg.norm(want)
+            err_card = onp.linalg.norm(card[k][n] - want) / norm
+            err_host = onp.linalg.norm(host_[k][n] - want) / norm
+            assert err_card <= 2 * err_host + 1e-3, (n, err_card, err_host)
+
+
+def test_gluon_resnet_steps_launch_fused_backward(card):
+    """A tiny channel-last ResNetV1 (deferred stem, bf16 with
+    multi_precision) trains through the Gluon loop on the card: one
+    fused-backward launch per bottleneck per step, finite losses,
+    running statistics that move, fp32 masters and momenta on the
+    card."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autotune, gluon
+    from mxnet_tpu_torch.gluon import nn
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet
+    from mxnet_tpu_torch.ops import pallas_conv as pc
+
+    with nn.default_layout("NHWC"):
+        net = resnet.ResNetV1(resnet.BottleneckV1, [1, 1, 1, 1],
+                              [8, 16, 32, 64, 128], classes=10,
+                              no_bias=True, in_channels=0)
+    net.initialize(mx.init.Xavier(), ctx=mx.gpu(0),
+                   generator=torch.Generator().manual_seed(0))
+    net.cast("bfloat16")
+    trainer = gluon.Trainer(net.collect_params(), "sgd", {
+        "learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4,
+        "multi_precision": True})
+    rng = onp.random.RandomState(0)
+    x = mx.nd.array(rng.randn(8, 64, 64, 3).astype("float32"),
+                    ctx=mx.gpu(0), dtype="bfloat16")
+    y = mx.nd.array(rng.randint(0, 10, 8).astype("int32"), ctx=mx.gpu(0))
+    with autotune.force(pallas_bnreluconv="pallas"):
+        before = pc.bnreluconv_bwd.launches
+        losses = [float(_gluon_step(net, trainer, x, y).asnumpy()
+                        .mean())]
+        stats = {n: p.data().asnumpy() for n, p in
+                 net.collect_params().items() if "running" in n}
+        losses += [float(_gluon_step(net, trainer, x, y).asnumpy()
+                         .mean()) for _ in range(2)]
+    assert pc.bnreluconv_bwd.launches - before == 4 * 3
+    assert all(onp.isfinite(losses))
+    params = net.collect_params()
+    assert stats and all(not onp.array_equal(params[n].data().asnumpy(), v)
+                         for n, v in stats.items())
+    for i, state in trainer._updaters[0].states.items():
+        # bf16 weights: (fp32 master, (momentum,)); BatchNorm's, which
+        # cast keeps fp32: (momentum,)
+        if params[list(params)[i]].dtype == "bfloat16":
+            master, (mom,) = state
+            assert master._data.dtype == torch.float32
+            assert master._data.is_cuda
+        else:
+            (mom,) = state
+        assert mom._data.dtype == torch.float32 and mom._data.is_cuda
+
+
+def test_gluon_trainer_refuses_dist_kvstore(card):
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon
+
+    net = gluon.nn.Dense(3, in_units=4)
+    net.initialize(ctx=mx.gpu(0))
+    for kv in ("dist_sync", "dist_device_sync"):
+        with pytest.raises(MXNetError, match="not ported"):
+            gluon.Trainer(net.collect_params(), "sgd", kvstore=kv)

@@ -294,8 +294,8 @@ def test_bottleneck_block_matches_reference(arm, fused_env):
     assert sorted(j_grads) == sorted(
         n for n, p in t_params.items() if p.grad_req == "write")
     for n, want in j_grads.items():
-        assert _rel(t_params[n].data().grad.numpy(), want) <= 1e-4, n
+        assert _rel(t_params[n].data()._data.grad.numpy(), want) <= 1e-4, n
     for n, p in jblk.collect_params().items():
         if n.endswith(("running_mean", "running_var")):
-            assert _rel(t_params[n].data().numpy(),
+            assert _rel(t_params[n].data().asnumpy(),
                         p.data().asnumpy()) <= 1e-5, n

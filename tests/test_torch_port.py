@@ -52,7 +52,12 @@ _MODULES = ["mxnet_tpu_torch", "mxnet_tpu_torch.autotune",
             "mxnet_tpu_torch.ops.reduce", "mxnet_tpu_torch.ops.shape_ops",
             "mxnet_tpu_torch.ndarray", "mxnet_tpu_torch.ndarray.ndarray",
             "mxnet_tpu_torch.library",
-            "mxnet_tpu_torch.example.plugin.cuda_ops"]
+            "mxnet_tpu_torch.example.plugin.cuda_ops",
+            "mxnet_tpu_torch.gluon.trainer", "mxnet_tpu_torch.gluon.data",
+            "mxnet_tpu_torch.gluon.parameter",
+            "mxnet_tpu_torch.optimizer.optimizer",
+            "mxnet_tpu_torch.lr_scheduler", "mxnet_tpu_torch.metric",
+            "mxnet_tpu_torch.example.train_mnist"]
 _FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(?:jax|jaxlib|mxnet_tpu)"
                         r"(?:\.|\s|$)", re.M)
 
