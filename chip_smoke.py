@@ -31,7 +31,13 @@ checking the results; then runs the imperative Gluon loop
 example's LeNet on the reference's synthetic digits, the kernel-arm
 ResNet-50 with a deferred stem in bf16 with fp32 masters and an LR
 schedule (the fused backward on its path), and one fp32 Gluon step of
-it on the card against the host.  Each phase prints one JSON line on stdout
+it on the card against the host; then runs the symbolic half: the
+builder's ResNet-50 v1 symbol (``resnet50_v1_symbol``) trained by
+``mx.mod.Module`` (batch 128, fp32), one Module step of it on the card
+against the host, ``Module.fit`` of an MLP on an ``NDArrayIter`` with a
+checkpoint read back on the host and a ``BucketingModule`` step, and
+``sym._contrib_BNReluConv`` bound on the card (the fused backward
+through the graph executor).  Each phase prints one JSON line on stdout
 (progress goes to stderr); ``--out`` also appends them to FILE.  Any
 failed check exits non-zero.  The last line is
 ``{"ok": true, "device": {...}}``.
@@ -2459,6 +2465,30 @@ def run(profile=False, old_brc=None, workdir=None):
     log(f"[gluon_cuda_vs_cpu] loss rel {gcvc['loss_rel']:.2e}, closest "
         f"{gcvc['closest_to_limit']}")
 
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mres = module_resnet50_phase(plugin)
+    log(f"[module_resnet50] {mres['ms_per_step']:.2f} ms/step "
+        f"{mres['img_s']:.1f} img/s peak {mres['peak_mem_gib']:.2f} GiB, "
+        f"update() {mres['update_host_ms']:.2f} host ms, losses "
+        f"{mres['losses']} ({time.perf_counter() - t0:.1f} s)")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mcvc = module_cuda_vs_cpu_phase()
+    log(f"[module_cuda_vs_cpu] loss rel {mcvc['loss_rel']:.2e}, closest "
+        f"{mcvc['closest_to_limit']} ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    mfit = module_fit_phase(workdir)
+    log(f"[module_fit] val acc {mfit['val_acc']:.4f}, host predict "
+        f"{mfit['card_vs_host_predict_max_abs']:.2e} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    sbrc = symbol_bnreluconv_phase()
+    for c in sbrc["cases"]:
+        log(f"[symbol_bnreluconv] {c['dtype']} launches "
+            f"{c['launches_per_forward_backward']} rel "
+            f"{c['rel_err_vs_plain']} fwd+bwd {c['forward_backward_ms']:.3f}"
+            f" ms")
+
     main = [c for c in cases if c["path"].startswith("serve")]
     head = next(c for c in cases if c["path"] == "serve_wide"
                 and c["shape"][2] == 2048)
@@ -2490,7 +2520,8 @@ def run(profile=False, old_brc=None, workdir=None):
         entry("bnreluconv_bwd", "bnreluconv_bwd.cu",
               "mxnet_tpu/ops/pallas_conv.py:83",
               sum(t["bnreluconv_launches"] for t in trains.values())
-              + gres["bnreluconv_launches"],
+              + gres["bnreluconv_launches"]
+              + sbrc["bnreluconv_launches"],
               max(c["max_abs_err"] for c in brc_main), brc_head),
         entry("bucket_sgd_mom", "bucket_sgd.cu",
               "mxnet_tpu/ops/pallas_opt.py:157",
@@ -2524,6 +2555,628 @@ def run(profile=False, old_brc=None, workdir=None):
               max(c["max_abs_err"] for c in sa), sa[0])]})
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": emit_dev}), flush=True)
+
+
+# ------------------------------------------------- the symbolic half
+def resnet50_v1_symbol(sym, classes=1000, layers=(3, 4, 6, 3),
+                       channels=(64, 256, 512, 1024, 2048), softmax=True):
+    """ResNet-50 v1 written with ``sym`` calls (``sym`` is the symbol
+    namespace of either package): the graph the JAX package's zoo
+    ``resnet50_v1()`` traces to when called on ``sym.var("data")`` —
+    channel-first, the zoo's biases on the two 1x1 body convolutions,
+    its ``resnetv10_*`` parameter names, its op attributes in its order
+    — ending in ``SoftmaxOutput`` (``softmax=False`` stops at the
+    classifier, which is where the trace stops).  Variables carry no
+    attributes; their shapes are inferred from the data."""
+    def conv(x, name, num_filter, kernel, stride, pad, bias):
+        k, s, p = (kernel,) * 2, (stride,) * 2, (pad,) * 2
+        ins = [x, sym.var(f"{name}_weight")]
+        if bias:
+            ins.append(sym.var(f"{name}_bias"))
+        return sym.Convolution(*ins, kernel=k, stride=s, dilate=(1, 1),
+                               pad=p, num_filter=num_filter, num_group=1,
+                               no_bias=not bias, layout="NCHW")
+
+    def bn(x, name):
+        return sym.BatchNorm(
+            x, sym.var(f"{name}_gamma"), sym.var(f"{name}_beta"),
+            sym.var(f"{name}_running_mean"),
+            sym.var(f"{name}_running_var"), axis=1, eps=1e-05,
+            momentum=0.9, fix_gamma=False, use_global_stats=False)
+
+    def relu(x):
+        return sym.Activation(x, act_type="relu")
+
+    pre = "resnetv10_"
+    x = conv(sym.var("data"), f"{pre}conv2d0", channels[0], 7, 2, 3, False)
+    x = relu(bn(x, f"{pre}batchnorm0"))
+    x = sym.Pooling(x, kernel=(3, 3), stride=(2, 2), pad=(1, 1),
+                    global_pool=False, pool_type="max",
+                    pooling_convention="valid", layout="NCHW")
+    for i, n_blocks in enumerate(layers):
+        stage, ch = f"{pre}stage{i + 1}_", channels[i + 1]
+        nc = nb = 0  # the stage's conv2d and batchnorm counters
+        for j in range(n_blocks):
+            stride = 2 if i > 0 and j == 0 else 1
+            body = x
+            for width, kernel, st, pad, bias in (
+                    (ch // 4, 1, stride, 0, True), (ch // 4, 3, 1, 1, False),
+                    (ch, 1, 1, 0, True)):
+                body = bn(conv(body, f"{stage}conv2d{nc}", width, kernel,
+                               st, pad, bias), f"{stage}batchnorm{nb}")
+                nc, nb = nc + 1, nb + 1
+                if width != ch:
+                    body = relu(body)
+            residual = x
+            if j == 0 and ch != channels[i]:
+                residual = bn(conv(x, f"{stage}conv2d{nc}", ch, 1, stride,
+                                   0, False), f"{stage}batchnorm{nb}")
+                nc, nb = nc + 1, nb + 1
+            x = relu(sym.elemwise_add(body, residual))
+    x = sym.Pooling(x, kernel=(1, 1), stride=(1, 1), pad=(0, 0),
+                    global_pool=True, pool_type="avg",
+                    pooling_convention="full", layout="NCHW")
+    x = sym.FullyConnected(x, sym.var(f"{pre}dense0_weight"),
+                           sym.var(f"{pre}dense0_bias"), no_bias=False,
+                           num_hidden=classes, flatten=True)
+    if not softmax:
+        return x
+    return sym.SoftmaxOutput(x, sym.var("softmax_label"), name="softmax")
+
+
+#: the symbolic ResNet-50 phase: the builder's symbol trained by
+#: ``mx.mod.Module`` on the card, fp32, channel-first, with SGD
+MODULE_RESNET = dict(batch=128, image=224, warmup=2, steps=10, profiled=3,
+                     opt=(("learning_rate", 0.1), ("momentum", 0.9),
+                          ("wd", 1e-4)))
+
+
+def kernel_wrappers(plugin=None):
+    """Every kernel wrapper, by the kernels line's names; each counts its
+    launches in ``.launches``."""
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    from mxnet_tpu_torch.ops import pallas_conv as pc
+    from mxnet_tpu_torch.ops import pallas_opt as po
+
+    out = {"flash_attention": fa.flash_attention,
+           "bnreluconv_bwd": pc.bnreluconv_bwd,
+           "bucket_sgd_mom": po.bucket_sgd_mom,
+           "bucket_sgd": po.bucket_sgd, "bucket_adam": po.bucket_adam,
+           "bucket_lars_norms": po.bucket_lars_norms,
+           "bucket_lars_update": po.bucket_lars_update}
+    if plugin is not None:
+        out["scaled_add"] = plugin.scaled_add
+    return out
+
+
+def _module_loss(mod, y):
+    """Mean cross-entropy from ``SoftmaxOutput``'s probabilities."""
+    import torch
+
+    p = mod.get_outputs()[0]._data.float()
+    return -torch.log(p.gather(1, y.long().view(-1, 1)).clamp_min(1e-30)) \
+        .mean()
+
+
+def module_resnet50_phase(plugin, seed=0):
+    """ResNet-50 v1 (``resnet50_v1_symbol``) trained by ``mx.mod.Module``
+    on ``mx.gpu(0)`` (fp32, the process's TF32 settings): ms/step by CUDA
+    events over the timed steps, the host time of ``update()`` in the
+    loop and alone (its device time too), peak memory, the idle share
+    and kernel time by family over profiled steps.  Every kernel count is set to 0 just before the first step
+    and read after the last timed one."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ndarray import NDArray
+
+    cfg = MODULE_RESNET
+    batch, image = cfg["batch"], cfg["image"]
+    gpu = mx.gpu(0)
+    dev = gpu.torch_device()
+    torch.manual_seed(seed)  # Xavier's draws
+    t0 = time.perf_counter()
+    mod = mx.mod.Module(resnet50_v1_symbol(mx.sym), context=gpu)
+    mod.bind([("data", (batch, 3, image, image))],
+             [("softmax_label", (batch,))])
+    mod.init_params(mx.init.Xavier())
+    mod.init_optimizer(optimizer="sgd", optimizer_params=cfg["opt"])
+    setup_s = time.perf_counter() - t0
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    x = torch.randn((batch, 3, image, image), generator=gen, device=dev)
+    y = torch.randint(0, 1000, (batch,), generator=gen, device=dev)
+    data = mx.io.DataBatch([NDArray(x)], [NDArray(y.float())])
+    ex = mod._exec
+    stats0 = {n: a._data.clone() for n, a in ex.aux_dict.items()}
+    torch.cuda.reset_peak_memory_stats()
+    losses, host_ms = [], []
+
+    def step(record_host=False):
+        mod.forward_backward(data)
+        losses.append(_module_loss(mod, y))
+        t1 = time.perf_counter()
+        mod.update()
+        if record_host:
+            host_ms.append((time.perf_counter() - t1) * 1e3)
+
+    wrappers = kernel_wrappers(plugin)
+    for w in wrappers.values():
+        w.launches = 0  # the main path starts here
+    for _ in range(cfg["warmup"]):
+        step()
+    torch.cuda.synchronize()
+    marks = [torch.cuda.Event(enable_timing=True)
+             for _ in range(cfg["steps"] + 1)]
+    marks[0].record()
+    for i in range(cfg["steps"]):
+        step(record_host=True)
+        marks[i + 1].record()
+    marks[-1].synchronize()
+    counts = {n: w.launches for n, w in wrappers.items()}
+    moved = sum(not torch.equal(ex.aux_dict[n]._data, v)
+                for n, v in stats0.items())
+    arrays = [("arg", n, a) for n, a in ex.arg_dict.items()] + \
+        [("grad", n, a) for n, a in ex.grad_dict.items()] + \
+        [("aux", n, a) for n, a in ex.aux_dict.items()] + \
+        [("output", str(i), a) for i, a in enumerate(ex.outputs)]
+    off_card = [f"{k}:{n}" for k, n, a in arrays
+                if a._data.device != torch.device("cuda", 0)]
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CUDA])
+    with prof:
+        t1 = time.perf_counter()
+        for _ in range(cfg["profiled"]):
+            step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+    # update() alone, the device idle before it: its host time without
+    # the launch queue's back-pressure, and its device time
+    alone_host, alone_dev = [], []
+    t_start = torch.cuda.Event(enable_timing=True)
+    t_end = torch.cuda.Event(enable_timing=True)
+    for _ in range(cfg["profiled"]):
+        mod.forward_backward(data)
+        torch.cuda.synchronize()
+        t_start.record()
+        t1 = time.perf_counter()
+        mod.update()
+        alone_host.append((time.perf_counter() - t1) * 1e3)
+        t_end.record()
+        t_end.synchronize()
+        alone_dev.append(t_start.elapsed_time(t_end))
+    losses = [float(v) for v in losses]
+    ms_step = marks[0].elapsed_time(marks[-1]) / cfg["steps"]
+    res = {
+        "phase": "module_resnet50",
+        "loop": "mx.mod.Module forward_backward + update (graph executor, "
+                "per-parameter updater)",
+        "model": {"symbol": "chip_smoke.resnet50_v1_symbol",
+                  "layout": "NCHW", "zoo_biases": True,
+                  "arguments": len(ex.arg_dict),
+                  "auxiliary_states": len(ex.aux_dict)},
+        "batch": batch, "image": image, "dtype": "float32",
+        "tf32": {"cudnn_conv": torch.backends.cudnn.allow_tf32,
+                 "cuda_matmul": torch.backends.cuda.matmul.allow_tf32},
+        "optimizer": "sgd", "optimizer_settings": dict(cfg["opt"]),
+        "warmup_steps": cfg["warmup"], "timed_steps": cfg["steps"],
+        "setup_s": setup_s, "ms_per_step": ms_step,
+        "img_s": batch / ms_step * 1e3,
+        "step_ms": [a.elapsed_time(b) for a, b in zip(marks, marks[1:])],
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "update_host_ms": sum(host_ms) / len(host_ms),
+        "update_host_ms_each": host_ms,
+        "update_alone_host_ms": sum(alone_host) / len(alone_host),
+        "update_alone_ms": sum(alone_dev) / len(alone_dev),
+        "updated_tensors": len(mod._updater.states), "losses": losses,
+        "kernel_launches": counts,
+        "moving_stats_moved": f"{moved} of {len(stats0)}",
+        "arrays_off_card": off_card,
+        "profile_3_steps": device_profile(prof, wall, top=25,
+                                          shares=STEP_SHARES),
+    }
+    emit(res)
+    check(all(math.isfinite(v) for v in losses),
+          f"module_resnet50: loss not finite: {losses}")
+    check(sum(losses[-3:]) / 3 < losses[0],
+          f"module_resnet50: the loss did not fall: {losses}")
+    check(len(stats0) == 106 and moved == 106,
+          f"module_resnet50: {moved} of {len(stats0)} moving statistics "
+          "moved (106 expected)")
+    check(not off_card and len(arrays) > 300,
+          f"module_resnet50: arrays off cuda:0: {off_card[:8]}")
+    return res
+
+
+def _module_step_f64(mx, sym, arg, aux, x, y, opt):
+    """The Module step in float64 on the host through the same pieces
+    (the graph executor, the updater by parameter name, rescale
+    1/batch)."""
+    import torch
+
+    f64 = torch.float64
+    names = list(arg)
+    args = {n: mx.nd.NDArray(v._data.to("cpu", f64)) for n, v in arg.items()}
+    args["data"] = mx.nd.NDArray(x.to("cpu", f64))
+    args["softmax_label"] = mx.nd.NDArray(y.to("cpu", f64))
+    ex = sym.bind(mx.cpu(), args,
+                  args_grad={n: mx.nd.zeros(args[n].shape, dtype="float64")
+                             for n in names},
+                  grad_req={n: "write" if n in arg else "null"
+                            for n in sym.list_arguments()},
+                  aux_states={n: mx.nd.NDArray(v._data.to("cpu", f64))
+                              for n, v in aux.items()})
+    upd = mx.optimizer.get_updater(mx.optimizer.create(
+        "sgd", param_idx2name={n: n for n in names},
+        rescale_grad=1.0 / x.shape[0], **dict(opt)))
+    ex.forward(is_train=True)
+    ex.backward()
+    p = ex.outputs[0]._data
+    loss = float(-torch.log(p.gather(1, y.long().view(-1, 1))).mean())
+    for n in names:
+        upd(n, ex.grad_dict[n], ex.arg_dict[n])
+    return loss, ({n: ex.arg_dict[n]._data for n in names},
+                  {n: st[0]._data for n, st in upd.states.items()},
+                  {n: a._data for n, a in ex.aux_dict.items()})
+
+
+def _module_step(mx, ctx, sym, arg, aux, x, y, opt):
+    """One fp32 ``mx.mod.Module`` step on ``ctx`` from ``arg``/``aux``:
+    (loss, (params, momenta, moving statistics))."""
+    with ctx:
+        mod = mx.mod.Module(sym, context=ctx)
+        mod.bind([("data", tuple(x.shape))], [("softmax_label",
+                                               tuple(y.shape))])
+        mod.set_params(arg, aux)
+        mod.init_optimizer(optimizer="sgd", optimizer_params=opt)
+        dev = ctx.torch_device()
+        mod.forward_backward(mx.io.DataBatch(
+            [mx.nd.NDArray(x.to(dev))], [mx.nd.NDArray(y.to(dev))]))
+        loss = float(_module_loss(mod, y.to(dev)))
+        mod.update()
+        ex = mod._exec
+        return loss, ({n: ex.arg_dict[n]._data for n in arg},
+                      {n: st[0]._data for n, st in mod._updater.states.items()},
+                      {n: a._data for n, a in ex.aux_dict.items()})
+
+
+def module_cuda_vs_cpu_phase(batch=4, seed=3, n_batches=3):
+    """One fp32 Module step of ``resnet50_v1_symbol`` on the card and on
+    the host from the same parameters, TF32 off, each parameter's
+    update, momentum and moving statistic held as the zoo nets' steps
+    are (``CUDA_CPU_TOL``: the card's error against a float64 step no
+    more than twice the host's plus 1e-3, on the median over
+    ``n_batches`` batches)."""
+    import statistics
+
+    import torch
+
+    import mxnet_tpu_torch as mx
+
+    opt = MODULE_RESNET["opt"]
+    sym = resnet50_v1_symbol(mx.sym)
+    with mx.cpu():
+        torch.manual_seed(seed)
+        host = mx.mod.Module(sym, context=mx.cpu())
+        host.bind([("data", (batch, 3, 224, 224))],
+                  [("softmax_label", (batch,))])
+        host.init_params(mx.init.Xavier())
+        arg, aux = host.get_params()
+    runs = []
+    for b in range(n_batches):
+        gen = torch.Generator().manual_seed(seed + 1 + b)
+        x = torch.randn((batch, 3, 224, 224), generator=gen)
+        y = torch.randint(0, 1000, (batch,), generator=gen).float()
+        r = {"cuda": _module_step(mx, mx.gpu(0), sym, arg, aux, x, y, opt),
+             "cpu": _module_step(mx, mx.cpu(), sym, arg, aux, x, y, opt)}
+        with mx.cpu():
+            r["cpu64"] = _module_step_f64(mx, sym, arg, aux, x, y, opt)
+        runs.append({k: (loss, tuple({n: t.to("cpu", torch.float64)
+                                      for n, t in d.items()} for d in ds))
+                     for k, (loss, ds) in r.items()})
+    start = {n: v._data.to(torch.float64) for n, v in arg.items()}
+    stats0 = {n: v._data.to(torch.float64) for n, v in aux.items()}
+    f64 = runs[0]["cpu64"][1]
+    moved = {n: float((f64[0][n] - start[n]).norm()) for n in start}
+    whole = math.sqrt(sum(v * v for v in moved.values()))
+    trained = [n for n, v in moved.items() if v >= INERT_SHARE * whole]
+
+    def rel(a, ref):
+        return float((a - ref).norm() / ref.norm().clamp_min(1e-30))
+
+    def errs(r, key):
+        run, ref = r[key][1], r["cpu64"][1]
+        e = {f"update/{n}": rel(run[0][n] - start[n], ref[0][n] - start[n])
+             for n in trained}
+        e.update({f"momentum/{n}": rel(run[1][n], ref[1][n])
+                  for n in trained})
+        e.update({f"moving/{n}": rel(run[2][n] - stats0[n],
+                                     ref[2][n] - stats0[n])
+                  for n in ref[2]})
+        return e
+
+    card = [errs(r, "cuda") for r in runs]
+    hosts = [errs(r, "cpu") for r in runs]
+    card_m = {k: statistics.median(e[k] for e in card) for k in card[0]}
+    host_m = {k: statistics.median(e[k] for e in hosts) for k in hosts[0]}
+    over = {k: (card_m[k], host_m[k]) for k in card_m
+            if card_m[k] > 2 * host_m[k] + 1e-3}
+    loss_rel = max(abs(r["cuda"][0] - r["cpu"][0]) / abs(r["cpu"][0])
+                   for r in runs)
+    worst = max(card_m, key=lambda k: card_m[k] - 2 * host_m[k])
+    res = {"phase": "module_cuda_vs_cpu", "symbol":
+           "chip_smoke.resnet50_v1_symbol", "loop": "mx.mod.Module",
+           "optimizer_settings": dict(opt), "batch": batch,
+           "dtype": "float32", "batches": n_batches,
+           "tf32": {"cudnn_conv": torch.backends.cudnn.allow_tf32,
+                    "cuda_matmul": torch.backends.cuda.matmul.allow_tf32},
+           "loss_cuda": runs[0]["cuda"][0], "loss_cpu": runs[0]["cpu"][0],
+           "loss_cpu_f64": runs[0]["cpu64"][0], "loss_rel": loss_rel,
+           "held": {"update": len(trained), "momentum": len(trained),
+                    "moving_stat": len(runs[0]["cpu64"][1][2])},
+           "not_held_inert": sorted(set(moved) - set(trained)),
+           "err_cuda_vs_f64_max": max(card_m.values()),
+           "err_cpu_vs_f64_max": max(host_m.values()),
+           "closest_to_limit": {"quantity": worst,
+                                "cuda_vs_f64": card_m[worst],
+                                "cpu_vs_f64": host_m[worst]},
+           "over_limit": {k: list(v) for k, v in list(over.items())[:8]},
+           "tol": CUDA_CPU_TOL}
+    emit(res)
+    check(len(trained) > 100 and len(runs[0]["cpu64"][1][2]) == 106,
+          f"module cuda vs cpu: {len(trained)} parameters held")
+    check(loss_rel <= CUDA_CPU_TOL["loss"] and not over,
+          f"module cuda vs cpu: loss rel {loss_rel}; over the limit "
+          f"(card, host): {dict(list(over.items())[:8])}")
+    return res
+
+
+#: the MLP of ``Module.fit``: 2 epochs on synthetic separable classes
+MODULE_FIT = dict(n=1000, n_val=300, features=20, classes=5, batch=64,
+                  epochs=2, pred_tol=1e-5)
+
+
+def _mlp_symbol(sym, classes):
+    data = sym.var("data")
+    fc1 = sym.FullyConnected(data, num_hidden=64, name="fc1")
+    act = sym.Activation(fc1, act_type="relu", name="relu1")
+    fc2 = sym.FullyConnected(act, num_hidden=classes, name="fc2")
+    return sym.SoftmaxOutput(fc2, sym.var("softmax_label"), name="softmax")
+
+
+def module_fit_phase(workdir, seed=0):
+    """``Module.fit`` of an MLP on ``mx.gpu(0)`` from host batches
+    (``NDArrayIter``: shuffle, ``pad``) with ``Speedometer``,
+    ``eval_data`` and ``do_checkpoint``, then ``score`` and ``predict``;
+    the card's checkpoint loaded on the host predicts the same outputs
+    and saves the same bytes; one ``BucketingModule`` step over two
+    buckets that share their weights."""
+    import logging
+
+    import numpy as onp
+    import torch
+
+    import mxnet_tpu_torch as mx
+
+    cfg = MODULE_FIT
+    rng = onp.random.RandomState(seed)
+    w = rng.randn(cfg["features"], cfg["classes"]).astype("float32")
+    x = rng.randn(cfg["n"], cfg["features"]).astype("float32")
+    y = (x @ w).argmax(1).astype("float32")
+    xv = rng.randn(cfg["n_val"], cfg["features"]).astype("float32")
+    yv = (xv @ w).argmax(1).astype("float32")
+    onp.random.seed(seed)  # NDArrayIter's shuffle
+    torch.manual_seed(seed)  # Xavier's draws
+    train = mx.io.NDArrayIter(x, y, batch_size=cfg["batch"], shuffle=True,
+                              last_batch_handle="pad")
+    val = mx.io.NDArrayIter(xv, yv, batch_size=cfg["batch"])
+    prefix = os.path.join(workdir, "module_fit", "mlp")
+    os.makedirs(os.path.dirname(prefix), exist_ok=True)
+    mod = mx.mod.Module(_mlp_symbol(mx.sym, cfg["classes"]),
+                        context=mx.gpu(0))
+    speed = []
+
+    class _Log(logging.Handler):
+        def emit(self, record):
+            speed.append(record.getMessage())
+
+    handler = _Log()
+    logging.getLogger().addHandler(handler)
+    prev = logging.getLogger().level
+    logging.getLogger().setLevel(logging.INFO)
+    t0 = time.perf_counter()
+    try:
+        mod.fit(train, eval_data=val, eval_metric="acc",
+                num_epoch=cfg["epochs"], optimizer="sgd",
+                optimizer_params=(("learning_rate", 0.2),
+                                  ("momentum", 0.9)),
+                initializer=mx.init.Xavier(),
+                batch_end_callback=mx.callback.Speedometer(cfg["batch"], 5),
+                epoch_end_callback=mx.callback.do_checkpoint(prefix))
+    finally:
+        logging.getLogger().removeHandler(handler)
+        logging.getLogger().setLevel(prev)
+    fit_s = time.perf_counter() - t0
+    score = mod.score(val, "acc")[0][1]
+    pred = mod.predict(val)
+    on_card = pred.context == mx.gpu(0)
+    last = cfg["epochs"]
+    with mx.cpu():
+        sym, arg, aux = mx.model.load_checkpoint(prefix, last)
+        host = mx.mod.Module(sym, context=mx.cpu())
+        host.bind(val.provide_data, val.provide_label, for_training=False)
+        host.set_params(arg, aux)
+        pred_host = host.predict(val)
+        mx.model.save_checkpoint(prefix + "_host", last, sym, arg, aux)
+    pred_err = float(onp.abs(pred.asnumpy() - pred_host.asnumpy()).max())
+    same_bytes = {}
+    for suffix in (f"-{last:04d}.params", "-symbol.json"):
+        with open(prefix + suffix, "rb") as f1, \
+                open(prefix + "_host" + suffix, "rb") as f2:
+            same_bytes[suffix] = f1.read() == f2.read()
+
+    # BucketingModule: two sequence lengths, one classifier
+    def sym_gen(seq_len):
+        data = mx.sym.var("data")
+        pooled = mx.sym.mean(data, axis=1, name=f"pool{seq_len}")
+        fc = mx.sym.FullyConnected(pooled, num_hidden=8, name="fc_shared")
+        out = mx.sym.SoftmaxOutput(fc, mx.sym.var("softmax_label"),
+                                   name="softmax")
+        return out, ("data",), ("softmax_label",)
+
+    bmod = mx.mod.BucketingModule(sym_gen, default_bucket_key=6,
+                                  context=mx.gpu(0))
+    desc = mx.io.DataDesc
+    bmod.bind([desc("data", (16, 6, 4))], [desc("softmax_label", (16,))])
+    bmod.init_params(mx.init.Xavier())
+    bmod.init_optimizer(optimizer_params=(("learning_rate", 0.1),))
+    w0 = bmod.get_params()[0]["fc_shared_weight"].asnumpy()
+    seen = []
+    for key in (6, 3):
+        b = mx.io.DataBatch(
+            [mx.nd.array(rng.randn(16, key, 4), ctx=mx.cpu())],
+            [mx.nd.array(rng.randint(0, 8, 16), ctx=mx.cpu())],
+            bucket_key=key, provide_data=[desc("data", (16, key, 4))],
+            provide_label=[desc("softmax_label", (16,))])
+        bmod.forward(b, is_train=True)
+        bmod.backward()
+        bmod.update()
+        seen.append(bmod.get_params()[0]["fc_shared_weight"].asnumpy())
+    shared = (bmod._buckets[3]._exec.arg_dict["fc_shared_weight"]
+              is bmod._buckets[6]._exec.arg_dict["fc_shared_weight"])
+    on_card_b = all(a._data.is_cuda for m in bmod._buckets.values()
+                    for a in m._exec.arg_dict.values())
+    res = {"phase": "module_fit", **{k: v for k, v in cfg.items()},
+           "fit_s": fit_s, "speedometer_lines": [s for s in speed
+                                                 if "samples/sec" in s][-3:],
+           "val_acc": score, "predict_shape": list(pred.shape),
+           "predict_on_card": on_card,
+           "card_vs_host_predict_max_abs": pred_err,
+           "resaved_bytes_identical": same_bytes,
+           "bucketing": {"buckets": sorted(bmod._buckets),
+                         "weights_shared": shared,
+                         "on_card": on_card_b,
+                         "weight_moved": [bool(not onp.array_equal(a, b))
+                                          for a, b in zip([w0] + seen[:1],
+                                                          seen)]}}
+    emit(res)
+    check(score >= 0.8, f"module_fit: validation accuracy {score}")
+    check(any("samples/sec" in s for s in speed),
+          "module_fit: Speedometer logged nothing")
+    check(on_card and tuple(pred.shape) == (cfg["n_val"], cfg["classes"]),
+          f"module_fit: predictions {pred.shape} on {pred.context}")
+    check(pred_err <= cfg["pred_tol"],
+          f"module_fit: host predictions differ by {pred_err}")
+    check(all(same_bytes.values()),
+          f"module_fit: re-saved files differ: {same_bytes}")
+    check(shared and on_card_b and all(res["bucketing"]["weight_moved"]),
+          f"module_fit: bucketing {res['bucketing']}")
+    return res
+
+
+#: the fused op through a symbol at ResNet-50's stage-1 tail
+SYMBOL_BRC = dict(n=128, hw=56, ci=64, co=256)
+
+
+def symbol_bnreluconv_case(dtype, seed):
+    """``sym._contrib_BNReluConv(u, gamma, beta, weight)`` (channel-last)
+    bound with ``simple_bind`` on the card: one ``forward(is_train=True)``
+    + ``backward()`` must launch the fused backward once; its outputs and
+    gradients are held against the same executor's plain version (the
+    fused op with the plain pass 1) by ``BRC_TOL``.  Returns the result
+    and the main-path launches."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autotune
+    from mxnet_tpu_torch.ops import pallas_conv as pc
+
+    cfg = SYMBOL_BRC
+    n, hw, ci, co = cfg["n"], cfg["hw"], cfg["ci"], cfg["co"]
+    tdt = getattr(torch, dtype)
+    gpu = mx.gpu(0)
+    dev = gpu.torch_device()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    feeds = {"u": torch.randn((n, hw, hw, ci), generator=gen,
+                              device=dev).to(tdt),
+             "gamma": torch.rand((ci,), generator=gen, device=dev) + 0.5,
+             "beta": torch.randn((ci,), generator=gen, device=dev) * 0.3,
+             "weight": (torch.randn((co, 1, 1, ci), generator=gen,
+                                    device=dev) * 0.05).to(tdt)}
+    heads = [torch.randn((n, hw, hw, co), generator=gen,
+                         device=dev).to(tdt),
+             torch.zeros((ci,), device=dev), torch.zeros((ci,), device=dev)]
+    s = mx.sym._contrib_BNReluConv(*[mx.sym.var(k) for k in feeds],
+                                   eps=1e-5, fix_gamma=False, name="brc")
+    ex = s.simple_bind(gpu, type_dict={k: v.dtype for k, v in feeds.items()},
+                       **{k: tuple(v.shape) for k, v in feeds.items()})
+    heads_nd = [mx.nd.NDArray(h) for h in heads]
+
+    def run():
+        outs = ex.forward(is_train=True, **{
+            k: mx.nd.NDArray(v) for k, v in feeds.items()})
+        ex.backward(heads_nd)
+        return [o._data for o in outs] + [ex.grad_dict[k]._data
+                                          for k in feeds]
+
+    n0 = pc.bnreluconv_bwd.launches
+    got = [t.clone() for t in run()]
+    torch.cuda.synchronize()
+    launches = pc.bnreluconv_bwd.launches - n0
+    # the plain version: the fused op with the plain pass 1, on the same
+    # inputs and head gradients
+    ug = {k: v.clone().requires_grad_(True) for k, v in feeds.items()}
+    with autotune.force(pallas_bnreluconv="jnp"):
+        outs = pc.fused_bn_relu_conv1x1(*ug.values(), eps=1e-5,
+                                        fix_gamma=False)
+        torch.autograd.backward(list(outs), heads)
+    torch.cuda.synchronize()
+    check(pc.bnreluconv_bwd.launches - n0 == launches,
+          "the plain version launched the kernel")
+    want = [o.detach() for o in outs] + [ug[k].grad for k in feeds]
+    d_tol, s_tol = BRC_TOL[dtype]
+    names = ["y", "batch_mean", "batch_var", "d_u", "d_gamma", "d_beta",
+             "d_weight"]
+    rel = {k: float((a.float() - r.float()).abs().max()
+                    / r.float().abs().max().clamp_min(1e-30))
+           for k, a, r in zip(names, got, want)}
+    tol = {k: (s_tol if k.startswith(("d_gamma", "d_beta", "d_weight"))
+               else d_tol) for k in names}
+    ms = time_ms(run, budget_ms=200.0)
+    res = {"dtype": dtype, "shape": {"u": [n, hw, hw, ci],
+                                     "weight": [co, 1, 1, ci]},
+           "m": n * hw * hw, "launches_per_forward_backward": launches,
+           "rel_err_vs_plain": rel, "tol": tol,
+           "max_abs_err": max(float((a.float() - r.float()).abs().max())
+                              for a, r in zip(got, want)),
+           "forward_backward_ms": ms,
+           "on_card": all(a._data.is_cuda for a in
+                          list(ex.arg_dict.values())
+                          + list(ex.grad_dict.values()))}
+    check(launches == 1, f"symbol_bnreluconv {dtype}: {launches} launches "
+          "in one forward + backward")
+    check(all(rel[k] <= tol[k] for k in names),
+          f"symbol_bnreluconv {dtype}: {rel} over {tol}")
+    check(res["on_card"], f"symbol_bnreluconv {dtype}: arrays off the card")
+    return res, launches
+
+
+def symbol_bnreluconv_phase(seed=900):
+    """The fused block reached from a symbol, in bf16 and fp32: the
+    kernel launches per backward, counted from 0 over the two
+    forward + backward calls of the main path."""
+    from mxnet_tpu_torch.ops import pallas_conv as pc
+
+    cases, total = [], 0
+    for i, dtype in enumerate(("bfloat16", "float32")):
+        pc.bnreluconv_bwd.launches = 0  # this case's main path
+        res, n = symbol_bnreluconv_case(dtype, seed + i)
+        total += n
+        cases.append(res)
+    out = {"phase": "symbol_bnreluconv", "op": "_contrib_BNReluConv",
+           "bound": "simple_bind on mx.gpu(0)", "cases": cases,
+           "bnreluconv_launches": total}
+    emit(out)
+    return out
 
 
 def resnet50_plan():

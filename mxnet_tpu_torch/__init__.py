@@ -18,7 +18,10 @@ The slices ported so far are the generative decode server
 :mod:`~mxnet_tpu_torch.library`) and the imperative Gluon training loop
 (:mod:`~mxnet_tpu_torch.gluon` blocks on NDArrays, ``gluon.Trainer``,
 :mod:`~mxnet_tpu_torch.optimizer`, :mod:`~mxnet_tpu_torch.lr_scheduler`,
-:mod:`~mxnet_tpu_torch.metric`, ``gluon.data``), with what they run.
+:mod:`~mxnet_tpu_torch.metric`, ``gluon.data``) and the symbolic half
+(``mx.sym`` and its graph executor, ``mx.mod`` modules, ``mx.io``
+iterators, ``mx.model`` checkpoints, ``mx.callback``, ``mx.monitor``),
+with what they run.
 """
 __version__ = "0.1.0"
 
@@ -37,8 +40,20 @@ from . import lr_scheduler  # noqa: F401
 from . import metric  # noqa: F401
 from . import optimizer  # noqa: F401
 from . import gluon  # noqa: F401
+from . import symbol  # noqa: F401
+from . import symbol as sym  # noqa: F401
+from .symbol import AttrScope  # noqa: F401
+from . import io  # noqa: F401
+from . import model  # noqa: F401
+from . import callback  # noqa: F401
+from . import monitor  # noqa: F401
+from . import monitor as mon  # noqa: F401
+from . import module  # noqa: F401
+from . import module as mod  # noqa: F401
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "num_gpus", "default_device", "resolve_device", "nd",
            "ndarray", "autograd", "library", "gluon", "init", "initializer",
-           "lr_scheduler", "metric", "optimizer"]
+           "lr_scheduler", "metric", "optimizer", "sym", "symbol",
+           "AttrScope", "io", "model", "callback", "monitor", "mon",
+           "mod", "module"]

@@ -104,3 +104,22 @@ register_env("MXNET_BAD_STEP_LIMIT", 0, int,
              "Step-level NaN/Inf guard: >0 arms make_train_step's "
              "skip-and-count guard (opt_state['_bad_steps'] counts "
              "consecutive bad steps).  0 disables it.")
+register_env("MXNET_CKPT_KEEP", 3, int,
+             "Checkpoint versions Module.fit's internal manager retains "
+             "(resilience.checkpoint keep_n); older params/states/"
+             "manifest files are pruned after each save.")
+register_env("MXNET_OPTIMIZER_SHARDING", "", str,
+             "Sharded-server optimizer: 'ps'/'1' forces it on for a "
+             "Module over several contexts, '0'/'off' forces it off, "
+             "empty defers to the caller.  A Module on one context "
+             "updates per parameter either way.")
+register_env("MXNET_SNAPSHOT_EVERY", 0, int,
+             "Batches between async snapshot checkpoints in Module.fit "
+             "(needs checkpoint=).  Not ported: a value above 0 raises "
+             "(ROADMAP §A 12).")
+register_env("MXNET_RUNLOG", "", str,
+             "Path of the per-step JSONL run log.  Not ported: Module.fit "
+             "raises when it is set (ROADMAP §A 12).")
+register_env("MXNET_NUMERICS", False, bool,
+             "Numerics monitor.  Not ported: Module.fit raises when it "
+             "is on (ROADMAP §A 12).")

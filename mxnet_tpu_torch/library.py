@@ -92,8 +92,10 @@ def load(path, verbose=True):
             f"library {path!r} registered no operators (define "
             "register_ops(registry) or call register_op at import)")
     from . import ndarray as _nd
+    from .symbol import _op_namespace as _symns
 
     _nd._expose_new_ops()
+    _symns._expose_new_ops()
     if verbose:
         print(f"[mx.library] loaded {path!r}: {', '.join(new_ops)}")
     _LOADED[key] = mod

@@ -15,7 +15,10 @@ import types
 
 import numpy as _onp
 
-from ..ops import elemwise as _elemwise  # noqa: F401  (registers ops)
+from ..ops import conv as _conv  # noqa: F401  (registers ops)
+from ..ops import elemwise as _elemwise  # noqa: F401
+from ..ops import nn as _nn  # noqa: F401
+from ..ops import pallas_conv as _pallas_conv  # noqa: F401
 from ..ops import reduce as _reduce  # noqa: F401
 from ..ops import shape_ops as _shape_ops  # noqa: F401
 from ..ops.registry import get_op, list_ops
@@ -123,8 +126,8 @@ _expose_all()
 
 # ---------------------------------------------------------------- methods
 #: the reference's method list (mxnet_tpu/ndarray/__init__.py); a name
-#: whose op is not ported yet gets no method (softmax, log_softmax,
-#: topk, sort, argsort: ROADMAP)
+#: whose op is not ported yet gets no method (topk, sort, argsort:
+#: ROADMAP)
 _METHOD_OPS = [
     "sum", "nansum", "mean", "max", "min", "prod", "nanprod", "argmax",
     "argmin", "norm", "abs", "sign", "round", "rint", "fix", "floor",

@@ -8,7 +8,9 @@ layout and goes to ``F.conv{1,2,3}d`` as it is.  Channel-last is
 permuted to the channel-first views those functions take; the views
 have channels-last strides, so cuDNN runs its NHWC kernels and nothing
 is copied.  As the reference leaves convolutions to XLA, the port
-leaves them to cuDNN.
+leaves them to cuDNN.  Both are registered ops under the reference's
+names and keywords (``workspace``, ``cudnn_tune`` and ``cudnn_off`` are
+taken and ignored, as there).
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from ..base import MXNetError
+from .registry import register_op
 
 __all__ = ["convolution", "pooling", "CHANNEL_LAST", "CHANNEL_FIRST"]
 
@@ -61,9 +64,11 @@ def _last(x):
     return x.movedim(1, -1)
 
 
+@register_op("Convolution", aliases=("Convolution_v1",))
 def convolution(data, weight, bias=None, *, kernel, num_filter,
                 stride=None, dilate=None, pad=None, num_group=1,
-                no_bias=False, layout=None):
+                no_bias=False, workspace=1024, cudnn_tune=None,
+                cudnn_off=False, layout=None):
     """Convolution in either layout family (reference ``Convolution``,
     ``mxnet_tpu/ops/conv.py:119``): symmetric ``pad``, ``stride``,
     ``dilate`` and ``num_group`` groups."""
@@ -89,9 +94,11 @@ def _full_extra(size, kernel, stride, pad):
     return (stride - rem) % stride if rem else 0
 
 
+@register_op("Pooling", aliases=("Pooling_v1",))
 def pooling(data, *, kernel=(), pool_type="max", global_pool=False,
             stride=None, pad=None, pooling_convention="valid",
-            count_include_pad=True, p_value=2, layout=None):
+            count_include_pad=True, cudnn_off=False, p_value=2,
+            layout=None):
     """Max, average, sum or Lp pooling in either layout family
     (reference ``Pooling``, ``mxnet_tpu/ops/conv.py:214``).
     ``global_pool`` reduces all spatial dims.  ``pooling_convention``

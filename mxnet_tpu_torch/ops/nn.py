@@ -1,6 +1,13 @@
-"""Neural-network ops (counterpart of ``mxnet_tpu/ops/nn.py``): the
-subset ResNet training runs — FullyConnected, Activation, log_softmax,
-pick and BatchNorm with its fused backward.
+"""Neural-network ops (counterpart of ``mxnet_tpu/ops/nn.py``):
+FullyConnected, Activation, LeakyReLU, the softmax family, pick,
+BatchNorm with its fused backward, and the loss-style output ops
+(SoftmaxOutput and the regression outputs), whose backward ignores the
+head gradient.
+
+Each op is registered under the reference's names and aliases with
+exactly the reference's keyword names and defaults, the ignored ones
+(``cudnn_off``, ``dtype``) included, since a symbol's attributes are
+parsed against them.  Gluon's layers call the same functions.
 
 BatchNorm keeps the reference's numerics policy: statistics in fp32
 whatever the activation dtype (one pass E[x], E[x²] for bf16/fp16, two
@@ -16,11 +23,14 @@ import math
 import torch
 
 from ..base import MXNetError
+from .registry import register_op
 
-__all__ = ["fully_connected", "activation", "log_softmax", "pick",
-           "batch_norm"]
+__all__ = ["fully_connected", "activation", "leaky_relu", "softmax",
+           "log_softmax", "softmin", "softmax_activation", "pick",
+           "batch_norm", "softmax_output"]
 
 
+@register_op("FullyConnected", aliases=("_FullyConnected",))
 def fully_connected(data, weight, bias=None, *, num_hidden, no_bias=False,
                     flatten=True):
     """``data @ weight.T + bias`` (reference ``FullyConnected``,
@@ -44,6 +54,7 @@ _ACTIVATIONS = {
 }
 
 
+@register_op("Activation")
 def activation(x, *, act_type):
     """Reference ``Activation`` (``mxnet_tpu/ops/nn.py:35``): relu,
     sigmoid, tanh, softrelu (softplus) or softsign."""
@@ -54,9 +65,79 @@ def activation(x, *, act_type):
     return fn(x)
 
 
-def log_softmax(x, *, axis=-1):
-    """Reference ``log_softmax`` (``mxnet_tpu/ops/nn.py:93``)."""
+@register_op("LeakyReLU")
+def leaky_relu(*inputs, act_type="leaky", slope=0.25, lower_bound=0.125,
+               upper_bound=0.334):
+    """Reference ``LeakyReLU`` (``mxnet_tpu/ops/nn.py:49``): leaky,
+    prelu (``gamma`` the second input, per channel on axis 1), elu,
+    selu and gelu.  ``rrelu`` draws its slopes at random and waits for
+    the port's random foundation (ROADMAP §A 3)."""
+    x = inputs[0]
+    if act_type == "leaky":
+        return torch.where(x > 0, x, slope * x)
+    if act_type == "prelu":
+        gamma = inputs[1]
+        if gamma.dim() < x.dim() and gamma.numel() > 1:
+            shape = [1] * x.dim()
+            shape[1] = gamma.numel()
+            gamma = gamma.reshape(shape)
+        return torch.where(x > 0, x, gamma * x)
+    if act_type == "elu":
+        return torch.where(x > 0, x, slope * torch.expm1(x))
+    if act_type == "selu":
+        alpha, scale = 1.6732632423543772, 1.0507009873554805
+        return scale * torch.where(x > 0, x, alpha * torch.expm1(x))
+    if act_type == "gelu":
+        return torch.nn.functional.gelu(x)
+    if act_type == "rrelu":
+        raise MXNetError("LeakyReLU act_type='rrelu' draws random slopes "
+                         "and is not ported yet (ROADMAP §A 3)")
+    raise MXNetError(f"unknown act_type {act_type!r}")
+
+
+@register_op("softmax")
+def softmax(x, length=None, *, axis=-1, temperature=None, use_length=False,
+            dtype=None):
+    """Reference ``softmax`` (``mxnet_tpu/ops/nn.py:76``); with
+    ``use_length`` the positions at or past ``length`` along ``axis``
+    get 0."""
+    if temperature:
+        x = x / temperature
+    if use_length and length is not None:
+        shape = [1] * x.dim()
+        shape[axis] = -1
+        pos = torch.arange(x.shape[axis], device=x.device).reshape(shape)
+        mask = pos < length.unsqueeze(axis)
+        r = torch.softmax(torch.where(mask, x, -math.inf), dim=axis)
+        return torch.where(mask, r, torch.zeros((), dtype=r.dtype,
+                                                device=r.device))
+    return torch.softmax(x, dim=axis)
+
+
+@register_op("log_softmax")
+def log_softmax(x, *, axis=-1, temperature=None, dtype=None,
+                use_length=False):
+    """Reference ``log_softmax`` (``mxnet_tpu/ops/nn.py:92``)."""
+    if temperature:
+        x = x / temperature
     return torch.log_softmax(x, dim=axis)
+
+
+@register_op("softmin")
+def softmin(x, *, axis=-1, temperature=None, dtype=None, use_length=False):
+    """Reference ``softmin`` (``mxnet_tpu/ops/nn.py:100``), which takes
+    no temperature."""
+    return torch.softmax(-x, dim=axis)
+
+
+@register_op("SoftmaxActivation")
+def softmax_activation(x, *, mode="instance"):
+    """Reference ``SoftmaxActivation``: over axis 1 (``channel``) or
+    over all but the batch axis (``instance``)."""
+    if mode == "channel":
+        return torch.softmax(x, dim=1)
+    return torch.softmax(x.reshape(x.shape[0], -1), dim=-1) \
+        .reshape(x.shape)
 
 
 def pick(data, index, *, axis=-1, keepdims=False):
@@ -143,12 +224,19 @@ class _BNTrain(torch.autograd.Function):
         return dx32.to(data.dtype), dgamma, dbeta, None, None, None
 
 
+def _mean_var_nout(p):
+    return 3 if p.get("output_mean_var") else 1
+
+
+@register_op("BatchNorm", aliases=("BatchNorm_v1",),
+             num_outputs=_mean_var_nout, train_param="train")
 def batch_norm(data, gamma, beta, moving_mean, moving_var, *, eps=1e-3,
-               fix_gamma=True, use_global_stats=False,
-               output_mean_var=False, axis=1, train=False):
+               momentum=0.9, fix_gamma=True, use_global_stats=False,
+               output_mean_var=False, axis=1, cudnn_off=False, train=False):
     """Reference ``BatchNorm`` (``mxnet_tpu/ops/nn.py:220``).  Pure: with
     ``output_mean_var`` it returns (out, batch_mean, batch_var) and the
-    caller folds the batch statistics into its running averages."""
+    caller (the Gluon layer, the graph executor) folds the batch
+    statistics into the moving averages with ``momentum``."""
     if train and not use_global_stats:
         out, mean, var = _BNTrain.apply(data, gamma, beta, float(eps),
                                         int(axis), bool(fix_gamma))
@@ -162,3 +250,110 @@ def batch_norm(data, gamma, beta, moving_mean, moving_var, *, eps=1e-3,
     shift = (beta.to(torch.float32) - mean * inv * g32).reshape(bshape)
     out = (data.to(torch.float32) * scale + shift).to(data.dtype)
     return (out, mean, var) if output_mean_var else out
+
+
+# ------------------------------------------------------- output ops
+def _class_last(data):
+    """The permutation that moves axis 1 (the classes) last, and its
+    inverse."""
+    perm = (0,) + tuple(range(2, data.dim())) + (1,)
+    inv = tuple(sorted(range(len(perm)), key=perm.__getitem__))
+    return perm, inv
+
+
+class _SoftmaxOutput(torch.autograd.Function):
+    """Softmax over the last axis whose backward is the loss gradient
+    ``(p - onehot(label)) * grad_scale`` whatever the head gradient
+    (the reference's custom VJP, ``mxnet_tpu/ops/nn.py:322-353``):
+    ``smooth_alpha`` smooths the one-hot, ``use_ignore`` zeroes the rows
+    whose label is ``ignore_label``, and ``normalize`` divides by the
+    leading (batch) extent."""
+
+    @staticmethod
+    def forward(ctx, data, label, grad_scale, ignore_label, use_ignore,
+                smooth_alpha, normalize):
+        out = torch.softmax(data, dim=-1)
+        ctx.save_for_backward(out, label)
+        ctx.hyper = (grad_scale, ignore_label, use_ignore, smooth_alpha,
+                     normalize)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        out, label = ctx.saved_tensors
+        grad_scale, ignore_label, use_ignore, smooth_alpha, normalize = \
+            ctx.hyper
+        k = out.shape[-1]
+        # an integer label outside [0, k) (ignore_label -1) is a zero row,
+        # as jax.nn.one_hot makes it
+        cls = torch.arange(k, device=out.device)
+        oh = (label.to(torch.int32).unsqueeze(-1) == cls).to(out.dtype)
+        if smooth_alpha:
+            oh = oh * (1 - smooth_alpha) + smooth_alpha / (k - 1) * (1 - oh)
+        grad = out - oh
+        if use_ignore:
+            grad = grad * (label != ignore_label).to(out.dtype).unsqueeze(-1)
+        scale = grad_scale / out.shape[0] if normalize else grad_scale
+        return grad * scale, None, None, None, None, None, None
+
+
+@register_op("SoftmaxOutput", aliases=("Softmax",))
+def softmax_output(data, label, *, grad_scale=1.0, ignore_label=-1.0,
+                   multi_output=False, use_ignore=False, preserve_shape=False,
+                   normalization="null", smooth_alpha=0.0, out_grad=False):
+    """Reference ``SoftmaxOutput`` (``mxnet_tpu/ops/nn.py:356``): the
+    softmax of ``data`` over its last axis, or over axis 1 when
+    ``multi_output`` or ``data`` has more than two axes, with the loss
+    backward of :class:`_SoftmaxOutput`.  As in the reference,
+    ``normalization="valid"`` divides the gradient by the batch extent
+    and ``"batch"`` by nothing."""
+    hyper = (float(grad_scale), float(ignore_label), bool(use_ignore),
+             float(smooth_alpha), normalization == "valid")
+    if multi_output or data.dim() > 2:
+        perm, inv = _class_last(data)
+        out = _SoftmaxOutput.apply(data.permute(perm), label, *hyper)
+        return out.permute(inv)
+    return _SoftmaxOutput.apply(data, label, *hyper)
+
+
+class _RegressionOutput(torch.autograd.Function):
+    """``transform(data)`` forward; backward ``grad_fn(out, label) *
+    grad_scale / batch`` whatever the head gradient
+    (``mxnet_tpu/ops/nn.py:377-400``)."""
+
+    @staticmethod
+    def forward(ctx, data, label, grad_scale, kind):
+        out = _REGRESSION[kind][0](data)
+        ctx.save_for_backward(out, label)
+        ctx.grad_scale, ctx.kind = grad_scale, kind
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        out, label = ctx.saved_tensors
+        batch = out.shape[0] if out.dim() else 1
+        grad = _REGRESSION[ctx.kind][1](out, label)
+        return grad * (ctx.grad_scale / batch), None, None, None
+
+
+_REGRESSION = {
+    "LinearRegressionOutput": (lambda x: x, lambda o, lab: o - lab),
+    "LogisticRegressionOutput": (torch.sigmoid, lambda o, lab: o - lab),
+    "MAERegressionOutput": (lambda x: x,
+                            lambda o, lab: torch.sign(o - lab)),
+}
+
+
+def _make_regression(name):
+    @register_op(name)
+    def _reg(data, label, *, grad_scale=1.0):
+        return _RegressionOutput.apply(data, label.reshape(data.shape),
+                                       float(grad_scale), name)
+
+    _reg.__name__ = name
+    _reg.__doc__ = f"Reference ``{name}`` (``mxnet_tpu/ops/nn.py:406``)."
+    return _reg
+
+
+for _name in _REGRESSION:
+    _make_regression(_name)

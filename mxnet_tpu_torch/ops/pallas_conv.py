@@ -34,8 +34,10 @@ import torch
 
 from ..base import MXNetError
 from .nn import _bn_stats
+from .registry import register_op
 
-__all__ = ["enabled", "fused_bn_relu_conv1x1", "bnreluconv_bwd"]
+__all__ = ["enabled", "fused_bn_relu_conv1x1", "bn_relu_conv_op",
+           "bnreluconv_bwd"]
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: the kernel's tiles per dtype (``csrc/bnreluconv_bwd.cu``): rows of a
@@ -242,14 +244,23 @@ def _fwd_math(u2, gamma, beta, w2, eps, fix_gamma):
 
 class _BNReluConv1x1(torch.autograd.Function):
     """``conv1x1(relu(batchnorm(u2)))`` on the [M, Ci] view; returns
-    (y [M, Co], batch_mean, batch_var)."""
+    (y [M, Co], batch_mean, batch_var).
+
+    Which pass 1 the backward runs is decided here, in the forward's
+    thread and scope, as the reference decides it while it traces the
+    step: the autograd engine runs a CUDA backward on a thread of its
+    own, where an ``autotune.force`` scope of the caller does not hold.
+    ``kernel`` True takes :func:`bnreluconv_bwd` whatever
+    :func:`_use_pallas` says (the kernel on a CUDA tensor, its plain
+    version on a CPU one)."""
 
     @staticmethod
-    def forward(ctx, u2, gamma, beta, w2, eps, fix_gamma):
+    def forward(ctx, u2, gamma, beta, w2, eps, fix_gamma, kernel=False):
         y, mean, var, inv, scale, shift = _fwd_math(u2, gamma, beta, w2,
                                                     eps, fix_gamma)
         ctx.save_for_backward(u2, gamma, w2, mean, inv, scale, shift)
         ctx.fix_gamma = fix_gamma
+        ctx.kernel = kernel or _use_pallas(u2)
         ctx.set_materialize_grads(False)
         return y, mean, var
 
@@ -265,7 +276,7 @@ class _BNReluConv1x1(torch.autograd.Function):
         b = shift.reshape(1, -1)
         mu = mean.reshape(1, -1)
         iv = inv.reshape(1, -1)
-        pass1 = bnreluconv_bwd if _use_pallas(dy) else _bwd_pass1_reference
+        pass1 = bnreluconv_bwd if ctx.kernel else _bwd_pass1_reference
         d_bnout, dw, s1, s2 = pass1(dy, u2, w2, g, b, mu, iv)
         s1 = s1.reshape(-1)
         s2 = s2.reshape(-1)
@@ -284,7 +295,7 @@ class _BNReluConv1x1(torch.autograd.Function):
         dbeta = s1.to(gamma.dtype)
         # dW accumulates in fp32 and takes the weight's dtype
         return (du32.to(u2.dtype), dgamma, dbeta, dw.to(w2.dtype), None,
-                None)
+                None, None)
 
 
 def fused_bn_relu_conv1x1(u, gamma, beta, weight, *, eps=1e-5,
@@ -296,6 +307,20 @@ def fused_bn_relu_conv1x1(u, gamma, beta, weight, *, eps=1e-5,
     Returns (y [N, *spatial, Co], batch_mean [Ci], batch_var [Ci]); the
     caller folds the batch statistics into its running averages like
     the BatchNorm layer."""
+    return _fused(u, gamma, beta, weight, eps, fix_gamma, kernel=False)
+
+
+@register_op("_contrib_BNReluConv", num_outputs=3, platform_sensitive=True)
+def bn_relu_conv_op(u, gamma, beta, weight, *, eps=1e-5, fix_gamma=False):
+    """The fused block as an op, reachable as ``mx.nd._contrib_BNReluConv``
+    and ``mx.sym._contrib_BNReluConv`` (reference
+    ``mxnet_tpu/ops/pallas_conv.py:396``).  Its backward's pass 1 is
+    always :func:`bnreluconv_bwd`: the kernel on a CUDA tensor, never
+    the plain version there."""
+    return _fused(u, gamma, beta, weight, eps, fix_gamma, kernel=True)
+
+
+def _fused(u, gamma, beta, weight, eps, fix_gamma, kernel):
     ci = u.shape[-1]
     co = weight.shape[0]
     lead = tuple(u.shape[:-1])
@@ -303,5 +328,5 @@ def fused_bn_relu_conv1x1(u, gamma, beta, weight, *, eps=1e-5,
     w2 = weight.reshape(co, ci)
     # the kernel contracts over Co: pass W as [Ci, Co]
     y2, mean, var = _BNReluConv1x1.apply(u2, gamma, beta, w2.t(),
-                                         float(eps), bool(fix_gamma))
+                                         float(eps), bool(fix_gamma), kernel)
     return y2.reshape(lead + (co,)), mean, var

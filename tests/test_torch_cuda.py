@@ -816,3 +816,182 @@ def test_gluon_trainer_refuses_dist_kvstore(card):
     for kv in ("dist_sync", "dist_device_sync"):
         with pytest.raises(MXNetError, match="not ported"):
             gluon.Trainer(net.collect_params(), "sgd", kvstore=kv)
+
+
+# ------------------------------------------------------- the symbolic half
+def _mlp_symbol(sym):
+    fc1 = sym.FullyConnected(sym.var("data"), num_hidden=16, name="fc1")
+    act = sym.Activation(fc1, act_type="relu", name="relu1")
+    fc2 = sym.FullyConnected(act, num_hidden=4, name="fc2")
+    return sym.SoftmaxOutput(fc2, sym.var("softmax_label"), name="softmax")
+
+
+def _module_step(mx, ctx, arg, x, y, dtype="float32"):
+    """One Module step (SGD momentum) of a small conv net with a
+    BatchNorm on ``ctx``; float64 through the executor and updater."""
+    s = mx.sym
+    data = s.var("data")
+    c = s.Convolution(data, kernel=(3, 3), num_filter=8, pad=(1, 1),
+                      name="c1")
+    b = s.BatchNorm(c, fix_gamma=False, name="bn1")
+    p = s.Pooling(s.Activation(b, act_type="relu"), global_pool=True,
+                  kernel=(1, 1), pool_type="avg")
+    net = s.SoftmaxOutput(s.FullyConnected(p, num_hidden=5, name="fc"),
+                          s.var("softmax_label"), name="softmax")
+    with ctx:
+        mod = mx.mod.Module(net, context=ctx)
+        mod.bind([("data", x.shape)], [("softmax_label", y.shape)])
+        if dtype == "float64":
+            for store in (mod._exec.arg_dict, mod._exec.aux_dict,
+                          mod._exec.grad_dict):
+                for a in store.values():
+                    a._adopt(a._data.to(torch.float64))
+        arg_nd = {n: mx.nd.array(v, ctx=ctx, dtype=dtype)
+                  for n, v in arg.items() if not n.startswith("bn1_moving")}
+        aux_nd = {n: mx.nd.array(v, ctx=ctx, dtype=dtype)
+                  for n, v in arg.items() if n.startswith("bn1_moving")}
+        mod.set_params(arg_nd, aux_nd)
+        mod.init_optimizer(optimizer_params=(("learning_rate", 0.1),
+                                             ("momentum", 0.9)))
+        mod.forward_backward(mx.io.DataBatch(
+            [mx.nd.array(x, ctx=mx.cpu(), dtype=dtype)],
+            [mx.nd.array(y, ctx=mx.cpu(), dtype=dtype)]))
+        mod.update()
+        ex = mod._exec
+        on = [a.context for a in list(ex.arg_dict.values())
+              + list(ex.grad_dict.values()) + list(ex.aux_dict.values())]
+        return ({n: ex.arg_dict[n].asnumpy().astype("float64")
+                 for n in arg if n in ex.arg_dict},
+                {n: st[0].asnumpy().astype("float64")
+                 for n, st in mod._updater.states.items()},
+                {n: a.asnumpy().astype("float64")
+                 for n, a in ex.aux_dict.items()}, on)
+
+
+def test_module_step_on_card_matches_host(card):
+    """One ``mx.mod.Module`` step (host batches fed to the card) from the
+    same parameters on the card and on the host, TF32 off, with a float64
+    step as the yardstick: each parameter, momentum and moving statistic
+    no farther from float64 than twice the host's fp32 one plus 1e-3 of
+    its norm (``chip_smoke.CUDA_CPU_TOL``); everything bound stays on the
+    card."""
+    import mxnet_tpu_torch as mx
+
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = onp.random.RandomState(4)
+    x = rng.randn(8, 3, 10, 10).astype("float32")
+    y = rng.randint(0, 5, 8).astype("float32")
+    arg = {"c1_weight": rng.randn(8, 3, 3, 3) * 0.2,
+           "c1_bias": rng.randn(8) * 0.1, "bn1_gamma": rng.rand(8) + 0.5,
+           "bn1_beta": rng.randn(8) * 0.1, "fc_weight": rng.randn(5, 8),
+           "fc_bias": rng.randn(5) * 0.1,
+           "bn1_moving_mean": rng.randn(8) * 0.1,
+           "bn1_moving_var": rng.rand(8) + 0.5}
+    try:
+        cuda = _module_step(mx, mx.gpu(0), arg, x, y)
+        host = _module_step(mx, mx.cpu(), arg, x, y)
+        exact = _module_step(mx, mx.cpu(), arg, x, y, "float64")
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = prev
+    assert all(c == mx.gpu(0) for c in cuda[3])
+    for k in range(3):
+        for n, want in exact[k].items():
+            if n == "c1_bias":
+                continue  # a BatchNorm follows: its gradient is 0
+            norm = onp.linalg.norm(want - (arg[n] if k != 1 else 0))
+            err_card = onp.linalg.norm(cuda[k][n] - want) / norm
+            err_host = onp.linalg.norm(host[k][n] - want) / norm
+            assert err_card <= 2 * err_host + 1e-3, (k, n, err_card,
+                                                     err_host)
+
+
+def test_module_default_context_is_the_card(card):
+    import mxnet_tpu_torch as mx
+
+    mod = mx.mod.Module(_mlp_symbol(mx.sym))
+    mod.bind([("data", (4, 10))], [("softmax_label", (4,))])
+    mod.init_params()
+    ex = mod._exec
+    assert all(a._data.device == card for a in
+               list(ex.arg_dict.values()) + list(ex.grad_dict.values()))
+    # host arrays given to bind are moved, never left on the host
+    s = _mlp_symbol(mx.sym)
+    args = {n: mx.nd.zeros(sh, ctx=mx.cpu()) for n, sh in zip(
+        s.list_arguments(),
+        s.infer_shape(data=(2, 10), softmax_label=(2,))[0])}
+    ex = s.bind(None, args)
+    assert all(a._data.device == card for a in ex.arg_arrays)
+    out = ex.forward(data=mx.nd.ones((2, 10), ctx=mx.cpu()))
+    assert out[0]._data.device == card
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("shape", [(2, 7, 7, 64, 256), (3, 5, 5, 24, 40),
+                                   (1, 3, 3, 8, 250)])
+def test_symbol_bnreluconv_launches_the_kernel(card, dtype, shape):
+    """``sym._contrib_BNReluConv`` bound on the card: one fused-backward
+    launch per backward, gradients held against the plain version by
+    ``chip_smoke.BRC_TOL``; the shapes the Gluon fused tail takes
+    (ragged rows, channels not a multiple of 8) are taken here too."""
+    import mxnet_tpu_torch as mx
+    from chip_smoke import BRC_TOL
+    from mxnet_tpu_torch import autotune
+    from mxnet_tpu_torch.ops import pallas_conv as pc
+
+    n, h, w, ci, co = shape
+    tdt = getattr(torch, dtype)
+    gen = torch.Generator(device=card).manual_seed(1)
+    feeds = {"u": torch.randn((n, h, w, ci), generator=gen,
+                              device=card).to(tdt),
+             "gamma": torch.rand((ci,), generator=gen, device=card) + 0.5,
+             "beta": torch.randn((ci,), generator=gen, device=card) * 0.3,
+             "weight": (torch.randn((co, 1, 1, ci), generator=gen,
+                                    device=card) * 0.1).to(tdt)}
+    s = mx.sym._contrib_BNReluConv(*[mx.sym.var(k) for k in feeds])
+    ex = s.simple_bind(mx.gpu(0), type_dict={k: v.dtype
+                                             for k, v in feeds.items()},
+                       **{k: tuple(v.shape) for k, v in feeds.items()})
+    before = pc.bnreluconv_bwd.launches
+    ex.forward(is_train=True, **{k: mx.nd.NDArray(v)
+                                 for k, v in feeds.items()})
+    ex.backward()
+    assert pc.bnreluconv_bwd.launches == before + 1
+    ug = {k: v.clone().requires_grad_(True) for k, v in feeds.items()}
+    with autotune.force(pallas_bnreluconv="jnp"):
+        outs = pc.fused_bn_relu_conv1x1(*ug.values())
+        torch.autograd.backward(list(outs),
+                                [torch.ones_like(o) for o in outs])
+    assert pc.bnreluconv_bwd.launches == before + 1
+    d_tol, s_tol = BRC_TOL[dtype]
+    for k, tol in (("u", d_tol), ("gamma", s_tol), ("beta", s_tol),
+                   ("weight", s_tol)):
+        got, want = ex.grad_dict[k]._data.float(), ug[k].grad.float()
+        assert float((got - want).abs().max()) <= tol * float(
+            want.abs().max()), k
+
+
+def test_symbol_bnreluconv_never_takes_the_plain_version(card,
+                                                         monkeypatch):
+    """Whatever the variant settings say, the registered op's backward
+    on the card is the kernel."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autotune
+    from mxnet_tpu_torch.ops import pallas_conv as pc
+
+    monkeypatch.setenv("MXNET_PALLAS", "0")
+    u = mx.nd.NDArray(torch.randn((2, 4, 4, 16), device=card))
+    g = mx.nd.NDArray(torch.ones((16,), device=card))
+    b = mx.nd.NDArray(torch.zeros((16,), device=card))
+    w = mx.nd.NDArray(torch.randn((32, 1, 1, 16), device=card) * 0.1)
+    for a in (u, g, b, w):
+        a.attach_grad()
+    before = pc.bnreluconv_bwd.launches
+    with autotune.force(pallas_bnreluconv="stock"):
+        with mx.autograd.record():
+            y, _, _ = mx.nd._contrib_BNReluConv(u, g, b, w)
+        y.backward()
+    assert pc.bnreluconv_bwd.launches == before + 1

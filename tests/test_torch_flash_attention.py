@@ -492,6 +492,38 @@ def test_bf16_card_check_passes_the_kernel_and_fails_planted_faults(
         assert rel > BF16_ROW_TOL, (rel, err)
 
 
+@pytest.mark.parametrize("shape", [(2, 512, 512, 128, True),
+                                   (2, 300, 700, 64, True),
+                                   (1, 256, 256, 128, False),
+                                   (3, 7, 1024, 32, True)])
+def test_bf16_kernel_emulation_matches_reference_naive_attention(shape):
+    """The bf16 kernel's numerics (``_emulate_kernel(..., "bf16")``: bf16
+    products, P rounded to bf16 before P V, the output rounded to bf16
+    once) against the reference's ``_naive_attention`` on the same bf16
+    operands, its output rounded to bf16.  Allowance, the card's: 2^-6
+    of each row's largest value (``BF16_ROW_TOL``) and 2e-2 absolute.
+    The reference keeps p and V in fp32, so the two differ by about one
+    bf16 ulp of a row's largest value; a dropped key tile fails it
+    (``test_bf16_card_check_passes_the_kernel_and_fails_planted_faults``)."""
+    from chip_smoke import BF16_ROW_TOL, TOL, row_rel_err
+
+    bh, sq, sk, d, causal = shape
+    rng = onp.random.RandomState(sq + sk + d)
+    q, k, v = (torch.from_numpy(rng.randn(bh, n, d).astype("float32"))
+               .to(torch.bfloat16).float() for n in (sq, sk, sk))
+    scale = 1.0 / math.sqrt(d)
+    got = _emulate_kernel(q, k, v, causal, scale, "bf16").to(torch.bfloat16)
+    want = jfa._naive_attention(
+        *(jnp.asarray(t.numpy(), jnp.bfloat16)[None] for t in (q, k, v)),
+        causal, scale)
+    want = torch.from_numpy(onp.asarray(want[0], onp.float32)).to(
+        torch.bfloat16)
+    rel = row_rel_err(got, want)
+    err = float((got.float() - want.float()).abs().max())
+    assert rel <= BF16_ROW_TOL and err <= TOL["bfloat16"], (rel, err)
+    assert rel > 0  # the two round differently: the allowance is used
+
+
 # ------------------------------------------------ paged decode attention
 def _paged_fixture():
     rng = onp.random.RandomState(11)

@@ -174,6 +174,42 @@ def test_fused_op_forward_and_grads_match_reference(arm):
         assert _rel(leaf.grad.numpy(), want) <= 1e-5
 
 
+@pytest.mark.parametrize("arm,kernel_calls", [("jnp", 0), ("pallas", 1)])
+def test_pass1_choice_follows_the_forward_scope(arm, kernel_calls,
+                                                monkeypatch):
+    """The backward takes the pass 1 that the forward's scope chose, even
+    when it runs on another thread outside that scope (the autograd
+    engine runs a CUDA backward on its own thread): the reference
+    decides while it traces the step."""
+    import threading
+
+    calls = []
+    real = t_pc.bnreluconv_bwd
+
+    def counted(*a):
+        calls.append(1)
+        return real(*a)
+
+    monkeypatch.setattr(t_pc, "bnreluconv_bwd", counted)
+    u, gamma, beta, w, r = _fused_inputs(4, "float32")
+    leaves = [torch.from_numpy(a).requires_grad_(True)
+              for a in (u, gamma, beta, w)]
+    with t_at.force(pallas_bnreluconv=arm):
+        y, _, _ = t_pc.fused_bn_relu_conv1x1(*leaves)
+    # the other arm holds in the thread that runs the backward
+    other = "pallas" if arm == "jnp" else "jnp"
+
+    def backward():
+        with t_at.force(pallas_bnreluconv=other):
+            (y * torch.from_numpy(r)).sum().backward()
+
+    t = threading.Thread(target=backward)
+    t.start()
+    t.join()
+    assert len(calls) == kernel_calls
+    assert all(leaf.grad is not None for leaf in leaves)
+
+
 def test_fused_op_bf16_matches_reference():
     """bf16 activations and weight: y within one bf16 ulp of the
     largest value (the products round the same way, their fp32 sums in

@@ -57,7 +57,20 @@ _MODULES = ["mxnet_tpu_torch", "mxnet_tpu_torch.autotune",
             "mxnet_tpu_torch.gluon.parameter",
             "mxnet_tpu_torch.optimizer.optimizer",
             "mxnet_tpu_torch.lr_scheduler", "mxnet_tpu_torch.metric",
-            "mxnet_tpu_torch.example.train_mnist"]
+            "mxnet_tpu_torch.example.train_mnist",
+            "mxnet_tpu_torch.symbol", "mxnet_tpu_torch.symbol.symbol",
+            "mxnet_tpu_torch.symbol._op_namespace",
+            "mxnet_tpu_torch.symbol._shape_infer",
+            "mxnet_tpu_torch.symbol.executor",
+            "mxnet_tpu_torch.symbol.contrib",
+            "mxnet_tpu_torch.io", "mxnet_tpu_torch.io.io",
+            "mxnet_tpu_torch.resilience.checkpoint",
+            "mxnet_tpu_torch.model", "mxnet_tpu_torch.callback",
+            "mxnet_tpu_torch.monitor", "mxnet_tpu_torch.module",
+            "mxnet_tpu_torch.module.base_module",
+            "mxnet_tpu_torch.module.module",
+            "mxnet_tpu_torch.module.bucketing_module",
+            "mxnet_tpu_torch.module.sequential_module"]
 _FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(?:jax|jaxlib|mxnet_tpu)"
                         r"(?:\.|\s|$)", re.M)
 
@@ -93,7 +106,9 @@ _PORT_ENV = ["MXNET_AUTOTUNE", "MXNET_AUTOTUNE_CACHE_DIR",
              "MXNET_DECODE_SLOTS", "MXNET_KV_DTYPE",
              "MXNET_PAGED_ATTENTION", "MXNET_BNRELUCONV_VARIANT",
              "MXNET_PALLAS_OPT", "MXNET_KVSTORE_BIGARRAY_BOUND",
-             "MXNET_BAD_STEP_LIMIT"]
+             "MXNET_BAD_STEP_LIMIT", "MXNET_CKPT_KEEP",
+             "MXNET_OPTIMIZER_SHARDING", "MXNET_SNAPSHOT_EVERY",
+             "MXNET_RUNLOG", "MXNET_NUMERICS"]
 
 
 @pytest.mark.parametrize("name", _PORT_ENV)
