@@ -20,8 +20,10 @@ The slices ported so far are the generative decode server
 :mod:`~mxnet_tpu_torch.optimizer`, :mod:`~mxnet_tpu_torch.lr_scheduler`,
 :mod:`~mxnet_tpu_torch.metric`, ``gluon.data``) and the symbolic half
 (``mx.sym`` and its graph executor, ``mx.mod`` modules, ``mx.io``
-iterators, ``mx.model`` checkpoints, ``mx.callback``, ``mx.monitor``),
-with what they run.
+iterators, ``mx.model`` checkpoints, ``mx.callback``, ``mx.monitor``)
+and the random foundation with the classification zoo
+(:mod:`~mxnet_tpu_torch.random`, ``mx.nd.random``, ``Dropout``, keyed
+train steps, ``gluon.model_zoo.vision``), with what they run.
 """
 __version__ = "0.1.0"
 
@@ -34,6 +36,7 @@ from . import autograd  # noqa: F401
 from . import ndarray  # noqa: F401
 from . import ndarray as nd  # noqa: F401
 from . import library  # noqa: F401
+from . import random  # noqa: F401
 from . import initializer  # noqa: F401
 from . import initializer as init  # noqa: F401
 from . import lr_scheduler  # noqa: F401
@@ -53,7 +56,7 @@ from . import module as mod  # noqa: F401
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "num_gpus", "default_device", "resolve_device", "nd",
-           "ndarray", "autograd", "library", "gluon", "init", "initializer",
+           "ndarray", "autograd", "library", "random", "gluon", "init", "initializer",
            "lr_scheduler", "metric", "optimizer", "sym", "symbol",
            "AttrScope", "io", "model", "callback", "monitor", "mon",
            "mod", "module"]

@@ -153,7 +153,8 @@ def _live_variables():
 
 def _heads(heads, head_grads):
     """``(heads, their tensors, head gradients)``: the gradients default
-    to ones; a head with no recorded history that is no variable
+    to ones; an integer head of a recorded op stands as its zero-gradient
+    tape tensor; a head with no recorded history that is no variable
     raises."""
     from .ndarray import NDArray  # cycle: autograd <-> ndarray
 
@@ -167,18 +168,23 @@ def _heads(heads, head_grads):
         head_grads = [None] * len(heads)
     if len(head_grads) != len(heads):
         raise MXNetError("heads and head_grads length mismatch")
-    for h in heads:
+    outs, hgs = [], []
+    for h, g in zip(heads, head_grads):
+        if h._int_tape is not None:
+            outs.append(h._int_tape)
+            hgs.append(torch.zeros_like(h._int_tape))
+            continue
         if h._data.grad_fn is None and not (h._is_var and
                                             h._data.requires_grad):
             raise MXNetError(
                 "cannot differentiate a head that was not computed under "
                 "autograd.record()")
-    hgs = [torch.ones_like(h._data) if g is None
-           else g._data.to(h._data.dtype) if isinstance(g, NDArray)
-           else torch.as_tensor(g, dtype=h._data.dtype,
-                                device=h._data.device)
-           for h, g in zip(heads, head_grads)]
-    return heads, [h._data for h in heads], hgs
+        outs.append(h._data)
+        hgs.append(torch.ones_like(h._data) if g is None
+                   else g._data.to(h._data.dtype) if isinstance(g, NDArray)
+                   else torch.as_tensor(g, dtype=h._data.dtype,
+                                        device=h._data.device))
+    return heads, outs, hgs
 
 
 def _release(heads):
@@ -187,6 +193,7 @@ def _release(heads):
     for h in heads:
         if not h._is_var:
             h._data = h._data.detach()
+            h._int_tape = None
 
 
 def backward(heads, head_grads=None, retain_graph=False, train_mode=True):

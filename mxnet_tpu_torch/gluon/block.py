@@ -194,8 +194,8 @@ class Block(nn.Module):
         wins; the others take ``init`` (default ``Uniform()``), which
         dispatches on the name suffix like the reference.  Values are
         drawn on the host from ``generator`` (a ``torch.Generator``;
-        None = torch's default one), in parameter order, then placed on
-        the device.  A parameter whose shape is deferred is initialized
+        None = numpy's global RNG, as the reference draws), in parameter
+        order, then placed on the device.  A parameter whose shape is deferred is initialized
         at the block's first forward."""
         if ctx is not None and device is not None:
             raise MXNetError("pass ctx or device, not both")
@@ -275,6 +275,15 @@ class Block(nn.Module):
         for name, child in self._children.items():
             ret.update(child._collect_params_with_prefix(prefix + name))
         return ret
+
+    def save_parameters(self, filename, deduplicate=False):
+        """Write every parameter to a ``.params`` file keyed by its
+        structural name (``features.0.weight``), the reference's
+        ``Block.save_parameters`` bytes."""
+        from ..ndarray.ndarray import save
+
+        save(filename, {k: p.data() for k, p in
+                        self._collect_params_with_prefix().items()})
 
     def load_parameters(self, filename, allow_missing=False,
                         ignore_extra=False):

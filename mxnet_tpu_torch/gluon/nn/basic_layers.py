@@ -1,16 +1,16 @@
 """Basic layers (counterpart of ``mxnet_tpu/gluon/nn/basic_layers.py``):
-HybridSequential, Dense, BatchNorm, Flatten."""
+HybridSequential, Dense, Dropout, BatchNorm, Flatten."""
 from __future__ import annotations
 
 import math
 
 import torch
 
-from ...ops.nn import batch_norm, fully_connected
+from ...ops.nn import batch_norm, dropout, fully_connected
 from ..block import HybridBlock, state_writes_dropped
 from .activations import Activation
 
-__all__ = ["HybridSequential", "Dense", "BatchNorm", "Flatten"]
+__all__ = ["HybridSequential", "Dense", "Dropout", "BatchNorm", "Flatten"]
 
 
 class HybridSequential(HybridBlock):
@@ -59,6 +59,27 @@ class Dense(HybridBlock):
                               no_bias=self.bias is None,
                               num_hidden=self._units, flatten=self._flatten)
         return self.act(out) if self.act is not None else out
+
+
+class Dropout(HybridBlock):
+    """Dropout of ``rate`` (reference ``basic_layers.py:159``): active
+    while the block trains (``autograd.record()`` on NDArrays, or
+    ``block.train()``), the identity otherwise.  ``axes`` share one mask
+    draw along them.  The mask comes from the input device's generator,
+    or from the step's key inside ``parallel``'s train step."""
+
+    def __init__(self, rate, axes=(), **kwargs):
+        super().__init__(**kwargs)
+        self._rate = rate
+        self._axes = axes
+
+    def forward(self, x):
+        if self._rate <= 0:
+            return x
+        return dropout(x, p=self._rate, axes=self._axes, train=self.training)
+
+    def __repr__(self):
+        return f"Dropout(p = {self._rate}, axes={self._axes})"
 
 
 class BatchNorm(HybridBlock):

@@ -1,6 +1,7 @@
 """Convolution and pooling blocks (counterpart of
-``mxnet_tpu/gluon/nn/conv_layers.py``): Conv2D, MaxPool2D,
-GlobalAvgPool2D.  Channel-last weights are ``O*kI``; ``in_channels=0``
+``mxnet_tpu/gluon/nn/conv_layers.py``): Conv2D, MaxPool2D, AvgPool2D,
+GlobalAvgPool2D.  ``ceil_mode`` is the op's ``pooling_convention=
+"full"``.  Channel-last weights are ``O*kI``; ``in_channels=0``
 defers the input channel count to the first forward."""
 from __future__ import annotations
 
@@ -9,7 +10,7 @@ from ..block import HybridBlock
 from .activations import Activation
 from .layout import is_channel_last, resolve_layout
 
-__all__ = ["Conv2D", "MaxPool2D", "GlobalAvgPool2D"]
+__all__ = ["Conv2D", "MaxPool2D", "AvgPool2D", "GlobalAvgPool2D"]
 
 
 def _tup(val, n):
@@ -78,8 +79,9 @@ class Conv2D(_Conv):
 
 
 class _Pooling(HybridBlock):
-    def __init__(self, pool_size, strides, padding, global_pool=False,
-                 pool_type="max", layout=None, **kwargs):
+    def __init__(self, pool_size, strides, padding, ceil_mode=False,
+                 global_pool=False, pool_type="max", layout=None,
+                 count_include_pad=None, **kwargs):
         super().__init__(**kwargs)
         if strides is None:
             strides = pool_size
@@ -87,8 +89,12 @@ class _Pooling(HybridBlock):
         self._kwargs = {
             "kernel": pool_size, "stride": _tup(strides, ndim),
             "pad": _tup(padding, ndim), "global_pool": global_pool,
-            "pool_type": pool_type, "layout": resolve_layout(layout, ndim),
+            "pool_type": pool_type,
+            "pooling_convention": "full" if ceil_mode else "valid",
+            "layout": resolve_layout(layout, ndim),
         }
+        if count_include_pad is not None:
+            self._kwargs["count_include_pad"] = count_include_pad
 
     def _alias(self):
         return "pool"
@@ -99,11 +105,21 @@ class _Pooling(HybridBlock):
 
 class MaxPool2D(_Pooling):
     def __init__(self, pool_size=(2, 2), strides=None, padding=0,
-                 layout=None, **kwargs):
+                 layout=None, ceil_mode=False, **kwargs):
         super().__init__(_tup(pool_size, 2), strides, _tup(padding, 2),
-                         False, "max", layout, **kwargs)
+                         ceil_mode, False, "max", layout, **kwargs)
+
+
+class AvgPool2D(_Pooling):
+    def __init__(self, pool_size=(2, 2), strides=None, padding=0,
+                 layout=None, ceil_mode=False, count_include_pad=True,
+                 **kwargs):
+        super().__init__(_tup(pool_size, 2), strides, _tup(padding, 2),
+                         ceil_mode, False, "avg", layout, count_include_pad,
+                         **kwargs)
 
 
 class GlobalAvgPool2D(_Pooling):
     def __init__(self, layout=None, **kwargs):
-        super().__init__((1, 1), None, 0, True, "avg", layout, **kwargs)
+        super().__init__((1, 1), None, 0, False, True, "avg", layout,
+                         **kwargs)

@@ -3,11 +3,12 @@
 The reference's name-suffix dispatch (``*weight`` takes the rule,
 ``*bias``/``*beta``/``*running_mean`` zeros, ``*gamma``/``*running_var``
 ones), the ``__init__`` attribute override of an :class:`InitDesc` and
-the registry by lowercase name.  Values are drawn on the host from a
-``torch.Generator`` the caller passes (None = torch's default
-generator), so a seed gives the same weights on every device; the two
-packages' random streams differ, so tests carry weights across
-(``set_params``, ``parallel.load_jax_params``) instead.
+the registry by lowercase name.  Values are drawn on the host, so a
+seed gives the same weights on every device: without a generator from
+numpy's global RNG with the reference's calls (``np.random.uniform``/
+``normal``, float64, then cast), so ``np.random.seed(s)`` followed by
+``initialize()`` gives the reference's weights bit for bit; with a
+``torch.Generator`` the caller passes, from that generator.
 
 An initializer is called as ``init(desc, shape, generator=None)`` (the
 Gluon form) or as the reference's ``init(desc, shape, dtype)`` (the
@@ -20,6 +21,7 @@ import json
 import math
 import re
 
+import numpy as onp
 import torch
 
 from .base import MXNetError
@@ -62,6 +64,21 @@ class InitDesc(str):
         ret.attrs = attrs or {}
         ret.global_init = global_init
         return ret
+
+
+def _uniform(low, high, shape, generator):
+    """Uniform draws on the host: numpy's global RNG as the reference
+    draws (float64) without a generator, else ``generator``'s."""
+    if generator is None:
+        return torch.from_numpy(onp.random.uniform(low, high, size=shape))
+    return torch.empty(shape).uniform_(low, high, generator=generator)
+
+
+def _normal(sigma, shape, generator):
+    """Normal(0, sigma) draws on the host, as :func:`_uniform`."""
+    if generator is None:
+        return torch.from_numpy(onp.random.normal(0, sigma, size=shape))
+    return torch.empty(shape).normal_(0.0, sigma, generator=generator)
 
 
 def _gen_and_dtype(third, dtype):
@@ -161,8 +178,7 @@ class Uniform(Initializer):
         self.scale = scale
 
     def _init_weight(self, name, shape, generator):
-        return torch.empty(shape).uniform_(-self.scale, self.scale,
-                                           generator=generator)
+        return _uniform(-self.scale, self.scale, shape, generator)
 
 
 @register
@@ -172,8 +188,7 @@ class Normal(Initializer):
         self.sigma = sigma
 
     def _init_weight(self, name, shape, generator):
-        return torch.empty(shape).normal_(0.0, self.sigma,
-                                          generator=generator)
+        return _normal(self.sigma, shape, generator)
 
 
 @register
@@ -189,14 +204,16 @@ class Orthogonal(Initializer):
     def _init_weight(self, name, shape, generator):
         nout = shape[0]
         nin = math.prod(shape[1:]) if len(shape) > 1 else 1
-        tmp = torch.empty((nout, nin), dtype=torch.float64)
         if self.rand_type == "uniform":
-            tmp.uniform_(-1.0, 1.0, generator=generator)
+            tmp = _uniform(-1.0, 1.0, (nout, nin), generator)
         else:
-            tmp.normal_(0.0, 1.0, generator=generator)
-        u, _, v = torch.linalg.svd(tmp, full_matrices=False)
-        q = u if u.shape == tmp.shape else v
-        return (self.scale * q).reshape(shape).to(torch.float32)
+            tmp = _normal(1.0, (nout, nin), generator)
+        # numpy's SVD, as the reference takes it (the factors' signs
+        # are the LAPACK driver's)
+        u, _, v = onp.linalg.svd(tmp.to(torch.float64).numpy(),
+                                 full_matrices=False)
+        q = u if u.shape == tuple(tmp.shape) else v
+        return torch.from_numpy(self.scale * q).reshape(shape)
 
 
 @register
@@ -224,11 +241,9 @@ class Xavier(Initializer):
             raise MXNetError("Incorrect factor type")
         scale = math.sqrt(self.magnitude / factor)
         if self.rnd_type == "uniform":
-            return torch.empty(shape).uniform_(-scale, scale,
-                                               generator=generator)
+            return _uniform(-scale, scale, shape, generator)
         if self.rnd_type == "gaussian":
-            return torch.empty(shape).normal_(0.0, scale,
-                                              generator=generator)
+            return _normal(scale, shape, generator)
         raise MXNetError("Unknown random type")
 
 

@@ -19,6 +19,7 @@ from ..ops import conv as _conv  # noqa: F401  (registers ops)
 from ..ops import elemwise as _elemwise  # noqa: F401
 from ..ops import nn as _nn  # noqa: F401
 from ..ops import pallas_conv as _pallas_conv  # noqa: F401
+from ..ops import random_ops as _random_ops  # noqa: F401
 from ..ops import reduce as _reduce  # noqa: F401
 from ..ops import shape_ops as _shape_ops  # noqa: F401
 from ..ops.registry import get_op, list_ops
@@ -181,3 +182,6 @@ def _nd_transpose(self, *axes, **kwargs):
 
 
 NDArray.transpose = _nd_transpose
+
+
+from . import random  # noqa: E402,F401

@@ -23,7 +23,7 @@ import struct
 import numpy as onp
 import torch
 
-from .. import autograd
+from .. import _rng, autograd
 from ..base import MXNetError, integer_types, numeric_types
 from ..context import Context, current_context, from_torch_device
 from ..dtype import (NP_TO_TYPE_FLAG, TYPE_FLAG_TO_NP, normalize_dtype,
@@ -64,7 +64,7 @@ _CANONICAL = {onp.dtype("float64"): onp.dtype("float32"),
 
 class NDArray:
     __slots__ = ("_data", "_grad", "_grad_req", "_is_var", "_stype",
-                 "_fresh_grad", "__weakref__")
+                 "_fresh_grad", "_int_tape", "__weakref__")
 
     def __init__(self, data, stype="default"):
         self._data = data  # torch.Tensor
@@ -73,6 +73,9 @@ class NDArray:
         self._is_var = False
         self._stype = stype
         self._fresh_grad = False  # set by backward, cleared by a Trainer
+        # an integer output of a recorded op: a float 0-d tensor on the
+        # tape whose backward gives its inputs zero gradients
+        self._int_tape = None
 
     # ------------------------------------------------------------- basics
     @property
@@ -482,6 +485,10 @@ def invoke(op, inputs, out=None, **params):
     first = next((i for i in inputs if isinstance(i, NDArray)), None)
     tensors = [i._data if isinstance(i, NDArray) else _as_tensor(i, first)
                for i in inputs]
+    if opdef.key_param and opdef.key_param not in params:
+        # the generator a random op draws from, on its output's device
+        dev = tensors[0].device if tensors else _device(params.get("ctx"))
+        params[opdef.key_param] = _rng.take_key(dev)
     if opdef.train_param and opdef.train_param not in params:
         params[opdef.train_param] = autograd.is_training()
     recording = autograd.is_recording() and opdef.differentiable
@@ -489,6 +496,7 @@ def invoke(op, inputs, out=None, **params):
         out_vals = opdef.fn(*tensors, **params)
     single = not isinstance(out_vals, (tuple, list))
     vals = (out_vals,) if single else tuple(out_vals)
+    tracked = []
     if recording:
         tracked = [t for t in tensors if t.requires_grad]
         if tracked:
@@ -496,6 +504,12 @@ def invoke(op, inputs, out=None, **params):
     else:
         vals = tuple(v.detach() if v.requires_grad else v for v in vals)
     outs = [NDArray(v) for v in vals]
+    for o in outs:
+        if tracked and not o._data.requires_grad:
+            # an integer head (Cast to int32): backward from it gives
+            # its inputs a zero gradient, as the reference's tape does
+            o._int_tape = _Constant.apply(
+                torch.zeros((), device=o._data.device), *tracked)
     if out is not None:
         tgt = [out] if isinstance(out, NDArray) else list(out)
         for t, o in zip(tgt, outs):

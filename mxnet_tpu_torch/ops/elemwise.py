@@ -42,9 +42,124 @@ def saturating_cast(x, dtype):
     return torch.where(small, torch.tensor(info.min, dtype=dtype), out)
 
 
+def _unbroadcast(g, shape):
+    """``g`` summed down to ``shape`` (the broadcast's transpose)."""
+    if tuple(g.shape) == tuple(shape):
+        return g
+    lead = g.dim() - len(shape)
+    g = g.sum(dim=tuple(range(lead))) if lead else g
+    dims = tuple(i for i, n in enumerate(shape) if n == 1 and g.shape[i] != 1)
+    return g.sum(dim=dims, keepdim=True) if dims else g
+
+
+class _Cbrt(torch.autograd.Function):
+    """``cbrt`` keeping the zero's sign, with jnp's gradient
+    ``1 / (3 cbrt(x)²)`` (+inf at ±0, where a product of torch ops
+    gives NaN)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = torch.copysign(torch.abs(x).pow(1.0 / 3.0), x)
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        return g / (3.0 * y * y)
+
+
+class _Rsqrt(torch.autograd.Function):
+    """``rsqrt`` with jnp's gradient ``-0.5 · rsqrt(x) / x`` (−inf at −0,
+    where torch's ``-0.5 · y³`` gives +inf)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = torch.rsqrt(x)
+        ctx.save_for_backward(x, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        return g * (-0.5 * y / x)
+
+
+class _Lgamma(torch.autograd.Function):
+    """``lgamma`` with jnp's gradient: digamma, NaN at ±0 (torch's
+    digamma is ∓inf there)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.lgamma(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        d = torch.digamma(x)
+        return g * torch.where(x == 0, torch.full_like(d, float("nan")), d)
+
+
+class _Pow(torch.autograd.Function):
+    """``x ** y`` of two float tensors with jnp's gradients: ``y ·
+    x^(y−1)`` in the base unmasked (NaN at (0, 0), where torch gives 0),
+    ``log(x) · x^y`` in the exponent with ``log`` read at 1 where x is
+    0."""
+
+    @staticmethod
+    def forward(ctx, x, y):
+        out = torch.pow(x, y)
+        ctx.save_for_backward(x, y, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y, out = ctx.saved_tensors
+        gx = gy = None
+        if ctx.needs_input_grad[0]:
+            gx = _unbroadcast(g * y * torch.pow(x, y - 1), x.shape)
+        if ctx.needs_input_grad[1]:
+            logx = torch.log(torch.where(x == 0, torch.ones_like(x), x))
+            gy = _unbroadcast(g * logx * out, y.shape)
+        return gx, gy
+
+
 def _cbrt(x):
-    x = _inexact(x)
-    return torch.sign(x) * torch.abs(x).pow(1.0 / 3.0)
+    return _Cbrt.apply(_inexact(x))
+
+
+def _abs(x):
+    """jnp's ``abs``: +0 at ±0, gradient 1 there (``x ≥ 0``); bool
+    stays bool."""
+    if x.dtype == torch.bool:
+        return x
+    if not x.is_floating_point():
+        return torch.abs(x)
+    return torch.where(x >= 0, x, -x) + 0.0
+
+
+def _sign(x):
+    """jnp's ``sign``: keeps −0 and NaN (torch gives +0 for both)."""
+    if not x.is_floating_point():
+        return torch.sign(x)
+    return torch.where((x == 0) | torch.isnan(x), x.detach(), torch.sign(x))
+
+
+def _relu(x):
+    """jnp's ``relu``: +0 at −0; bool becomes int32."""
+    if x.dtype == torch.bool:
+        return x.to(torch.int32)
+    r = torch.relu(x)
+    return r + 0.0 if r.is_floating_point() else r
+
+
+def _lgamma(x):
+    return _Lgamma.apply(_inexact(x))
+
+
+def _square(x):
+    return torch.square(x.to(torch.int32) if x.dtype == torch.bool else x)
 
 
 def _on_inexact(f):
@@ -58,17 +173,17 @@ def _keep_int(f):
 
 # --------------------------------------------------------------- unary
 _UNARY = {
-    "abs": torch.abs,
-    "sign": torch.sign,
+    "abs": _abs,
+    "sign": _sign,
     "rint": _on_inexact(torch.round),
     "round": _keep_int(torch.round),
     "ceil": _keep_int(torch.ceil),
     "floor": _keep_int(torch.floor),
     "trunc": _keep_int(torch.trunc),
     "fix": _keep_int(torch.trunc),
-    "square": torch.square,
+    "square": _square,
     "sqrt": _on_inexact(torch.sqrt),
-    "rsqrt": _on_inexact(torch.rsqrt),
+    "rsqrt": _on_inexact(_Rsqrt.apply),
     "cbrt": _cbrt,
     "rcbrt": lambda x: 1.0 / _cbrt(x),
     "exp": _on_inexact(torch.exp),
@@ -95,11 +210,11 @@ _UNARY = {
     "reciprocal": _on_inexact(torch.reciprocal),
     "erf": _on_inexact(torch.erf),
     "erfinv": _on_inexact(torch.erfinv),
-    "gamma": lambda x: torch.exp(torch.lgamma(_inexact(x))),
-    "gammaln": _on_inexact(torch.lgamma),
+    "gamma": lambda x: torch.exp(_lgamma(x)),
+    "gammaln": _lgamma,
     "sigmoid": _on_inexact(torch.sigmoid),
     "softsign": lambda x: x / (torch.abs(x) + 1),
-    "relu": torch.relu,
+    "relu": _relu,
     "logical_not": lambda x: (x == 0).to(x.dtype),
 }
 
@@ -183,13 +298,53 @@ def _logical(f):
     return lambda a, b: f(a != 0, b != 0).to(a.dtype)
 
 
+def _bool_as(a, b):
+    """A bool operand beside a non-bool one takes the other's dtype, as
+    jnp promotes it (torch refuses ``-`` on bool)."""
+    if a.dtype == torch.bool and b.dtype != torch.bool:
+        a = a.to(b.dtype)
+    if b.dtype == torch.bool and a.dtype != torch.bool:
+        b = b.to(a.dtype)
+    return a, b
+
+
+def _sub(a, b):
+    return torch.sub(*_bool_as(a, b))
+
+
+def _both_bool_int32(a, b):
+    """jnp computes ``power``/``fmod`` of two bools in int32."""
+    if a.dtype == torch.bool and b.dtype == torch.bool:
+        return a.to(torch.int32), b.to(torch.int32)
+    return a, b
+
+
+def _mod(a, b):
+    """``fmod``; an integer remainder by 0 is 0, as jnp's (torch raises
+    on the CPU)."""
+    a, b = _both_bool_int32(a, b)
+    rt = torch.promote_types(a.dtype, b.dtype)
+    if not _is_int(rt):
+        return torch.fmod(a, b)
+    zero = b == 0
+    r = torch.fmod(a, torch.where(zero, torch.ones_like(b), b))
+    return torch.where(zero, torch.zeros_like(r), r)
+
+
+def _power(a, b):
+    a, b = _both_bool_int32(a, b)
+    if a.is_floating_point() and b.is_floating_point() and a.dtype == b.dtype:
+        return _Pow.apply(a, b)
+    return torch.pow(a, b)
+
+
 _BINARY = {
     "add": torch.add,
-    "sub": torch.sub,
+    "sub": _sub,
     "mul": torch.mul,
     "div": _true_div,
-    "mod": torch.fmod,
-    "power": torch.pow,
+    "mod": _mod,
+    "power": _power,
     "maximum": torch.maximum,
     "minimum": torch.minimum,
     "hypot": _hypot,

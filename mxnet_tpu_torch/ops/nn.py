@@ -1,6 +1,6 @@
 """Neural-network ops (counterpart of ``mxnet_tpu/ops/nn.py``):
 FullyConnected, Activation, LeakyReLU, the softmax family, pick,
-BatchNorm with its fused backward, and the loss-style output ops
+Dropout, BatchNorm with its fused backward, and the loss-style output ops
 (SoftmaxOutput and the regression outputs), whose backward ignores the
 head gradient.
 
@@ -22,12 +22,14 @@ import math
 
 import torch
 
+from .. import _rng
 from ..base import MXNetError
 from .registry import register_op
+from .shape_ops import pick
 
 __all__ = ["fully_connected", "activation", "leaky_relu", "softmax",
            "log_softmax", "softmin", "softmax_activation", "pick",
-           "batch_norm", "softmax_output"]
+           "dropout", "batch_norm", "softmax_output"]
 
 
 @register_op("FullyConnected", aliases=("_FullyConnected",))
@@ -70,8 +72,9 @@ def leaky_relu(*inputs, act_type="leaky", slope=0.25, lower_bound=0.125,
                upper_bound=0.334):
     """Reference ``LeakyReLU`` (``mxnet_tpu/ops/nn.py:49``): leaky,
     prelu (``gamma`` the second input, per channel on axis 1), elu,
-    selu and gelu.  ``rrelu`` draws its slopes at random and waits for
-    the port's random foundation (ROADMAP §A 3)."""
+    selu, gelu and rrelu.  ``rrelu`` takes the midpoint slope
+    ``(lower_bound + upper_bound) / 2`` in training and inference
+    alike, as the reference does (it draws nothing)."""
     x = inputs[0]
     if act_type == "leaky":
         return torch.where(x > 0, x, slope * x)
@@ -90,9 +93,20 @@ def leaky_relu(*inputs, act_type="leaky", slope=0.25, lower_bound=0.125,
     if act_type == "gelu":
         return torch.nn.functional.gelu(x)
     if act_type == "rrelu":
-        raise MXNetError("LeakyReLU act_type='rrelu' draws random slopes "
-                         "and is not ported yet (ROADMAP §A 3)")
+        s = (lower_bound + upper_bound) / 2.0
+        return torch.where(x > 0, x, s * x)
     raise MXNetError(f"unknown act_type {act_type!r}")
+
+
+def _float_of(x, axis):
+    """An integer or bool input as float32, the dtype jnp's softmax
+    family returns for it, after jnp's first step, ``x - max(x)``, which
+    it takes in the integer type (a uint8 difference wraps)."""
+    if x.is_floating_point():
+        return x
+    if x.dtype == torch.bool:
+        x = x.to(torch.int32)
+    return (x - x.amax(dim=axis, keepdim=True)).to(torch.float32)
 
 
 @register_op("softmax")
@@ -101,6 +115,7 @@ def softmax(x, length=None, *, axis=-1, temperature=None, use_length=False,
     """Reference ``softmax`` (``mxnet_tpu/ops/nn.py:76``); with
     ``use_length`` the positions at or past ``length`` along ``axis``
     get 0."""
+    x = _float_of(x, axis)
     if temperature:
         x = x / temperature
     if use_length and length is not None:
@@ -118,6 +133,7 @@ def softmax(x, length=None, *, axis=-1, temperature=None, use_length=False,
 def log_softmax(x, *, axis=-1, temperature=None, dtype=None,
                 use_length=False):
     """Reference ``log_softmax`` (``mxnet_tpu/ops/nn.py:92``)."""
+    x = _float_of(x, axis)
     if temperature:
         x = x / temperature
     return torch.log_softmax(x, dim=axis)
@@ -127,7 +143,7 @@ def log_softmax(x, *, axis=-1, temperature=None, dtype=None,
 def softmin(x, *, axis=-1, temperature=None, dtype=None, use_length=False):
     """Reference ``softmin`` (``mxnet_tpu/ops/nn.py:100``), which takes
     no temperature."""
-    return torch.softmax(-x, dim=axis)
+    return torch.softmax(-_float_of(x, axis), dim=axis)
 
 
 @register_op("SoftmaxActivation")
@@ -140,13 +156,25 @@ def softmax_activation(x, *, mode="instance"):
         .reshape(x.shape)
 
 
-def pick(data, index, *, axis=-1, keepdims=False):
-    """Elements of ``data`` at integer positions ``index`` along
-    ``axis`` (indices are taken as integers, like the reference's
-    float labels)."""
-    idx = index.to(torch.long).unsqueeze(axis)
-    out = torch.gather(data, axis, idx)
-    return out if keepdims else out.squeeze(axis)
+@register_op("Dropout", key_param="key", train_param="train")
+def dropout(data, *, p=0.5, mode="training", axes=(), cudnn_off=False,
+            key=None, train=False):
+    """Reference ``Dropout`` (``mxnet_tpu/ops/nn.py:331``): ``data`` times
+    a Bernoulli mask of keep probability ``1 - p`` scaled by ``1 /
+    (1 - p)``; ``axes`` give the mask extent 1 there (one draw shared
+    along them).  The identity when not training (unless ``mode ==
+    "always"``) and at ``p = 0``.  The mask is drawn by
+    ``_rng.draw_bernoulli`` from ``key`` (the dispatcher's generator;
+    None: the data device's)."""
+    if (not train and mode != "always") or p == 0:
+        return data
+    shape = list(data.shape)
+    for a in axes:
+        shape[a] = 1
+    keep = 1.0 - p
+    gen = key if key is not None else _rng.take_key(data.device)
+    mask = _rng.draw_bernoulli(keep, tuple(shape), data.device, gen)
+    return data * (mask.to(data.dtype) / keep)
 
 
 # ------------------------------------------------------------ BatchNorm

@@ -120,6 +120,8 @@ def norm(x, *, ord=2, axis=None, keepdims=False, out_dtype=None):
 
 def _index_reduce(f):
     def op(x, *, axis=None, keepdims=False):
+        if x.dtype == torch.bool:  # torch's argmax refuses bool; jnp's not
+            x = x.to(torch.uint8)
         if axis is None:
             return f(x.reshape(-1), 0).to(torch.float32)
         r = f(x, int(axis))

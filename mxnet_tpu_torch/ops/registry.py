@@ -32,9 +32,10 @@ class OpDef:
     differentiable: False for ops with no meaningful gradient (argmax,
         comparisons); their outputs are constants to autograd.
     key_param / train_param / platform_sensitive: kept from the
-        reference's registry; ``train_param`` is injected with
-        ``autograd.is_training()``, the other two wait for the random
-        and kernel-racing ops that use them.
+        reference's registry; ``key_param`` is injected with the
+        ``torch.Generator`` the op draws from (``_rng.take_key``),
+        ``train_param`` with ``autograd.is_training()``;
+        ``platform_sensitive`` waits for the kernel-racing ops.
     """
 
     name: str

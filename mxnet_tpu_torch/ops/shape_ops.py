@@ -3,8 +3,12 @@
 
 Index semantics are jnp's where torch's differ: a slice may step
 backwards (``x[::-1]``), ``take`` clamps its indices (or wraps them),
-``pick``/``batch_take`` wrap negative indices, ``one_hot`` gives a row
-of ``off_value`` for an index out of range.  The dense products go to
+``pick``/``batch_take``/``Embedding`` wrap negative indices and fill a
+position whose index is out of range (NaN, or the integer type's
+extreme), ``gather_nd`` clamps, ``one_hot`` gives a row of
+``off_value``.  No op indexes out of range on the device: an index is
+made safe first and the fill put in with ``torch.where``, since a
+CUDA gather out of range is a device-side assert.  The dense products go to
 ``torch.matmul``/``torch.tensordot``, as the reference leaves them to
 XLA.
 """
@@ -249,17 +253,47 @@ def take(x, indices, *, axis=0, mode="clip"):
     return _along(x, idx.clamp(0, n - 1), axis)
 
 
+def _fill_value(dtype):
+    """What jnp's gather puts at an index out of range (its ``"fill"``
+    mode): NaN for a float, the most negative value of a signed integer
+    type, the largest of an unsigned one, True for bool."""
+    if dtype.is_floating_point or dtype.is_complex:
+        return float("nan")
+    if dtype == torch.bool:
+        return True
+    info = torch.iinfo(dtype)
+    return info.min if info.min < 0 else info.max
+
+
+def _fill_index(indices, n):
+    """``(safe, valid)`` for jnp's fill mode along an extent ``n``: an
+    index in [-n, n) is valid (a negative one wraps once); ``safe`` is
+    the wrapped index clamped into range, so a gather never leaves the
+    array."""
+    idx = indices.to(torch.int64)
+    valid = (idx >= -n) & (idx < n)
+    return _wrap_negative(idx, n).clamp(0, max(n - 1, 0)), valid
+
+
+def _filled(r, valid, dtype):
+    return torch.where(valid, r, _fill_value(dtype))
+
+
 @register_op("batch_take")
 def batch_take(x, indices):
-    idx = _wrap_negative(indices.to(torch.int64), x.shape[1])
-    return torch.gather(x, 1, idx[:, None])[:, 0]
+    idx, valid = _fill_index(indices, x.shape[1])
+    return _filled(torch.gather(x, 1, idx[:, None])[:, 0], valid, x.dtype)
 
 
 @register_op("pick")
 def pick(x, indices, *, axis=-1, keepdims=False, mode="clip"):
+    """Reference ``pick`` (``mxnet_tpu/ops/shape_ops.py:197``): jnp's
+    ``take_along_axis``, so an index out of range gives the fill value
+    whatever ``mode`` says."""
     ax = axis % x.ndim
-    idx = _wrap_negative(indices.to(torch.int64), x.shape[ax])
-    r = torch.gather(x, ax, torch.unsqueeze(idx, ax))
+    idx, valid = _fill_index(indices, x.shape[ax])
+    r = _filled(torch.gather(x, ax, torch.unsqueeze(idx, ax)),
+                torch.unsqueeze(valid, ax), x.dtype)
     if not keepdims:
         r = torch.squeeze(r, ax)
     return r
@@ -267,7 +301,21 @@ def pick(x, indices, *, axis=-1, keepdims=False, mode="clip"):
 
 @register_op("gather_nd")
 def gather_nd(data, indices):
-    return data[tuple(indices.to(torch.int64))]
+    """Reference ``gather_nd``: ``data[tuple(indices)]`` as jnp indexes
+    it, a negative index wrapped once, then clamped into range; the
+    gradient, as jnp's scatter, drops the positions whose index was out
+    of range."""
+    idx = indices.to(torch.int64)
+    shape = torch.tensor(data.shape[:idx.shape[0]], dtype=torch.int64,
+                         device=idx.device).reshape(
+                             (-1,) + (1,) * (idx.dim() - 1))
+    valid = ((idx >= -shape) & (idx < shape)).all(dim=0)
+    idx = torch.minimum(_wrap_negative(idx, shape).clamp_min(0), shape - 1)
+    out = data[tuple(idx)]
+    if not out.requires_grad:
+        return out
+    valid = valid.reshape(valid.shape + (1,) * (out.dim() - valid.dim()))
+    return torch.where(valid, out, out.detach())
 
 
 @register_op("scatter_nd")
@@ -289,8 +337,11 @@ def one_hot(indices, *, depth, on_value=1.0, off_value=0.0, dtype="float32"):
 @register_op("Embedding")
 def embedding(data, weight, *, input_dim=None, output_dim=None, dtype=None,
               sparse_grad=False):
-    """Reference: src/operator/tensor/indexing_op.cc Embedding."""
-    return weight[data.to(torch.int64)]
+    """Reference: src/operator/tensor/indexing_op.cc Embedding, as the
+    reference takes it (``jnp.take``): a negative index wraps once, a row
+    out of range is the fill value."""
+    idx, valid = _fill_index(data, weight.shape[0])
+    return _filled(weight[idx], valid.unsqueeze(-1), weight.dtype)
 
 
 @register_op("Concat", aliases=("concat",))

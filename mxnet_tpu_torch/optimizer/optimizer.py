@@ -193,10 +193,10 @@ class Optimizer:
         within the bucket (``num_segments`` of them), for rules that
         reduce per tensor; ``axis_name`` names the shard axis of a
         reduction across shards, which needs more than one card (not
-        ported yet, ROADMAP §A item 9)."""
+        ported yet, ROADMAP §A 11)."""
         if axis_name is not None:
             raise MXNetError("bucket reductions across shards are not "
-                             "ported yet (ROADMAP §A item 9)")
+                             "ported yet (ROADMAP §A 11)")
         if not self.fused_elementwise:
             raise MXNetError(
                 f"{type(self).__name__} is not elementwise and provides "
@@ -566,7 +566,7 @@ class LARS(Optimizer):
             return self.fused_update(w, g, state, t, key=key)
         if axis_name is not None:
             raise MXNetError("bucket reductions across shards are not "
-                             "ported yet (ROADMAP §A item 9)")
+                             "ported yet (ROADMAP §A 11)")
         (mom,) = state
         g = self._prep(g)
         h = self._hyper(self.learning_rate, self.wd, w.dtype)

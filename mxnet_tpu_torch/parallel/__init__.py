@@ -44,6 +44,7 @@ import warnings
 import numpy as onp
 import torch
 
+from .. import _rng
 from ..base import MXNetError
 from ..context import resolve_device
 from . import zero
@@ -92,13 +93,13 @@ class Mesh:
 def get_mesh(shape=None, axis_names=("data",), devices=None):
     """A one-card ``data`` mesh over ``devices[0]`` (default ``cuda:0``).
     A mesh over more than one card raises until the multi-card slice
-    (ROADMAP §A item 9)."""
+    (ROADMAP §A 11)."""
     devs = [resolve_device(None)] if devices is None \
         else [resolve_device(d) for d in devices]
     size = len(devs) if shape is None else math.prod(shape)
     if size != 1 or len(tuple(axis_names)) != 1:
         raise MXNetError("a mesh over more than one card is not ported "
-                         "yet (ROADMAP §A item 9)")
+                         "yet (ROADMAP §A 11)")
     return Mesh((devs[0],), tuple(axis_names))
 
 
@@ -111,7 +112,9 @@ def functionalize(block, train=False):
     key=None)`` runs the block's forward on ``param_dict`` through
     ``torch.func.functional_call``, in training mode when ``train``;
     layers' state writes (BatchNorm running averages) are dropped, as
-    the reference drops them."""
+    the reference drops them.  Random layers (Dropout) draw from
+    generators derived from ``key`` (``_rng.key_scope``; None: the
+    reference's fixed key 0), so the same key gives the same masks."""
     from ..gluon.block import _collect_all_params, drop_state_writes
 
     module_path = {id(m): p for p, m in block.named_modules()}
@@ -122,12 +125,11 @@ def functionalize(block, train=False):
         params.setdefault(p.name, _shaped(p).detach())
 
     def apply_fn(param_dict, *inputs, key=None):
-        del key  # no ported layer draws random numbers
         tensors = {paths[n]: param_dict[n] for n in paths}
         prev = block.training
         block.train(train)
         try:
-            with drop_state_writes():
+            with drop_state_writes(), _rng.key_scope(key):
                 return torch.func.functional_call(block, tensors, inputs)
         finally:
             block.train(prev)
@@ -242,7 +244,7 @@ def _resolve_ps_mode(optimizer_sharding, zero_stage, mesh):
             f"unknown zero_stage {zero_stage!r} (use 1, 2 or 3)")
     if zero_stage in (1, 3):
         raise MXNetError(f"ZeRO stage {zero_stage} is not ported yet "
-                         "(ROADMAP §A item 9)")
+                         "(ROADMAP §A 11)")
     ps_mode = optimizer_sharding == "ps" or zero_stage is not None
     if ps_mode and mesh is None:
         warnings.warn(
@@ -298,18 +300,18 @@ def make_train_step(block, loss_fn, optimizer="sgd", learning_rate=0.01,
                            beta2, epsilon, opt_kwargs)
     cdt = None if compute_dtype is None else _torch_dtype(compute_dtype)
 
-    def loss_of(param_dict, x, y):
+    def loss_of(param_dict, x, y, key):
         if cdt is not None:
             param_dict = amp_cast_params(param_dict, cdt)
             x = x.to(cdt)
-        out = apply_fn(param_dict, x)
+        out = apply_fn(param_dict, x, key=key)
         return loss_fn(out.to(torch.float32), y).mean()
 
-    def scaled_grads(params_, x, y, scale):
+    def scaled_grads(params_, x, y, key, scale):
         """(loss · scale, d(loss · scale)/dparams); scale None = 1."""
         leaves = {n: v.detach().requires_grad_(v.is_floating_point())
                   for n, v in params_.items()}
-        loss = loss_of(leaves, x, y)
+        loss = loss_of(leaves, x, y, key)
         if scale is not None:
             loss = loss * scale
         gs = torch.autograd.grad(
@@ -376,10 +378,10 @@ def make_train_step(block, loss_fn, optimizer="sgd", learning_rate=0.01,
                                                   opt_state_[n], t)
         return new_p, new_s
 
-    def replicated_step(params_, opt_state_, x, y, t):
+    def replicated_step(params_, opt_state_, x, y, key, t):
         if dynamic:
             scale, good = opt_state_["_loss_scale"]
-            sloss, sgrads = scaled_grads(params_, x, y, scale)
+            sloss, sgrads = scaled_grads(params_, x, y, key, scale)
             inv = 1.0 / scale
             grads = {n: g * inv for n, g in sgrads.items()}
             finite = _all_finite(grads.values())
@@ -390,11 +392,11 @@ def make_train_step(block, loss_fn, optimizer="sgd", learning_rate=0.01,
             # unscale with the scale the loss was computed with
             return sloss / scale, new_p, new_s
         if static_scale != 1.0:
-            loss, grads = scaled_grads(params_, x, y, static_scale)
+            loss, grads = scaled_grads(params_, x, y, key, static_scale)
             loss = loss / static_scale
             grads = {n: g / static_scale for n, g in grads.items()}
         else:
-            loss, grads = scaled_grads(params_, x, y, None)
+            loss, grads = scaled_grads(params_, x, y, key, None)
         if nan_guard:
             finite = torch.isfinite(loss) & _all_finite(grads.values())
             new_p, new_s = guarded(finite, *apply_updates(
@@ -410,10 +412,10 @@ def make_train_step(block, loss_fn, optimizer="sgd", learning_rate=0.01,
         check_finite = dynamic or nan_guard
         ps_pallas = zero.resolve_bucket_variant()
 
-        def ps_step(params_, opt_state_, x, y, t):
+        def ps_step(params_, opt_state_, x, y, key, t):
             scale = opt_state_["_loss_scale"][0] if dynamic else None
             lval, lgrads = scaled_grads(
-                params_, x, y,
+                params_, x, y, key,
                 scale if dynamic else
                 (static_scale if static_scale != 1.0 else None))
             # grad of the global mean loss = sum of shard grads / N; the
@@ -485,9 +487,11 @@ def make_train_step(block, loss_fn, optimizer="sgd", learning_rate=0.01,
     inner = ps_step if ps_mode else replicated_step
 
     def step_fn(params_, opt_state_, x, y, key, t):
-        del key  # no ported rule or layer draws random numbers
+        # ``key`` seeds the step's random layers (None: key 0); one card,
+        # so the reference's per-shard fold_in of the shard index 0 is
+        # the key itself
         return inner(params_, opt_state_, torch.as_tensor(x).to(dev),
-                     torch.as_tensor(y).to(dev), t)
+                     torch.as_tensor(y).to(dev), key, t)
 
     if ps_mode:
         step_fn.zero_stage = 2
@@ -509,16 +513,19 @@ class DataParallelTrainer:
         self._step_fn, self._params, self._opt_state = make_train_step(
             block, loss_fn, optimizer=optimizer, mesh=mesh, **opt_kwargs)
         self._t = 0
+        self._key = 0  # the reference's jax.random.key(0)
 
     @property
     def step_fn(self):
         return self._step_fn
 
     def fit_batch(self, x, y):
-        """One step on the batch ``(x, y)``; returns the loss tensor."""
+        """One step on the batch ``(x, y)`` with a fresh key split off
+        the trainer's; returns the loss tensor."""
         self._t += 1
+        self._key, sub = _rng.split(self._key)
         loss, self._params, self._opt_state = self._step_fn(
-            self._params, self._opt_state, x, y, None, float(self._t))
+            self._params, self._opt_state, x, y, sub, float(self._t))
         return loss
 
     @property

@@ -155,7 +155,7 @@ def bucket_shard_update(bucket, opt, params, g_sh, state, t, *, n_shards,
     there."""
     if n_shards != 1:
         raise MXNetError("bucket shards over more than one card are not "
-                         "ported yet (ROADMAP §A item 9)")
+                         "ported yet (ROADMAP §A 11)")
     if w_sh is None:
         w_sh = shard_slice(flatten_bucket(bucket, params), n_shards, idx)
     seg_sh = None

@@ -14,8 +14,8 @@
 
 ``prefix-symbol.json`` and ``prefix-NNNN.params`` are the reference's
 bytes for the same symbol and arrays; the manifest has the reference's
-keys.  Its ``rng`` is null: the port has no RNG state to capture until
-its random foundation lands (ROADMAP §A 3).  The asynchronous snapshot
+keys.  Its ``rng`` is :func:`capture_rng`'s: numpy's global state as
+the reference writes it, and the port's generators.  The asynchronous snapshot
 writer, the emergency flush and the ZeRO stage-3 helpers wait for
 ROADMAP §A 11/§A 12.
 """
@@ -34,7 +34,65 @@ from ..base import MXNetError
 from ..context import cpu
 from . import faultsim
 
-__all__ = ["CheckpointManager", "atomic_write_bytes"]
+__all__ = ["CheckpointManager", "atomic_write_bytes", "capture_rng",
+           "restore_rng"]
+
+def capture_rng():
+    """The host and device RNG state as JSON-serializable data, so a
+    resumed run continues the interrupted one's random streams.
+
+    ``"numpy"`` is numpy's global Mersenne state exactly as the
+    reference writes it (the 624 words as base64 of their bytes).
+    ``"device"`` is the port's own: the seed new generators take and the
+    state of every per-device ``torch.Generator`` made so far (base64),
+    or None before any exists.  It does not cross packages: the
+    reference's ``"device"`` is a JAX key, which the port cannot read,
+    and the reference cannot read the port's."""
+    import base64
+
+    from .. import _rng
+
+    st = onp.random.get_state()
+    key = onp.asarray(st[1], onp.uint32)
+    state = {"numpy": [st[0],
+                       {"b64": base64.b64encode(
+                           key.tobytes()).decode("ascii")},
+                       int(st[2]), int(st[3]), float(st[4])],
+             "device": None}
+    gens = _rng.generator_states()
+    if gens:
+        state["device"] = {
+            "seed": _rng._S.seed,
+            "generators": {d: base64.b64encode(raw).decode("ascii")
+                           for d, raw in gens.items()}}
+    return state
+
+
+def restore_rng(state):
+    """Restore a :func:`capture_rng` snapshot (missing parts no-op).
+    ``"numpy"`` takes the base64 form and the legacy integer list, as
+    the reference's; a ``"device"`` that is not the port's (a JAX key
+    list) is skipped."""
+    import base64
+
+    from .. import _rng
+
+    if not state:
+        return
+    np_st = state.get("numpy")
+    if np_st:
+        key = np_st[1]
+        if isinstance(key, dict):
+            key = onp.frombuffer(base64.b64decode(key["b64"]), onp.uint32)
+        onp.random.set_state((np_st[0], onp.asarray(key, onp.uint32),
+                              int(np_st[2]), int(np_st[3]),
+                              float(np_st[4])))
+    dev = state.get("device")
+    if isinstance(dev, dict):
+        _rng.set_generator_states(
+            {d: base64.b64decode(b) for d, b in dev["generators"].items()},
+            dev.get("seed"))
+
 
 def atomic_write_bytes(path, data, inject_point="ckpt.write"):
     """Write ``data`` to ``path`` atomically: temp file in the same
@@ -229,7 +287,7 @@ class CheckpointManager:
             "symbol_json": symbol_json,
             "step": step,
             "batch_cursor": int(batch_cursor),
-            "rng": None,  # no RNG state to capture yet (ROADMAP §A 3)
+            "rng": capture_rng(),
             "autotune_sha256": _autotune_hash(),
             "topology": topology,
             "extra": extra or {},

@@ -94,8 +94,7 @@ def _abstract_eval(opdef, node, in_shapes):
     """The output shapes of one node from its input shapes."""
     params = dict(node.attrs)
     if opdef.key_param:
-        raise MXNetError(f"op {node.op} draws random numbers and is not "
-                         "ported yet (ROADMAP §A 3)")
+        params[opdef.key_param] = torch.Generator()  # shapes only
     if opdef.train_param and opdef.train_param not in params:
         params[opdef.train_param] = False
     metas = [torch.empty(s, dtype=torch.float32, device=_META)

@@ -18,7 +18,7 @@ from __future__ import annotations
 import numpy as onp
 import torch
 
-from .. import autograd
+from .. import _rng, autograd
 from .. import ndarray as nd
 from ..base import MXNetError
 from ..context import current_context
@@ -30,7 +30,7 @@ __all__ = ["Executor"]
 _BN_OPS = ("BatchNorm", "BatchNorm_v1", "SyncBatchNorm")
 
 
-def _eval_graph(sym, value_of, train):
+def _eval_graph(sym, value_of, train, device):
     """Evaluate the DAG: ``value_of`` maps a variable name to its
     tensor.
 
@@ -52,8 +52,9 @@ def _eval_graph(sym, value_of, train):
             opdef = get_op(node.op)
             params = dict(node.attrs)
             if opdef.key_param:
-                raise MXNetError(f"op {node.op} draws random numbers and "
-                                 "is not ported yet (ROADMAP §A 3)")
+                # the bound device's generator: the backward reuses the
+                # forward's masks through the tape
+                params[opdef.key_param] = _rng.take_key(device)
             if opdef.train_param and opdef.train_param not in params:
                 params[opdef.train_param] = train
             if (node.op in _BN_OPS and train
@@ -210,7 +211,7 @@ class Executor:
             value_of[n] = t
         with torch.set_grad_enabled(bool(leaves)):
             outs, aux_updates = _eval_graph(self._symbol, value_of,
-                                            is_train)
+                                            is_train, self._device)
         self._pending = (outs, leaves) if leaves else None
         for name, val in aux_updates.items():
             self.aux_dict[name]._adopt(val)

@@ -15,7 +15,9 @@ same per-segment lr, and the whole LARS update to rtol/atol 1e-6 (the
 norms are sums in other orders), the same bits on two runs.  Train
 steps of a tiny ResNet show the launch counts, through the fused step
 and through the imperative Gluon loop (``gluon.Trainer``), whose LeNet
-step on the card is held against the host's.
+step on the card is held against the host's.  Indices out of range
+(pick, Embedding, gather_nd) give the host's values on the card and
+leave its context alive; Dropout's masks follow the step's key there.
 """
 import numpy as onp
 import pytest
@@ -995,3 +997,44 @@ def test_symbol_bnreluconv_never_takes_the_plain_version(card,
             y, _, _ = mx.nd._contrib_BNReluConv(u, g, b, w)
         y.backward()
     assert pc.bnreluconv_bwd.launches == before + 1
+
+
+def test_out_of_range_indices_leave_the_card_alive(card):
+    import mxnet_tpu_torch as tmx
+
+    x = onp.arange(12, dtype=onp.float32).reshape(3, 4)
+    idx = onp.arange(-5, 7, dtype=onp.float32)
+
+    def calls(ctx):
+        nd = tmx.nd
+        return [nd.pick(nd.array(onp.tile(x[:1], (12, 1)), ctx=ctx),
+                        nd.array(idx, ctx=ctx)),
+                nd.Embedding(nd.array(idx, ctx=ctx), nd.array(x, ctx=ctx),
+                             input_dim=3, output_dim=4),
+                nd.gather_nd(nd.array(x, ctx=ctx),
+                             nd.array(onp.stack([idx, idx]), ctx=ctx))]
+
+    on_card = [a.asnumpy() for a in calls(tmx.gpu(0))]
+    torch.cuda.synchronize()
+    on_host = [a.asnumpy() for a in calls(tmx.cpu())]
+    for c, h in zip(on_card, on_host):
+        onp.testing.assert_array_equal(c, h)
+    assert onp.isnan(on_card[0]).sum() == 4  # -5, 4, 5 and 6
+    assert float(torch.ones(8, device=card).sum()) == 8.0
+
+
+def test_dropout_masks_follow_the_key_on_card(card):
+    from mxnet_tpu_torch import _rng
+    from mxnet_tpu_torch.ops.nn import dropout
+
+    x = torch.ones(64, 256, device=card)
+
+    def masked(key):
+        with _rng.key_scope(key):
+            return dropout(x, p=0.5, train=True,
+                           key=_rng.take_key(card)) != 0
+
+    a, b, c = masked(3), masked(3), masked(4)
+    assert a.device == card and torch.equal(a, b)
+    assert not torch.equal(a, c)
+    assert abs(float(a.float().mean()) - 0.5) < 0.02

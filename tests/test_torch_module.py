@@ -312,6 +312,7 @@ def test_save_checkpoint_writes_the_reference_bytes(tmp_path, monkeypatch):
     for pkg, tag in ((jmx, "j"), (tmx, "t")):
         arg, aux = _ckpt_arrays(pkg)
         prefix = str(tmp_path / tag)
+        onp.random.seed(11)  # the host RNG state each manifest records
         pkg.model.save_checkpoint(prefix, 7, _mlp(pkg.sym), arg, aux)
         files[tag] = {s: open(f"{prefix}{s}", "rb").read() for s in (
             "-0007.params", "-symbol.json", "-0007.manifest.json",
@@ -323,8 +324,10 @@ def test_save_checkpoint_writes_the_reference_bytes(tmp_path, monkeypatch):
     assert sorted(tm) == sorted(jm)
     assert tm["files"] == {k.replace("j-", "t-"): v
                            for k, v in jm["files"].items()}
-    # the port has no RNG state to record yet (ROADMAP §A 3)
-    assert tm["rng"] is None and jm["rng"] is not None
+    # numpy's state is the reference's byte for byte; the device part is
+    # each package's own (a JAX key there, torch generators here)
+    assert tm["rng"]["numpy"] == jm["rng"]["numpy"]
+    assert sorted(tm["rng"]) == sorted(jm["rng"]) == ["device", "numpy"]
     assert tm["autotune_sha256"] == jm["autotune_sha256"] is not None
     assert json.loads(files["t"]["-latest.json"]) == {
         "epoch": 7, "manifest": "t-0007.manifest.json"}

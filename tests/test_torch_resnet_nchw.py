@@ -635,6 +635,6 @@ def test_get_model_names():
             net = t_vision.get_model(f"ResNet{n}_v{v}")
             assert type(net).__name__ == f"ResNetV{v}"
     with pytest.raises(MXNetError, match="not supported"):
-        t_vision.get_model("vgg16")
+        t_vision.get_model("ssd_300_vgg16_reduced")
     with pytest.raises(MXNetError, match="version"):
         t_res.get_resnet(3, 50)

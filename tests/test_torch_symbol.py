@@ -83,6 +83,15 @@ OP_CASES = {
     "leaky_prelu": ("LeakyReLU", lambda: [_f32(2, 4, 3),
                                           _f32(4, seed=1, scale=0.2)],
                     dict(act_type="prelu"), (0, 1), False),
+    **{f"leaky_rrelu_train{int(tr)}": (
+        "LeakyReLU", lambda: [_f32(3, 7)],
+        dict(act_type="rrelu", lower_bound=0.1, upper_bound=0.4), (0,), tr)
+       for tr in (True, False)},
+    # Dropout where it draws nothing: in inference, and at p = 0
+    "dropout_predict": ("Dropout", lambda: [_f32(3, 7)], dict(p=0.5),
+                        (0,), False),
+    "dropout_p0": ("Dropout", lambda: [_f32(3, 7)], dict(p=0.0), (0,),
+                   True),
     "softmax": ("softmax", lambda: [_f32(3, 4, 5)],
                 dict(axis=1, temperature=2.0), (0,), False),
     "softmax_length": ("softmax", lambda: [
@@ -212,7 +221,7 @@ def test_op_keywords_are_the_reference_ones():
 
 
 @pytest.mark.parametrize("name", [
-    "Dropout", "LayerNorm", "InstanceNorm", "GroupNorm", "L2Normalization",
+    "LayerNorm", "InstanceNorm", "GroupNorm", "L2Normalization",
     "LRN", "Deconvolution", "UpSampling", "BilinearSampler",
     "GridGenerator", "SpatialTransformer", "CTCLoss",
     "softmax_cross_entropy", "IdentityAttachKLSparseReg", "RNN"])
@@ -220,11 +229,6 @@ def test_ops_still_to_port_are_not_registered(name):
     with pytest.raises(MXNetError, match="not registered"):
         t_reg.get_op(name)
     assert not hasattr(tmx.sym, name) and not hasattr(tmx.nd, name)
-
-
-def test_rrelu_waits_for_the_random_foundation():
-    with pytest.raises(MXNetError, match="rrelu"):
-        tmx.nd.LeakyReLU(tmx.nd.ones((2, 2)), act_type="rrelu")
 
 
 # ----------------------------------------------------------- symbol API
