@@ -46,7 +46,15 @@ weight), three fused steps of one net of each other family at its full
 width, one fp32 step of three families on the card against the host
 (the Dropout masks fed), the samplers of ``mx.nd.random`` on the card
 (moments, KS tests, seeding, ``capture_rng``/``restore_rng``) and
-indices out of range on the card.  Each phase prints one JSON line on stdout
+indices out of range on the card; then the recurrent path: the word
+language model (``example/word_lm.py``: Embedding, Dropout, a 2 x 650
+LSTM through the RNN op's cuDNN arm, a Dense decoder over WikiText-2's
+33,278 words, bptt 35, batch 32, SGD with ``clip_gradient``) trained by
+the Gluon loop, the RNN op's cuDNN arm and its loop on the card against
+the loop on the host (every mode, bidirectional, LSTMP, the state clip;
+fp32 and float64) with three word-LM steps card against host, and the
+``lstm_bucketing`` example through ``BucketingModule``.  Each phase
+prints one JSON line on stdout
 (progress goes to stderr); ``--out`` also appends them to FILE.  Any
 failed check exits non-zero.  The last line is
 ``{"ok": true, "device": {...}}``.
@@ -2568,6 +2576,31 @@ def run(profile=False, old_brc=None, workdir=None):
     oob = oob_indices_phase()
     log(f"[oob_indices] card equals host {oob['card_equals_host']}")
 
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    wlm = word_lm_phase()
+    log(f"[word_lm] {wlm['ms_per_step']:.2f} ms/step "
+        f"{wlm['tokens_s']:.0f} tokens/s peak {wlm['peak_mem_gib']:.2f} GiB,"
+        f" trainer.step {wlm['trainer_step_host_ms']:.2f} host ms, idle "
+        f"{wlm['profile_3_steps'].get('device_idle_share')}, losses "
+        f"{[round(v, 4) for v in wlm['losses']]} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    del wlm
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rcvc = rnn_cuda_vs_cpu_phase()
+    log(f"[rnn_cuda_vs_cpu] worst cuDNN "
+        f"{max(c['cudnn_vs_host'] for c in rcvc['cases'].values()):.2e}, "
+        f"card loop "
+        f"{max(c['card_loop_vs_host'] for c in rcvc['cases'].values()):.2e},"
+        f" float64 {max(rcvc['float64_cudnn_vs_host'].values()):.2e}, word "
+        f"LM loss rel {rcvc['word_lm_3_steps']['loss_rel']:.2e} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    bkt = lstm_bucketing_phase()
+    log(f"[lstm_bucketing] perplexity {bkt['perplexity_first']:.2f} -> "
+        f"{bkt['perplexity_last']:.2f}, cuDNN calls {bkt['rnn_cudnn_calls']}"
+        f" ({bkt['seconds']:.1f} s)")
+
     main = [c for c in cases if c["path"].startswith("serve")]
     head = next(c for c in cases if c["path"] == "serve_wide"
                 and c["shape"][2] == 2048)
@@ -3778,6 +3811,490 @@ def oob_indices_phase():
                                                  "softmax_ce")),
           f"oob_indices: no fill value where the reference has NaN: "
           f"{res['nan_counts']}")
+    return res
+
+
+# ------------------------------------------------- the recurrent path
+#: the word LM at upstream MXNet's example/gluon/word_language_model
+#: train.py defaults (LSTM, 2 x 650, bptt 35, batch 32, dropout 0.5,
+#: clip 0.25) at WikiText-2's vocabulary, the repo example's lr 1.0,
+#: on its synthetic Markov corpus (WikiText-2 is not in the repo)
+WORD_LM = dict(vocab=33278, embed=650, hidden=650, layers=2, bptt=35,
+               batch=32, dropout=0.5, lr=1.0, clip=0.25, warmup=2,
+               steps=10, profiled=3, corpus=40000)
+#: kernel time of a word-LM step by family, by the PyTorch op that
+#: launched each kernel (cuDNN's own GEMMs count as cuDNN RNN; every
+#: op inside ``trainer.step`` as the update)
+RNN_FAMILIES = {
+    "cudnn_rnn": ("_cudnn_rnn",),
+    "decoder_gemm": ("aten::mm", "aten::addmm", "aten::bmm"),
+    "softmax_cross_entropy": ("log_softmax", "aten::gather", "scatter",
+                              "nll_loss"),
+    "embedding": ("aten::index", "embedding"),
+    "weight_packing": ("aten::cat",),
+}
+#: the RNN op's cases card against host (fp32, TF32 off): (mode, layers,
+#: bidirectional, projection, clip) at T 35, N 16, I 96, H 128
+RNN_CUDA_CPU_CASES = {
+    "lstm": ("lstm", 2, False, None, None),
+    "lstm_bi": ("lstm", 2, True, None, None),
+    "gru": ("gru", 2, False, None, None),
+    "gru_bi": ("gru", 2, True, None, None),
+    "rnn_tanh_bi": ("rnn_tanh", 2, True, None, None),
+    "rnn_relu": ("rnn_relu", 2, False, None, None),
+    "lstmp_bi": ("lstm", 2, True, 64, None),
+    "lstm_clip": ("lstm", 2, False, None, 0.5),
+}
+RNN_CUDA_CPU_SHAPE = dict(T=35, N=16, I=96, H=128)
+#: each output, final state and gradient of the card's arms against the
+#: host's loop, relative to the tensor's largest magnitude (fp32): read
+#: from runs, twice the largest reading (cuDNN's tanh RNN, bidirectional,
+#: 4.70e-5; the card's loop at most 3.3e-6)
+RNN_CUDA_CPU_TOL = 1e-4
+RNN_CUDA_CPU_F64_TOL = 1e-10
+#: the word LM card against host: 3 steps at vocabulary 1,000, p = 0
+WORD_LM_CUDA_CPU = dict(vocab=1000, embed=200, hidden=200, layers=2,
+                        bptt=35, batch=32, steps=3)
+
+
+def op_family_profile(prof, families, update="trainer.step"):
+    """Kernel time by family from a torch.profiler run that recorded CPU
+    ops and CUDA kernels: each kernel counts for the op that launched
+    it (its innermost), and the op for ``"update"`` when it ran inside
+    the ``update`` label (a ``record_function``), else for the first of
+    ``families`` whose fragments its name holds, else
+    ``elementwise_and_other``."""
+    import torch
+
+    cpu = torch.autograd.DeviceType.CPU
+    fam = {k: 0.0 for k in families}
+    fam.update(update=0.0, elementwise_and_other=0.0)
+    by_op = {}
+    for evt in prof.events():
+        t_us = getattr(evt, "self_device_time_total", None)
+        if t_us is None:
+            t_us = getattr(evt, "self_cuda_time_total", 0.0)
+        if t_us <= 0 or getattr(evt, "device_type", cpu) != cpu:
+            continue
+        by_op[evt.name] = by_op.get(evt.name, 0.0) + t_us
+        parent, label = evt.cpu_parent, None
+        while parent is not None and label is None:
+            label = "update" if parent.name == update else None
+            parent = parent.cpu_parent
+        if label is None:
+            label = next((k for k, frags in families.items()
+                          if any(f in evt.name for f in frags)),
+                         "elementwise_and_other")
+        fam[label] += t_us
+    owned = sum(fam.values())
+    if owned <= 0:
+        return {"families": "not measured (no op owned device time)"}
+    kernels = sum(getattr(e, "self_device_time_total", 0.0)
+                  for e in prof.key_averages()
+                  if getattr(e, "device_type", cpu) != cpu
+                  and e.key != update)  # the label's own device range
+    top = sorted(by_op.items(), key=lambda kv: -kv[1])[:12]
+    return {"kernel_ms": kernels / 1e3, "owned_by_ops_ms": owned / 1e3,
+            "family_ms": {k: v / 1e3 for k, v in fam.items()},
+            "family_share": {k: v / owned for k, v in fam.items()},
+            "top_ops": [{"op": k, "ms": v / 1e3} for k, v in top]}
+
+
+def _labelled(fn, label):
+    """``fn`` run inside ``torch.profiler.record_function(label)``."""
+    import torch
+
+    def run(*args, **kwargs):
+        with torch.profiler.record_function(label):
+            return fn(*args, **kwargs)
+
+    return run
+
+
+def word_lm_phase(seed=0):
+    """The port's word LM (``example/word_lm.py``'s ``build`` and
+    ``step``) at ``WORD_LM``'s full width on ``mx.gpu(0)``: ms/step and
+    tokens/s by CUDA events over 10 steps after 2, the host ms of
+    ``trainer.step``, peak memory; a profile of 3 more steps (idle
+    share, kernels by name), 3 more with CPU ops (kernel time by
+    family), and ``trainer.step`` alone on an idle device.  The RNN
+    op's counts are set to 0 just before the first step and read after
+    the last timed one."""
+    import warnings
+
+    import numpy as onp
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.example import word_lm
+    from mxnet_tpu_torch.ops import rnn as rnn_op
+
+    cfg = WORD_LM
+    ctx = mx.gpu(0)
+    dev = ctx.torch_device()
+    warmup, steps, prof_n = cfg["warmup"], cfg["steps"], cfg["profiled"]
+    bptt, batch, vocab = cfg["bptt"], cfg["batch"], cfg["vocab"]
+    data = word_lm.batchify(word_lm.synthetic_corpus(vocab, cfg["corpus"]),
+                            batch)
+    n_batches = warmup + steps + 3 * prof_n
+    check(data.shape[0] > bptt * n_batches + 1,
+          f"word_lm: corpus too short for {n_batches} batches")
+    batches = [(mx.nd.array(data[i:i + bptt], ctx=ctx),
+                mx.nd.array(data[i + 1:i + 1 + bptt], ctx=ctx))
+               for i in range(0, bptt * n_batches, bptt)]
+    onp.random.seed(seed)  # the initializer's draws
+    t0 = time.perf_counter()
+    model, trainer, loss_fn = word_lm.build(
+        vocab, cfg["embed"], cfg["hidden"], cfg["layers"], cfg["dropout"],
+        cfg["lr"], cfg["clip"], ctx)
+    build_s = time.perf_counter() - t0
+    states = model.begin_state(batch, ctx=ctx)
+    feed = iter(batches)
+    torch.cuda.reset_peak_memory_stats()
+    losses, host_ms = [], []
+    rnn_op.cudnn_layer.launches = 0
+    rnn_op.loop_layer.launches = 0
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        with recorded_dropout_masks() as rec:
+            loss, states = word_lm.step(model, trainer, loss_fn,
+                                        *next(feed), states)
+        losses.append(loss._data.mean())
+        for _ in range(warmup - 1):
+            loss, states = word_lm.step(model, trainer, loss_fn,
+                                        *next(feed), states)
+            losses.append(loss._data.mean())
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_stats()
+        marks = [torch.cuda.Event(enable_timing=True)
+                 for _ in range(steps + 1)]
+        marks[0].record()
+        for i in range(steps):
+            loss, states = word_lm.step(model, trainer, loss_fn,
+                                        *next(feed), states, host_ms)
+            losses.append(loss._data.mean())
+            marks[i + 1].record()
+        marks[-1].synchronize()
+    mem1 = torch.cuda.memory_stats()
+    cudnn_calls = rnn_op.cudnn_layer.launches
+    loop_calls = rnn_op.loop_layer.launches
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CUDA])
+    with prof:
+        t1 = time.perf_counter()
+        for _ in range(prof_n):
+            _, states = word_lm.step(model, trainer, loss_fn, *next(feed),
+                                     states)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+    by_op = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+    trainer.step = _labelled(trainer.step, "trainer.step")
+    with by_op:
+        for _ in range(prof_n):
+            _, states = word_lm.step(model, trainer, loss_fn, *next(feed),
+                                     states)
+        torch.cuda.synchronize()
+    del trainer.step  # the class's method again
+    # trainer.step alone, the device idle before it
+    alone_host, alone_dev = [], []
+    t_start = torch.cuda.Event(enable_timing=True)
+    t_end = torch.cuda.Event(enable_timing=True)
+    for _ in range(prof_n):
+        x, y = next(feed)
+        states = word_lm.detach(states)
+        with mx.autograd.record():
+            out = model(x, *states)
+            states = list(out[1:])
+            loss = loss_fn(out[0].reshape((-1, vocab)), y.reshape((-1,)))
+        loss.backward()
+        torch.cuda.synchronize()
+        t_start.record()
+        t1 = time.perf_counter()
+        trainer.step(batch * bptt)
+        alone_host.append((time.perf_counter() - t1) * 1e3)
+        t_end.record()
+        t_end.synchronize()
+        alone_dev.append(t_start.elapsed_time(t_end))
+    losses = [float(v) for v in losses]
+    ms_step = marks[0].elapsed_time(marks[-1]) / steps
+    params = model.collect_params()
+    devices = sorted({str(p.data()._data.device) for p in params.values()})
+    keep = [float(m.float().mean()) for m in rec.masks[0]]
+    compaction = [str(w.message) for w in caught
+                  if "contiguous chunk" in str(w.message)]
+    n_params = sum(p.data().size for p in params.values())
+    res = {
+        "phase": "word_lm", "loop": "gluon.Trainer (imperative), hybridized",
+        "model": "Embedding -> Dropout -> LSTM -> Dropout -> Dense",
+        "config": {k: v for k, v in cfg.items()
+                   if k not in ("warmup", "steps", "profiled", "corpus")},
+        "data": f"synthetic Markov corpus, {cfg['corpus'] + 1} tokens",
+        "dtype": "float32",
+        "tf32": {"matmul": torch.backends.cuda.matmul.allow_tf32,
+                 "cudnn": torch.backends.cudnn.allow_tf32},
+        "parameters": n_params, "build_s": build_s,
+        "warmup_steps": warmup, "timed_steps": steps,
+        "ms_per_step": ms_step,
+        "tokens_s": batch * bptt / ms_step * 1e3,
+        "step_ms": [a.elapsed_time(b) for a, b in zip(marks, marks[1:])],
+        "peak_mem_gib": peak,
+        "logits_and_grad_mb": 2 * bptt * batch * vocab * 4 / 1e6,
+        "timed_cuda_mallocs": mem1.get("num_device_alloc", 0)
+        - mem0.get("num_device_alloc", 0),
+        "trainer_step_host_ms": sum(host_ms) / len(host_ms),
+        "trainer_step_alone_host_ms": sum(alone_host) / len(alone_host),
+        "trainer_step_alone_ms": sum(alone_dev) / len(alone_dev),
+        "losses": losses,
+        "rnn_cudnn_calls": cudnn_calls, "rnn_loop_calls": loop_calls,
+        "dropout_keep_share_step1": keep,
+        "weight_compaction_warnings": compaction[:1],
+        "parameter_devices": devices,
+        "profile_3_steps": device_profile(prof, wall, top=20, shares={
+            "cudnn_rnn_kernels": ("RNN", "LSTM", "lstm", "rnn"),
+            "elementwise": ("elementwise", "vectorized", "unrolled")}),
+        "families_3_steps": op_family_profile(by_op, RNN_FAMILIES),
+    }
+    emit(res)
+    check(all(math.isfinite(v) for v in losses),
+          f"word_lm: loss not finite: {losses}")
+    check(sum(losses[-3:]) / 3 < losses[0],
+          f"word_lm: the loss did not fall: {losses}")
+    check(cudnn_calls == cfg["layers"] * (warmup + steps) and loop_calls == 0,
+          f"word_lm: cuDNN arm {cudnn_calls} calls (want "
+          f"{cfg['layers'] * (warmup + steps)}), loop {loop_calls} (want 0)")
+    check(len(keep) == 3 and all(0.49 <= k <= 0.51 for k in keep),
+          f"word_lm: Dropout keep shares {keep}")
+    check(devices == ["cuda:0"], f"word_lm: parameters on {devices}")
+    check(not compaction, f"word_lm: cuDNN compacted the weights: "
+          f"{compaction[:1]}")
+    return res
+
+
+def _rnn_case_tensors(case, dtype, seed):
+    """Inputs, op keywords and head gradients of one
+    ``RNN_CUDA_CPU_CASES`` case, on the host."""
+    import numpy as onp
+    import torch
+
+    from mxnet_tpu_torch.ops import rnn as rnn_op
+
+    mode, layers, bi, proj, clip = RNN_CUDA_CPU_CASES[case]
+    s = RNN_CUDA_CPU_SHAPE
+    d = 2 if bi else 1
+    r = proj or s["H"]
+    rs = onp.random.RandomState(seed)
+    n = rnn_op.rnn_param_size(mode, layers, s["I"], s["H"], bi, proj)
+    arrays = [rs.randn(s["T"], s["N"], s["I"]), rs.randn(n) * 0.1,
+              rs.randn(layers * d, s["N"], r)]
+    if mode == "lstm":
+        arrays.append(rs.randn(layers * d, s["N"], s["H"]))
+    kw = dict(state_size=s["H"], num_layers=layers, mode=mode,
+              bidirectional=bi, state_outputs=True, projection_size=proj)
+    if clip is not None:
+        kw.update(lstm_state_clip_min=-clip, lstm_state_clip_max=clip)
+    cots = [rs.randn(s["T"], s["N"], d * r), rs.randn(layers * d, s["N"], r)]
+    if mode == "lstm":
+        cots.append(rs.randn(layers * d, s["N"], s["H"]))
+    return ([torch.tensor(a, dtype=dtype) for a in arrays], kw,
+            [torch.tensor(c, dtype=dtype) for c in cots])
+
+
+def _rnn_run(arm, inputs, kw, cots, device, compacted=None):
+    """Outputs, final states and input gradients of the RNN op through
+    ``arm`` on ``device``, on the host as float64; whether cuDNN
+    compacted the weights (its warning) is appended to ``compacted``."""
+    import warnings
+
+    import torch
+
+    from mxnet_tpu_torch.ops import rnn as rnn_op
+
+    ts = [t.detach().to(device, copy=True).requires_grad_()
+          for t in inputs]
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        outs = rnn_op.rnn_arm(arm, *ts, **kw)
+        torch.autograd.backward(outs, [c.to(device) for c in cots])
+    if compacted is not None:
+        compacted.append(any("contiguous chunk" in str(w.message)
+                             for w in caught))
+    return [t.detach().to("cpu", torch.float64)
+            for t in list(outs) + [t.grad for t in ts]]
+
+
+def _max_rel(got, want):
+    return max(float((g - w).abs().max() / w.abs().max().clamp_min(1e-30))
+               for g, w in zip(got, want))
+
+
+def _word_lm_card_host(seed=5):
+    """``WORD_LM_CUDA_CPU``'s 3 steps from one host model's weights on
+    the card (fp32), the host (fp32) and the host in float64: losses
+    and each parameter's update, and the held errors."""
+    import copy
+
+    import numpy as onp
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.example import word_lm
+
+    cfg = WORD_LM_CUDA_CPU
+    data = word_lm.batchify(word_lm.synthetic_corpus(cfg["vocab"]),
+                            cfg["batch"])
+    onp.random.seed(seed)
+    with mx.cpu():
+        host, _, _ = word_lm.build(cfg["vocab"], cfg["embed"], cfg["hidden"],
+                                   cfg["layers"], 0.0, ctx=mx.cpu())
+        host(mx.nd.array(data[:cfg["bptt"]]),
+             *host.begin_state(cfg["batch"], ctx=mx.cpu()))
+    runs = {}
+    for key, ctx, dtype in (("cuda", mx.gpu(0), "float32"),
+                            ("cpu", mx.cpu(), "float32"),
+                            ("cpu64", mx.cpu(), "float64")):
+        net = copy.deepcopy(host).to(ctx.torch_device())
+        net.cast(dtype)
+        params = net.collect_params()
+        before = {n: p.data()._data.detach().to("cpu", torch.float64,
+                                                copy=True)
+                  for n, p in params.items()}
+        trainer = gluon.Trainer(params, "sgd", {"learning_rate": 1.0,
+                                                "clip_gradient": 0.25})
+        loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+        states = net.rnn.begin_state(batch_size=cfg["batch"], ctx=ctx,
+                                     dtype=dtype)
+        losses = []
+        for k in range(cfg["steps"]):
+            i = k * cfg["bptt"]
+            x = mx.nd.array(data[i:i + cfg["bptt"]], ctx=ctx)
+            y = mx.nd.array(data[i + 1:i + 1 + cfg["bptt"]], ctx=ctx)
+            loss, states = word_lm.step(net, trainer, loss_fn, x, y, states)
+            losses.append(float(loss._data.double().mean()))
+        upd = {n: p.data()._data.detach().to("cpu", torch.float64) - before[n]
+               for n, p in params.items()}
+        runs[key] = (losses, upd)
+
+    def rel(a, ref):
+        return float((a - ref).norm() / ref.norm().clamp_min(1e-30))
+
+    ref = runs["cpu64"][1]
+    card = {n: rel(runs["cuda"][1][n], ref[n]) for n in ref}
+    hostr = {n: rel(runs["cpu"][1][n], ref[n]) for n in ref}
+    over = {n: (card[n], hostr[n]) for n in ref
+            if card[n] > 2 * hostr[n] + 1e-3}
+    loss_rel = max(abs(a - b) / abs(b) for a, b in
+                   zip(runs["cuda"][0], runs["cpu"][0]))
+    return {"config": cfg, "losses_cuda": runs["cuda"][0],
+            "losses_cpu": runs["cpu"][0], "losses_cpu_f64": runs["cpu64"][0],
+            "loss_rel": loss_rel,
+            "update_err_cuda_vs_f64": card, "update_err_cpu_vs_f64": hostr,
+            "over_limit": over, "tol": CUDA_CPU_TOL}
+
+
+def rnn_cuda_vs_cpu_phase(seed=7):
+    """The RNN op three ways on the same inputs, fp32 with TF32 off: the
+    cuDNN arm on the card, the loop on the card and the loop on the
+    host (the plain version), every mode, bidirectional, LSTMP and
+    the state clip; outputs, final states and the gradients of data,
+    parameters and states, each against the host's to
+    ``RNN_CUDA_CPU_TOL`` of its largest magnitude.  A float64 pair (the
+    cuDNN arm against the host) to ``RNN_CUDA_CPU_F64_TOL``.  Then 3
+    word-LM steps card against host, held as the fused steps are."""
+    import torch
+
+    from mxnet_tpu_torch.ops import rnn as rnn_op
+
+    cases = {}
+    for i, case in enumerate(RNN_CUDA_CPU_CASES):
+        inputs, kw, cots = _rnn_case_tensors(case, torch.float32, seed + i)
+        host = _rnn_run(rnn_op.loop_layer, inputs, kw, cots, "cpu")
+        compacted = []
+        cudnn = _rnn_run(rnn_op.cudnn_layer, inputs, kw, cots, "cuda",
+                         compacted)
+        loop = _rnn_run(rnn_op.loop_layer, inputs, kw, cots, "cuda")
+        cases[case] = {"cudnn_vs_host": _max_rel(cudnn, host),
+                       "card_loop_vs_host": _max_rel(loop, host),
+                       "cudnn_vs_card_loop": _max_rel(cudnn, loop),
+                       "cudnn_compacted_weights": compacted[0]}
+    f64 = {}
+    for i, case in enumerate(("lstm_bi", "gru", "lstmp_bi")):
+        inputs, kw, cots = _rnn_case_tensors(case, torch.float64, seed + 20
+                                             + i)
+        f64[case] = _max_rel(
+            _rnn_run(rnn_op.cudnn_layer, inputs, kw, cots, "cuda"),
+            _rnn_run(rnn_op.loop_layer, inputs, kw, cots, "cpu"))
+    lm = _word_lm_card_host()
+    res = {"phase": "rnn_cuda_vs_cpu", "shape": RNN_CUDA_CPU_SHAPE,
+           "tf32": {"matmul": torch.backends.cuda.matmul.allow_tf32,
+                    "cudnn": torch.backends.cudnn.allow_tf32},
+           "cases": cases, "tol": RNN_CUDA_CPU_TOL,
+           "float64_cudnn_vs_host": f64, "float64_tol": RNN_CUDA_CPU_F64_TOL,
+           "word_lm_3_steps": lm}
+    emit(res)
+    worst = max(max(c["cudnn_vs_host"], c["card_loop_vs_host"])
+                for c in cases.values())
+    check(worst <= RNN_CUDA_CPU_TOL,
+          f"rnn_cuda_vs_cpu: {worst} > {RNN_CUDA_CPU_TOL}: {cases}")
+    check(max(f64.values()) <= RNN_CUDA_CPU_F64_TOL,
+          f"rnn_cuda_vs_cpu: float64 {f64}")
+    check(not any(c["cudnn_compacted_weights"] for c in cases.values()),
+          f"rnn_cuda_vs_cpu: cuDNN compacted the packed weights: {cases}")
+    check(lm["loss_rel"] <= CUDA_CPU_TOL["loss"] and not lm["over_limit"],
+          f"rnn_cuda_vs_cpu: word LM loss rel {lm['loss_rel']}, over the "
+          f"limit (card, host): {lm['over_limit']}")
+    return res
+
+
+def lstm_bucketing_phase(seed=0):
+    """The port's ``lstm_bucketing`` example on ``mx.gpu(0)`` (its
+    defaults: 60 steps over buckets 8 and 16): perplexity falls below
+    0.8 of where it started, each RNN node runs the cuDNN arm (one call
+    a forward, none of the loop), and the shared ``lstm_parameters``
+    lie on the card."""
+    import numpy as onp
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.example import lstm_bucketing
+    from mxnet_tpu_torch.ops import rnn as rnn_op
+
+    onp.random.seed(seed)  # the initializer's draws
+    rnn_op.cudnn_layer.launches = 0
+    rnn_op.loop_layer.launches = 0
+    t0 = time.perf_counter()
+    out = lstm_bucketing.train(ctx=mx.gpu(0), log=log)
+    seconds = time.perf_counter() - t0
+    cudnn, loop = rnn_op.cudnn_layer.launches, rnn_op.loop_layer.launches
+    mod = out["module"]
+    where = {k: str(mod._buckets[k]._exec.arg_dict["lstm_parameters"]
+                    ._data.device) for k in sorted(mod._buckets)}
+    shared = len({mod._buckets[k]._exec.arg_dict["lstm_parameters"]
+                  ._data.data_ptr() for k in mod._buckets})
+    ppl = out["perplexity"]
+    steps = len(ppl)
+    res = {"phase": "lstm_bucketing", "steps": steps,
+           "buckets_seen": sorted(set(out["buckets"])),
+           "tf32": {"matmul": torch.backends.cuda.matmul.allow_tf32,
+                    "cudnn": torch.backends.cudnn.allow_tf32},
+           "perplexity_first": ppl[0], "perplexity_last": ppl[-1],
+           "perplexity": ppl, "ms_per_step": out["ms_per_step"],
+           "seconds": seconds, "rnn_cudnn_calls": cudnn,
+           "rnn_loop_calls": loop, "lstm_parameters_device": where,
+           "lstm_parameters_tensors": shared,
+           "reference_host_run": {"perplexity_first": 31.97,
+                                  "perplexity_last": 1.13}}
+    emit(res)
+    check(ppl[-1] < 0.8 * ppl[0],
+          f"lstm_bucketing: perplexity {ppl[0]} -> {ppl[-1]}")
+    check(cudnn == steps and loop == 0,
+          f"lstm_bucketing: cuDNN arm {cudnn} calls for {steps} steps, "
+          f"loop {loop}")
+    check(set(where.values()) == {"cuda:0"} and shared == 1,
+          f"lstm_bucketing: lstm_parameters on {where}, {shared} tensors")
     return res
 
 

@@ -28,7 +28,14 @@ from the input and runs the initialization ``initialize`` recorded.
 
 ``HybridBlock.hybridize`` is a no-op for now: PyTorch runs eagerly and
 the CachedOp analog (a shape-keyed compiled program) is queued
-(ROADMAP §A item 4); the results are the reference's.
+(ROADMAP §A 14); the results are the reference's.
+
+NDArrays may come nested in lists and tuples (a recurrent layer's
+``lstm(x, [h, c])``); they are unwrapped for ``forward`` and its
+tensors, nested as they come back, wrapped again.  ``params=`` shares
+the parameters of another block (by full name) as in the reference:
+the shared :class:`Parameter` is registered on every block that uses
+it, one tensor.
 """
 from __future__ import annotations
 
@@ -59,17 +66,27 @@ class _BlockScope:
         self._old_scope = None
 
     @staticmethod
-    def create(prefix, hint):
+    def create(prefix, params, hint):
+        """``(prefix, ParameterDict)`` of a new block: a ``params`` dict
+        given is shared (its parameters are looked up by full name), and
+        a child inherits its parent's shared dict."""
         current = getattr(_BlockScope._current, "value", None)
         if current is None:
             if prefix is None:
                 prefix = _NM.get(hint) + "_"
-            return prefix
+            if params is None:
+                return prefix, ParameterDict(prefix)
+            return prefix, ParameterDict(params.prefix, params)
         if prefix is None:
             count = current._counter.get(hint, 0)
             prefix = f"{hint}{count}_"
             current._counter[hint] = count + 1
-        return current._block.prefix + prefix
+        if params is None:
+            parent = current._block.params
+            params = ParameterDict(parent.prefix + prefix, parent._shared)
+        else:
+            params = ParameterDict(params.prefix, params)
+        return current._block.prefix + prefix, params
 
     def __enter__(self):
         if self._block._empty_prefix:
@@ -127,14 +144,12 @@ class Block(nn.Module):
 
     def __init__(self, prefix=None, params=None):
         super().__init__()
-        if params is not None:
-            raise MXNetError("parameter sharing (params=) is not ported")
         self._empty_prefix = prefix == ""
-        self._prefix = _BlockScope.create(prefix, self._alias())
+        self._prefix, self._params = _BlockScope.create(prefix, params,
+                                                        self._alias())
         self._name = self._prefix[:-1] if self._prefix.endswith("_") \
             else self._prefix
         self._scope = _BlockScope(self)
-        self._params = ParameterDict(self._prefix)
         self._reg_params = OrderedDict()
         self._deferred_pending = False
         self.training = False
@@ -216,7 +231,7 @@ class Block(nn.Module):
     def __call__(self, *args, **kwargs):
         if self._deferred_pending:
             self._finish_deferred(*args)
-        if any(_is_ndarray(a) for a in args):
+        if _has_ndarray(args):
             return self._call_ndarray(args, kwargs)
         return super().__call__(*args, **kwargs)
 
@@ -244,6 +259,16 @@ class Block(nn.Module):
         """The imperative Gluon call: NDArrays in and out; taped when
         ``autograd.is_recording()``, every layer in training mode when
         ``autograd.is_training()``."""
+        with self._imperative():
+            out = super().__call__(*_unwrap(args), **kwargs)
+        return _to_ndarray(out)
+
+    @contextlib.contextmanager
+    def _imperative(self):
+        """The scope of an imperative call on NDArrays: every initialized
+        parameter's array is a variable of ``mx.autograd``, torch records
+        when ``autograd.is_recording()``, and every layer of the block
+        trains exactly when ``autograd.is_training()``."""
         for p in _collect_all_params(self):
             if p._initialized:
                 p._wrap()  # its array is a variable backward writes
@@ -254,12 +279,10 @@ class Block(nn.Module):
             m.training = training
         try:
             with torch.set_grad_enabled(autograd.is_recording()):
-                out = super().__call__(*(a._data if _is_ndarray(a) else a
-                                         for a in args), **kwargs)
+                yield
         finally:
             for m, mode in zip(modules, modes):
                 m.training = mode
-        return _to_ndarray(out)
 
     def hybridize(self, active=True, **kwargs):
         for child in self._children.values():
@@ -292,10 +315,9 @@ class Block(nn.Module):
         ``Block.load_parameters``; a deferred shape takes the file's).
         The file is keyed by structural name (the reference's
         ``save_parameters``) or, as older files and ``ParameterDict.save``
-        are, by full name
-        (``resnetv10_conv0_weight``); ``arg:``/``aux:`` prefixes are
-        dropped.  A missing, extra or mis-shaped entry raises unless
-        allowed."""
+        are, by full name (``resnetv10_conv0_weight``), with or without
+        the block's prefix; ``arg:``/``aux:`` prefixes are dropped.  A
+        missing, extra or mis-shaped entry raises unless allowed."""
         from ..context import cpu
         from ..ndarray.ndarray import load
 
@@ -306,6 +328,10 @@ class Block(nn.Module):
                   else k: v for k, v in loaded.items()}
         if loaded and not any("." in k for k in loaded):
             params = self.collect_params()
+            if not any(k in params for k in loaded):
+                # names without the block's prefix (a top-level layer's
+                # own save_parameters): the reference restores it
+                loaded = {self.prefix + k: v for k, v in loaded.items()}
         else:
             params = self._collect_params_with_prefix()
         missing = [n for n in params if n not in loaded]
@@ -340,8 +366,40 @@ class HybridBlock(Block):
                    for a in args))
 
 
-def _is_ndarray(x):
+def _has_ndarray(x):
+    """Whether ``x`` is, or nests in lists and tuples, an NDArray."""
+    if isinstance(x, (list, tuple)):
+        return any(_has_ndarray(a) for a in x)
     return isinstance(x, NDArray)
+
+
+def _unwrap(x):
+    """``x`` with every NDArray (nested in lists and tuples) replaced by
+    its tensor."""
+    if isinstance(x, NDArray):
+        return x._data
+    if isinstance(x, (list, tuple)):
+        return type(x)(_unwrap(a) for a in x)
+    return x
+
+
+def imperative(method):
+    """Decorate a block method that computes on tensors so that it also
+    takes NDArrays (nested in lists and tuples), as ``__call__`` does:
+    the tensors run in :meth:`Block._imperative`'s scope and what comes
+    back is wrapped as NDArrays."""
+
+    def wrapped(self, *args, **kwargs):
+        if not (_has_ndarray(args) or _has_ndarray(list(kwargs.values()))):
+            return method(self, *args, **kwargs)
+        with self._imperative():
+            out = method(self, *_unwrap(args),
+                         **{k: _unwrap(v) for k, v in kwargs.items()})
+        return _to_ndarray(out)
+
+    wrapped.__name__ = method.__name__
+    wrapped.__doc__ = method.__doc__
+    return wrapped
 
 
 def _to_ndarray(out):

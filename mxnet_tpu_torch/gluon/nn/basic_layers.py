@@ -1,20 +1,28 @@
 """Basic layers (counterpart of ``mxnet_tpu/gluon/nn/basic_layers.py``):
-HybridSequential, Dense, Dropout, BatchNorm, Flatten."""
+Sequential, HybridSequential, Dense, Dropout, BatchNorm, Embedding,
+Flatten, Lambda, HybridLambda."""
 from __future__ import annotations
 
 import math
 
 import torch
 
+from ... import autograd
+from ...base import MXNetError
 from ...ops.nn import batch_norm, dropout, fully_connected
-from ..block import HybridBlock, state_writes_dropped
+from ...ops.shape_ops import embedding
+from ..block import (Block, HybridBlock, _to_ndarray, _unwrap,
+                     state_writes_dropped)
 from .activations import Activation
 
-__all__ = ["HybridSequential", "Dense", "Dropout", "BatchNorm", "Flatten"]
+__all__ = ["Sequential", "HybridSequential", "Dense", "Dropout",
+           "BatchNorm", "Embedding", "Flatten", "Lambda", "HybridLambda"]
 
 
-class HybridSequential(HybridBlock):
-    """Stack of blocks run in order."""
+class _Stack:
+    """What the two sequential containers share: ``add``, running the
+    children in order, ``len``, iteration and indexing (a slice is a new
+    container of the same type over the same blocks)."""
 
     def add(self, *blocks):
         for block in blocks:
@@ -24,6 +32,29 @@ class HybridSequential(HybridBlock):
         for block in self._children.values():
             x = block(x)
         return x
+
+    def __len__(self):
+        return len(self._children)
+
+    def __iter__(self):
+        return iter(self._children.values())
+
+    def __getitem__(self, key):
+        layers = list(self._children.values())[key]
+        if isinstance(layers, list):
+            net = type(self)(prefix=self._prefix)
+            with net.name_scope():
+                net.add(*layers)
+            return net
+        return layers
+
+
+class Sequential(_Stack, Block):
+    """Stack of Blocks run in order (reference ``basic_layers.py:32``)."""
+
+
+class HybridSequential(_Stack, HybridBlock):
+    """Stack of HybridBlocks run in order."""
 
 
 class Dense(HybridBlock):
@@ -160,6 +191,89 @@ class BatchNorm(HybridBlock):
                           self.running_var, **self._kwargs)
 
 
+class Embedding(HybridBlock):
+    """Rows of a ``(input_dim, output_dim)`` weight looked up by index
+    (reference ``basic_layers.py:351``); ``sparse_grad`` is accepted and
+    ignored, as the reference ignores it."""
+
+    def __init__(self, input_dim, output_dim, dtype="float32",
+                 weight_initializer=None, sparse_grad=False, **kwargs):
+        super().__init__(**kwargs)
+        self._input_dim = input_dim
+        self._output_dim = output_dim
+        self._dtype = dtype
+        with self.name_scope():
+            self.weight = self.params.get(
+                "weight", shape=(input_dim, output_dim),
+                init=weight_initializer, dtype=dtype)
+
+    def forward(self, x):
+        return embedding(x, self.weight, input_dim=self._input_dim,
+                         output_dim=self._output_dim, dtype=self._dtype)
+
+    def __repr__(self):
+        return (f"Embedding({self._input_dim} -> {self._output_dim}, "
+                f"{self._dtype})")
+
+
 class Flatten(HybridBlock):
     def forward(self, x):
         return x.reshape(x.shape[0], -1)
+
+
+def _function(function):
+    """``(callable, name)`` of a Lambda's function: a callable, or the
+    name of an ``mx.nd`` function."""
+    from ... import ndarray as nd
+
+    if isinstance(function, str):
+        if not hasattr(nd, function):
+            raise MXNetError(f"Function name {function} is not found in nd.")
+        return getattr(nd, function), function
+    if callable(function):
+        return function, function.__name__
+    raise MXNetError(f"Unrecognized function in lambda: {function} of type "
+                     f"{type(function)}")
+
+
+def _on_ndarrays(fn, block, args):
+    """``fn`` on ``args`` as NDArrays (the reference's Lambda computes
+    with ``mx.nd``), recorded when torch records, in ``block``'s
+    mode; the result's tensors come back."""
+    with autograd._Scope(torch.is_grad_enabled(), block.training):
+        return _unwrap(fn(*_to_ndarray(args)))
+
+
+class Lambda(Block):
+    """A function (or the name of an ``mx.nd`` function) as a Block
+    (reference ``basic_layers.py:385``)."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        self._func_impl, self._func_name = _function(function)
+
+    def forward(self, *args):
+        return _on_ndarrays(self._func_impl, self, args)
+
+    def __repr__(self):
+        return f"Lambda({self._func_name})"
+
+
+class HybridLambda(HybridBlock):
+    """A function ``f(F, x, *args)`` (or the name of an ``mx.nd``
+    function) as a HybridBlock (reference ``basic_layers.py:411``);
+    ``F`` is ``mx.nd``."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        from ... import ndarray as nd
+
+        impl, self._func_name = _function(function)
+        self._func = impl if isinstance(function, str) else \
+            (lambda *args: impl(nd, *args))
+
+    def forward(self, x, *args):
+        return _on_ndarrays(self._func, self, (x,) + args)
+
+    def __repr__(self):
+        return f"HybridLambda({self._func_name})"

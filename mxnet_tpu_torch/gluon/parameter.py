@@ -96,6 +96,7 @@ class Parameter:
         self._grad_req = None
         self._block = None  # owning block and attribute, once bound
         self._attr = None
+        self._aliases = []  # (block, attr) of the blocks sharing it
         self._own = None  # the tensor of a parameter on no block
         self._initialized = False
         self._deferred_init = None  # (init, device, default, generator)
@@ -156,7 +157,14 @@ class Parameter:
     # ------------------------------------------------------------ storage
     def _bind(self, block, attr):
         """Register the tensor (or, while the shape is deferred, an
-        empty slot) on ``block`` under ``attr``."""
+        empty slot) on ``block`` under ``attr``.  A parameter bound
+        already (shared through ``params=``) registers its one tensor
+        on ``block`` too."""
+        if self._block is not None and (self._block, self._attr) != (
+                block, attr):
+            self._aliases.append((block, attr))
+            self._register_on(block, attr, self._tensor())
+            return
         self._block, self._attr = block, attr
         if self._shape_known():
             self._register(torch.empty(self._shape,
@@ -180,11 +188,18 @@ class Parameter:
             self._own = t.requires_grad_(self._grad_req != "null") \
                 if t.is_floating_point() else t
             return
-        blk, attr = self._block, self._attr
+        if self._grad_req != "null":
+            t = nn.Parameter(t)
+        for blk, attr in [(self._block, self._attr)] + self._aliases:
+            self._register_on(blk, attr, t)
+
+    def _register_on(self, blk, attr, t):
+        """``t`` as ``blk``'s parameter (or buffer) ``attr``; None: an
+        empty slot."""
         blk._parameters.pop(attr, None)
         blk._buffers.pop(attr, None)
         if self._grad_req != "null":
-            blk._parameters[attr] = nn.Parameter(t)
+            blk._parameters[attr] = t
         else:
             blk._buffers[attr] = t
 
@@ -357,9 +372,10 @@ class ParameterDict:
     """Prefix-scoped ordered dict of :class:`Parameter` (reference
     ``ParameterDict``)."""
 
-    def __init__(self, prefix=""):
+    def __init__(self, prefix="", shared=None):
         self._prefix = prefix
         self._params = OrderedDict()
+        self._shared = shared
 
     @property
     def prefix(self):
@@ -393,9 +409,14 @@ class ParameterDict:
         return "\n".join(lines)
 
     def get(self, name, **kwargs):
-        """Get or create the parameter ``prefix + name``."""
+        """Get or create the parameter ``prefix + name`` (found in the
+        shared dict first, when this one shares another's)."""
         name = self._prefix + name
         param = self._params.get(name)
+        if param is None and self._shared is not None:
+            param = self._shared._params.get(name)
+            if param is not None:
+                self._params[name] = param
         if param is None:
             param = self._params[name] = Parameter(name, **kwargs)
         elif "shape" in kwargs:

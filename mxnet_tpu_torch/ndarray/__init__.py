@@ -21,6 +21,8 @@ from ..ops import nn as _nn  # noqa: F401
 from ..ops import pallas_conv as _pallas_conv  # noqa: F401
 from ..ops import random_ops as _random_ops  # noqa: F401
 from ..ops import reduce as _reduce  # noqa: F401
+from ..ops import rnn as _rnn  # noqa: F401
+from ..ops import sequence_ops as _sequence_ops  # noqa: F401
 from ..ops import shape_ops as _shape_ops  # noqa: F401
 from ..ops.registry import get_op, list_ops
 from .ndarray import (  # noqa: F401

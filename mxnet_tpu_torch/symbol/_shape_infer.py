@@ -86,7 +86,19 @@ def _deduce_param_shapes(op, attrs, input_shapes, slot_names):
                 "MAERegressionOutput", "SVMOutput"):
         out[1] = tuple(data)
     elif op == "RNN":
-        raise MXNetError("the RNN op is not ported yet (ROADMAP §A 13)")
+        from ..ops.rnn import rnn_param_size
+
+        mode = attrs.get("mode", "lstm")
+        nl = attrs.get("num_layers", 1)
+        h = attrs["state_size"]
+        bi = attrs.get("bidirectional", False)
+        proj = attrs.get("projection_size")
+        r = proj if proj else h
+        d = 2 if bi else 1
+        t, n, input_size = data
+        out[1] = (rnn_param_size(mode, nl, input_size, h, bi, proj),)
+        out[2] = (nl * d, n, r)
+        out[3] = (nl * d, n, h)
     return out
 
 

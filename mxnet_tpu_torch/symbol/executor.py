@@ -10,7 +10,7 @@ node by node with the registered torch ops, eagerly, on the device the
 executor was bound to; in training the arguments that take a gradient
 enter as leaves that require grad, and ``backward`` asks
 ``torch.autograd.grad`` for their gradients.  Compiling the graph is
-later work (ROADMAP §A 4, with ``hybridize``).  The executor assumes one
+later work (ROADMAP §A 14, with ``hybridize``).  The executor assumes one
 device: ``group2ctx`` raises (ROADMAP §A 11).
 """
 from __future__ import annotations

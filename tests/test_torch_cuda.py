@@ -1038,3 +1038,83 @@ def test_dropout_masks_follow_the_key_on_card(card):
     assert a.device == card and torch.equal(a, b)
     assert not torch.equal(a, c)
     assert abs(float(a.float().mean()) - 0.5) < 0.02
+
+
+# ------------------------------------------------------------ the RNN op
+def _rnn_inputs(mode, layers, bi, dtype, device, seed=0, T=7, N=3, I=5,
+                H=8):
+    from mxnet_tpu_torch.ops import rnn as rnn_op
+
+    d = 2 if bi else 1
+    rs = onp.random.RandomState(seed)
+    n = rnn_op.rnn_param_size(mode, layers, I, H, bi)
+    arrays = [rs.randn(T, N, I), rs.randn(n) * 0.3,
+              rs.randn(layers * d, N, H)]
+    if mode == "lstm":
+        arrays.append(rs.randn(layers * d, N, H))
+    kw = dict(state_size=H, num_layers=layers, mode=mode, bidirectional=bi,
+              state_outputs=True)
+    return [torch.tensor(a, dtype=dtype, device=device) for a in arrays], kw
+
+
+@pytest.mark.parametrize("mode,bi", [("lstm", True), ("gru", False),
+                                     ("rnn_tanh", True)])
+def test_rnn_op_runs_cudnn_on_card(card, mode, bi):
+    """On a CUDA tensor the op runs its cuDNN arm (one call a layer, no
+    loop) and agrees with the host's loop to 1e-4 of each output's
+    largest magnitude (fp32, TF32 off), gradients included."""
+    from mxnet_tpu_torch.ops import rnn as rnn_op
+
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        res = {}
+        for dev in ("cpu", card):
+            ts, kw = _rnn_inputs(mode, 2, bi, torch.float32, dev)
+            for t in ts:
+                t.requires_grad_()
+            rnn_op.cudnn_layer.launches = rnn_op.loop_layer.launches = 0
+            outs = rnn_op.rnn(*ts, **kw)
+            sum(o.sum() for o in outs).backward()
+            res[str(dev)] = [o.detach().cpu() for o in outs] + \
+                [t.grad.cpu() for t in ts]
+            calls = (rnn_op.cudnn_layer.launches, rnn_op.loop_layer.launches)
+            assert calls == ((0, 2) if dev == "cpu" else (2, 0))
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    for g, w in zip(res[str(card)], res["cpu"]):
+        assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().max())
+
+
+def test_rnn_op_raises_where_cudnn_refuses(card):
+    from mxnet_tpu_torch.ops import rnn as rnn_op
+
+    ts, kw = _rnn_inputs("lstm", 1, False, torch.bfloat16, card)
+    rnn_op.loop_layer.launches = 0
+    with pytest.raises(MXNetError, match="cuDNN"):
+        rnn_op.rnn(*ts, **kw)
+    assert rnn_op.loop_layer.launches == 0
+
+
+def test_gluon_lstm_trains_on_card(card):
+    """A Gluon LSTM on ``mx.gpu(0)``: the step under ``record()`` runs
+    cuDNN, the parameters stay on the card and move."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import rnn as rnn_op
+
+    layer = mx.gluon.rnn.LSTM(16, num_layers=2, dropout=0.3, input_size=8)
+    layer.initialize(ctx=mx.gpu(0))
+    trainer = mx.gluon.Trainer(layer.collect_params(), "sgd",
+                               {"learning_rate": 0.1})
+    x = mx.nd.array(onp.random.RandomState(0).randn(6, 4, 8), ctx=mx.gpu(0))
+    rnn_op.cudnn_layer.launches = rnn_op.loop_layer.launches = 0
+    before = {n: p.data().asnumpy() for n, p in
+              layer.collect_params().items()}
+    with mx.autograd.record():
+        out = layer(x)
+    out.backward()
+    trainer.step(4)
+    assert (rnn_op.cudnn_layer.launches, rnn_op.loop_layer.launches) == (2, 0)
+    for n, p in layer.collect_params().items():
+        assert p.data()._data.is_cuda
+        assert not onp.array_equal(p.data().asnumpy(), before[n]), n

@@ -224,7 +224,7 @@ def test_op_keywords_are_the_reference_ones():
     "LayerNorm", "InstanceNorm", "GroupNorm", "L2Normalization",
     "LRN", "Deconvolution", "UpSampling", "BilinearSampler",
     "GridGenerator", "SpatialTransformer", "CTCLoss",
-    "softmax_cross_entropy", "IdentityAttachKLSparseReg", "RNN"])
+    "softmax_cross_entropy", "IdentityAttachKLSparseReg"])
 def test_ops_still_to_port_are_not_registered(name):
     with pytest.raises(MXNetError, match="not registered"):
         t_reg.get_op(name)
