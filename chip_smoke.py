@@ -53,7 +53,15 @@ LSTM through the RNN op's cuDNN arm, a Dense decoder over WikiText-2's
 the Gluon loop, the RNN op's cuDNN arm and its loop on the card against
 the loop on the host (every mode, bidirectional, LSTMP, the state clip;
 fp32 and float64) with three word-LM steps card against host, and the
-``lstm_bucketing`` example through ``BucketingModule``.  Each phase
+``lstm_bucketing`` example through ``BucketingModule``; then the
+detection path: SSD-300 on VGG16-reduced (``example/train_ssd.py``: the
+multibox targets, softmax cross-entropy and an L1 location loss, VOC's
+20 classes, 300², batch 32, fp32) trained by the Gluon loop with no
+host sync inside the targets, its detections (``MultiBoxDetection``,
+``nms_topk`` 400) at batch 32, the detection ops at SSD-300's shapes
+under torch's sync debug mode, and each detection and sort op, the RoI
+ops' gradients and three SSD-300 steps on the card against the host.
+Each phase
 prints one JSON line on stdout
 (progress goes to stderr); ``--out`` also appends them to FILE.  Any
 failed check exits non-zero.  The last line is
@@ -66,6 +74,7 @@ script.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -2601,6 +2610,28 @@ def run(profile=False, old_brc=None, workdir=None):
         f"{bkt['perplexity_last']:.2f}, cuDNN calls {bkt['rnn_cudnn_calls']}"
         f" ({bkt['seconds']:.1f} s)")
 
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ssd = train_ssd300_phase()
+    fam = ssd["families_3_steps"].get("family_share", {})
+    log(f"[train_ssd300] {ssd['ms_per_step']:.2f} ms/step "
+        f"{ssd['img_s']:.1f} img/s peak {ssd['peak_mem_gib']:.2f} GiB, idle "
+        f"{ssd['profile_3_steps'].get('device_idle_share')}, families "
+        f"{ {k: round(v, 4) for k, v in fam.items()} }, MultiBoxTarget "
+        f"{ssd['multibox_target_host_ms_in_loop']:.2f} host ms, detect "
+        f"{ssd['detect']['ms_per_call']:.2f} ms, losses "
+        f"{[round(v, 4) for v in ssd['losses']]} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ssd_detect_host_free_phase()
+    dcvc = detection_cuda_vs_cpu_phase()
+    log(f"[detection_cuda_vs_cpu] boundary anchors "
+        f"{dcvc['cases']['MultiBoxTarget']['boundary_anchors']}, SSD steps "
+        f"loss rel {dcvc['ssd_cuda_vs_cpu']['loss_rel']:.2e}, closest "
+        f"{dcvc['ssd_cuda_vs_cpu']['closest_to_limit']} "
+        f"({time.perf_counter() - t0:.1f} s)")
+
     main = [c for c in cases if c["path"].startswith("serve")]
     head = next(c for c in cases if c["path"] == "serve_wide"
                 and c["shape"][2] == 2048)
@@ -3857,17 +3888,20 @@ WORD_LM_CUDA_CPU = dict(vocab=1000, embed=200, hidden=200, layers=2,
                         bptt=35, batch=32, steps=3)
 
 
-def op_family_profile(prof, families, update="trainer.step"):
+def op_family_profile(prof, families, update="trainer.step", ranges=()):
     """Kernel time by family from a torch.profiler run that recorded CPU
     ops and CUDA kernels: each kernel counts for the op that launched
     it (its innermost), and the op for ``"update"`` when it ran inside
-    the ``update`` label (a ``record_function``), else for the first of
-    ``families`` whose fragments its name holds, else
-    ``elementwise_and_other``."""
+    the ``update`` label (a ``record_function``), for a label of
+    ``ranges`` when it ran inside that label (the innermost label
+    wins), else for the first of ``families`` whose fragments its name
+    holds, else ``elementwise_and_other``."""
     import torch
 
     cpu = torch.autograd.DeviceType.CPU
+    labels = {update: "update", **{r: r for r in ranges}}
     fam = {k: 0.0 for k in families}
+    fam.update({r: 0.0 for r in ranges})
     fam.update(update=0.0, elementwise_and_other=0.0)
     by_op = {}
     for evt in prof.events():
@@ -3879,7 +3913,7 @@ def op_family_profile(prof, families, update="trainer.step"):
         by_op[evt.name] = by_op.get(evt.name, 0.0) + t_us
         parent, label = evt.cpu_parent, None
         while parent is not None and label is None:
-            label = "update" if parent.name == update else None
+            label = labels.get(parent.name)
             parent = parent.cpu_parent
         if label is None:
             label = next((k for k, frags in families.items()
@@ -3892,7 +3926,7 @@ def op_family_profile(prof, families, update="trainer.step"):
     kernels = sum(getattr(e, "self_device_time_total", 0.0)
                   for e in prof.key_averages()
                   if getattr(e, "device_type", cpu) != cpu
-                  and e.key != update)  # the label's own device range
+                  and e.key not in labels)  # the labels' device ranges
     top = sorted(by_op.items(), key=lambda kv: -kv[1])[:12]
     return {"kernel_ms": kernels / 1e3, "owned_by_ops_ms": owned / 1e3,
             "family_ms": {k: v / 1e3 for k, v in fam.items()},
@@ -4296,6 +4330,615 @@ def lstm_bucketing_phase(seed=0):
     check(set(where.values()) == {"cuda:0"} and shared == 1,
           f"lstm_bucketing: lstm_parameters on {where}, {shared} tensors")
     return res
+
+
+# ------------------------------------------------- the detection path
+#: upstream MXNet's example/ssd/train.py defaults through the repo's
+#: example/ssd/train_ssd.py recipe: VOC's 20 classes, 300², batch 32,
+#: SGD lr 0.002 momentum 0.9 wd 5e-4, fp32 (TF32 off); the data is the
+#: example's synthetic boxes (VOC is not in the repo), one fixed batch
+SSD300 = dict(network="ssd_300_vgg16_reduced", num_classes=20,
+              data_shape=300, batch=32, lr=0.002, momentum=0.9, wd=5e-4,
+              warmup=2, steps=10, profiled=3, anchors=7478,
+              detect_calls=5)
+#: kernel time of an SSD step by family, by the PyTorch op that
+#: launched each kernel; MultiBoxTarget, the loss and trainer.step by
+#: the labelled range they ran in
+SSD_FAMILIES = {
+    "cudnn_convolution": ("convolution", "cudnn"),
+    "pooling": ("pool",),
+}
+SSD_RANGES = ("multibox_target", "loss")
+#: the detection ops on the card against the host: boxes (in [0, 1]),
+#: scores and IOUs absolute; the RoI ops' outputs and gradients and
+#: Proposal's RoIs (image coordinates, up to 800: an ulp there is
+#: 6.1e-5) relative to each tensor's largest magnitude; ids, kept sets,
+#: orders and the sort ops exactly
+DET_CUDA_CPU_TOL = {"boxes_scores": 1e-5, "roi_rel": 1e-5,
+                    "proposal_rel": 1e-5,
+                    "ids_kept_sort": "identical",
+                    "multibox_target": "positives, loc_mask, positive "
+                    "classes identical; loc_target 1e-5; negatives equal "
+                    "but within a relative 1e-6 of the num_neg-th score"}
+#: RoI ops at a Faster R-CNN shape: VGG-16's conv5 of a 600 x 800 image
+ROI_CASE = dict(data=(2, 512, 38, 50), rois=128, pooled=(7, 7),
+                spatial_scale=1.0 / 16)
+PROPOSAL_CASE = dict(a=12, h=38, w=50, rpn_pre_nms_top_n=6000,
+                     rpn_post_nms_top_n=300, threshold=0.7, rpn_min_size=16)
+
+
+class host_syncs:
+    """Counts the host syncs of the work inside: torch's sync debug mode
+    set to "warn" and its warnings counted (``count`` after exit)."""
+
+    def __enter__(self):
+        import warnings
+
+        import torch
+
+        self._caught = warnings.catch_warnings(record=True)
+        self._records = self._caught.__enter__()
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.cuda.set_sync_debug_mode("default")
+        self._caught.__exit__(*exc)
+        self.count = sum("called a synchronizing CUDA operation"
+                         in str(w.message) for w in self._records)
+
+
+def _ssd_anchor_maps(net, device):
+    """The SSD-300 anchors (1, N, 4) on ``device``, from the net's sizes
+    and ratios at its six feature-map sides."""
+    import torch
+
+    from mxnet_tpu_torch.ops import detection_ops as det
+
+    feats = [torch.zeros(1, 1, s, s, device=device)
+             for s in (37, 18, 9, 5, 3, 2)]
+    return torch.cat([det.multibox_prior(f, sizes=tuple(net._sizes[i]),
+                                         ratios=tuple(net._ratios[i]))
+                      for i, f in enumerate(feats)], dim=1)
+
+
+def train_ssd300_phase(seed=0):
+    """The port's SSD example (``example/train_ssd.py``'s ``build`` and
+    ``step``) at ``SSD300``'s full width on ``mx.gpu(0)``, one fixed
+    batch: ms/step and img/s by CUDA events over 10 steps after 2 (the
+    second under torch's sync debug mode around MultiBoxTarget), the
+    host ms of ``trainer.step`` and of MultiBoxTarget in the loop, peak
+    memory; a profile of 3 more steps (idle share, kernels by name), 3
+    more with CPU ops (kernel time by family); MultiBoxTarget alone on
+    an idle device; then ``net.detect`` at batch 32 (sync-watched once,
+    then timed)."""
+    import numpy as onp
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.example import train_ssd
+
+    cfg = SSD300
+    ctx = mx.gpu(0)
+    classes, batch = cfg["num_classes"], cfg["batch"]
+    onp.random.seed(seed)  # the initializer's draws
+    t0 = time.perf_counter()
+    net, trainer = train_ssd.build(classes, cfg["lr"], cfg["momentum"],
+                                   cfg["wd"], cfg["data_shape"], ctx,
+                                   cfg["network"])
+    build_s = time.perf_counter() - t0
+    x, y = train_ssd.synthetic_batch(onp.random.RandomState(seed), batch,
+                                     classes, cfg["data_shape"], ctx)
+    contrib = mx.nd.contrib
+    target = contrib.MultiBoxTarget
+    target_ms, syncs = [], []
+
+    def timed_target(*a, **k):
+        t = time.perf_counter()
+        out = target(*a, **k)
+        target_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    def watched_target(*a, **k):
+        with host_syncs() as hs:
+            out = target(*a, **k)
+        syncs.append(hs.count)
+        return out
+
+    losses, host_ms = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        losses.append(train_ssd.step(net, trainer, x, y, classes)._data)
+        contrib.MultiBoxTarget = watched_target  # after the first step
+        losses.append(train_ssd.step(net, trainer, x, y, classes)._data)
+        contrib.MultiBoxTarget = timed_target
+        torch.cuda.synchronize()
+        marks = [torch.cuda.Event(enable_timing=True)
+                 for _ in range(cfg["steps"] + 1)]
+        marks[0].record()
+        for i in range(cfg["steps"]):
+            losses.append(train_ssd.step(net, trainer, x, y, classes,
+                                         host_ms)._data)
+            marks[i + 1].record()
+        marks[-1].synchronize()
+    finally:
+        contrib.MultiBoxTarget = target
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CUDA])
+    with prof:
+        t1 = time.perf_counter()
+        for _ in range(cfg["profiled"]):
+            train_ssd.step(net, trainer, x, y, classes)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+    by_op = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+    loss_fn = train_ssd.multibox_loss
+    contrib.MultiBoxTarget = _labelled(target, "multibox_target")
+    train_ssd.multibox_loss = _labelled(loss_fn, "loss")
+    trainer.step = _labelled(trainer.step, "trainer.step")
+    try:
+        with by_op:
+            for _ in range(cfg["profiled"]):
+                train_ssd.step(net, trainer, x, y, classes)
+            torch.cuda.synchronize()
+    finally:
+        contrib.MultiBoxTarget = target
+        train_ssd.multibox_loss = loss_fn
+        del trainer.step  # the class's method again
+    # the forward's outputs: MultiBoxTarget alone on an idle device, and
+    # the detections
+    cls_preds, loc_preds, anchors = net(x)
+    cls_t = cls_preds.transpose((0, 2, 1))
+    alone_host, alone_dev = [], []
+    t_start = torch.cuda.Event(enable_timing=True)
+    t_end = torch.cuda.Event(enable_timing=True)
+    for _ in range(cfg["profiled"]):
+        torch.cuda.synchronize()
+        t_start.record()
+        t1 = time.perf_counter()
+        target(anchors, y, cls_t, overlap_threshold=0.5,
+               negative_mining_ratio=3.0)
+        alone_host.append((time.perf_counter() - t1) * 1e3)
+        t_end.record()
+        t_end.synchronize()
+        alone_dev.append(t_start.elapsed_time(t_end))
+    det = net.detect(cls_preds, loc_preds, anchors)  # warm-up
+    with host_syncs() as hs:
+        det = net.detect(cls_preds, loc_preds, anchors)
+    detect_syncs = hs.count
+    torch.cuda.synchronize()
+    t_start.record()
+    t1 = time.perf_counter()
+    for _ in range(cfg["detect_calls"]):
+        det = net.detect(cls_preds, loc_preds, anchors)
+    detect_host = (time.perf_counter() - t1) * 1e3 / cfg["detect_calls"]
+    t_end.record()
+    t_end.synchronize()
+    detect_ms = t_start.elapsed_time(t_end) / cfg["detect_calls"]
+    d = det._data.cpu()
+    kept = d[d[..., 0] >= 0]
+    losses = [float(v) for v in losses]
+    ms_step = marks[0].elapsed_time(marks[-1]) / cfg["steps"]
+    params = net.collect_params()
+    devices = sorted({str(p.data()._data.device) for p in params.values()})
+    res = {
+        "phase": "train_ssd300", "loop": "gluon.Trainer (imperative)",
+        "config": {k: v for k, v in cfg.items()
+                   if k not in ("warmup", "steps", "profiled",
+                                "detect_calls")},
+        "data": "the example's synthetic boxes, one fixed batch",
+        "dtype": "float32",
+        "tf32": {"matmul": torch.backends.cuda.matmul.allow_tf32,
+                 "cudnn": torch.backends.cudnn.allow_tf32},
+        "parameters": sum(p.data().size for p in params.values()),
+        "anchors": int(anchors.shape[1]), "build_s": build_s,
+        "warmup_steps": cfg["warmup"], "timed_steps": cfg["steps"],
+        "ms_per_step": ms_step, "img_s": batch / ms_step * 1e3,
+        "step_ms": [a.elapsed_time(b) for a, b in zip(marks, marks[1:])],
+        "peak_mem_gib": peak,
+        "trainer_step_host_ms": sum(host_ms) / len(host_ms),
+        "multibox_target_host_ms_in_loop": sum(target_ms) / len(target_ms),
+        "multibox_target_alone_host_ms": sum(alone_host) / len(alone_host),
+        "multibox_target_alone_ms": sum(alone_dev) / len(alone_dev),
+        "multibox_target_host_syncs": syncs,
+        "losses": losses, "parameter_devices": devices,
+        "detect": {"shape": list(d.shape), "ms_per_call": detect_ms,
+                   "host_ms_per_call": detect_host,
+                   "host_syncs": detect_syncs, "kept": int(len(kept)),
+                   "nms_topk": 400},
+        "profile_3_steps": device_profile(prof, wall, top=16, shares={
+            "cudnn_convolution": ("conv", "cudnn", "implicit", "xmma",
+                                  "wgrad", "dgrad"),
+            "elementwise": ("elementwise", "vectorized", "unrolled")}),
+        "families_3_steps": op_family_profile(by_op, SSD_FAMILIES,
+                                              ranges=SSD_RANGES),
+    }
+    emit(res)
+    check(all(math.isfinite(v) for v in losses),
+          f"train_ssd300: loss not finite: {losses}")
+    check(sum(losses[-3:]) / 3 < losses[0],
+          f"train_ssd300: the loss did not fall: {losses}")
+    check(res["anchors"] == cfg["anchors"],
+          f"train_ssd300: {res['anchors']} anchors, want {cfg['anchors']}")
+    check(devices == ["cuda:0"], f"train_ssd300: parameters on {devices}")
+    check(syncs == [0] and detect_syncs == 0,
+          f"train_ssd300: host syncs in MultiBoxTarget {syncs}, in "
+          f"detect {detect_syncs}")
+    check(list(d.shape) == [batch, cfg["anchors"], 6],
+          f"train_ssd300: detect gave {list(d.shape)}")
+    check(len(kept) > 0 and bool(((kept[:, 1] >= 0) & (kept[:, 1] <= 1))
+                                 .all())
+          and bool(((kept[:, 2:] >= 0) & (kept[:, 2:] <= 1)).all()),
+          f"train_ssd300: {len(kept)} kept detections, scores or boxes "
+          f"outside [0, 1]")
+    return res
+
+
+def _ssd_op_inputs(net, batch, seed, device):
+    """SSD-300's detection inputs (anchors, labels, class logits,
+    softmax probabilities, location predictions, box_nms rows) made on
+    the host from ``seed`` and moved to ``device``."""
+    import numpy as onp
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.example import train_ssd
+
+    n = SSD300["anchors"]
+    rs = onp.random.RandomState(seed)
+    _, labels = train_ssd.synthetic_batch(rs, batch, SSD300["num_classes"],
+                                          8, ctx=mx.cpu())
+    logits = torch.from_numpy(rs.randn(batch, 21, n).astype("float32"))
+    prob = torch.softmax(logits * 3, dim=1)
+    loc = torch.from_numpy((rs.randn(batch, n * 4) * 0.5).astype("float32"))
+    xy = torch.from_numpy(rs.rand(batch, n, 2).astype("float32"))
+    wh = torch.from_numpy((rs.rand(batch, n, 2) * 0.3 + 0.02)
+                          .astype("float32"))
+    score = torch.from_numpy(rs.rand(batch, n, 1).astype("float32"))
+    score[:, 1::2] = score[:, 0::2]  # ties, pair by pair
+    ids = torch.from_numpy(rs.randint(-1, 20, (batch, n, 1))
+                           .astype("float32"))
+    rows = torch.cat([ids, score, xy, xy + wh], dim=-1)
+    anchors = _ssd_anchor_maps(net, "cpu").to(device)
+    return {"anchors": anchors, "labels": labels._data.to(device),
+            "cls_pred": logits.to(device), "cls_prob": prob.to(device),
+            "loc_pred": loc.to(device), "nms_rows": rows.to(device)}
+
+
+def ssd_detect_host_free_phase(seed=1):
+    """MultiBoxDetection (nms_topk 400, threshold 0.01, nms_threshold
+    0.45), box_nms (topk 400) and MultiBoxTarget at SSD-300's shapes,
+    batch 32, on the card: after a warm-up call, one call under torch's
+    sync debug mode (no host sync allowed), one under the profiler
+    (device operations per call), then ms and host ms per call."""
+    import torch
+
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    from mxnet_tpu_torch.ops import detection_ops as det
+
+    net = vision.get_model(SSD300["network"], num_classes=20)
+    t = _ssd_op_inputs(net, SSD300["batch"], seed, "cuda")
+    calls = {
+        "MultiBoxDetection": lambda: det.multibox_detection(
+            t["cls_prob"], t["loc_pred"], t["anchors"], nms_topk=400,
+            threshold=0.01, nms_threshold=0.45),
+        "box_nms": lambda: det.box_nms(
+            t["nms_rows"], topk=400, overlap_thresh=0.45,
+            valid_thresh=0.01, id_index=0),
+        "MultiBoxTarget": lambda: det.multibox_target(
+            t["anchors"], t["labels"], t["cls_pred"],
+            overlap_threshold=0.5, negative_mining_ratio=3.0),
+    }
+    cuda = torch.autograd.DeviceType.CUDA
+    out = {}
+    for name, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        with host_syncs() as hs:
+            fn()
+        torch.cuda.synchronize()
+        prof = torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA])
+        with prof:
+            fn()
+            torch.cuda.synchronize()
+        ops = sum(1 for e in prof.events()
+                  if getattr(e, "device_type", None) == cuda)
+        reps = 5
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        t1 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host = (time.perf_counter() - t1) * 1e3 / reps
+        end.record()
+        end.synchronize()
+        out[name] = {"host_syncs": hs.count,
+                     "device_ops_per_call": ops,
+                     "ms_per_call": start.elapsed_time(end) / reps,
+                     "host_ms_per_call": host}
+        log(f"[ssd_detect_host_free] {name}: {out[name]}")
+    res = {"phase": "ssd_detect_host_free", "batch": SSD300["batch"],
+           "anchors": SSD300["anchors"], "ops": out}
+    emit(res)
+    check(all(v["host_syncs"] == 0 for v in out.values()),
+          f"ssd_detect_host_free: host syncs "
+          f"{ {k: v['host_syncs'] for k, v in out.items()} }")
+    check(all(v["device_ops_per_call"] > 0 for v in out.values()),
+          "ssd_detect_host_free: a call ran nothing on the device")
+    return res
+
+
+def _max_abs(a, b):
+    return float((a.double().cpu() - b.double().cpu()).abs().max()) \
+        if a.numel() else 0.0
+
+
+def _targets_agree(card, host, cls_pred):
+    """MultiBoxTarget card against host, by the hard-negative rule:
+    (problems, anchors at the num_neg boundary)."""
+    import torch
+
+    (c_loc, c_mask, c_cls), (h_loc, h_mask, h_cls) = \
+        [[t.cpu() for t in r] for r in (card, host)]
+    bad = []
+    if not torch.equal(c_mask, h_mask):
+        bad.append("loc_mask")
+    if not torch.equal(c_cls > 0, h_cls > 0) or not torch.equal(
+            c_cls[h_cls > 0], h_cls[h_cls > 0]):
+        bad.append("positives")
+    if _max_abs(c_loc, h_loc) > DET_CUDA_CPU_TOL["boxes_scores"]:
+        bad.append(f"loc_target {_max_abs(c_loc, h_loc)}")
+    bg = torch.softmax(cls_pred.cpu().double(), dim=1)[:, 0]
+    boundary = 0
+    for b in range(h_cls.shape[0]):
+        cn, hn = c_cls[b] == 0, h_cls[b] == 0
+        differ = (cn != hn).nonzero().flatten()
+        if cn.sum() != hn.sum():
+            bad.append(f"negative count, image {b}")
+        if len(differ):
+            edge = bg[b][hn].max()
+            if not bool(((bg[b][differ] - edge).abs()
+                         <= 1e-6 * edge.abs()).all()):
+                bad.append(f"negatives, image {b}")
+            boundary += len(differ)
+    return bad, boundary
+
+
+def _roi_inputs(seed):
+    """Faster R-CNN's RoI ops inputs on the host: conv5 features and 128
+    RoIs in image coordinates (some past the image's edge)."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    b, c, h, w = ROI_CASE["data"]
+    data = torch.randn(ROI_CASE["data"], generator=g)
+    data[1, :, :10, :10] = 0.25  # a tied region
+    n = ROI_CASE["rois"]
+    scale = 1 / ROI_CASE["spatial_scale"]
+    xy = torch.rand(n, 2, generator=g) * torch.tensor([w, h]) * scale
+    wh = torch.rand(n, 2, generator=g) * 300 + 8
+    rois = torch.cat([torch.randint(0, b, (n, 1), generator=g).float(),
+                      xy, xy + wh], dim=1)
+    head = torch.randn((n, c) + ROI_CASE["pooled"], generator=g)
+    return data, rois, head
+
+
+def _roi_run(fn, data, rois, head, device, **kw):
+    d = data.detach().to(device).requires_grad_()  # a leaf of its own
+    out = fn(d, rois.to(device), **kw)
+    out.backward(head.to(device))
+    return out.detach().cpu(), d.grad.cpu()
+
+
+def detection_cuda_vs_cpu_phase(seed=2):
+    """Each ported detection and sort op on the card against the host on
+    the same inputs at SSD-300's shapes (batch 32), the RoI ops and
+    their gradients at a Faster R-CNN shape and Proposal at an RPN's
+    (``ROI_CASE``, ``PROPOSAL_CASE``), held to ``DET_CUDA_CPU_TOL``;
+    then three SSD-300 training steps card against host
+    (``ssd_cuda_vs_cpu``)."""
+    import torch
+
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    from mxnet_tpu_torch.ops import detection_ops as det
+    from mxnet_tpu_torch.ops import sort_ops
+
+    tol = DET_CUDA_CPU_TOL["boxes_scores"]
+    net = vision.get_model(SSD300["network"], num_classes=20)
+    host = _ssd_op_inputs(net, SSD300["batch"], seed, "cpu")
+    card = {k: v.cuda() for k, v in host.items()}
+    cases, bad = {}, []
+
+    def both(fn):
+        c = fn(card)
+        h = fn(host)
+        return c, h
+
+    # the sort ops on tied scores (two decimals) and on signed zeros,
+    # infinities and NaNs
+    g = torch.Generator().manual_seed(seed)
+    tied = torch.round(torch.rand(SSD300["batch"], SSD300["anchors"],
+                                  generator=g) * 100) / 100
+    pool = torch.tensor([0.0, -0.0, 1.0, -1.0, float("nan"),
+                         -float("nan"), float("inf"), -float("inf")])
+    special = pool[torch.randint(0, len(pool), (64, 257), generator=g)]
+    for label, x in (("tied", tied), ("special", special)):
+        for name, fn in (
+                ("sort", lambda v: sort_ops.sort(v, is_ascend=False)),
+                ("argsort", lambda v: sort_ops.argsort(v)),
+                ("topk", lambda v: sort_ops.topk(
+                    v, k=min(400, v.shape[-1]), ret_typ="both"))):
+            c, h = fn(x.cuda()), fn(x)
+            c = c if isinstance(c, tuple) else (c,)
+            h = h if isinstance(h, tuple) else (h,)
+            same = all(torch.equal(torch.signbit(a.cpu()), torch.signbit(b))
+                       and torch.equal(torch.isnan(a.cpu()), torch.isnan(b))
+                       and torch.equal(torch.nan_to_num(a.cpu()),
+                                       torch.nan_to_num(b))
+                       for a, b in zip(c, h))
+            cases[f"{name}_{label}"] = {"identical": same}
+            if not same:
+                bad.append(f"{name}_{label}")
+    cases["MultiBoxPrior"] = {"max_abs": _max_abs(
+        _ssd_anchor_maps(net, "cuda"), host["anchors"])}
+    c, h = both(lambda t: det.multibox_target(
+        t["anchors"], t["labels"], t["cls_pred"], overlap_threshold=0.5,
+        negative_mining_ratio=3.0))
+    problems, boundary = _targets_agree(c, h, host["cls_pred"])
+    cases["MultiBoxTarget"] = {"problems": problems,
+                               "boundary_anchors": boundary,
+                               "positives": int((h[2] > 0).sum())}
+    bad += [f"MultiBoxTarget {p}" for p in problems]
+    for name, fn in (
+            ("MultiBoxDetection", lambda t: det.multibox_detection(
+                t["cls_prob"], t["loc_pred"], t["anchors"], nms_topk=400,
+                threshold=0.01, nms_threshold=0.45)),
+            ("box_nms", lambda t: det.box_nms(
+                t["nms_rows"], topk=400, overlap_thresh=0.45,
+                valid_thresh=0.01, id_index=0))):
+        c, h = both(fn)
+        c = c.cpu()
+        same = torch.equal(c[..., 0], h[..., 0]) and torch.equal(
+            c == -1, h == -1)
+        cases[name] = {"ids_kept_identical": same,
+                       "max_abs": _max_abs(c, h),
+                       "kept": int((h[..., 0] >= 0).sum())}
+    c, h = both(lambda t: det.box_iou(t["anchors"][0], t["labels"][0, :, 1:]))
+    cases["box_iou"] = {"max_abs": _max_abs(c, h)}
+    data, rois, head = _roi_inputs(seed)
+    kw = dict(pooled_size=ROI_CASE["pooled"],
+              spatial_scale=ROI_CASE["spatial_scale"])
+    for name, fn, extra in (("ROIPooling", det.roi_pooling, {}),
+                            ("ROIAlign", det.roi_align, {}),
+                            ("ROIAlign_aligned", det.roi_align,
+                             {"aligned": True, "sample_ratio": 2})):
+        t1 = time.perf_counter()
+        co, cg = _roi_run(fn, data, rois, head, "cuda", **kw, **extra)
+        card_s = time.perf_counter() - t1
+        ho, hg = _roi_run(fn, data, rois, head, "cpu", **kw, **extra)
+        cases[name] = {"out_rel": _max_rel([co], [ho]),
+                       "grad_rel": _max_rel([cg], [hg]), "card_s": card_s}
+        if max(cases[name]["out_rel"], cases[name]["grad_rel"]) > \
+                DET_CUDA_CPU_TOL["roi_rel"]:
+            bad.append(name)
+    pc = PROPOSAL_CASE
+    g = torch.Generator().manual_seed(seed + 1)
+    p_in = [torch.rand(1, 2 * pc["a"], pc["h"], pc["w"], generator=g),
+            torch.randn(1, 4 * pc["a"], pc["h"], pc["w"], generator=g) * 0.1,
+            torch.tensor([[pc["h"] * 16.0, pc["w"] * 16.0, 1.0]])]
+    kw = {k: v for k, v in pc.items() if k.startswith(("rpn", "thr"))}
+    c = det.proposal(*[v.cuda() for v in p_in], output_score=True, **kw)
+    h = det.proposal(*p_in, output_score=True, **kw)
+    cases["Proposal"] = {"rel": _max_rel([a.cpu() for a in c], h),
+                         "kept": int((h[0][:, 1:] != 0).any(1).sum())}
+    if cases["Proposal"]["rel"] > DET_CUDA_CPU_TOL["proposal_rel"]:
+        bad.append("Proposal")
+    for name in ("MultiBoxPrior", "MultiBoxDetection", "box_nms",
+                 "box_iou"):
+        if cases[name]["max_abs"] > tol or not cases[name].get(
+                "ids_kept_identical", True):
+            bad.append(name)
+    steps = _ssd_cuda_vs_cpu(seed)
+    res = {"phase": "detection_cuda_vs_cpu", "batch": SSD300["batch"],
+           "anchors": SSD300["anchors"], "roi_case": ROI_CASE,
+           "proposal_case": PROPOSAL_CASE, "tol": DET_CUDA_CPU_TOL,
+           "cases": cases, "ssd_cuda_vs_cpu": steps}
+    emit(res)
+    check(not bad, f"detection_cuda_vs_cpu: out of bounds: {bad}")
+    check(steps["loss_rel"] <= CUDA_CPU_TOL["loss"] and not steps["over"],
+          f"ssd_cuda_vs_cpu: loss rel {steps['loss_rel']}, over the limit "
+          f"(card, host) {steps['over']}")
+    return res
+
+
+def _ssd_cuda_vs_cpu(seed, batch=4, steps=3):
+    """Three SSD-300 steps of the example's recipe from the same weights
+    and batch on the card and on the host (fp32, TF32 off) and in
+    float64 on the host, held as the zoo's steps are
+    (``CUDA_CPU_TOL``): each step's loss to 1e-5; each parameter's whole
+    update no farther from the float64 one than twice the host's fp32
+    one, plus 1e-3."""
+    import copy
+
+    import numpy as onp
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.example import train_ssd
+    from mxnet_tpu_torch.ndarray import NDArray
+
+    cfg = SSD300
+    with mx.cpu():
+        onp.random.seed(seed)
+        host_net, _ = train_ssd.build(cfg["num_classes"], cfg["lr"],
+                                      data_shape=cfg["data_shape"],
+                                      ctx=mx.cpu(), network=cfg["network"])
+        x, y = train_ssd.synthetic_batch(
+            onp.random.RandomState(seed), batch, cfg["num_classes"],
+            cfg["data_shape"], mx.cpu())
+    runs = {}
+    for key, where, dtype in (("cuda", "cuda", torch.float32),
+                              ("cpu", "cpu", torch.float32),
+                              ("cpu64", "cpu", torch.float64)):
+        net = copy.deepcopy(host_net).to(where)
+        net.cast(str(dtype).replace("torch.", ""))
+        params = net.collect_params()
+        before = {n: p.data()._data.detach().to("cpu", torch.float64,
+                                                copy=True)
+                  for n, p in params.items()}
+        trainer = gluon.Trainer(params, "sgd", {
+            "learning_rate": cfg["lr"], "momentum": cfg["momentum"],
+            "wd": cfg["wd"]})
+        losses = []
+        with float64_throughout() if dtype == torch.float64 else \
+                contextlib.nullcontext():
+            for _ in range(steps):
+                loss = train_ssd.step(net, trainer,
+                                      NDArray(x._data.to(where, dtype)),
+                                      NDArray(y._data.to(where, dtype)),
+                                      cfg["num_classes"])
+                losses.append(float(loss._data.double()))
+        after = {n: p.data()._data.detach().to("cpu", torch.float64,
+                                               copy=True)
+                 for n, p in params.items()}
+        runs[key] = (losses, {n: after[n] - before[n] for n in after})
+        del net, trainer, params
+    f64 = runs["cpu64"][1]
+    whole = math.sqrt(sum(float(v.norm()) ** 2 for v in f64.values()))
+    held = [n for n, v in f64.items() if float(v.norm()) >= INERT_SHARE
+            * whole]
+
+    def rel(a, ref):
+        return float((a - ref).norm() / ref.norm().clamp_min(1e-30))
+
+    card = {n: rel(runs["cuda"][1][n], f64[n]) for n in held}
+    hostr = {n: rel(runs["cpu"][1][n], f64[n]) for n in held}
+    over = {n: (card[n], hostr[n]) for n in held
+            if card[n] > 2 * hostr[n] + 1e-3}
+    loss_rel = max(abs(a - b) / abs(b) for a, b in
+                   zip(runs["cuda"][0], runs["cpu"][0]))
+    worst = max(held, key=lambda n: card[n] - 2 * hostr[n])
+    return {"batch": batch, "steps": steps, "dtype": "float32",
+            "losses_cuda": runs["cuda"][0], "losses_cpu": runs["cpu"][0],
+            "losses_cpu_f64": runs["cpu64"][0], "loss_rel": loss_rel,
+            "held": len(held), "not_held_inert": sorted(set(f64) - set(held)),
+            "err_cuda_vs_f64_max": max(card.values()),
+            "err_cpu_vs_f64_max": max(hostr.values()),
+            "closest_to_limit": {"parameter": worst,
+                                 "cuda_vs_f64": card[worst],
+                                 "cpu_vs_f64": hostr[worst]},
+            "over": {k: list(v) for k, v in list(over.items())[:8]},
+            "tol": CUDA_CPU_TOL}
 
 
 def resnet50_plan():

@@ -1,7 +1,8 @@
 """Vision models (counterpart of ``mxnet_tpu/gluon/model_zoo/vision``):
 ResNet v1 and v2, VGG, AlexNet, DenseNet, SqueezeNet, Inception v3,
-MobileNet v1 and v2, LeNet, and ``get_model`` over the reference's names.
-The SSD detectors wait for the detection ops (ROADMAP §A 13)."""
+MobileNet v1 and v2, LeNet, the SSD detectors (SSD-300 and SSD-512 on
+VGG16-reduced, SSD-300 on ResNet-18), and ``get_model`` over the
+reference's names."""
 from ....base import MXNetError
 from .alexnet import *  # noqa: F401,F403
 from .alexnet import __all__ as _alexnet_all
@@ -17,12 +18,15 @@ from .resnet import *  # noqa: F401,F403
 from .resnet import __all__ as _resnet_all
 from .squeezenet import *  # noqa: F401,F403
 from .squeezenet import __all__ as _squeezenet_all
+from .ssd import *  # noqa: F401,F403
+from .ssd import __all__ as _ssd_all
 from .vgg import *  # noqa: F401,F403
 from .vgg import __all__ as _vgg_all
 
 __all__ = (list(_alexnet_all) + list(_densenet_all) + list(_inception_all)
            + list(_lenet_all) + list(_mobilenet_all) + list(_resnet_all)
-           + list(_squeezenet_all) + list(_vgg_all) + ["get_model"])
+           + list(_squeezenet_all) + list(_ssd_all) + list(_vgg_all)
+           + ["get_model"])
 
 #: name -> constructor, the reference's names of the ported models
 _models = {f"resnet{n}_v{v}": globals()[f"resnet{n}_v{v}"]
@@ -47,6 +51,9 @@ _models.update({
     "mobilenetv2_0.5": mobilenet_v2_0_5,
     "mobilenetv2_0.25": mobilenet_v2_0_25,
     "lenet": lenet,
+    "ssd_300_vgg16_reduced": ssd_300_vgg16_reduced,
+    "ssd_512_vgg16": ssd_512_vgg16,
+    "ssd_300_resnet18": ssd_300_resnet18,
 })
 
 

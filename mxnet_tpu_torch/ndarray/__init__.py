@@ -15,7 +15,9 @@ import types
 
 import numpy as _onp
 
-from ..ops import conv as _conv  # noqa: F401  (registers ops)
+from ..ops import contrib_ops as _contrib_ops  # noqa: F401  (registers ops)
+from ..ops import conv as _conv  # noqa: F401
+from ..ops import detection_ops as _detection_ops  # noqa: F401
 from ..ops import elemwise as _elemwise  # noqa: F401
 from ..ops import nn as _nn  # noqa: F401
 from ..ops import pallas_conv as _pallas_conv  # noqa: F401
@@ -24,6 +26,7 @@ from ..ops import reduce as _reduce  # noqa: F401
 from ..ops import rnn as _rnn  # noqa: F401
 from ..ops import sequence_ops as _sequence_ops  # noqa: F401
 from ..ops import shape_ops as _shape_ops  # noqa: F401
+from ..ops import sort_ops as _sort_ops  # noqa: F401
 from ..ops.registry import get_op, list_ops
 from .ndarray import (  # noqa: F401
     NDArray,
@@ -128,9 +131,7 @@ _expose_all()
 
 
 # ---------------------------------------------------------------- methods
-#: the reference's method list (mxnet_tpu/ndarray/__init__.py); a name
-#: whose op is not ported yet gets no method (topk, sort, argsort:
-#: ROADMAP)
+#: the reference's method list (mxnet_tpu/ndarray/__init__.py)
 _METHOD_OPS = [
     "sum", "nansum", "mean", "max", "min", "prod", "nanprod", "argmax",
     "argmin", "norm", "abs", "sign", "round", "rint", "fix", "floor",
@@ -186,4 +187,5 @@ def _nd_transpose(self, *axes, **kwargs):
 NDArray.transpose = _nd_transpose
 
 
+from . import contrib  # noqa: E402,F401
 from . import random  # noqa: E402,F401

@@ -23,7 +23,7 @@ import numpy as onp
 import pytest
 import torch
 
-from chip_smoke import BF16_ROW_TOL, row_rel_err
+from chip_smoke import BF16_ROW_TOL, host_syncs, row_rel_err
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.ops import flash_attention as tfa
 
@@ -1118,3 +1118,97 @@ def test_gluon_lstm_trains_on_card(card):
     for n, p in layer.collect_params().items():
         assert p.data()._data.is_cuda
         assert not onp.array_equal(p.data().asnumpy(), before[n]), n
+
+
+# ------------------------------------------------------ detection ops
+def _det_inputs(seed=0, batch=4, n=600, m=3):
+    """Anchors, labels, class logits and probabilities, location
+    predictions and box_nms rows on the host."""
+    g = torch.Generator().manual_seed(seed)
+    xy = torch.rand(n, 2, generator=g) * 0.8
+    anchors = torch.cat([xy, xy + torch.rand(n, 2, generator=g) * 0.2
+                         + 0.02], 1)[None]
+    labels = torch.full((batch, m, 5), -1.0)
+    for b in range(batch):
+        for k in range(1 + b % m):
+            lo = torch.rand(2, generator=g) * 0.6
+            labels[b, k] = torch.cat([torch.tensor([float(k + b)]), lo,
+                                      lo + 0.3])
+    logits = torch.randn(batch, 6, n, generator=g)
+    loc = torch.randn(batch, n * 4, generator=g) * 0.5
+    score = torch.rand(batch, n, 1, generator=g)
+    score[:, 1::2] = score[:, 0::2]
+    rows = torch.cat([torch.randint(-1, 5, (batch, n, 1), generator=g)
+                      .float(), score, anchors.expand(batch, n, 4)], -1)
+    return {"anchors": anchors, "labels": labels, "logits": logits,
+            "prob": torch.softmax(logits * 3, 1), "loc": loc, "rows": rows}
+
+
+def test_detection_ops_on_card_match_host(card):
+    """MultiBoxTarget (positives, masks and negatives identical: no
+    score ties at the mining boundary here), MultiBoxDetection and
+    box_nms (ids and kept rows identical, values to 1e-5), the sort ops
+    (identical on ties)."""
+    from mxnet_tpu_torch.ops import detection_ops as det
+    from mxnet_tpu_torch.ops import sort_ops
+
+    h = _det_inputs()
+    c = {k: v.to(card) for k, v in h.items()}
+    for fn in (
+            lambda t: det.multibox_target(t["anchors"], t["labels"],
+                                          t["logits"],
+                                          negative_mining_ratio=3.0),
+            lambda t: (det.multibox_detection(t["prob"], t["loc"],
+                                              t["anchors"], nms_topk=400),),
+            lambda t: (det.box_nms(t["rows"], topk=400, id_index=0),),
+            lambda t: sort_ops.topk(torch.round(t["prob"] * 10),
+                                    k=50, ret_typ="both"),
+            lambda t: (sort_ops.argsort(torch.round(t["prob"] * 10)),)):
+        for a, b in zip(fn(c), fn(h)):
+            a = a.cpu()
+            assert a.shape == b.shape
+            assert float((a - b).abs().max()) <= 1e-5
+            if a.dim() == 3 and a.shape[-1] == 6:
+                assert torch.equal(a[..., 0], b[..., 0])
+
+
+def test_roi_ops_gradients_on_card_match_host(card):
+    from mxnet_tpu_torch.ops import detection_ops as det
+
+    g = torch.Generator().manual_seed(3)
+    data = torch.randn(2, 8, 19, 25, generator=g)
+    data[0, :, :6, :6] = 0.5  # tied maxima
+    rois = torch.tensor([[0, 3.0, 2.0, 200.0, 150.0], [1, 0.0, 0.0, 90.0,
+                                                        70.0],
+                         [0, 250.0, 200.0, 500.0, 400.0]])  # past the edge
+    head = torch.randn(3, 8, 7, 7, generator=g)
+    for fn, kw in ((det.roi_pooling, {}), (det.roi_align, {}),
+                   (det.roi_align, {"aligned": True})):
+        res = []
+        for dev in (card, torch.device("cpu")):
+            d = data.detach().to(dev).requires_grad_()
+            out = fn(d, rois.to(dev), pooled_size=(7, 7),
+                     spatial_scale=1 / 16, **kw)
+            out.backward(head.to(dev))
+            res.append((out.detach().cpu(), d.grad.cpu()))
+        for a, b in zip(*res):
+            assert float((a - b).abs().max()) <= 1e-5 * float(
+                b.abs().max())
+
+
+def test_targets_and_detection_make_no_host_sync(card):
+    from mxnet_tpu_torch.ops import detection_ops as det
+
+    c = {k: v.to(card) for k, v in _det_inputs(seed=1).items()}
+    calls = (lambda: det.multibox_target(c["anchors"], c["labels"],
+                                         c["logits"],
+                                         negative_mining_ratio=3.0),
+             lambda: det.multibox_detection(c["prob"], c["loc"],
+                                            c["anchors"], nms_topk=400),
+             lambda: det.box_nms(c["rows"], topk=400, id_index=0))
+    for fn in calls:
+        fn()  # warm-up
+        torch.cuda.synchronize()
+        with host_syncs() as hs:
+            fn()
+        assert hs.count == 0

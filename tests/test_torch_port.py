@@ -70,7 +70,13 @@ _MODULES = ["mxnet_tpu_torch", "mxnet_tpu_torch.autotune",
             "mxnet_tpu_torch.module.base_module",
             "mxnet_tpu_torch.module.module",
             "mxnet_tpu_torch.module.bucketing_module",
-            "mxnet_tpu_torch.module.sequential_module"]
+            "mxnet_tpu_torch.module.sequential_module",
+            "mxnet_tpu_torch.ops.sort_ops",
+            "mxnet_tpu_torch.ops.detection_ops",
+            "mxnet_tpu_torch.ops.contrib_ops",
+            "mxnet_tpu_torch.ndarray.contrib",
+            "mxnet_tpu_torch.gluon.model_zoo.vision.ssd",
+            "mxnet_tpu_torch.example.train_ssd"]
 _FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(?:jax|jaxlib|mxnet_tpu)"
                         r"(?:\.|\s|$)", re.M)
 

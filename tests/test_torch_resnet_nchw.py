@@ -634,7 +634,10 @@ def test_get_model_names():
         for n in (18, 34, 50, 101, 152):
             net = t_vision.get_model(f"ResNet{n}_v{v}")
             assert type(net).__name__ == f"ResNetV{v}"
+    # the detection ops are ported: the SSD names build
+    assert type(t_vision.get_model("ssd_300_vgg16_reduced")).__name__ == \
+        "SSD"
     with pytest.raises(MXNetError, match="not supported"):
-        t_vision.get_model("ssd_300_vgg16_reduced")
+        t_vision.get_model("ssd_300_vgg16_unknown")
     with pytest.raises(MXNetError, match="version"):
         t_res.get_resnet(3, 50)

@@ -206,7 +206,16 @@ def test_op_keywords_are_the_reference_ones():
 
     names = {c[0] for c in OP_CASES.values()} | {
         "FullyConnected", "_FullyConnected", "Convolution_v1",
-        "Pooling_v1", "BatchNorm_v1"}
+        "Pooling_v1", "BatchNorm_v1",
+        # the ordering, detection and contrib ops
+        "sort", "argsort", "topk", "_contrib_MultiBoxPrior",
+        "_contrib_MultiBoxTarget", "_contrib_MultiBoxDetection",
+        "_contrib_box_nms", "_contrib_box_iou", "ROIPooling",
+        "_contrib_ROIAlign", "_contrib_Proposal", "all_finite",
+        "multi_all_finite", "_contrib_boolean_mask", "_contrib_index_copy",
+        "_contrib_index_array", "_contrib_fft", "_contrib_ifft",
+        "_contrib_allclose", "_contrib_gradientmultiplier",
+        "_contrib_hawkesll"}
     for n in sorted(names):
         j, t = j_reg.get_op(n), t_reg.get_op(n)
         assert t.param_names == j.param_names, n
