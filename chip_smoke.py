@@ -31,7 +31,14 @@ checking the results; then runs the imperative Gluon loop
 example's LeNet on the reference's synthetic digits, the kernel-arm
 ResNet-50 with a deferred stem in bf16 with fp32 masters and an LR
 schedule (the fused backward on its path), and one fp32 Gluon step of
-it on the card against the host; then runs the symbolic half: the
+it on the card against the host; then the same ResNet-50 loop with the
+net hybridized with both static flags, every step replaying the CUDA
+graphs of its forward and backward (the fused backward launched from
+the captured backward), three such steps equal to eager's, and the
+zoo's default ``resnet50_v1()`` trained a few steps in fp32, exported
+(``HybridBlock.export``) and read back on the card by
+``gluon.SymbolBlock.imports`` and ``mx.mod.Module.load``, each
+predicting as the Gluon net; then runs the symbolic half: the
 builder's ResNet-50 v1 symbol (``resnet50_v1_symbol``) trained by
 ``mx.mod.Module`` (batch 128, fp32), one Module step of it on the card
 against the host, ``Module.fit`` of an MLP on an ``NDArrayIter`` with a
@@ -2287,6 +2294,341 @@ def gluon_cuda_vs_cpu_phase(batch=4, seed=3, n_batches=3):
     return res
 
 
+# ------------------------------------ Gluon's compiled and symbolic half
+#: the graphed Gluon ResNet-50 runs GLUON_RESNET; its three-step
+#: comparison with the eager loop runs cuDNN deterministic, from one init
+HYBRID_EQUAL_STEPS = 3
+#: the zoo's default ResNet-50 v1 (NCHW, the zoo's biases, fp32, TF32
+#: off) trained a few Gluon steps, exported and read back
+GLUON_EXPORT = dict(batch=32, image=224, steps=3, predict_reps=5,
+                    opt=dict(learning_rate=0.01, momentum=0.9, wd=1e-4))
+#: the exported graph read back predicts as the Gluon net: bit for bit,
+#: else within this share of the output's largest magnitude
+EXPORT_PREDICT_TOL = 1e-5
+
+
+def _count_kernels(prof, fragment):
+    """Launches of the kernels whose name holds ``fragment`` in a
+    profile."""
+    return sum(e.count for e in prof.key_averages() if fragment in e.key)
+
+
+def _hybrid_equal_run(seed, hybrid, steps):
+    """``steps`` Gluon steps of ``GLUON_RESNET``'s net from one init
+    (``seed``), eager or graphed: the losses and every parameter and
+    running statistic after them."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon, lr_scheduler
+
+    cfg = GLUON_RESNET
+    ctx = mx.gpu(0)
+    dev = ctx.torch_device()
+    net = gluon_resnet50(ctx, seed)
+    net.cast("bfloat16")
+    if hybrid:
+        net.hybridize(static_alloc=True, static_shape=True)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    x = mx.nd.NDArray(torch.randn((cfg["batch"], cfg["image"], cfg["image"],
+                                   3), generator=gen, device=dev)
+                      .to(torch.bfloat16))
+    y = mx.nd.NDArray(torch.randint(0, 1000, (cfg["batch"],), generator=gen,
+                                    device=dev, dtype=torch.int32))
+    trainer = gluon.Trainer(net.collect_params(), "sgd", dict(
+        cfg["opt"], lr_scheduler=lr_scheduler.FactorScheduler(
+            **cfg["scheduler"])))
+    losses = [_gluon_loss_step(net, trainer, x, y)._data.detach().clone()
+              for _ in range(steps)]
+    torch.cuda.synchronize()
+    return losses, {n: p.data()._data.detach().clone()
+                    for n, p in net.collect_params().items()}
+
+
+def _max_diff(a, b):
+    """Largest |a - b| over matching tensors (two runs' losses and
+    parameters), and the count of tensors that differ at all."""
+    # the nets' prefixes differ: their parameters pair up in order
+    pairs = list(zip(a[0], b[0])) + list(zip(a[1].values(),
+                                             b[1].values()))
+    diffs = [float((p.float() - q.float()).abs().max()) for p, q in pairs]
+    return max(diffs), sum(d > 0 for d in diffs)
+
+
+def gluon_hybrid_resnet50_phase(eager, seed=0):
+    """``gluon_resnet50``'s loop with the net hybridized with both
+    static flags: every step replays the captured forward and backward
+    graphs.  ms/step by CUDA events, peak GiB, ``trainer.step``'s host
+    ms, the idle share and the fused backward's launches by kernel name
+    in 3 profiled steps, graph entries and captures, beside the eager
+    phase ``eager`` of this run; then three steps from one init equal
+    eager's (cuDNN deterministic)."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autotune, gluon, lr_scheduler
+    from mxnet_tpu_torch.gluon import _graph
+    from mxnet_tpu_torch.ops import pallas_conv as pc
+
+    cfg = GLUON_RESNET
+    batch, warmup, steps = cfg["batch"], cfg["warmup"], cfg["steps"]
+    ctx = mx.gpu(0)
+    dev = ctx.torch_device()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    net = gluon_resnet50(ctx, seed)
+    net.cast("bfloat16")
+    net.hybridize(static_alloc=True, static_shape=True)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    x = mx.nd.NDArray(torch.randn((batch, cfg["image"], cfg["image"], 3),
+                                  generator=gen, device=dev)
+                      .to(torch.bfloat16))
+    y = mx.nd.NDArray(torch.randint(0, 1000, (batch,), generator=gen,
+                                    device=dev, dtype=torch.int32))
+    trainer = gluon.Trainer(net.collect_params(), "sgd", dict(
+        cfg["opt"], lr_scheduler=lr_scheduler.FactorScheduler(
+            **cfg["scheduler"])))
+    captures0 = _graph.captures
+    losses, host_ms = [], []
+    with autotune.force(pallas_bnreluconv="pallas"):
+        pc.bnreluconv_bwd.launches = 0
+        t0 = time.perf_counter()
+        losses.append(_gluon_loss_step(net, trainer, x, y)._data.float()
+                      .mean())
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        wrapper_calls = pc.bnreluconv_bwd.launches
+        for _ in range(warmup - 1):
+            losses.append(_gluon_loss_step(net, trainer, x, y)._data
+                          .float().mean())
+        params = net.collect_params()
+        stats = {n: p.data()._data.clone() for n, p in params.items()
+                 if n.endswith(("running_mean", "running_var"))}
+        torch.cuda.synchronize()
+        marks = [torch.cuda.Event(enable_timing=True)
+                 for _ in range(steps + 1)]
+        marks[0].record()
+        for i in range(steps):
+            losses.append(_gluon_loss_step(net, trainer, x, y, host_ms)
+                          ._data.float().mean())
+            marks[i + 1].record()
+        marks[-1].synchronize()
+        moved = sum(not torch.equal(params[n].data()._data, v)
+                    for n, v in stats.items())
+        prof = torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA])
+        with prof:
+            t1 = time.perf_counter()
+            for _ in range(cfg["profiled"]):
+                _gluon_loss_step(net, trainer, x, y)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+        replay_wrapper_calls = pc.bnreluconv_bwd.launches - wrapper_calls
+        alone_host = []
+        for _ in range(cfg["profiled"]):
+            with mx.autograd.record():
+                loss = gluon.loss.SoftmaxCrossEntropyLoss()(net(x), y)
+            loss.backward()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            trainer.step(batch)
+            alone_host.append((time.perf_counter() - t1) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    captures = _graph.captures - captures0
+    dact = _count_kernels(prof, "dact_mma_kernel")
+    entries = list(net._cached_op.values())
+    losses = [float(v) for v in losses]
+    ms_step = marks[0].elapsed_time(marks[-1]) / steps
+    profile = device_profile(prof, wall, top=25, shares=STEP_SHARES)
+    n_stats = len(stats)
+    del net, trainer, x, y, params, stats, prof
+    torch.cuda.empty_cache()
+
+    # three steps from one init, graphed and eager, cuDNN deterministic
+    prev = (torch.backends.cudnn.deterministic,
+            torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        with autotune.force(pallas_bnreluconv="pallas"):
+            runs = {}
+            for key, hybrid in (("eager", False), ("graphed", True),
+                                ("eager_again", False)):
+                runs[key] = _hybrid_equal_run(seed + 7, hybrid,
+                                              HYBRID_EQUAL_STEPS)
+                torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark \
+            = prev
+    graphed_vs_eager, n_diff = _max_diff(runs["graphed"], runs["eager"])
+    eager_vs_eager, _ = _max_diff(runs["eager_again"], runs["eager"])
+    del runs
+    torch.cuda.empty_cache()
+    res = {
+        "phase": "gluon_hybrid_resnet50",
+        "loop": "gluon.Trainer, net.hybridize(static_alloc=True, "
+                "static_shape=True): CUDA-graph replays",
+        "model": {"name": "resnet50_v1", "layout": "NHWC", "no_bias": True,
+                  "in_channels": "deferred"},
+        "batch": batch, "image": cfg["image"], "dtype": "bfloat16",
+        "optimizer": "sgd", "optimizer_settings": cfg["opt"],
+        "lr_scheduler": {"FactorScheduler": cfg["scheduler"]},
+        "warmup_steps": warmup, "timed_steps": steps,
+        "ms_per_step": ms_step, "img_s": batch / ms_step * 1e3,
+        "step_ms": [a.elapsed_time(b) for a, b in zip(marks, marks[1:])],
+        "first_step_with_capture_s": capture_s,
+        "peak_mem_gib": peak,
+        "trainer_step_host_ms": sum(host_ms) / len(host_ms),
+        "trainer_step_alone_host_ms": sum(alone_host) / len(alone_host),
+        "losses": losses,
+        "graph_entries": len(entries),
+        "graph_entries_graphed": sum(e.graphed for e in entries),
+        "graph_captures": captures,
+        "graph_programs": sum(len(e.programs) for e in entries
+                              if e.graphed),
+        "bnreluconv_wrapper_calls_warmup_and_capture": wrapper_calls,
+        "bnreluconv_wrapper_calls_in_replays": replay_wrapper_calls,
+        "bnreluconv_dact_kernels_3_profiled_steps": dact,
+        "running_stats_moved": f"{moved} of {n_stats}",
+        "equal_steps": HYBRID_EQUAL_STEPS,
+        "graphed_vs_eager_max_abs": graphed_vs_eager,
+        "graphed_vs_eager_tensors_differing": n_diff,
+        "eager_vs_eager_max_abs": eager_vs_eager,
+        "eager": {k: eager[k] for k in (
+            "ms_per_step", "img_s", "peak_mem_gib", "trainer_step_host_ms",
+            "trainer_step_alone_host_ms") if k in eager} | {
+            "device_idle_share": eager.get("profile_3_steps", {}).get(
+                "device_idle_share")},
+        "profile_3_steps": profile,
+    }
+    emit(res)
+    check(all(math.isfinite(v) for v in losses),
+          f"gluon_hybrid_resnet50: loss not finite: {losses}")
+    check(sum(losses[-3:]) / 3 < losses[0],
+          f"gluon_hybrid_resnet50: the loss did not fall: {losses}")
+    check(len(entries) == 1 and entries[0].graphed and captures == 1
+          and len(entries[0].programs) == 1,
+          f"gluon_hybrid_resnet50: {len(entries)} entries, {captures} "
+          "captures (1 and 1 expected)")
+    check(replay_wrapper_calls == 0 and dact == 16 * cfg["profiled"],
+          f"gluon_hybrid_resnet50: the fused backward ran {dact} times in "
+          f"{cfg['profiled']} replayed steps (16 a step expected), its "
+          f"wrapper {replay_wrapper_calls} times")
+    check(moved == n_stats, f"gluon_hybrid_resnet50: "
+          f"{n_stats - moved} running statistics did not move")
+    check(graphed_vs_eager <= 2 * eager_vs_eager,
+          f"gluon_hybrid_resnet50: graphed steps {graphed_vs_eager} from "
+          f"eager's, two eager runs {eager_vs_eager} apart")
+    return res
+
+
+def gluon_export_resnet50_phase(workdir, seed=0):
+    """The zoo's default ``resnet50_v1()`` (NCHW, fp32, TF32 off) trained
+    ``GLUON_EXPORT["steps"]`` Gluon steps on the card, exported, and
+    read back on the card by ``gluon.SymbolBlock.imports`` and by
+    ``mx.mod.Module.load``: each predicts a batch as the Gluon net does.
+    The files equal a host export of the same weights byte for byte
+    (both exports start the graph's auto-names afresh)."""
+    import copy
+
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+    from mxnet_tpu_torch.symbol import symbol as sym_mod
+
+    cfg = GLUON_EXPORT
+    batch = cfg["batch"]
+    ctx = mx.gpu(0)
+    dev = ctx.torch_device()
+    net = resnet50_v1()
+    net.initialize(mx.init.Xavier(), ctx=ctx,
+                   generator=torch.Generator().manual_seed(seed))
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    x = mx.nd.NDArray(torch.randn((batch, 3, cfg["image"], cfg["image"]),
+                                  generator=gen, device=dev))
+    y = mx.nd.NDArray(torch.randint(0, 1000, (batch,), generator=gen,
+                                    device=dev, dtype=torch.int32))
+    trainer = gluon.Trainer(net.collect_params(), "sgd", cfg["opt"])
+    losses = [float(_gluon_loss_step(net, trainer, x, y)._data.mean())
+              for _ in range(cfg["steps"])]
+    want = net(x)._data
+    prefix = os.path.join(workdir, "gluon_export", "resnet50_v1")
+    os.makedirs(os.path.dirname(prefix), exist_ok=True)
+    files = {}
+    for where, block in (("card", net), ("host", None)):
+        if block is None:
+            block = copy.deepcopy(net)
+            block.collect_params().reset_ctx(mx.cpu())
+        sym_mod._UNNAMED_COUNT.clear()
+        t0 = time.perf_counter()
+        block.export(f"{prefix}_{where}")
+        files[where] = {"export_s": time.perf_counter() - t0, "bytes": [
+            open(f"{prefix}_{where}{sfx}", "rb").read()
+            for sfx in ("-symbol.json", "-0000.params")]}
+    card = f"{prefix}_card"
+
+    def timed(fn):
+        out = fn()
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(cfg["predict_reps"]):
+            fn()
+        b.record()
+        b.synchronize()
+        return out, a.elapsed_time(b) / cfg["predict_reps"]
+
+    sb = gluon.SymbolBlock.imports(card + "-symbol.json", ["data"],
+                                   card + "-0000.params", ctx=ctx)
+    got_sb, sb_ms = timed(lambda: sb(x)._data)
+    mod = mx.mod.Module.load(card, 0, label_names=None, context=ctx)
+    mod.bind(data_shapes=[("data", (batch, 3, cfg["image"], cfg["image"]))],
+             for_training=False)
+
+    def module_predict():
+        mod.forward(mx.io.DataBatch([x]), is_train=False)
+        return mod.get_outputs()[0]._data
+
+    got_mod, mod_ms = timed(module_predict)
+    _, gluon_ms = timed(lambda: net(x)._data)
+    scale = float(want.abs().max())
+    agree = {}
+    for name, got in (("symbolblock", got_sb), ("module", got_mod)):
+        err = float((got - want).abs().max())
+        agree[name] = {"bit_for_bit": bool(torch.equal(got, want)),
+                       "max_abs": err, "max_rel_of_largest": err / scale,
+                       "device": str(got.device)}
+    res = {"phase": "gluon_export_resnet50",
+           "model": {"name": "resnet50_v1", "layout": "NCHW",
+                     "classes": 1000}, "batch": batch,
+           "image": cfg["image"], "dtype": "float32 (TF32 off)",
+           "optimizer_settings": cfg["opt"], "losses": losses,
+           "symbol_json_bytes": len(files["card"]["bytes"][0]),
+           "params_bytes": len(files["card"]["bytes"][1]),
+           "export_s": files["card"]["export_s"],
+           "files_equal_host_export": files["card"]["bytes"]
+           == files["host"]["bytes"],
+           "predict_ms": {"gluon": gluon_ms, "symbolblock": sb_ms,
+                          "module": mod_ms},
+           "agreement": agree, "tolerance_rel": EXPORT_PREDICT_TOL,
+           "parameters": len(sb.collect_params())}
+    emit(res)
+    check(all(math.isfinite(v) for v in losses),
+          f"gluon_export_resnet50: loss not finite: {losses}")
+    check(res["files_equal_host_export"],
+          "gluon_export_resnet50: the card's files differ from a host "
+          "export of the same weights")
+    for name, a in agree.items():
+        check(a["device"].startswith("cuda") and (
+            a["bit_for_bit"] or a["max_rel_of_largest"] <= EXPORT_PREDICT_TOL),
+              f"gluon_export_resnet50: {name} predicts {a} from the Gluon "
+              "net")
+    return res
+
+
 def run(profile=False, old_brc=None, workdir=None):
     import torch
 
@@ -2534,6 +2876,24 @@ def run(profile=False, old_brc=None, workdir=None):
     gcvc = gluon_cuda_vs_cpu_phase()
     log(f"[gluon_cuda_vs_cpu] loss rel {gcvc['loss_rel']:.2e}, closest "
         f"{gcvc['closest_to_limit']}")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ghyb = gluon_hybrid_resnet50_phase(gres)
+    log(f"[gluon_hybrid_resnet50] {ghyb['ms_per_step']:.2f} ms/step "
+        f"(eager {gres['ms_per_step']:.2f}) peak "
+        f"{ghyb['peak_mem_gib']:.2f} GiB, idle "
+        f"{ghyb['profile_3_steps'].get('device_idle_share')}, fused "
+        f"backward {ghyb['bnreluconv_dact_kernels_3_profiled_steps']} in 3 "
+        f"replayed steps, graphed vs eager "
+        f"{ghyb['graphed_vs_eager_max_abs']} (eager twice "
+        f"{ghyb['eager_vs_eager_max_abs']}) "
+        f"({time.perf_counter() - t0:.1f} s)")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    gexp = gluon_export_resnet50_phase(workdir)
+    log(f"[gluon_export_resnet50] predict ms {gexp['predict_ms']}, "
+        f"agreement {gexp['agreement']} "
+        f"({time.perf_counter() - t0:.1f} s)")
 
     torch.cuda.empty_cache()
     t0 = time.perf_counter()

@@ -26,8 +26,8 @@ import threading
 
 import torch
 
-__all__ = ["seed", "generator", "take_key", "key_scope", "split",
-           "fold_in", "draw_bernoulli", "generator_states",
+__all__ = ["seed", "generator", "take_key", "key_scope", "draws_scope",
+           "split", "fold_in", "draw_bernoulli", "generator_states",
            "set_generator_states"]
 
 _MASK64 = (1 << 64) - 1
@@ -42,6 +42,7 @@ class _RngState(threading.local):
         self.seed = 0
         self.gens = {}      # str(device) -> the device's eager generator
         self.scope = None   # (key, {str(device): generator}) in key_scope
+        self.draws = None   # device -> generator, inside draws_scope
 
 
 _S = _RngState()
@@ -98,6 +99,8 @@ def take_key(device):
     """The generator a random op on ``device`` draws from: the step's
     inside :func:`key_scope`, else the device's eager one."""
     dev = torch.device(device)
+    if _S.draws is not None:
+        return _S.draws(dev)
     if _S.scope is None:
         return generator(dev)
     key, gens = _S.scope
@@ -118,6 +121,19 @@ def key_scope(key):
         yield
     finally:
         _S.scope = prev
+
+
+@contextlib.contextmanager
+def draws_scope(take):
+    """Random ops inside draw from ``take(device)`` (a generator), ahead
+    of any key scope: a CUDA graph's warm-up and capture draw from
+    generators of their own (``gluon/_graph.py``)."""
+    prev = _S.draws
+    _S.draws = take
+    try:
+        yield
+    finally:
+        _S.draws = prev
 
 
 def draw_bernoulli(keep, shape, device, gen):

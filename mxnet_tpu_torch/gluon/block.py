@@ -5,8 +5,8 @@ name-scope scheme (``_BlockScope``), so parameter names match it
 exactly (``resnetv10_stage1_conv0_weight``), and the reference's
 parameter order (``_collect_all_params``: a block's own parameters in
 registration order, then its children's).  Layers implement
-``forward``; the reference's ``hybrid_forward(F, ...)`` indirection has
-no counterpart.
+``forward`` on tensors; ``hybrid_forward(F, ...)`` is their symbolic
+form, with ``F = mx.sym``.
 
 A block is called two ways:
 
@@ -26,9 +26,28 @@ A layer built without ``in_channels``/``in_units`` has a deferred
 shape: its first call (or :meth:`HybridBlock.infer_shape`) resolves it
 from the input and runs the initialization ``initialize`` recorded.
 
-``HybridBlock.hybridize`` is a no-op for now: PyTorch runs eagerly and
-the CachedOp analog (a shape-keyed compiled program) is queued
-(ROADMAP §A 14); the results are the reference's.
+``HybridBlock.hybridize`` gives the block the reference's CachedOp
+(``mxnet_tpu/gluon/block.py:531-700``): one cache entry per input
+signature (input shapes, dtypes and devices, Python arguments,
+``training``, and whether the call records).  Plain ``hybridize()`` runs
+each entry op by op, as upstream's CachedOp without ``static_alloc``
+does; ``hybridize(static_alloc=True, static_shape=True)`` on a CUDA
+device captures the entry's forward (and, when it records, its
+backward) in CUDA graphs and replays them (``gluon/_graph.py``), one
+tape node a call; called on tensors by a plain parent Block, such a
+block runs its cache all the same.  A block that cannot be captured
+raises.  The cache is cleared where the reference clears it
+(``hybridize``, a child's ``__setattr__``, ``cast``), by
+``load_parameters`` and ``initialize(force_reinit=True)``, and on the
+block a replaced parameter tensor is registered on; a captured entry
+that reads a replaced tensor is dropped at its next call.
+
+Called on a :class:`~mxnet_tpu_torch.symbol.Symbol`, a block builds the
+reference's graph: each parameter becomes ``param.var()`` and each
+layer's ``hybrid_forward(F, x, **params)`` with ``F = mx.sym`` emits the
+reference's op and attributes (a container without one chains its
+children through ``forward``).  ``HybridBlock.export`` writes that graph
+and the parameters; :class:`SymbolBlock` runs such a graph as a block.
 
 NDArrays may come nested in lists and tuples (a recurrent layer's
 ``lstm(x, [h, c])``); they are unwrapped for ``forward`` and its
@@ -40,7 +59,9 @@ it, one tensor.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import threading
+import weakref
 from collections import OrderedDict
 
 import torch
@@ -49,10 +70,44 @@ from torch import nn
 from .. import autograd
 from ..base import MXNetError
 from ..ndarray.ndarray import NDArray
+from ..symbol.symbol import Symbol
 from .parameter import DeferredInitializationError, Parameter, ParameterDict
 
-__all__ = ["Block", "HybridBlock", "state_writes_dropped",
+__all__ = ["Block", "HybridBlock", "SymbolBlock", "state_writes_dropped",
            "drop_state_writes"]
+
+
+class _SuppressHooks(threading.local):
+    """Set during the internal passes (deferred-shape resolution, a CUDA
+    graph's warm-up and capture), so that hooks observe only the calls a
+    user makes (reference ``mxnet_tpu/gluon/block.py:34-43``)."""
+
+    def __init__(self):
+        self.flag = False
+
+
+_suppress_hooks = _SuppressHooks()
+
+
+@contextlib.contextmanager
+def _hooks_off():
+    prev = _suppress_hooks.flag
+    _suppress_hooks.flag = True
+    try:
+        yield
+    finally:
+        _suppress_hooks.flag = prev
+
+
+class _HookHandle:
+    """Removes a hook (reference ``block.py:356``)."""
+
+    def __init__(self, hooks, key):
+        self._hooks = hooks
+        self._key = key
+
+    def detach(self):
+        self._hooks.pop(self._key, None)
 
 
 class _BlockScope:
@@ -121,6 +176,23 @@ def state_writes_dropped():
     return getattr(_tls, "drop_state", False)
 
 
+def _in_program():
+    """Whether a call runs inside another block's cache entry or inside
+    a functionalized step (``drop_state_writes``): the outer program
+    then runs the call's ops, as the reference's outer jit inlines an
+    inner one."""
+    return getattr(_tls, "programs", 0) > 0 or state_writes_dropped()
+
+
+@contextlib.contextmanager
+def _program():
+    _tls.programs = getattr(_tls, "programs", 0) + 1
+    try:
+        yield
+    finally:
+        _tls.programs -= 1
+
+
 @contextlib.contextmanager
 def drop_state_writes():
     """Scope in which layers compute but do not store state updates.
@@ -152,6 +224,8 @@ class Block(nn.Module):
         self._scope = _BlockScope(self)
         self._reg_params = OrderedDict()
         self._deferred_pending = False
+        self._mx_forward_hooks = OrderedDict()
+        self._mx_forward_pre_hooks = OrderedDict()
         self.training = False
 
     def _alias(self):
@@ -169,6 +243,26 @@ class Block(nn.Module):
     def register_child(self, block, name=None):
         self.add_module(str(len(self._modules)) if name is None else name,
                         block)
+
+    def register_forward_hook(self, hook):
+        """``hook(block, args, out)`` after each call (NDArrays in and
+        out); ``handle.detach()`` removes it (reference ``block.py:180``).
+        Not called in the internal passes (deferred shapes, a graph's
+        capture), nor inside a replayed graph."""
+        key = len(self._mx_forward_hooks)
+        while key in self._mx_forward_hooks:
+            key += 1
+        self._mx_forward_hooks[key] = hook
+        return _HookHandle(self._mx_forward_hooks, key)
+
+    def register_forward_pre_hook(self, hook):
+        """``hook(block, args)`` before each call (reference
+        ``block.py:185``)."""
+        key = len(self._mx_forward_pre_hooks)
+        while key in self._mx_forward_pre_hooks:
+            key += 1
+        self._mx_forward_pre_hooks[key] = hook
+        return _HookHandle(self._mx_forward_pre_hooks, key)
 
     @property
     def _children(self):
@@ -217,7 +311,15 @@ class Block(nn.Module):
         self.collect_params().initialize(
             init, ctx if ctx is not None else device, verbose,
             force_reinit, generator=generator)
+        if force_reinit:
+            self._clear_cached_ops()
         return self
+
+    def _clear_cached_ops(self):
+        """Clear the cache of every hybridized block of the subtree."""
+        for m in self.modules():
+            if isinstance(m, HybridBlock):
+                m._clear_cached_op()
 
     def cast(self, dtype):
         """Cast every parameter to ``dtype`` (BatchNorm keeps fp32 for
@@ -229,11 +331,38 @@ class Block(nn.Module):
 
     # ------------------------------------------------------------- call
     def __call__(self, *args, **kwargs):
+        if _has_symbol(args):
+            return self._call_symbol(*args, **kwargs)
+        hooked = not _suppress_hooks.flag and bool(
+            self._mx_forward_hooks or self._mx_forward_pre_hooks)
+        if hooked:
+            for hook in list(self._mx_forward_pre_hooks.values()):
+                hook(self, _to_ndarray(args))
+        if _has_ndarray(args):
+            out = self._call_nd(args, kwargs)
+        else:
+            out = self._call_tensors(args, kwargs)
+        if hooked:
+            for hook in list(self._mx_forward_hooks.values()):
+                hook(self, _to_ndarray(args), _to_ndarray(out))
+        return out
+
+    def _call_nd(self, args, kwargs):
+        """A call on NDArrays (a hybridized block runs its cache)."""
         if self._deferred_pending:
             self._finish_deferred(*args)
-        if _has_ndarray(args):
-            return self._call_ndarray(args, kwargs)
-        return super().__call__(*args, **kwargs)
+        return self._call_ndarray(args, kwargs)
+
+    def _call_tensors(self, args, kwargs):
+        """A call on torch tensors (the PyTorch way)."""
+        if self._deferred_pending:
+            self._finish_deferred(*args)
+        return nn.Module.__call__(self, *args, **kwargs)
+
+    def _call_symbol(self, *args, **kwargs):
+        """A call on Symbols: the block's forward builds the graph (the
+        reference's ``Block.__call__`` on a Symbol)."""
+        return self.forward(*args, **kwargs)
 
     def _finish_deferred(self, *args):
         """Resolve this block's deferred shapes from its inputs and run
@@ -287,6 +416,45 @@ class Block(nn.Module):
     def hybridize(self, active=True, **kwargs):
         for child in self._children.values():
             child.hybridize(active, **kwargs)
+
+    def summary(self, *inputs):
+        """Print each block's class, output shape and own parameter
+        count for one forward on ``inputs``, and the total (reference
+        ``block.py:308``)."""
+        import math
+
+        summary = OrderedDict()
+        hooks = []
+
+        def _register(block, prefix):
+            def _hook(blk, ins, outs):
+                out0 = outs[0] if isinstance(outs, (list, tuple)) else outs
+                n_params = sum(math.prod(p.shape)
+                               for p in blk._reg_params.values()
+                               if p._shape_known())
+                summary[prefix or blk.name] = (
+                    blk.__class__.__name__, getattr(out0, "shape", None),
+                    n_params)
+
+            hooks.append(block.register_forward_hook(_hook))
+            for cname, child in block._children.items():
+                _register(child, (prefix + "." if prefix else "") + cname)
+
+        _register(self, "")
+        try:
+            self(*inputs)
+        finally:
+            for h in hooks:
+                h.detach()
+        lines = [f"{'Layer':<40}{'Output Shape':<24}{'Param #':<12}",
+                 "=" * 76]
+        total = 0
+        for name, (cls, shape, n) in summary.items():
+            lines.append(f"{cls + ' (' + name + ')':<40}{str(shape):<24}"
+                         f"{n:<12}")
+            total += n
+        lines += ["=" * 76, f"Total params: {total}"]
+        print("\n".join(lines))
 
     def _collect_params_with_prefix(self, prefix=""):
         """``{structural name: Parameter}``: each parameter under the
@@ -351,19 +519,328 @@ class Block(nn.Module):
                                  f"{tuple(src.shape)} in '{filename}', "
                                  f"{param.shape} here")
             param._load(src)
+        self._clear_cached_ops()
 
 
 class HybridBlock(Block):
-    """A Block the reference can compile (``hybridize``); the port runs
-    it eagerly."""
+    """A Block the reference can compile: ``hybridize`` gives it a
+    shape-keyed cache (the reference's CachedOp, ``mxnet_tpu/gluon/
+    block.py:365-729``), captured as CUDA graphs with both static flags
+    on a CUDA device; called on a Symbol it builds the reference's
+    graph, which ``export`` writes."""
+
+    def __init__(self, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._active = False
+        self._flags = {}
+        self._clear_cached_op()
+
+    def __setattr__(self, name, value):
+        super().__setattr__(name, value)
+        if isinstance(value, HybridBlock):
+            self._clear_cached_op()
+
+    def register_child(self, block, name=None):
+        super().register_child(block, name)
+        self._clear_cached_op()
+
+    def hybridize(self, active=True, static_alloc=False, static_shape=False,
+                  **kwargs):
+        """Turn the cache on (``active``) with the reference's flags
+        (``block.py:386-396``): with ``static_alloc`` and
+        ``static_shape`` both set, a call on a CUDA device replays CUDA
+        graphs; else each entry runs op by op.  Clears the cache of the
+        block and of its children."""
+        self._active = active
+        self._flags = dict(static_alloc=static_alloc,
+                           static_shape=static_shape, **kwargs)
+        self._clear_cached_op()
+        for child in self._children.values():
+            if isinstance(child, HybridBlock):
+                child._clear_cached_op()
+
+    def _clear_cached_op(self):
+        """Drop every cache entry (their graphs and memory pools)."""
+        self._cached_op = OrderedDict()
+
+    def cast(self, dtype):
+        self._clear_cached_op()
+        super().cast(dtype)
 
     def infer_shape(self, *args):
         """Resolve every deferred shape of the subtree from example
         inputs: one forward under ``autograd.pause()`` (no layer trains,
-        no running statistic moves)."""
-        with autograd.pause():
-            self(*(NDArray(a) if isinstance(a, torch.Tensor) else a
-                   for a in args))
+        no running statistic moves, no hook fires)."""
+        self._infer_and_init(tuple(NDArray(a) if isinstance(a, torch.Tensor)
+                                   else a for a in args), {})
+
+    def _infer_and_init(self, args, kwargs):
+        """The reference's ``_infer_and_init`` (``block.py:433-456``): one
+        eager pass, hooks off, that resolves the deferred shapes of the
+        whole subtree and runs their recorded initialization."""
+        with _hooks_off(), autograd.pause():
+            if self._deferred_pending:
+                self._finish_deferred(*args)
+            self._call_ndarray(args, kwargs)
+
+    # ------------------------------------------------------------ cache
+    def _static(self):
+        """Whether ``hybridize`` asked for ``static_alloc`` and
+        ``static_shape``."""
+        return self._active and bool(self._flags.get("static_alloc")) \
+            and bool(self._flags.get("static_shape"))
+
+    def _call_nd(self, args, kwargs):
+        if not self._active:
+            return super()._call_nd(args, kwargs)
+        return self._call_cached(args, kwargs)
+
+    def _call_tensors(self, args, kwargs):
+        """On tensors, a block hybridized with both static flags runs its
+        cache as on NDArrays (called by a plain parent Block, as upstream
+        gives such a child a CachedOp of its own), in the mode and
+        recording state of the tensor call; inside another program
+        (:func:`_in_program`) its ops are that program's."""
+        if not self._static() or _in_program():
+            return super()._call_tensors(args, kwargs)
+        with autograd._Scope(torch.is_grad_enabled(), self.training):
+            return _unwrap(self._call_cached(_to_ndarray(args), kwargs))
+
+    def _call_cached(self, args, kwargs):
+        """The cached call (reference ``_call_cached``, ``block.py:531``):
+        the entry of this call's signature, made on first use, runs the
+        call.  A captured entry whose parameters or buffers were replaced
+        since its capture is dropped first.  The block's own deferred
+        shapes resolve first, as the eager call resolves them; before a
+        capture, one internal pass resolves those of the subtree."""
+        if self._deferred_pending:
+            self._finish_deferred(*args)
+        leaves = _leaves(args)
+        sig = (tuple((tuple(a.shape), str(a._data.dtype),
+                      str(a._data.device), a._data.requires_grad)
+                     if isinstance(a, NDArray) else ("#py", repr(a))
+                     for a in leaves),
+               tuple(sorted((k, repr(v)) for k, v in kwargs.items())),
+               autograd.is_training(), autograd.is_recording())
+        entry = self._cached_op.get(sig)
+        if entry is not None and not entry.valid(self):
+            del self._cached_op[sig]
+            entry = None
+        with _program():
+            if entry is None:
+                first = next((a._data for a in leaves
+                              if isinstance(a, NDArray)), None)
+                if self._static() and first is not None and first.is_cuda:
+                    if any(p._tensor() is None
+                           for p in _collect_all_params(self)):
+                        self._infer_and_init(args, kwargs)
+                    entry = _GraphEntry(self, sig[-1])
+                else:
+                    entry = _EagerEntry()
+            out = entry(self, args, kwargs)
+        # stored once its first call (a capture) succeeded
+        self._cached_op[sig] = entry
+        return out
+
+    # --------------------------------------------------------- symbolic
+    def _call_symbol(self, *args, **kwargs):
+        """The reference's symbolic trace (``block.py:410-418``): each
+        registered parameter as ``param.var()``, then
+        ``hybrid_forward(mx.sym, ...)``."""
+        from .. import symbol as F
+
+        params = {k: p.var() for k, p in self._reg_params.items()}
+        return self.hybrid_forward(F, *args, **kwargs, **params)
+
+    def hybrid_forward(self, F, x, *args, **kwargs):
+        """The block's symbolic form with ``F = mx.sym`` (a layer writes
+        the reference's ``hybrid_forward`` here).  By default a block
+        without parameters of its own runs ``forward``, whose children
+        take the Symbols."""
+        if kwargs:
+            raise NotImplementedError(
+                f"{type(self).__name__} has parameters and no "
+                "hybrid_forward: it cannot be traced")
+        return self.forward(x, *args)
+
+    def export(self, path, epoch=0):
+        """Write ``path-symbol.json`` and ``path-{epoch:04d}.params``
+        (reference ``block.py:706-729``): the graph of a symbolic trace
+        on ``var("data")``, and every parameter under ``arg:``/``aux:``
+        as the graph classifies it (a frozen weight stays ``arg:``).
+        Returns the symbol."""
+        from .. import symbol as sym
+        from ..ndarray.ndarray import save
+
+        out = self(sym.var("data"))
+        if isinstance(out, (list, tuple)):
+            out = sym.Group(list(out))
+        out.save(f"{path}-symbol.json")
+        aux_names = set(out.list_auxiliary_states())
+        save(f"{path}-{epoch:04d}.params",
+             {f"{'aux' if name in aux_names else 'arg'}:{name}": p.data()
+              for name, p in self.collect_params().items()})
+        return out
+
+
+class _EagerEntry:
+    """A cache entry run op by op: plain ``hybridize()``, or the static
+    flags off a CUDA device.  It reads the parameters as the eager call
+    does, so it is never stale."""
+
+    graphed = False
+
+    def __init__(self):
+        self.calls = 0
+
+    def valid(self, block):
+        return True
+
+    def __call__(self, block, args, kwargs):
+        self.calls += 1
+        return block._call_ndarray(args, kwargs)
+
+
+class _GraphEntry:
+    """A cache entry captured as CUDA graphs (``gluon/_graph.py``): the
+    forward alone, or, for a call that records, the forward and its
+    backward as one tape node.
+
+    A recording program holds one replay's activations until that
+    replay's backward runs or its outputs are dropped.  A call made
+    while every program is so held (a block called twice inside one
+    ``record()``, as a GAN's discriminator or a siamese net is) captures
+    another program on its own pool, as upstream's static CachedOp hands
+    out a fresh state while one is held; ``programs`` lists them."""
+
+    graphed = True
+
+    def __init__(self, block, record):
+        self.calls = 0
+        self._record = record
+        self._params = _collect_all_params(block)
+        for p in self._params:
+            p._check_init()
+        self._addresses = [(weakref.ref(t), t.data_ptr())
+                           for t in _tensors_of(block)]
+        self._ospec = None
+        self.programs = []
+
+    def valid(self, block):
+        """Whether every parameter and buffer the graphs read is still
+        the block's, at the same address."""
+        current = _tensors_of(block)
+        return len(current) == len(self._addresses) and all(
+            ref() is c and c.data_ptr() == ptr
+            for (ref, ptr), c in zip(self._addresses, current))
+
+    def _program(self, block, args, kwargs):
+        """A program whose pool is free for this call, captured on first
+        need."""
+        from ._graph import GraphProgram
+
+        for prog in self.programs:
+            if not prog.held():
+                return prog
+        trained = [t for t in block.parameters() if t.requires_grad] \
+            if self._record else []
+
+        def fn(aliases, *flat):
+            with _swapped(block, {id(t): a for t, a in zip(trained,
+                                                            aliases)}):
+                out = nn.Module.__call__(block, *_rebuild(args, iter(flat)),
+                                         **kwargs)
+            outs, self._ospec = _flatten_out(out)
+            return outs
+
+        with _hooks_off(), block._imperative():
+            prog = GraphProgram(fn, _tensors(args), trained,
+                                list(block.buffers()), self._record,
+                                block.name)
+        self.programs.append(prog)
+        return prog
+
+    def __call__(self, block, args, kwargs):
+        prog = self._program(block, args, kwargs)
+        self.calls += 1
+        for p in self._params:
+            p._wrap()  # its array is a variable backward writes
+        with torch.set_grad_enabled(autograd.is_recording()):
+            outs = prog(_tensors(args))
+        return _to_ndarray(_unflatten_out(iter(outs), self._ospec))
+
+
+@contextlib.contextmanager
+def _swapped(block, alias_of):
+    """Every parameter slot of the subtree that holds a tensor of
+    ``alias_of`` (``{id(tensor): alias}``) holds its alias inside the
+    scope, shared slots included."""
+    saved = []
+    for m in block.modules():
+        for k, t in m._parameters.items():
+            if t is not None and id(t) in alias_of:
+                saved.append((m, k, t))
+                m._parameters[k] = alias_of[id(t)]
+    try:
+        yield
+    finally:
+        for m, k, t in saved:
+            m._parameters[k] = t
+
+
+def _tensors_of(block):
+    return list(itertools.chain(block.parameters(), block.buffers()))
+
+
+def _tensors(args):
+    """The tensors of the NDArrays of ``args`` (nested), in order."""
+    return [a._data for a in _leaves(args) if isinstance(a, NDArray)]
+
+
+def _leaves(x):
+    """The NDArrays and other values of ``x`` (nested in lists and
+    tuples), in order."""
+    if isinstance(x, (list, tuple)):
+        return [leaf for a in x for leaf in _leaves(a)]
+    return [x]
+
+
+def _rebuild(x, tensors):
+    """``x`` with each NDArray replaced by the next of ``tensors``."""
+    if isinstance(x, NDArray):
+        return next(tensors)
+    if isinstance(x, (list, tuple)):
+        return type(x)(_rebuild(a, tensors) for a in x)
+    return x
+
+
+def _flatten_out(out):
+    """``(tensors, spec)`` of a block's output (nested tuples/lists)."""
+    if isinstance(out, torch.Tensor):
+        return [out], None
+    if isinstance(out, (list, tuple)):
+        flat, specs = [], []
+        for o in out:
+            f, sp = _flatten_out(o)
+            flat += f
+            specs.append((len(f), sp))
+        return flat, (type(out), specs)
+    raise MXNetError(f"a graphed block returns tensors, not "
+                     f"{type(out).__name__}")
+
+
+def _unflatten_out(outs, spec):
+    if spec is None:
+        return next(outs)
+    kind, specs = spec
+    return kind(_unflatten_out(outs, sp) for _, sp in specs)
+
+
+def _has_symbol(x):
+    """Whether ``x`` is, or nests in lists and tuples, a Symbol."""
+    if isinstance(x, (list, tuple)):
+        return any(_has_symbol(a) for a in x)
+    return isinstance(x, Symbol)
 
 
 def _has_ndarray(x):
@@ -418,3 +895,70 @@ def _collect_all_params(block):
     for child in block._children.values():
         result.extend(_collect_all_params(child))
     return result
+
+
+class SymbolBlock(HybridBlock):
+    """A block that runs a Symbol graph (reference ``block.py:754-799``).
+
+    Every graph input that is not one of ``inputs`` becomes a Parameter
+    named as the graph names it; an auxiliary one (BatchNorm's moving
+    statistics) takes ``grad_req="null"`` and is not differentiable.
+    ``forward`` evaluates the graph with the port's ops on the device of
+    the parameters (``symbol/executor.py``).  Outside
+    ``autograd.record()`` the graph predicts, as the reference's does;
+    inside it, unlike the reference's (ROADMAP §C), the call is taped, so
+    the gradients reach the parameters, and it trains exactly when
+    ``autograd.is_training()``, as the port's layers do."""
+
+    def __init__(self, outputs, inputs, params=None):
+        super().__init__(prefix="", params=params)
+        if isinstance(inputs, Symbol):
+            inputs = [inputs]
+        if isinstance(outputs, (list, tuple)):
+            from ..symbol.symbol import Group
+
+            outputs = Group(list(outputs))
+        self._outputs = outputs
+        self._inputs = list(inputs)
+        input_names = {s.name for s in self._inputs}
+        aux = set(outputs.list_auxiliary_states())
+        self._param_attrs = OrderedDict()  # graph name -> attribute
+        for name in outputs.list_inputs():
+            if name in input_names or name in self._param_attrs:
+                continue
+            param = self.params.get(
+                name, grad_req="null" if name in aux else "write",
+                allow_deferred_init=True, differentiable=name not in aux)
+            attr = name if name.isidentifier() and not hasattr(self, name) \
+                else f"param{len(self._param_attrs)}"
+            setattr(self, attr, param)
+            self._param_attrs[name] = attr
+
+    @staticmethod
+    def imports(symbol_file, input_names, param_file=None, ctx=None):
+        """A SymbolBlock of ``symbol_file``'s graph with ``input_names``
+        as its data inputs, its parameters loaded from ``param_file``
+        (``arg:``/``aux:`` keys) onto ``ctx`` (default: the current
+        context)."""
+        from ..symbol.symbol import load, var
+
+        if isinstance(input_names, str):
+            input_names = [input_names]
+        ret = SymbolBlock(load(symbol_file), [var(n) for n in input_names])
+        if param_file is not None:
+            ret.collect_params().initialize(ctx=ctx)  # deferred: the device
+            ret.load_parameters(param_file)
+        return ret
+
+    def forward(self, *args):
+        from ..symbol.executor import _eval_graph
+
+        value_of = {s.name: a for s, a in zip(self._inputs, args)}
+        for name, attr in self._param_attrs.items():
+            value_of[name] = getattr(self, attr)
+        outs, aux_updates = _eval_graph(self._outputs, value_of,
+                                        self.training, args[0].device)
+        with torch.no_grad():
+            for name, value in aux_updates.items():
+                getattr(self, self._param_attrs[name]).copy_(value)
+        return outs[0] if len(outs) == 1 else outs

@@ -28,6 +28,11 @@ class _DenseLayer(HybridBlock):
     def forward(self, x):
         return concat([x, self.body(x)])
 
+    def hybrid_forward(self, F, x):
+        # reference densenet.py:27-29
+        out = self.body(x)
+        return F.concat(x, out, dim=1)
+
 
 def _make_dense_block(num_layers, bn_size, growth_rate, dropout,
                       stage_index):

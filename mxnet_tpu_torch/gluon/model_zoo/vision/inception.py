@@ -29,6 +29,10 @@ class _Branches(HybridBlock):
     def forward(self, x):
         return concat([b(x) for b in self._children.values()])
 
+    def hybrid_forward(self, F, x):
+        # reference inception.py:27-28
+        return F.concat(*[b(x) for b in self._children.values()], dim=1)
+
 
 def _make_branch(use_pool, *conv_settings):
     out = nn.HybridSequential(prefix="")
@@ -102,6 +106,11 @@ class _SplitConcat(HybridBlock):
     def forward(self, x):
         y = self.head(x) if self.head is not None else x
         return concat([t(y) for t in self._tails])
+
+    def hybrid_forward(self, F, x):
+        # reference inception.py:102-104
+        y = self.head(x) if self.head is not None else x
+        return F.concat(*[t(y) for t in self._tails], dim=1)
 
 
 def _make_E(prefix):

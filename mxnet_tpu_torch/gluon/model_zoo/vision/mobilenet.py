@@ -21,6 +21,11 @@ class RELU6(HybridBlock):
     def forward(self, x):
         return clip(x, a_min=0, a_max=6)
 
+    def hybrid_forward(self, F, x):
+        # reference mobilenet.py:17-18 passes the bounds positionally,
+        # which its symbolic trace rejects (ROADMAP §C): named here
+        return F.clip(x, a_min=0, a_max=6)
+
 
 def _add_conv(out, channels=1, kernel=1, stride=1, pad=0, num_group=1,
               active=True, relu6=False):

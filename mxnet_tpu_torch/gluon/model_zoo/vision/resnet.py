@@ -66,6 +66,14 @@ class BasicBlockV1(HybridBlock):
             residual = self.downsample(residual)
         return (residual + x).relu()
 
+    def hybrid_forward(self, F, x):
+        # reference resnet.py:59-64
+        residual = x
+        x = self.body(x)
+        if self.downsample is not None:
+            residual = self.downsample(residual)
+        return F.Activation(residual + x, act_type="relu")
+
 
 class BottleneckV1(HybridBlock):
     # The reference zoo leaves biases on the two 1x1 body convs;
@@ -151,6 +159,15 @@ class BottleneckV1(HybridBlock):
             residual = self.downsample(residual)
         return (x + residual).relu()
 
+    def hybrid_forward(self, F, x):
+        # reference resnet.py:148-166: the graph is the layer graph, the
+        # fused tail being taken only off the symbolic path (:151)
+        residual = x
+        x = self.body(x)
+        if self.downsample is not None:
+            residual = self.downsample(residual)
+        return F.Activation(x + residual, act_type="relu")
+
 
 class BasicBlockV2(HybridBlock):
     # pre-activation: bn -> relu -> conv, twice; the projection shortcut
@@ -176,6 +193,19 @@ class BasicBlockV2(HybridBlock):
             residual = self.downsample(x)
         x = self.conv1(x)
         x = self.bn2(x).relu()
+        x = self.conv2(x)
+        return x + residual
+
+    def hybrid_forward(self, F, x):
+        # reference resnet.py:186-196
+        residual = x
+        x = self.bn1(x)
+        x = F.Activation(x, act_type="relu")
+        if self.downsample is not None:
+            residual = self.downsample(x)
+        x = self.conv1(x)
+        x = self.bn2(x)
+        x = F.Activation(x, act_type="relu")
         x = self.conv2(x)
         return x + residual
 
@@ -210,6 +240,22 @@ class BottleneckV2(HybridBlock):
         x = self.bn2(x).relu()
         x = self.conv2(x)
         x = self.bn3(x).relu()
+        x = self.conv3(x)
+        return x + residual
+
+    def hybrid_forward(self, F, x):
+        # reference resnet.py:219-232
+        residual = x
+        x = self.bn1(x)
+        x = F.Activation(x, act_type="relu")
+        if self.downsample is not None:
+            residual = self.downsample(x)
+        x = self.conv1(x)
+        x = self.bn2(x)
+        x = F.Activation(x, act_type="relu")
+        x = self.conv2(x)
+        x = self.bn3(x)
+        x = F.Activation(x, act_type="relu")
         x = self.conv3(x)
         return x + residual
 

@@ -35,6 +35,10 @@ class _FireExpand(HybridBlock):
     def forward(self, x):
         return concat([self.p1(x), self.p3(x)])
 
+    def hybrid_forward(self, F, x):
+        # reference squeezenet.py
+        return F.concat(self.p1(x), self.p3(x), dim=1)
+
 
 class SqueezeNet(HybridBlock):
     def __init__(self, version, classes=1000, **kwargs):

@@ -19,5 +19,9 @@ class Activation(HybridBlock):
     def forward(self, x):
         return activation(x, act_type=self._act_type)
 
+    def hybrid_forward(self, F, x):
+        # reference activations.py:19-20
+        return F.Activation(x, act_type=self._act_type)
+
     def extra_repr(self):
         return self._act_type

@@ -91,6 +91,17 @@ class Dense(HybridBlock):
                               num_hidden=self._units, flatten=self._flatten)
         return self.act(out) if self.act is not None else out
 
+    def hybrid_forward(self, F, x, weight, bias=None):
+        # reference basic_layers.py:139-146; without a bias the weight is
+        # the last input (the reference passes None there and cannot be
+        # traced, ROADMAP §C)
+        args = (x, weight) if bias is None else (x, weight, bias)
+        out = F.FullyConnected(*args, no_bias=bias is None,
+                               num_hidden=self._units, flatten=self._flatten)
+        if self.act is not None:
+            out = self.act(out)
+        return out
+
 
 class Dropout(HybridBlock):
     """Dropout of ``rate`` (reference ``basic_layers.py:159``): active
@@ -108,6 +119,12 @@ class Dropout(HybridBlock):
         if self._rate <= 0:
             return x
         return dropout(x, p=self._rate, axes=self._axes, train=self.training)
+
+    def hybrid_forward(self, F, x):
+        # reference basic_layers.py:165-168
+        if self._rate <= 0:
+            return x
+        return F.Dropout(x, p=self._rate, axes=self._axes)
 
     def __repr__(self):
         return f"Dropout(p = {self._rate}, axes={self._axes})"
@@ -190,6 +207,16 @@ class BatchNorm(HybridBlock):
         return batch_norm(x, self.gamma, self.beta, self.running_mean,
                           self.running_var, **self._kwargs)
 
+    def hybrid_forward(self, F, x, gamma, beta, running_mean, running_var):
+        # reference basic_layers.py:222-244, predicting (a trace is not
+        # recorded); the attributes in the reference's order
+        kw = self._kwargs
+        return F.BatchNorm(x, gamma, beta, running_mean, running_var,
+                           axis=kw["axis"], eps=kw["eps"],
+                           momentum=self._momentum,
+                           fix_gamma=kw["fix_gamma"],
+                           use_global_stats=kw["use_global_stats"])
+
 
 class Embedding(HybridBlock):
     """Rows of a ``(input_dim, output_dim)`` weight looked up by index
@@ -211,6 +238,11 @@ class Embedding(HybridBlock):
         return embedding(x, self.weight, input_dim=self._input_dim,
                          output_dim=self._output_dim, dtype=self._dtype)
 
+    def hybrid_forward(self, F, x, weight):
+        # reference basic_layers.py:364-368
+        return F.Embedding(x, weight, input_dim=self._input_dim,
+                           output_dim=self._output_dim, dtype=self._dtype)
+
     def __repr__(self):
         return (f"Embedding({self._input_dim} -> {self._output_dim}, "
                 f"{self._dtype})")
@@ -219,6 +251,10 @@ class Embedding(HybridBlock):
 class Flatten(HybridBlock):
     def forward(self, x):
         return x.reshape(x.shape[0], -1)
+
+    def hybrid_forward(self, F, x):
+        # reference basic_layers.py:375-376
+        return F.Flatten(x)
 
 
 def _function(function):
@@ -250,10 +286,19 @@ class Lambda(Block):
 
     def __init__(self, function, prefix=None):
         super().__init__(prefix=prefix)
+        self._function = function
         self._func_impl, self._func_name = _function(function)
 
     def forward(self, *args):
         return _on_ndarrays(self._func_impl, self, args)
+
+    def _call_symbol(self, *args, **kwargs):
+        # a named function from mx.sym, or the function itself on Symbols
+        from ... import symbol as F
+
+        fn = getattr(F, self._function) if isinstance(self._function, str) \
+            else self._function
+        return fn(*args, **kwargs)
 
     def __repr__(self):
         return f"Lambda({self._func_name})"
@@ -269,11 +314,18 @@ class HybridLambda(HybridBlock):
         from ... import ndarray as nd
 
         impl, self._func_name = _function(function)
+        self._function = function
         self._func = impl if isinstance(function, str) else \
             (lambda *args: impl(nd, *args))
 
     def forward(self, x, *args):
         return _on_ndarrays(self._func, self, (x,) + args)
+
+    def hybrid_forward(self, F, x, *args):
+        # reference basic_layers.py:411-433
+        if isinstance(self._function, str):
+            return getattr(F, self._function)(x, *args)
+        return self._function(F, x, *args)
 
     def __repr__(self):
         return f"HybridLambda({self._func_name})"

@@ -66,6 +66,16 @@ class _Conv(HybridBlock):
         out = convolution(x, self.weight, self.bias, **self._kwargs)
         return self.act(out) if self.act is not None else out
 
+    def hybrid_forward(self, F, x, weight, bias=None):
+        # reference conv_layers.py:113-120
+        if bias is None:
+            out = F.Convolution(x, weight, **self._kwargs)
+        else:
+            out = F.Convolution(x, weight, bias, **self._kwargs)
+        if self.act is not None:
+            out = self.act(out)
+        return out
+
 
 class Conv2D(_Conv):
     def __init__(self, channels, kernel_size, strides=(1, 1), padding=(0, 0),
@@ -102,6 +112,10 @@ class _Pooling(HybridBlock):
     def forward(self, x):
         return pooling(x, **self._kwargs)
 
+    def hybrid_forward(self, F, x):
+        # reference conv_layers.py:262-263
+        return F.Pooling(x, **self._kwargs)
+
 
 class MaxPool2D(_Pooling):
     def __init__(self, pool_size=(2, 2), strides=None, padding=0,
@@ -121,5 +135,6 @@ class AvgPool2D(_Pooling):
 
 class GlobalAvgPool2D(_Pooling):
     def __init__(self, layout=None, **kwargs):
-        super().__init__((1, 1), None, 0, False, True, "avg", layout,
+        # ceil_mode True, as the reference's (the graph's attribute)
+        super().__init__((1, 1), None, 0, True, True, "avg", layout,
                          **kwargs)

@@ -35,7 +35,8 @@ from ..context import current_context, resolve_device
 from ..dtype import normalize_dtype
 from ..ndarray.ndarray import NDArray
 
-__all__ = ["DeferredInitializationError", "Parameter", "ParameterDict"]
+__all__ = ["DeferredInitializationError", "Parameter", "Constant",
+           "ParameterDict"]
 
 
 class DeferredInitializationError(MXNetError):
@@ -182,7 +183,9 @@ class Parameter:
 
     def _register(self, t):
         """Make ``t`` the parameter's tensor: an ``nn.Parameter`` on the
-        block when trained, else a buffer."""
+        block when trained, else a buffer.  The blocks it is registered
+        on clear their caches; an ancestor's captured entry, which reads
+        the old tensor by address, is dropped at its next call."""
         self._nd = None
         if self._block is None:
             self._own = t.requires_grad_(self._grad_req != "null") \
@@ -192,6 +195,9 @@ class Parameter:
             t = nn.Parameter(t)
         for blk, attr in [(self._block, self._attr)] + self._aliases:
             self._register_on(blk, attr, t)
+            clear = getattr(blk, "_clear_cached_op", None)
+            if clear is not None:
+                clear()
 
     def _register_on(self, blk, attr, t):
         """``t`` as ``blk``'s parameter (or buffer) ``attr``; None: an
@@ -325,6 +331,42 @@ class Parameter:
     def list_data(self):
         return [self.data()]
 
+    def list_grad(self):
+        """``[grad()]``: the gradient buffer of each device (one)."""
+        return [self.grad()]
+
+    def list_ctx(self):
+        """The contexts the parameter lives on (one), or, while its shape
+        is deferred, the one ``initialize`` recorded (reference
+        ``parameter.py:199``)."""
+        from ..context import from_torch_device
+
+        if self._tensor() is None and self._deferred_init is not None:
+            return [from_torch_device(self._deferred_init[1])]
+        self._check_init()
+        return [from_torch_device(self._tensor().device)]
+
+    def reset_ctx(self, ctx):
+        """Move the parameter to ``ctx``, its value unchanged (the
+        reference keeps one logical copy and does nothing); a deferred
+        parameter is initialized there later."""
+        device = _device_of(ctx)
+        if self._tensor() is None:
+            if self._deferred_init is not None:
+                self._deferred_init = (self._deferred_init[0], device,
+                                       *self._deferred_init[2:])
+            return
+        if self._tensor().device != device:
+            self._place(self._tensor().detach(), device)
+
+    def var(self):
+        """The parameter as a Symbol variable with its shape, dtype and
+        multipliers (reference ``parameter.py:246``)."""
+        from ..symbol.symbol import var
+
+        return var(self.name, shape=self.shape, dtype=self.dtype,
+                   lr_mult=self.lr_mult, wd_mult=self.wd_mult)
+
     def grad(self, ctx=None):
         """The NDArray that ``backward`` writes the gradient into."""
         arr = self.data()
@@ -368,6 +410,28 @@ class Parameter:
                f"dtype={self.dtype})"
 
 
+class Constant(Parameter):
+    """A parameter that holds a constant and takes no gradient
+    (reference ``parameter.py:260``)."""
+
+    def __init__(self, name, value):
+        if isinstance(value, NDArray):
+            value = value._data
+        value = torch.as_tensor(onp.asarray(value)
+                                if not isinstance(value, torch.Tensor)
+                                else value).detach().cpu()
+        self.value = NDArray(value)
+        const = value
+
+        class _CInit(init_mod.Initializer):
+            def __call__(self, desc, shape, generator=None):
+                return const.clone()
+
+        super().__init__(name, grad_req="null", shape=tuple(value.shape),
+                         dtype=str(value.dtype).replace("torch.", ""),
+                         init=_CInit(), differentiable=False)
+
+
 class ParameterDict:
     """Prefix-scoped ordered dict of :class:`Parameter` (reference
     ``ParameterDict``)."""
@@ -407,6 +471,22 @@ class ParameterDict:
         lines += [f"  {v!r}" for v in self._params.values()]
         lines.append(")")
         return "\n".join(lines)
+
+    def get_constant(self, name, value=None):
+        """Get or create the :class:`Constant` ``prefix + name``
+        (reference ``parameter.py:353``)."""
+        name = self._prefix + name
+        param = self._params.get(name)
+        if param is None and self._shared is not None:
+            param = self._shared._params.get(name)
+            if param is not None:
+                self._params[name] = param
+        if param is None:
+            if value is None:
+                raise MXNetError(f"No constant named '{name}'. Please "
+                                 "specify value.")
+            param = self._params[name] = Constant(name, value)
+        return param
 
     def get(self, name, **kwargs):
         """Get or create the parameter ``prefix + name`` (found in the
@@ -455,3 +535,57 @@ class ParameterDict:
     def setattr(self, name, value):
         for v in self.values():
             setattr(v, name, value)
+
+    def reset_ctx(self, ctx):
+        """Move every parameter to ``ctx``."""
+        for v in self.values():
+            v.reset_ctx(ctx)
+
+    def save(self, filename, strip_prefix=""):
+        """Write every parameter to a ``.params`` file keyed by its full
+        name less ``strip_prefix`` (reference ``parameter.py:393``)."""
+        from ..ndarray.ndarray import save
+
+        arg_dict = {}
+        for param in self.values():
+            if not param.name.startswith(strip_prefix):
+                raise MXNetError(
+                    f"Prefix '{strip_prefix}' is to be stripped before "
+                    f"saving, but Parameter's name '{param.name}' does "
+                    "not start with it")
+            arg_dict[param.name[len(strip_prefix):]] = param.data()
+        save(filename, arg_dict)
+
+    def load(self, filename, ctx=None, allow_missing=False,
+             ignore_extra=False, restore_prefix=""):
+        """Load a ``.params`` file keyed by full name (less
+        ``restore_prefix``; ``arg:``/``aux:`` dropped) into the
+        parameters, each cast to its dtype; a parameter not initialized
+        yet is initialized on ``ctx`` (reference ``parameter.py:407``)."""
+        from ..context import cpu
+        from ..ndarray.ndarray import load
+
+        loaded = load(filename, ctx=cpu())
+        if not isinstance(loaded, dict):
+            raise MXNetError(f"{filename} holds no parameter names")
+        arg_dict = {restore_prefix + (k.split(":", 1)[1]
+                                      if k.startswith(("arg:", "aux:"))
+                                      else k): v
+                    for k, v in loaded.items()}
+        if not allow_missing:
+            for name in self.keys():
+                if name not in arg_dict:
+                    raise MXNetError(f"Parameter '{name}' is missing in "
+                                     f"file '{filename}'")
+        for name, arr in arg_dict.items():
+            if name not in self._params:
+                if not ignore_extra:
+                    raise MXNetError(
+                        f"Parameter '{name}' loaded from file "
+                        f"'{filename}' is not present in this ParameterDict")
+                continue
+            param = self._params[name]
+            if not param._initialized and param._deferred_init is None:
+                param.shape = tuple(arr.shape)
+                param.initialize(ctx=ctx)
+            param._load(arr._data)

@@ -18,7 +18,18 @@ and through the imperative Gluon loop (``gluon.Trainer``), whose LeNet
 step on the card is held against the host's.  Indices out of range
 (pick, Embedding, gather_nd) give the host's values on the card and
 leave its context alive; Dropout's masks follow the step's key there.
+A block hybridized with both static flags replays CUDA graphs: three
+graphed steps equal eager's bit for bit, the fused backward runs inside
+the replayed backward with the arm in force at capture, held outputs
+and gradients survive later replays, a block called twice in one
+``record()`` captures a second program and gives eager's gradients, a
+static child of a plain Block replays graphs of its own (held to eager
+at 1e-6), a replayed Dropout draws as eager does, a block that syncs
+with the host raises, and an export on the card writes a host export's
+bytes.
 """
+import contextlib
+
 import numpy as onp
 import pytest
 import torch
@@ -1212,3 +1223,337 @@ def test_targets_and_detection_make_no_host_sync(card):
         with host_syncs() as hs:
             fn()
         assert hs.count == 0
+
+
+# ------------------------------------------- hybridize as CUDA graphs
+def _tiny_resnet(seed=0):
+    """A channel-last bottleneck ResNetV1 in bf16 (deferred stem), as
+    ``GLUON_RESNET`` builds it, at a few channels: 4 fused tails."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon import nn
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet
+
+    with nn.default_layout("NHWC"):
+        net = resnet.ResNetV1(resnet.BottleneckV1, [1, 1, 1, 1],
+                              [8, 16, 32, 64, 128], classes=10,
+                              no_bias=True, in_channels=0, prefix="net_")
+    net.initialize(mx.init.Xavier(), ctx=mx.gpu(0),
+                   generator=torch.Generator().manual_seed(seed))
+    net.cast("bfloat16")
+    return net
+
+
+def _tiny_batch(seed=0, n=8):
+    import mxnet_tpu_torch as mx
+
+    rng = onp.random.RandomState(seed)
+    x = mx.nd.array(rng.randn(n, 64, 64, 3).astype("float32"),
+                    ctx=mx.gpu(0), dtype="bfloat16")
+    y = mx.nd.array(rng.randint(0, 10, n).astype("int32"), ctx=mx.gpu(0))
+    return x, y
+
+
+def _train_tiny(hybrid, steps=3, seed=0):
+    """``steps`` Gluon steps of the tiny ResNet, the fused tail's kernel
+    forced, cuDNN deterministic: the losses and the parameters after."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autotune, gluon
+
+    net = _tiny_resnet(seed)
+    if hybrid:
+        net.hybridize(static_alloc=True, static_shape=True)
+    trainer = gluon.Trainer(net.collect_params(), "sgd", {
+        "learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4,
+        "multi_precision": True})
+    x, y = _tiny_batch(seed)
+    losses = []
+    with autotune.force(pallas_bnreluconv="pallas"):
+        for _ in range(steps):
+            losses.append(_gluon_step(net, trainer, x, y)._data.clone())
+    torch.cuda.synchronize()
+    return net, losses, {n: p.data()._data.clone() for n, p in
+                         net.collect_params().items()}
+
+
+@pytest.fixture
+def deterministic():
+    prev = (torch.backends.cudnn.deterministic,
+            torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    yield
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = prev
+
+
+def test_graphed_steps_equal_eager(card, deterministic):
+    """Three Gluon steps through CUDA-graph replays equal three eager
+    steps from the same weights, bit for bit: losses, every parameter
+    and running statistic.  One cache entry, captured once."""
+    from mxnet_tpu_torch.gluon import _graph
+
+    before = _graph.captures
+    _, eager_losses, eager_params = _train_tiny(False)
+    net, losses, params = _train_tiny(True)
+    assert _graph.captures - before == 1
+    entries = list(net._cached_op.values())
+    assert len(entries) == 1 and entries[0].graphed \
+        and entries[0].calls == 3
+    for a, b in zip(losses, eager_losses):
+        assert torch.equal(a, b)
+    for n in eager_params:
+        assert torch.equal(params[n], eager_params[n]), n
+
+
+def test_fused_backward_runs_inside_the_replay(card):
+    """The fused tail's backward kernel is launched from the captured
+    backward graph: once per bottleneck in a replayed step, by kernel
+    name, and the wrapper is not called again."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autotune, gluon
+    from mxnet_tpu_torch.ops import pallas_conv as pc
+
+    net = _tiny_resnet()
+    net.hybridize(static_alloc=True, static_shape=True)
+    trainer = gluon.Trainer(net.collect_params(), "sgd",
+                            {"learning_rate": 0.1, "multi_precision": True})
+    x, y = _tiny_batch()
+    with autotune.force(pallas_bnreluconv="pallas"):
+        _gluon_step(net, trainer, x, y)  # warm-up and capture
+        torch.cuda.synchronize()
+        calls = pc.bnreluconv_bwd.launches
+        prof = torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA])
+        with prof:
+            _gluon_step(net, trainer, x, y)
+            torch.cuda.synchronize()
+    assert pc.bnreluconv_bwd.launches == calls
+    dact = sum(e.count for e in prof.key_averages()
+               if "dact_mma_kernel" in e.key)
+    assert dact == 4
+    assert net.output.weight.is_cuda
+
+
+def test_capture_freezes_the_fused_tail_arm(card):
+    """The fused tail's arm in force when a signature is captured is the
+    one its replays run, as the reference's jit keeps the arm of its
+    first trace: captured under ``pallas``, a replay outside the scope
+    still launches the kernel; after ``hybridize()`` clears the cache,
+    a capture under ``stock`` launches none."""
+    from mxnet_tpu_torch import autotune, gluon
+
+    net = _tiny_resnet()
+    net.hybridize(static_alloc=True, static_shape=True)
+    trainer = gluon.Trainer(net.collect_params(), "sgd",
+                            {"learning_rate": 0.1, "multi_precision": True})
+    x, y = _tiny_batch()
+    counts = []
+    for arm, capture in (("pallas", True), (None, False), ("stock", True)):
+        if capture:
+            net.hybridize(static_alloc=True, static_shape=True)
+        scope = autotune.force(pallas_bnreluconv=arm) if arm else \
+            contextlib.nullcontext()
+        with scope:
+            if capture:
+                _gluon_step(net, trainer, x, y)
+            torch.cuda.synchronize()
+            prof = torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA])
+            with prof:
+                _gluon_step(net, trainer, x, y)
+                torch.cuda.synchronize()
+        counts.append(sum(e.count for e in prof.key_averages()
+                          if "dact_mma_kernel" in e.key))
+    assert counts == [4, 4, 0]
+
+
+def test_held_outputs_and_gradients_survive_replays(card):
+    """A replay writes the graph's static buffers: an output, a loss
+    and a gradient the caller holds keep their values through the next
+    replays."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon
+
+    net = _tiny_resnet()
+    net.hybridize(static_alloc=True, static_shape=True)
+    x, y = _tiny_batch(0)
+    x2, _ = _tiny_batch(1)
+    out1 = net(x)
+    keep = out1._data.clone()
+    with autograd.record():
+        loss = gluon.loss.SoftmaxCrossEntropyLoss()(net(x), y)
+    loss.backward()
+    w = net.collect_params()["net_dense0_weight"]
+    g1 = w.grad()._data  # the tensor backward wrote; the buffer moves on
+    g1_keep = g1.clone()
+    loss_keep = loss._data.clone()
+    for _ in range(2):
+        net(x2)
+        with autograd.record():
+            l2 = gluon.loss.SoftmaxCrossEntropyLoss()(net(x2), y)
+        l2.backward()
+    torch.cuda.synchronize()
+    assert torch.equal(out1._data, keep)
+    assert torch.equal(loss._data, loss_keep)
+    assert torch.equal(g1, g1_keep)
+    assert not torch.equal(w.grad()._data, g1_keep)
+    assert len(net._cached_op) == 2  # predicting and recording
+    assert mx.gpu(0) == out1.context
+
+
+def test_graphed_block_called_twice_in_one_record(card, deterministic):
+    """A block called twice inside one ``record()`` (a GAN's
+    discriminator on real and fake data): the second call, made while
+    the first replay is held, captures a program on its own pool, and
+    one backward gives eager's gradients bit for bit.  The next step
+    replays the two programs again, and a second backward of one replay
+    raises."""
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.gluon import _graph
+
+    x, _ = _tiny_batch(0)
+    x2, _ = _tiny_batch(1)
+    grads = {}
+    for hybrid in (False, True):
+        net = _tiny_resnet()
+        if hybrid:
+            net.hybridize(static_alloc=True, static_shape=True)
+        before = _graph.captures
+        for _ in range(2):
+            with autograd.record():
+                loss = net(x).sum() + net(x2).sum()
+            loss.backward()
+        grads[hybrid] = {n: p.grad()._data.clone()
+                         for n, p in net.collect_params().items()
+                         if p.grad_req != "null"}
+    assert _graph.captures - before == 2
+    entries = list(net._cached_op.values())
+    assert len(entries) == 1 and len(entries[0].programs) == 2 \
+        and entries[0].calls == 4
+    for n, g in grads[False].items():
+        assert torch.equal(grads[True][n], g), n
+    with autograd.record():
+        loss = net(x).sum()
+    loss.backward(retain_graph=True)
+    with pytest.raises(Exception, match="runs once"):
+        loss.backward()
+    assert len(entries[0].programs) == 2
+
+
+def test_static_child_of_a_plain_block_is_captured(card):
+    """On the card, a child hybridized with both static flags under a
+    plain ``Sequential`` (which hands it tensors) replays CUDA graphs of
+    its own, and predicts and trains as the eager net (1e-6)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.gluon import nn
+
+    rng = onp.random.RandomState(0)
+    x = mx.nd.array(rng.randn(4, 8).astype("float32"), ctx=mx.gpu(0))
+    res = {}
+    for hybrid in (False, True):
+        onp.random.seed(0)
+        net = nn.Sequential(prefix="seq_")
+        with net.name_scope():
+            net.add(nn.Dense(16, in_units=8, activation="relu"),
+                    nn.Dense(4, in_units=16))
+        net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+        if hybrid:
+            net.hybridize(static_alloc=True, static_shape=True)
+        pred = net(x)._data.clone()
+        with autograd.record():
+            loss = (net(x) ** 2).sum()
+        loss.backward()
+        res[hybrid] = [pred, loss._data.clone()] + [
+            p.grad()._data.clone() for p in net.collect_params().values()]
+        if hybrid:
+            assert all(len(c._cached_op) == 2 and all(
+                e.graphed for e in c._cached_op.values()) for c in net)
+    for a, b in zip(res[True], res[False]):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+
+
+def test_graphed_dropout_draws_fresh_masks_and_follows_keys(card):
+    """A Dropout net captured with both static flags: each replay draws
+    a fresh mask, equal keys give equal masks, and the masks are the
+    ones an eager call draws from the same generator state."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import _rng, autograd
+    from mxnet_tpu_torch.gluon import nn
+
+    def build(hybrid):
+        net = nn.HybridSequential(prefix="drop_")
+        with net.name_scope():
+            net.add(nn.Dense(64, in_units=32), nn.Dropout(0.5))
+        net.initialize(mx.init.One(), ctx=mx.gpu(0))
+        if hybrid:
+            net.hybridize(static_alloc=True, static_shape=True)
+        return net
+
+    x = mx.nd.ones((16, 32), ctx=mx.gpu(0))
+    outs = {}
+    for hybrid in (False, True):
+        net = build(hybrid)
+        mx.random.seed(5)
+        with autograd.train_mode():
+            free = [net(x)._data.clone() for _ in range(3)]
+            keyed = []
+            for k in (7, 7, 8):
+                with _rng.key_scope(k):
+                    keyed.append(net(x)._data.clone())
+        outs[hybrid] = free + keyed
+    eager, graphed = outs[False], outs[True]
+    assert not torch.equal(graphed[0], graphed[1])
+    assert not torch.equal(graphed[1], graphed[2])
+    assert torch.equal(graphed[3], graphed[4])
+    assert not torch.equal(graphed[4], graphed[5])
+    for a, b in zip(graphed, eager):
+        assert torch.equal(a, b)
+
+
+def test_uncapturable_block_raises_naming_the_op(card):
+    """A block that reads a value on the host cannot be captured: static
+    hybridize raises and names the op, it does not run eagerly."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon import nn
+
+    net = nn.HybridLambda(lambda F, x: x * float(x.sum().asscalar()))
+    net.hybridize(static_alloc=True, static_shape=True)
+    with pytest.raises(MXNetError, match="cannot be captured"):
+        net(mx.nd.ones((4,), ctx=mx.gpu(0)))
+    assert not net._cached_op
+
+
+def test_export_on_card_writes_the_host_bytes(card, tmp_path):
+    """``export`` of a net on the card writes the bytes that a host copy
+    of it writes, and ``SymbolBlock.imports`` on the card predicts as
+    the net."""
+    import copy
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    from mxnet_tpu_torch.symbol import symbol as sym
+
+    net = vision.resnet18_v1(classes=10)
+    net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+    x = mx.nd.array(onp.random.RandomState(0).rand(2, 3, 32, 32),
+                    ctx=mx.gpu(0))
+    with autograd.record():
+        net(x)  # the running statistics move
+    host = copy.deepcopy(net)
+    host.collect_params().reset_ctx(mx.cpu())
+    files = {}
+    for where, block in (("card", net), ("host", host)):
+        sym._UNNAMED_COUNT.clear()
+        block.export(str(tmp_path / where))
+        files[where] = [(tmp_path / f"{where}{s}").read_bytes()
+                        for s in ("-symbol.json", "-0000.params")]
+    assert files["card"] == files["host"]
+    sb = gluon.SymbolBlock.imports(str(tmp_path / "card-symbol.json"),
+                                   ["data"],
+                                   str(tmp_path / "card-0000.params"),
+                                   ctx=mx.gpu(0))
+    got, want = sb(x)._data, net(x)._data
+    assert got.is_cuda
+    assert float((got - want).abs().max()) <= 1e-5 * float(
+        want.abs().max())
