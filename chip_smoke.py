@@ -38,7 +38,16 @@ the captured backward), three such steps equal to eager's, and the
 zoo's default ``resnet50_v1()`` trained a few steps in fp32, exported
 (``HybridBlock.export``) and read back on the card by
 ``gluon.SymbolBlock.imports`` and ``mx.mod.Module.load``, each
-predicting as the Gluon net; then runs the symbolic half: the
+predicting as the Gluon net; then serves that zoo net: exported by
+``deploy.export_model`` at batch 32 and served by
+``serving.ModelServer.from_artifact`` (one captured CUDA graph) and by
+``ModelServer.from_predictor`` (the micro-batch race's buckets, one graph
+each) to closed-loop clients, every row equal to the net's direct
+forward, through ``serving.ServeFrontend`` over HTTP on 127.0.0.1, and
+in a ``serving.ModelHost`` beside the wide generative decoder (its
+prefills through the flash kernel) under a device-memory budget, with a
+swap under load, a refused swap and a rolled-back one; then runs the
+symbolic half: the
 builder's ResNet-50 v1 symbol (``resnet50_v1_symbol``) trained by
 ``mx.mod.Module`` (batch 128, fp32), one Module step of it on the card
 against the host, ``Module.fit`` of an MLP on an ``NDArrayIter`` with a
@@ -89,6 +98,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import traceback
 
@@ -2629,6 +2639,609 @@ def gluon_export_resnet50_phase(workdir, seed=0):
     return res
 
 
+
+# ------------------------------------------- serving trained models
+#: the zoo's default ResNet-50 v1 served (NCHW, 1000 classes, 224²,
+#: fp32, TF32 off, random weights from a seed): an artifact of batch 32
+#: (one bucket) and the functionalized net through the micro-batch race's
+#: winner (buckets up to 32); closed-loop clients at each level, single
+#: images from a pool, deadline = the SLO
+SERVE = dict(batch=32, image=224, images=64, levels=(1, 8, 32, 64),
+             requests=256, slo_ms=1000.0, coalesce_ms=2.0,
+             candidates=(1, 2, 4), tune_iters=6)
+#: a row served in a padded batch of one size against the same image's
+#: row in a batch of another size (cuDNN may pick other algorithms per
+#: shape): largest |difference| over the largest |logit|.  Read 1.42e-6
+#: on an H100 (PERF.md); held at 1e-5
+SERVE_ACROSS_BUCKETS_TOL = 1e-5
+#: the fleet phase: swap clients; the budget over the two residents'
+#: reserved bytes; the generative prompts (lengths) and tokens
+FLEET = dict(swap_clients=8, headroom=0.05, prompt_lens=(5, 17, 64, 128),
+             max_new=8, gen_seed=11)
+
+
+def _serve_net(ctx, seed):
+    """The zoo's default ``resnet50_v1()`` on ``ctx``, Xavier weights
+    drawn from ``seed``."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+
+    net = resnet50_v1()
+    net.initialize(mx.init.Xavier(), ctx=ctx,
+                   generator=torch.Generator().manual_seed(seed))
+    return net
+
+
+def _serve_images(n, image, seed):
+    import numpy as np
+
+    return np.random.RandomState(seed).randn(n, 3, image, image).astype(
+        "float32")
+
+
+def _direct_rows(net, images, buckets):
+    """``{bucket: (n, classes) numpy}``: each image's row of the net's
+    direct (eager) forward, the images run in batches of each bucket."""
+    import numpy as np
+    import torch
+
+    import mxnet_tpu_torch as mx
+
+    dev = torch.device("cuda", 0)
+    out = {}
+    with torch.no_grad():
+        for b in buckets:
+            rows = []
+            for i in range(0, len(images), b):
+                x = torch.from_numpy(images[i:i + b]).to(dev)
+                rows.append(net(mx.nd.NDArray(x))._data.cpu().numpy())
+            out[b] = np.concatenate(rows)
+    return out
+
+
+def _closed_loop(submit, images, threads, n_requests, slo_ms,
+                 on_result=None):
+    """``threads`` clients, each submitting one image and waiting for
+    its answer before the next, until ``n_requests`` were submitted:
+    ``(outcomes, wall_s)``; an outcome is ``(image, row or None, reason
+    or None, latency_ms, t_submit)``."""
+    import threading as _th
+
+    from mxnet_tpu_torch.serving import ServeRejected
+
+    lock = _th.Lock()
+    count = [0]
+    outcomes = []
+
+    def client():
+        while True:
+            with lock:
+                i = count[0]
+                if i >= n_requests:
+                    return
+                count[0] += 1
+            idx = i % len(images)
+            t_sub = time.perf_counter()
+            try:
+                h = submit(images[idx], slo_ms)
+                row = h.result(timeout=120)
+                rec = (idx, row, None, h.latency_ms, t_sub)
+            except ServeRejected as e:
+                rec = (idx, None, e.reason, None, t_sub)
+            with lock:
+                outcomes.append(rec)
+
+    t0 = time.perf_counter()
+    ts = [_th.Thread(target=client) for _ in range(threads)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join()
+    return outcomes, time.perf_counter() - t0
+
+
+def _rows_match(outcomes, refs):
+    """Completed rows that equal no direct forward bit for bit, and the
+    buckets whose forward each matched."""
+    import numpy as np
+
+    bad, hits = 0, {}
+    for idx, row, _, _, _ in outcomes:
+        if row is None:
+            continue
+        b = next((b for b, r in refs.items()
+                  if np.array_equal(row, r[idx])), None)
+        if b is None:
+            bad += 1
+        else:
+            hits[b] = hits.get(b, 0) + 1
+    return bad, hits
+
+
+def _serve_levels(name, srv, images, refs, profile_busiest=True):
+    """Drive ``srv`` at each client level; print and check each."""
+    import torch
+
+    from mxnet_tpu_torch.telemetry.opstats import percentile
+
+    cfg = SERVE
+    levels = []
+    for threads in cfg["levels"]:
+        st0 = dict(srv.stats)
+        busiest = threads == max(cfg["levels"])
+        prof = torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA]) \
+            if busiest and profile_busiest else contextlib.nullcontext()
+        with prof:
+            outs, wall = _closed_loop(
+                lambda x, slo: srv.submit(x, deadline_ms=slo), images,
+                threads, cfg["requests"], cfg["slo_ms"])
+            torch.cuda.synchronize()
+        st = srv.stats
+        done = [o for o in outs if o[1] is not None]
+        lat = sorted(o[3] for o in done)
+        batches = st["batches"] - st0["batches"]
+        bad, hits = _rows_match(outs, refs)
+        lv = {"clients": threads, "submitted": len(outs),
+              "completed": len(done),
+              "shed": len(outs) - len(done),
+              "shed_by_reason": {r: sum(o[2] == r for o in outs)
+                                 for r in {o[2] for o in outs} - {None}},
+              "requests_s": len(done) / wall, "wall_s": wall,
+              "p50_ms": percentile(lat, 0.50), "p99_ms": percentile(lat, 0.99),
+              "batches": batches,
+              "mean_batch": len(done) / batches if batches else 0.0,
+              "padded_rows": st["padded_rows"] - st0["padded_rows"],
+              "rows_not_equal_direct": bad, "rows_by_bucket_matched": hits,
+              "retraces": st["retraces"]}
+        if busiest and profile_busiest:
+            lv["profile"] = device_profile(prof, wall, top=6, shares={})
+        levels.append(lv)
+        log(f"[{name}] {threads} clients: {lv['requests_s']:.1f} req/s, "
+            f"p50 {lv['p50_ms']:.2f} p99 {lv['p99_ms']:.2f} ms, "
+            f"{batches} batches (mean {lv['mean_batch']:.2f}), padded "
+            f"{lv['padded_rows']}, shed {lv['shed']}, not equal {bad}")
+        check(lv["completed"] + lv["shed"] == lv["submitted"]
+              == cfg["requests"],
+              f"{name}: {threads} clients: completed {lv['completed']} + "
+              f"shed {lv['shed']} != submitted {lv['submitted']}")
+        check(lv["completed"] >= 1, f"{name}: nothing completed")
+        check(bad == 0, f"{name}: {bad} served rows equal no direct "
+                        f"forward of their image bit for bit")
+        check(st["retraces"] == 0, f"{name}: {st['retraces']} retraces "
+                                   "after warm-up")
+    return levels
+
+
+def serve_resnet50_phase(workdir, seed=0):
+    """The zoo's default ResNet-50 v1 served on the card two ways: a
+    ``deploy.export_model`` artifact through
+    ``ModelServer.from_artifact`` (one bucket, the artifact's batch of
+    32) and the functionalized net through
+    ``ModelServer.from_predictor`` (the micro-batch race's winner seeds
+    the buckets).  Closed-loop clients at each level submit single
+    images with the SLO as deadline: requests/s, p50/p99 (host clock,
+    nearest rank), batches, the mean batch, padded rows, captures per
+    bucket at warm-up (one each, none after), the device's idle share at
+    the busiest level (kernel ms over wall ms), peak GiB.  Every request
+    is accounted (completed + shed == submitted), every completed row
+    equals the net's direct forward of a batch of its bucket's size bit
+    for bit, and the first request after ``ready()`` captures nothing.
+    Returns the phase's record and what the next phases reuse."""
+    import numpy as np
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import deploy
+    from mxnet_tpu_torch.gluon import _graph
+    from mxnet_tpu_torch.parallel import functionalize
+    from mxnet_tpu_torch.serving import ModelServer
+
+    cfg = SERVE
+    ctx = mx.gpu(0)
+    dev = ctx.torch_device()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    net = _serve_net(ctx, seed)
+    images = _serve_images(cfg["images"], cfg["image"], seed + 100)
+    buckets = (1, 2, 4, 8, 16, 32)
+    refs = _direct_rows(net, images, buckets)
+    scale = float(np.abs(refs[32]).max())
+    across = max(float(np.abs(refs[b] - refs[32]).max()) for b in buckets)
+    path = os.path.join(workdir, "serve", "resnet50_v1.mxje")
+    x32 = torch.zeros((cfg["batch"], 3, cfg["image"], cfg["image"]),
+                      device=dev)
+    t0 = time.perf_counter()
+    deploy.export_model(net, x32, path)
+    export_s = time.perf_counter() - t0
+
+    res = {"phase": "serve_resnet50",
+           "model": {"name": "resnet50_v1", "layout": "NCHW",
+                     "classes": 1000, "weights": f"Xavier, seed {seed}"},
+           "image": cfg["image"], "dtype": "float32 (TF32 off)",
+           "slo_ms": cfg["slo_ms"], "requests_per_level": cfg["requests"],
+           "artifact_bytes": os.path.getsize(path), "export_s": export_s,
+           "across_buckets_max_abs": across,
+           "across_buckets_rel_of_largest": across / scale,
+           "across_buckets_tol": SERVE_ACROSS_BUCKETS_TOL}
+    servers = {}
+    # the artifact: one bucket, the artifact's batch
+    c0 = _graph.captures
+    t0 = time.perf_counter()
+    srv = ModelServer.from_artifact(path, slo_ms=cfg["slo_ms"],
+                                    coalesce_ms=cfg["coalesce_ms"],
+                                    name="resnet50_artifact")
+    srv.start(warm=True)
+    warm_s = time.perf_counter() - t0
+    c1 = _graph.captures
+    check(srv.ready(), "serve_resnet50: artifact server not ready")
+    first = srv.submit(images[0], deadline_ms=cfg["slo_ms"]).result(120)
+    c2 = _graph.captures
+    check(np.array_equal(first, refs[32][0]),
+          "serve_resnet50: the first artifact row differs from the direct "
+          "forward")
+    art_refs = {32: refs[32]}
+    servers["from_artifact"] = {
+        "buckets": list(srv.buckets), "warm_start_s": warm_s,
+        "captures_at_warmup": c1 - c0, "captures_first_request": c2 - c1,
+        "warm_traces": srv.stats["warm_traces"],
+        "levels": _serve_levels("serve_resnet50 artifact", srv, images,
+                                art_refs)}
+    servers["from_artifact"]["captures_after_warmup"] = _graph.captures - c1
+    srv.close()
+    check(c1 - c0 == 1 and _graph.captures == c1,
+          f"serve_resnet50: artifact captures {c1 - c0} at warm-up, "
+          f"{_graph.captures - c1} after (1 and 0 expected)")
+
+    # the functionalized net through the micro-batch race's winner
+    params, apply_fn = functionalize(net)
+    ex = images[:cfg["batch"]]
+    c0 = _graph.captures
+    t0 = time.perf_counter()
+    srv = ModelServer.from_predictor(
+        apply_fn, params, ex, candidates=cfg["candidates"],
+        tune_iters=cfg["tune_iters"], slo_ms=cfg["slo_ms"],
+        coalesce_ms=cfg["coalesce_ms"], name="resnet50_predictor")
+    race_s = time.perf_counter() - t0
+    c_race = _graph.captures
+    srv.start(warm=True)
+    warm_s = time.perf_counter() - t0 - race_s
+    c1 = _graph.captures
+    first = srv.submit(images[0], deadline_ms=cfg["slo_ms"]).result(120)
+    c2 = _graph.captures
+    pred_refs = {b: refs[b] for b in srv.buckets}
+    check(any(np.array_equal(first, r[0]) for r in pred_refs.values()),
+          "serve_resnet50: the first predictor row differs from the direct "
+          "forward")
+    servers["from_predictor"] = {
+        "winner": {"microbatch": srv.microbatch[0],
+                   "unroll": srv.microbatch[1]},
+        "buckets": list(srv.buckets), "race_s": race_s,
+        "race_captures": c_race - c0, "warm_start_s": warm_s,
+        "captures_at_warmup": c1 - c_race,
+        "captures_first_request": c2 - c1,
+        "warm_traces": srv.stats["warm_traces"],
+        "levels": _serve_levels("serve_resnet50 predictor", srv, images,
+                                pred_refs)}
+    servers["from_predictor"]["captures_after_warmup"] = \
+        _graph.captures - c1
+    srv.close()
+    # one program per bucket (the map form's chunk shapes differ too)
+    check(c1 - c_race == len(srv.buckets) and _graph.captures == c1,
+          f"serve_resnet50: predictor captures {c1 - c_race} at warm-up "
+          f"for buckets {srv.buckets}, {_graph.captures - c1} after")
+    res["servers"] = servers
+    res["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    res["seconds"] = time.perf_counter() - t_phase
+    emit(res)
+    check(across / scale <= SERVE_ACROSS_BUCKETS_TOL,
+          f"serve_resnet50: rows across batch sizes {across / scale:.3g} "
+          f"of the largest logit apart (> {SERVE_ACROSS_BUCKETS_TOL})")
+    return res, {"net": net, "images": images, "refs": refs, "path": path}
+
+
+def serve_http_phase(served):
+    """``ServeFrontend`` over a ``from_artifact`` server on 127.0.0.1:
+    ``/healthz`` 503 before ``start`` and 200 after; a handful of
+    ``POST /v1/predict`` answered as ``submit`` answers (the direct
+    forward's rows, bit for bit through JSON); ``/metrics`` with the
+    ``serve_*`` rows; a request of the wrong shape answered 400
+    ``bad_request`` and an impossible deadline 429 ``deadline``."""
+    import numpy as np
+
+    from mxnet_tpu_torch.serving import ModelServer, ServeFrontend
+    from mxnet_tpu_torch.serving.frontend import http_call
+
+    images, refs = served["images"], served["refs"]
+    t_phase = time.perf_counter()
+    srv = ModelServer.from_artifact(served["path"], slo_ms=SERVE["slo_ms"],
+                                    coalesce_ms=SERVE["coalesce_ms"],
+                                    name="resnet50")
+    fe = ServeFrontend(srv, port=0).start()
+    try:
+        st_cold, h_cold = http_call("127.0.0.1", fe.port, "GET", "/healthz")
+        srv.start(warm=True)
+        st_warm, h_warm = http_call("127.0.0.1", fe.port, "GET", "/healthz")
+        answers, lat = [], []
+        for idx in (1, 2, 3, (4, 5)):
+            rows = [idx] if isinstance(idx, int) else list(idx)
+            t0 = time.perf_counter()
+            st, body = http_call("127.0.0.1", fe.port, "POST",
+                                 "/v1/predict",
+                                 {"inputs": images[rows].tolist(),
+                                  "deadline_ms": SERVE["slo_ms"]},
+                                 timeout=120.0)
+            lat.append((time.perf_counter() - t0) * 1e3)
+            via_submit = [srv.submit(images[i]).result(120) for i in rows]
+            out = np.asarray(body.get("outputs"), dtype="float32") \
+                if st == 200 else None
+            answers.append({
+                "rows": rows, "status": st,
+                "equal_submit": out is not None and all(
+                    np.array_equal(o, s) for o, s in zip(out, via_submit)),
+                "equal_direct": out is not None and all(
+                    np.array_equal(o, refs[32][i])
+                    for o, i in zip(out, rows))})
+        st_m, metrics = http_call("127.0.0.1", fe.port, "GET", "/metrics")
+        st_bad, bad = http_call("127.0.0.1", fe.port, "POST", "/v1/predict",
+                                {"inputs": [[0.0, 1.0, 2.0]]})
+        st_dl, dl = http_call("127.0.0.1", fe.port, "POST", "/v1/predict",
+                              {"inputs": images[:1].tolist(),
+                               "deadline_ms": 0.001}, timeout=60.0)
+    finally:
+        fe.close()
+        srv.close()
+    rows_m = [ln for ln in metrics.splitlines()
+              if ln.startswith("mxnet_tpu_serve_")]
+    res = {"phase": "serve_http", "healthz_before_start": st_cold,
+           "healthz_after_start": st_warm, "predict": answers,
+           "predict_ms_host": lat, "metrics_status": st_m,
+           "metrics_rows": rows_m, "wrong_shape": [st_bad, bad],
+           "impossible_deadline": [st_dl, dl],
+           "seconds": time.perf_counter() - t_phase}
+    emit(res)
+    check(st_cold == 503 and not h_cold["ready"],
+          f"serve_http: /healthz before start {st_cold} {h_cold}")
+    check(st_warm == 200 and h_warm["ready"],
+          f"serve_http: /healthz after start {st_warm} {h_warm}")
+    check(all(a["status"] == 200 and a["equal_submit"] and a["equal_direct"]
+              for a in answers), f"serve_http: predict answers {answers}")
+    check(st_m == 200 and any(r.startswith("mxnet_tpu_serve_requests ")
+                              for r in rows_m)
+          and "mxnet_tpu_serve_ready 1" in rows_m,
+          f"serve_http: /metrics {st_m} {rows_m}")
+    check(st_bad == 400 and bad.get("error") == "bad_request",
+          f"serve_http: wrong shape answered {st_bad} {bad}")
+    check(st_dl == 429 and dl.get("error") == "deadline",
+          f"serve_http: impossible deadline answered {st_dl} {dl}")
+    return res
+
+
+def fleet_host_phase(workdir, served, seed=0):
+    """One ``ModelHost`` on the card with a budget of its two residents'
+    reserved bytes plus ``FLEET["headroom"]``: the ResNet-50 artifact and
+    the wide generative decoder's (``deploy.export_generative``, served
+    by ``GenerativeHostServer``, its prefills through the flash kernel);
+    a third load past the budget raises ``ServeRejected("hbm_budget")``;
+    the generative tokens equal a direct ``GenerativeServer``'s for the
+    same prompts; ``swap`` replaces the ResNet-50 with an artifact of
+    other weights under ``FLEET["swap_clients"]`` closed-loop clients
+    (0 failed requests, every answer the old net's or the new net's
+    direct row, the new one's once the swap returned); an armed
+    ``fleet.swap`` fault refuses a swap before it loads anything, and a
+    swap to an artifact whose probe fails (non-finite weights) rolls
+    back, the model in place serving on.  Reserved bytes beside each
+    model's measured peak while it loaded (and, for the ResNet-50, the
+    bytes its captured graph's pool holds)."""
+    import numpy as np
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import deploy
+    from mxnet_tpu_torch.ops.flash_attention import flash_attention
+    from mxnet_tpu_torch.resilience import faultsim
+    from mxnet_tpu_torch.serving import (GenerativeServer, ModelHost,
+                                         ServeRejected, SwapRolledBack,
+                                         artifact_reserved_bytes,
+                                         toy_decoder_params)
+
+    cfg = FLEET
+    ctx = mx.gpu(0)
+    dev = ctx.torch_device()
+    t_phase = time.perf_counter()
+    images, refs, old_path = served["images"], served["refs"], served["path"]
+    x32 = torch.zeros((SERVE["batch"], 3, SERVE["image"], SERVE["image"]),
+                      device=dev)
+    new_net = _serve_net(ctx, seed + 1)
+    new_path = os.path.join(workdir, "serve", "resnet50_v1_b.mxje")
+    deploy.export_model(new_net, x32, new_path)
+    new_refs = _direct_rows(new_net, images, (32,))[32]
+    bad_net = _serve_net(ctx, seed + 2)
+    w = next(iter(bad_net.collect_params().values()))
+    w.set_data(mx.nd.full(w.shape, float("nan"), ctx=ctx))
+    bad_path = os.path.join(workdir, "serve", "resnet50_v1_nan.mxje")
+    deploy.export_model(bad_net, x32, bad_path)
+    del new_net, bad_net
+    wide = {k: v for k, v in WIDE_CFG.items()
+            if k in ("vocab", "layers", "heads", "head_dim")}
+    gen_params = toy_decoder_params(seed=0, device=dev, **wide)
+    gen_path = os.path.join(workdir, "serve", "wide_decoder.mxje")
+    t0 = time.perf_counter()
+    deploy.export_generative(gen_params, gen_path,
+                             prompt_buckets=WIDE_CFG["prompt_buckets"],
+                             max_new=cfg["max_new"], **wide)
+    gen_export_s = time.perf_counter() - t0
+    gen_kw = dict(kv_dtype="float32", slots=WIDE_CFG["slots"],
+                  page_tokens=WIDE_CFG["page_tokens"],
+                  pool_budget=WIDE_CFG["pool_budget"],
+                  slo_ms=WIDE_CFG["slo_ms"])
+    r_resnet, _ = artifact_reserved_bytes(old_path)
+    r_gen = sum(t.numel() * t.element_size() for t in
+                [gen_params["embed"], gen_params["head"], gen_params["lnf"]]
+                + [v for lyr in gen_params["layers"] for v in lyr.values()])
+    budget = (r_resnet + r_gen) * (1 + cfg["headroom"])
+    host = ModelHost(hbm_budget_mb=budget / 2 ** 20,
+                     server_kw={"slo_ms": SERVE["slo_ms"],
+                                "coalesce_ms": SERVE["coalesce_ms"]})
+    res = {"phase": "fleet_host", "budget_bytes": host.budget_bytes,
+           "generative_export_s": gen_export_s,
+           "generative_artifact_bytes": os.path.getsize(gen_path)}
+    try:
+        measured = {}
+        for name, path, kw in (("resnet50", old_path, {}),
+                               ("decoder", gen_path, gen_kw)):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            if name == "decoder":
+                flash_attention.launches = 0
+            t0 = time.perf_counter()
+            host.load(name, path, **kw)
+            measured[name] = {
+                "load_s": time.perf_counter() - t0,
+                "peak_above_base_bytes":
+                    torch.cuda.max_memory_allocated() - base,
+                "resident_after_load_bytes":
+                    torch.cuda.memory_allocated() - base}
+            exp = getattr(host.get(name), "exported", None)
+            if exp is not None:  # the captured graph's pool, in bytes
+                measured[name]["graph_pool_bytes"] = sum(
+                    prog.pool_bytes() or 0
+                    for entry in exp.block._cached_op.values()
+                    for prog in entry.programs)
+        third = None
+        try:
+            host.load("third", new_path)
+        except ServeRejected as e:
+            third = e
+        # the decoder's answers through the host, then a direct server's
+        rng = np.random.RandomState(cfg["gen_seed"])
+        prompts = [[int(t) for t in rng.randint(0, WIDE_CFG["vocab"], n)]
+                   for n in cfg["prompt_lens"]]
+        via_host = [host.submit(np.asarray(p), model="decoder")
+                    .result(timeout=300) for p in prompts]
+        flash = flash_attention.launches
+        gen_st = host.get("decoder").stats
+        direct = GenerativeServer(
+            params=gen_params, prompt_buckets=WIDE_CFG["prompt_buckets"],
+            max_new=cfg["max_new"], device=dev, **wide, **gen_kw)
+        direct.start(warm=True)
+        try:
+            via_direct = [direct.submit(p).result(timeout=300)
+                          for p in prompts]
+        finally:
+            direct.close()
+        del direct
+        # the swap under load
+        stop = threading.Event()
+        lock = threading.Lock()
+        outcomes = []
+        swap_done = [None]
+
+        def client(k):
+            i = k
+            while not stop.is_set():
+                idx = i % len(images)
+                i += cfg["swap_clients"]
+                t_sub = time.perf_counter()
+                try:
+                    row = host.submit(images[idx], model="resnet50").result(
+                        timeout=120)
+                    rec = (idx, row, None, t_sub)
+                except Exception as e:  # every failure is counted
+                    rec = (idx, None, repr(e), t_sub)
+                with lock:
+                    outcomes.append(rec)
+
+        ts = [threading.Thread(target=client, args=(k,))
+              for k in range(cfg["swap_clients"])]
+        for t in ts:
+            t.start()
+        time.sleep(1.0)
+        swap_ms = host.swap("resnet50", new_path)
+        swap_done[0] = time.perf_counter()
+        time.sleep(1.0)
+        stop.set()
+        for t in ts:
+            t.join()
+        failed = [o for o in outcomes if o[1] is None]
+        old_rows = sum(np.array_equal(o[1], refs[32][o[0]])
+                       for o in outcomes if o[1] is not None)
+        new_rows = sum(np.array_equal(o[1], new_refs[o[0]])
+                       for o in outcomes if o[1] is not None)
+        after = [o for o in outcomes if o[1] is not None
+                 and o[3] > swap_done[0]]
+        after_new = sum(np.array_equal(o[1], new_refs[o[0]]) for o in after)
+        # an armed fleet.swap fault refuses the swap before it loads;
+        # a swap whose probe fails rolls back
+        faultsim.reset("fleet.swap:raise@1")
+        refused = None
+        try:
+            host.swap("resnet50", bad_path)
+        except faultsim.FaultInjected as e:
+            refused = repr(e)
+        finally:
+            faultsim.reset("")
+        rolled = None
+        try:
+            host.swap("resnet50", bad_path)
+        except SwapRolledBack as e:
+            rolled = str(e)
+        kept = host.submit(images[7], model="resnet50").result(timeout=120)
+        residency = host.residency()
+        host_stats = dict(host.stats)
+    finally:
+        host.close_all()
+    res.update({
+        "reserved_bytes": {n: m["reserved_bytes"]
+                           for n, m in residency["models"].items()},
+        "reserved_at_admission": {"resnet50": r_resnet, "decoder": r_gen},
+        "measured": measured, "third_load": repr(third),
+        "generative": {"prompts": [len(p) for p in prompts],
+                       "tokens_host": via_host,
+                       "tokens_equal_direct": via_host == via_direct,
+                       "flash_launches": flash,
+                       "prefills": gen_st.get("prefills")},
+        "flash_launches": flash,
+        "swap": {"ms": swap_ms, "clients": cfg["swap_clients"],
+                 "requests": len(outcomes), "failed": len(failed),
+                 "failures": [o[2] for o in failed[:3]],
+                 "old_rows": int(old_rows), "new_rows": int(new_rows),
+                 "after_swap": len(after), "after_swap_new": int(after_new)},
+        "fault_refused": refused, "rolled_back": rolled,
+        "kept_serving_equal_new": bool(np.array_equal(kept, new_refs[7])),
+        "host_stats": host_stats,
+        "seconds": time.perf_counter() - t_phase})
+    emit(res)
+    log(f"[fleet_host] budget {host.budget_bytes} bytes, reserved "
+        f"{res['reserved_bytes']}, measured {measured}, swap "
+        f"{swap_ms:.1f} ms under {cfg['swap_clients']} clients, "
+        f"{len(outcomes)} requests, {len(failed)} failed, flash {flash}")
+    check(third is not None and third.reason == "hbm_budget",
+          f"fleet_host: a third load past the budget gave {third!r}")
+    check(via_host == via_direct,
+          f"fleet_host: decoder tokens {via_host} != direct {via_direct}")
+    check(flash >= len(prompts) * WIDE_CFG["layers"],
+          f"fleet_host: {flash} flash launches")
+    check(not failed, f"fleet_host: {len(failed)} failed requests in the "
+                      f"swap: {res['swap']['failures']}")
+    check(old_rows + new_rows == len(outcomes),
+          f"fleet_host: {len(outcomes) - old_rows - new_rows} answers equal "
+          "neither net's direct row")
+    check(after and after_new == len(after),
+          f"fleet_host: {len(after) - after_new} of {len(after)} answers "
+          "after the swap are not the new net's")
+    check(refused is not None and rolled is not None
+          and host_stats["rollbacks"] == 1 and host_stats["swaps"] == 1
+          and res["kept_serving_equal_new"],
+          f"fleet_host: refusal {refused}, rollback {rolled}, stats "
+          f"{host_stats}, kept serving {res['kept_serving_equal_new']}")
+    return res
+
+
 def run(profile=False, old_brc=None, workdir=None):
     import torch
 
@@ -2895,6 +3508,24 @@ def run(profile=False, old_brc=None, workdir=None):
         f"agreement {gexp['agreement']} "
         f"({time.perf_counter() - t0:.1f} s)")
 
+    del gexp
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    sres, served = serve_resnet50_phase(workdir)
+    for kind, s in sres["servers"].items():
+        busy = s["levels"][-1]
+        log(f"[serve_resnet50] {kind}: buckets {s['buckets']}, captures "
+            f"{s['captures_at_warmup']} at warm-up, "
+            f"{s['captures_after_warmup']} after; busiest "
+            f"{busy['requests_s']:.1f} req/s, idle "
+            f"{busy.get('profile', {}).get('device_idle_share')}")
+    shttp = serve_http_phase(served)
+    log(f"[serve_http] predict host ms {shttp['predict_ms_host']}")
+    torch.cuda.empty_cache()
+    fleet = fleet_host_phase(workdir, served)
+    del served
+    log(f"[serve phases] {time.perf_counter() - t0:.1f} s")
+
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     mres = module_resnet50_phase(plugin)
@@ -3017,7 +3648,7 @@ def run(profile=False, old_brc=None, workdir=None):
         entry("flash_attention", "flash_attention.cu",
               "mxnet_tpu/ops/flash_attention.py:87",
               bench["flash_launches"] + deep["flash_launches"]
-              + wide["flash_launches"],
+              + wide["flash_launches"] + fleet["flash_launches"],
               max(c["max_abs_err"] for c in main), head),
         entry("bnreluconv_bwd", "bnreluconv_bwd.cu",
               "mxnet_tpu/ops/pallas_conv.py:83",

@@ -123,3 +123,41 @@ register_env("MXNET_RUNLOG", "", str,
 register_env("MXNET_NUMERICS", False, bool,
              "Numerics monitor.  Not ported: Module.fit raises when it "
              "is on (ROADMAP §A 12).")
+register_env("MXNET_WATCHDOG_SEC", 0.0, float,
+             "Hang watchdog: >0 arms a background thread that dumps "
+             "every thread's stack when a heartbeat goes quiet for this "
+             "many seconds.  Not ported: a ModelServer whose "
+             "watchdog_sec resolves above 0 raises (ROADMAP §A 12).  "
+             "0 (default) = no thread, zero hot-path cost.")
+register_env("MXNET_SERVE_SLO_MS", 100.0, float,
+             "Default per-request deadline (milliseconds) of the "
+             "serving runtime (mxnet_tpu_torch.serving.ModelServer): a "
+             "submit() without an explicit deadline_ms gets this SLO. "
+             "Admission control sheds requests the latency EWMA says "
+             "cannot finish inside it.")
+register_env("MXNET_SERVE_QUEUE_DEPTH", 256, int,
+             "Serving request-queue bound: submits beyond this many "
+             "waiting requests are rejected with a structured "
+             "ServeRejected(reason='queue_full') instead of growing "
+             "an unbounded backlog.")
+register_env("MXNET_SERVE_MAX_INFLIGHT", 0, int,
+             "Bound on admitted-but-unfinished serving requests "
+             "(queued + in the running batch).  0 = queue depth plus "
+             "one max-size batch.")
+register_env("MXNET_SERVE_BREAKER_LIMIT", 3, int,
+             "Serving circuit breaker: after this many CONSECUTIVE "
+             "model-invocation failures (exceptions or non-finite "
+             "outputs — the bad-step machinery's serving analog) the "
+             "breaker opens: requests get fast structured rejections "
+             "while the batcher re-warms on probe batches; a probe "
+             "success closes it.")
+register_env("MXNET_FLEET_PORT", 0, int,
+             "Default bind port of the serving HTTP frontend "
+             "(serving.ServeFrontend); 0 = ephemeral.")
+register_env("MXNET_FLEET_HBM_BUDGET_MB", 0.0, float,
+             "Per-host model-residency budget in MiB for "
+             "serving.ModelHost: an artifact is admitted only if its "
+             "reserved device bytes (one forward's peak at the "
+             "artifact's batch on the card) fit next to the resident "
+             "models, else a structured "
+             "ServeRejected(reason='hbm_budget').  0 = unlimited.")

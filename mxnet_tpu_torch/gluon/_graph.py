@@ -38,6 +38,16 @@ tensors, and one example call:
   captures another program instead).  A second backward of one replay
   raises.
 
+Capture beside other threads: warm-up turns torch's sync debug mode to
+``error`` for the whole process, and ``torch.cuda.graph`` captures in
+the ``global`` error mode, where a CUDA call of another thread (an
+allocation, a sync, a copy) fails the capture or fails itself.  So a
+program is built under :data:`device_lock` held exclusively, and every
+thread that works on the card while others may capture (the serving
+batchers, the generative scheduler) holds it shared around its device
+work: between two batches a capture waits for the running ones, and
+they wait for it.
+
 A random op draws from a generator of the program's own, registered
 with the forward graph.  Before each replay that generator takes the
 state of the generator the op would draw from eagerly (the device's, or
@@ -48,7 +58,9 @@ generator with a graph, a block with a random op raises.
 """
 from __future__ import annotations
 
+import contextlib
 import os
+import threading
 import traceback
 import weakref
 
@@ -57,7 +69,7 @@ import torch
 from .. import _rng
 from ..base import MXNetError
 
-__all__ = ["GraphProgram", "captures"]
+__all__ = ["GraphProgram", "captures", "device_lock"]
 
 #: warm-up passes before the capture
 WARMUP = 2
@@ -66,6 +78,66 @@ WARMUP = 2
 captures = 0
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+class DeviceLock:
+    """A process-wide reader-writer lock over the card: ``shared()`` for
+    device work, ``exclusive()`` for a capture.  Both nest in one
+    thread; a thread that holds it shared and asks for it exclusively
+    gives its shared hold up while it waits and takes it back after, so
+    two such threads cannot deadlock.  A waiting capture keeps new
+    shared holders out, so it is not starved by a busy batcher."""
+
+    def __init__(self):
+        self._cond = threading.Condition()
+        self._readers = {}       # thread id -> shared depth
+        self._writer = None      # thread id of the exclusive holder
+        self._depth = 0          # its exclusive depth
+        self._waiting = 0        # threads waiting to hold it exclusively
+
+    @contextlib.contextmanager
+    def shared(self):
+        me = threading.get_ident()
+        with self._cond:
+            if self._writer != me and me not in self._readers:
+                self._cond.wait_for(lambda: self._writer is None
+                                    and not self._waiting)
+            self._readers[me] = self._readers.get(me, 0) + 1
+        try:
+            yield
+        finally:
+            with self._cond:
+                self._readers[me] -= 1
+                if not self._readers[me]:
+                    del self._readers[me]
+                self._cond.notify_all()
+
+    @contextlib.contextmanager
+    def exclusive(self):
+        me = threading.get_ident()
+        with self._cond:
+            held = self._readers.pop(me, 0)
+            if self._writer != me:
+                self._waiting += 1
+                self._cond.wait_for(lambda: self._writer is None
+                                    and not self._readers)
+                self._waiting -= 1
+                self._writer = me
+            self._depth += 1
+        try:
+            yield
+        finally:
+            with self._cond:
+                self._depth -= 1
+                if not self._depth:
+                    self._writer = None
+                if held:
+                    self._readers[me] = held
+                self._cond.notify_all()
+
+
+#: the lock every capture takes exclusively (module docstring)
+device_lock = DeviceLock()
 
 
 def _where(err):
@@ -108,10 +180,10 @@ class GraphProgram:
         # a weak reference to the token of the recorded replay whose
         # activations the pool holds, until its backward runs
         self._pending = None
-        with torch.cuda.device(self._device):
+        with device_lock.exclusive(), torch.cuda.device(self._device):
             self._warm_up(fn, state)
             self._capture(fn)
-        captures += 1
+            captures += 1
 
     # ------------------------------------------------------------ build
     def _take(self, dev):
@@ -210,6 +282,22 @@ class GraphProgram:
         for g, src in srcs:
             src.set_state(g.get_state())
         return [o.clone() for o in self._out]
+
+    def pool_bytes(self):
+        """Bytes the caching allocator holds in this program's private
+        memory pool (the segments of its graphs), from
+        ``torch.cuda.memory_snapshot``; None where the snapshot does not
+        name pools."""
+        pool = tuple(self._fwd.pool())
+        total, named = 0, False
+        for seg in torch.cuda.memory_snapshot():
+            pid = seg.get("segment_pool_id")
+            if pid is None:
+                continue
+            named = True
+            if tuple(pid) == pool:
+                total += int(seg["total_size"])
+        return total if named else None
 
     def held(self):
         """Whether the pool holds the activations of a recorded replay

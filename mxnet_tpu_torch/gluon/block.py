@@ -489,7 +489,14 @@ class Block(nn.Module):
         from ..context import cpu
         from ..ndarray.ndarray import load
 
-        loaded = load(filename, ctx=cpu())
+        self._load_parameter_dict(load(filename, ctx=cpu()), filename,
+                                  allow_missing, ignore_extra)
+
+    def _load_parameter_dict(self, loaded, filename, allow_missing=False,
+                             ignore_extra=False):
+        """:meth:`load_parameters` of the arrays of a ``.params`` file
+        already read (``{key: NDArray}``; ``filename`` names it in
+        errors)."""
         if not isinstance(loaded, dict):
             raise MXNetError(f"{filename} holds no parameter names")
         loaded = {k.split(":", 1)[1] if k.startswith(("arg:", "aux:"))
@@ -669,18 +676,27 @@ class HybridBlock(Block):
         on ``var("data")``, and every parameter under ``arg:``/``aux:``
         as the graph classifies it (a frozen weight stays ``arg:``).
         Returns the symbol."""
+        out, graph, params = self._export_bytes()
+        with open(f"{path}-symbol.json", "w") as f:
+            f.write(graph)
+        with open(f"{path}-{epoch:04d}.params", "wb") as f:
+            f.write(params)
+        return out
+
+    def _export_bytes(self):
+        """``(symbol, graph JSON text, .params bytes)`` of :meth:`export`,
+        written nowhere (``deploy.export_model`` frames them)."""
         from .. import symbol as sym
-        from ..ndarray.ndarray import save
+        from ..ndarray.ndarray import save_buffer
 
         out = self(sym.var("data"))
         if isinstance(out, (list, tuple)):
             out = sym.Group(list(out))
-        out.save(f"{path}-symbol.json")
         aux_names = set(out.list_auxiliary_states())
-        save(f"{path}-{epoch:04d}.params",
-             {f"{'aux' if name in aux_names else 'arg'}:{name}": p.data()
-              for name, p in self.collect_params().items()})
-        return out
+        params = save_buffer(
+            {f"{'aux' if name in aux_names else 'arg'}:{name}": p.data()
+             for name, p in self.collect_params().items()})
+        return out, out.tojson(), params
 
 
 class _EagerEntry:

@@ -1,1 +1,2 @@
-"""Resilience (fault injection so far)."""
+"""Resilience: fault injection, checkpoints, bounded retry and the
+preemption drain."""

@@ -43,6 +43,7 @@ import torch.nn.functional as F
 
 from ..base import MXNetError
 from ..context import resolve_device
+from ..gluon._graph import device_lock
 from ..ops.flash_attention import flash_attention, paged_decode_attention
 from ..quantization.kv import kv_quantize
 from ..resilience import faultsim
@@ -304,7 +305,8 @@ class GenerativeServer:
         return self
 
     def _build(self, kv_dtype, warm):
-        with self._lock:
+        # device work beside other threads' captures: _graph.device_lock
+        with device_lock.shared(), self._lock:
             if self.pool is not None:
                 self.pool.reset()
             self.pool = PagedKVPool(
@@ -734,13 +736,16 @@ class GenerativeServer:
         while not self._stop:
             try:
                 if self._breaker_open:
-                    self._try_rewarm()
+                    with device_lock.shared():
+                        self._try_rewarm()
                     time.sleep(0.002)
                     continue
-                self._admit()
-                if self._active.any():
-                    self._step_once()
-                elif not self._queue:
+                with device_lock.shared():
+                    self._admit()
+                    if self._active.any():
+                        self._step_once()
+                        continue
+                if not self._queue:
                     time.sleep(0.001)
             except Exception:  # the loop must survive anything
                 time.sleep(0.005)

@@ -1557,3 +1557,255 @@ def test_export_on_card_writes_the_host_bytes(card, tmp_path):
     assert got.is_cuda
     assert float((got - want).abs().max()) <= 1e-5 * float(
         want.abs().max())
+
+
+# ------------------------------------------------- serving on the card
+def _served_net(seed=0):
+    """A ResNet-18 v1 (10 classes) on the card, the host's weights."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    onp.random.seed(seed)
+    net = vision.resnet18_v1(classes=10)
+    net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+    return net
+
+
+def _images(n, seed=1):
+    return onp.random.RandomState(seed).rand(n, 3, 32, 32).astype("float32")
+
+
+def _eager_rows(net, x):
+    import mxnet_tpu_torch as mx
+
+    return net(mx.nd.array(x, ctx=mx.gpu(0)))._data.cpu().numpy()
+
+
+@contextlib.contextmanager
+def _cudnn_deterministic():
+    prev = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark \
+            = prev
+
+
+def test_each_served_bucket_replays_eager_bit_for_bit(card, tmp_path):
+    """Every bucket of a ``from_predictor`` server and the one bucket of
+    a ``from_artifact`` server run a captured graph whose rows equal the
+    net's eager forward of the same batch bit for bit; one capture per
+    bucket at warm-up, none after."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon import _graph
+    from mxnet_tpu_torch.parallel import functionalize
+    from mxnet_tpu_torch.serving import ModelServer
+
+    with _cudnn_deterministic():
+        net = _served_net()
+        x = _images(8)
+        params, apply_fn = functionalize(net)
+        c0 = _graph.captures
+        srv = ModelServer.from_predictor(apply_fn, params, x,
+                                         candidates=(1,), tune_iters=2,
+                                         slo_ms=60000)
+        c1 = _graph.captures
+        srv.start(warm=True)
+        try:
+            assert _graph.captures - c1 == len(srv.buckets) == 4
+            for b in srv.buckets:
+                got = srv._model_fn(x[:b])
+                assert onp.array_equal(got, _eager_rows(net, x[:b])), b
+            assert _graph.captures - c1 == 4
+        finally:
+            srv.close()
+        path = str(tmp_path / "r18.mxje")
+        mx.deploy.export_model(net, mx.nd.array(x, ctx=mx.gpu(0)), path)
+        srv = ModelServer.from_artifact(path, slo_ms=60000)
+        c2 = _graph.captures
+        srv.start(warm=True)
+        try:
+            assert _graph.captures - c2 == 1
+            assert onp.array_equal(srv._model_fn(x), _eager_rows(net, x))
+            row = srv.submit(x[3]).result(timeout=60)
+            assert row.shape == (10,)
+        finally:
+            srv.close()
+        assert c1 - c0 == 1  # the race's one candidate
+
+
+def test_retraces_stay_zero_after_warmup(card):
+    """Single rows from several threads, so batches of every size pad to
+    the buckets: 0 retraces and no capture after warm-up."""
+    import threading
+
+    from mxnet_tpu_torch.gluon import _graph
+    from mxnet_tpu_torch.parallel import functionalize
+    from mxnet_tpu_torch.serving import ModelServer
+
+    net = _served_net()
+    x = _images(16)
+    params, apply_fn = functionalize(net)
+    srv = ModelServer.from_predictor(apply_fn, params, x[:8],
+                                     candidates=(1, 2), tune_iters=2,
+                                     slo_ms=60000, coalesce_ms=1.0)
+    srv.start(warm=True)
+    c0 = _graph.captures
+    outs = []
+    try:
+        def client(k):
+            for i in range(12):
+                outs.append(srv.submit(x[(k + i) % 16]).result(timeout=60))
+
+        ts = [threading.Thread(target=client, args=(k,)) for k in range(6)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join()
+        st = srv.stats
+    finally:
+        srv.close()
+    assert len(outs) == 72 and st["completed"] == 72
+    assert st["retraces"] == 0 and _graph.captures == c0
+    assert st["warm_traces"] == len(srv.buckets)
+
+
+def test_capture_beside_a_live_batcher_raises_nothing(card, tmp_path):
+    """A second server captures its graph (warm start) while the first
+    serves clients: no request fails, both answer as their nets."""
+    import threading
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.serving import ModelServer
+
+    net_a, net_b = _served_net(0), _served_net(1)
+    x = _images(8)
+    paths = {}
+    for name, net in (("a", net_a), ("b", net_b)):
+        paths[name] = str(tmp_path / f"{name}.mxje")
+        mx.deploy.export_model(net, mx.nd.array(x, ctx=mx.gpu(0)),
+                               paths[name])
+    want_a, want_b = _eager_rows(net_a, x), _eager_rows(net_b, x)
+    a = ModelServer.from_artifact(paths["a"], slo_ms=60000,
+                                  coalesce_ms=0.5).start()
+    stop = threading.Event()
+    errors, rows = [], []
+
+    def client(k):
+        i = k
+        while not stop.is_set():
+            try:
+                rows.append((i % 8, a.submit(x[i % 8]).result(timeout=60)))
+            except Exception as e:  # noqa: BLE001 — counted, asserted 0
+                errors.append(repr(e))
+            i += 1
+
+    ts = [threading.Thread(target=client, args=(k,)) for k in range(4)]
+    for t in ts:
+        t.start()
+    try:
+        b = ModelServer.from_artifact(paths["b"], slo_ms=60000).start()
+        got_b = b.submit(x[2]).result(timeout=60)
+        b.close()
+    finally:
+        stop.set()
+        for t in ts:
+            t.join()
+        a.close()
+    assert not errors, errors[:3]
+    assert rows
+    scale = float(onp.abs(want_a).max())
+    for i, r in rows:
+        assert float(onp.abs(r - want_a[i]).max()) <= 1e-4 * scale
+    assert float(onp.abs(got_b - want_b[2]).max()) <= 1e-4 * float(
+        onp.abs(want_b).max())
+
+
+def test_swap_under_load_fails_no_request_on_card(card, tmp_path):
+    import threading
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.serving import ModelHost
+
+    nets = [_served_net(0), _served_net(1)]
+    x = _images(8)
+    paths = []
+    for k, net in enumerate(nets):
+        paths.append(str(tmp_path / f"v{k}.mxje"))
+        mx.deploy.export_model(net, mx.nd.array(x, ctx=mx.gpu(0)), paths[k])
+    host = ModelHost(hbm_budget_mb=4096, server_kw={"slo_ms": 60000,
+                                                    "coalesce_ms": 0.5})
+    host.load("m", paths[0])
+    stop = threading.Event()
+    errors, n = [], [0]
+
+    def client(k):
+        i = k
+        while not stop.is_set():
+            try:
+                host.submit(x[i % 8], model="m").result(timeout=60)
+                n[0] += 1
+            except Exception as e:  # noqa: BLE001 — counted, asserted 0
+                errors.append(repr(e))
+            i += 1
+
+    ts = [threading.Thread(target=client, args=(k,)) for k in range(4)]
+    for t in ts:
+        t.start()
+    try:
+        swap_ms = host.swap("m", paths[1])
+        after = host.submit(x[5], model="m").result(timeout=60)
+    finally:
+        stop.set()
+        for t in ts:
+            t.join()
+        host.close_all()
+    assert not errors, errors[:3]
+    assert swap_ms > 0 and n[0] > 0
+    want = _eager_rows(nets[1], x)[5]
+    assert float(onp.abs(after - want).max()) <= 1e-4 * float(
+        onp.abs(want).max())
+
+
+def test_model_fault_on_card_trips_breaker_never_runs_on_host(card,
+                                                              tmp_path):
+    """A net whose outputs are non-finite on the card fails every batch
+    there: the breaker counts the failures and trips; no batch ever runs
+    on the host."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.serving import ModelServer, ServeRejected
+
+    net = _served_net(2)
+    w = next(iter(net.collect_params().values()))  # the stem's weight
+    w.set_data(mx.nd.full(w.shape, float("nan"), ctx=mx.gpu(0)))
+    x = _images(4)
+    path = str(tmp_path / "nan.mxje")
+    mx.deploy.export_model(net, mx.nd.array(x, ctx=mx.gpu(0)), path)
+    srv = ModelServer.from_artifact(path, slo_ms=60000, breaker_limit=2,
+                                    coalesce_ms=0.0)
+    devices = []
+    fn = srv._model_fn._fn
+
+    def watched(t):
+        devices.append(t.device.type)
+        return fn(t)
+
+    srv._model_fn._fn = watched
+    srv.start(warm=True)
+    try:
+        reasons = []
+        for i in range(2):
+            with pytest.raises(ServeRejected) as e:
+                srv.submit(x[i]).result(timeout=60)
+            reasons.append(e.value.reason)
+        st = srv.stats
+        assert reasons == ["model_error"] * 2
+        assert st["model_failures"] == 2 and st["breaker_trips"] == 1
+        assert srv.health()["breaker"] == "open"
+        with pytest.raises(ServeRejected, match="breaker_open"):
+            srv.submit(x[0])
+    finally:
+        srv.close()
+    assert devices and set(devices) == {"cuda"}
