@@ -46,8 +46,19 @@ each) to closed-loop clients, every row equal to the net's direct
 forward, through ``serving.ServeFrontend`` over HTTP on 127.0.0.1, and
 in a ``serving.ModelHost`` beside the wide generative decoder (its
 prefills through the flash kernel) under a device-memory budget, with a
-swap under load, a refused swap and a rolled-back one; then runs the
-symbolic half: the
+swap under load, a refused swap and a rolled-back one; then quantizes
+it: calibrated (``quantization.calibrate``), rewritten (``quantize_net``:
+every Conv2D and the Dense int8 wrappers with an fp8 and an fp32 arm),
+its int8 products at their real shapes equal to the host's exact ones
+and its fp8 products within a stated bound of the plain product, the
+arms raced by ``tune_quantized``, exported as int8, fp8 and (through
+``contrib.amp.convert_hybrid_block``) bf16 artifacts and served each by
+``ModelServer.from_artifact`` to the same clients, every row equal to
+its arm's direct forward, the three beside the fp32 one in a
+``ModelHost`` whose residency reports them, the reference's small
+quantization drill served at 0.99 agreement or better, and the Gluon
+ResNet-50 step under ``contrib.amp`` with the Trainer's loss scaler
+skipping a planted overflow; then runs the symbolic half: the
 builder's ResNet-50 v1 symbol (``resnet50_v1_symbol``) trained by
 ``mx.mod.Module`` (batch 128, fp32), one Module step of it on the card
 against the host, ``Module.fit`` of an MLP on an ``NDArrayIter`` with a
@@ -3242,6 +3253,572 @@ def fleet_host_phase(workdir, served, seed=0):
     return res
 
 
+# --------------------------------------- quantized and mixed precision
+#: the quantized ResNet-50: 4 seeded calibration batches of 32
+#: (``naive``), the race's iterations per arm, the fp8 products' bound
+#: (largest |difference| from the plain dequantized fp32 product of the
+#: same e4m3 values, over its largest |value|); the AMP step's settings
+QUANT = dict(calib_batches=4, calib_batch=32, calib_seed=300,
+             tune_iters=4, fp8_product_tol=1e-3)
+#: the reference drill's small net and corpus
+#: (``tests/test_quantization.py:612``): 4 classes of 3x16x16
+#: prototypes, 60 steps at batch 32, 4 calibration batches, entropy
+QUANT_DRILL = dict(classes=4, item=(3, 16, 16), steps=60, batch=32,
+                   corpus=4, lr=0.2, seed=42, min_agreement=0.99)
+AMP_RESNET = dict(batch=128, image=224, warmup=2, steps=5, fp32_steps=3,
+                  opt=dict(learning_rate=0.1, momentum=0.9, wd=1e-4))
+
+
+def _by_kind(net):
+    """The quantized wrappers of ``net`` the product checks take: the
+    7x7 stem, the first 3x3 conv (56²), the first 1x1 conv to 256
+    channels (56²) and the final Dense."""
+    from mxnet_tpu_torch.quantization import (QuantizedConv,
+                                              QuantizedDense,
+                                              quantized_layers)
+
+    ws = quantized_layers(net)
+    convs = [w for w in ws if isinstance(w, QuantizedConv)]
+    return {
+        "conv1_7x7": next(w for w in convs
+                          if w._conv_kw["kernel"] == (7, 7)),
+        "conv_3x3_56": next(w for w in convs
+                            if w._conv_kw["kernel"] == (3, 3)),
+        "conv_1x1_56": next(w for w in convs
+                            if w._conv_kw["kernel"] == (1, 1)
+                            and w._conv_kw["num_filter"] == 256),
+        "dense": next(w for w in ws if isinstance(w, QuantizedDense)),
+    }
+
+
+def _product_checks(net, batch, seed):
+    """At the real shapes (``batch``): the card's int32 accumulators of
+    each layer of :func:`_by_kind` against the host's exact result (a
+    float64 product of the same int8 codes, exact below 2^53), bit for
+    bit; the whole quantized op (bias and range included) on the card
+    against the host's at batch 2; the fp8 products against the plain
+    dequantized-fp32 product of the same e4m3 values (TF32 off)."""
+    import torch
+    import torch.nn.functional as F
+
+    from mxnet_tpu_torch.ops import quantization_ops as Q
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    inputs = {"conv1_7x7": (3, 224), "conv_3x3_56": (64, 56),
+              "conv_1x1_56": (64, 56), "dense": (2048, None)}
+    out = {}
+    for name, w in _by_kind(net).items():
+        ch, side = inputs[name]
+        shape = (batch, ch, side, side) if side else (batch, ch)
+        x = torch.randint(-127, 128, shape, generator=g, device="cuda",
+                          dtype=torch.int8)
+        xf = torch.randn(shape, generator=g, device="cuda") * 100
+        x8 = xf.clamp(-448, 448).to(torch.float8_e4m3fn)
+        scale = torch.full((), 3.5e-5, device="cuda")
+        if side:
+            kw = {k: w._conv_kw[k] for k in ("kernel", "stride", "pad",
+                                              "dilate", "num_group")}
+            acc = Q._conv_product(x, w._wq, Q._int8_gemm, **kw)
+            exact = F.conv2d(x.cpu().double(), w._wq.cpu().double(),
+                             stride=kw["stride"], padding=kw["pad"],
+                             dilation=kw["dilate"], groups=kw["num_group"])
+            f8 = Q._conv_product(x8, w._w8,
+                                 lambda a, b: Q._fp8_gemm(a, b, scale), **kw)
+            plain = F.conv2d(x8.float(), w._w8.float(), stride=kw["stride"],
+                             padding=kw["pad"], dilation=kw["dilate"],
+                             groups=kw["num_group"]) * scale
+            op, op_kw = Q.quantized_conv, dict(no_bias=w._no_bias,
+                                               **w._conv_kw)
+        else:
+            acc = Q._int8_gemm(x, w._wq)
+            exact = x.cpu().double() @ w._wq.cpu().double().t()
+            f8 = Q._fp8_gemm(x8, w._w8, scale)
+            plain = (x8.float() @ w._w8.float().t()) * scale
+            op, op_kw = Q.quantized_fully_connected, dict(
+                num_hidden=w._units, no_bias=w._no_bias, flatten=True)
+        ranges = [torch.tensor([v], device="cuda") for v in
+                  (-2.5, 3.0)] + [w._wmin, w._wmax, w._bmin, w._bmax]
+        card_op = op(x[:2], w._wq, w._bq, *ranges, **op_kw)
+        host_op = op(x[:2].cpu(), w._wq.cpu(), w._bq.cpu(),
+                     *[r.cpu() for r in ranges], **op_kw)
+        torch.cuda.synchronize()
+        exact_int = torch.equal(acc.cpu().to(torch.int64),
+                                exact.round().to(torch.int64))
+        op_equal = all(torch.equal(a.cpu(), b)
+                       for a, b in zip(card_op, host_op))
+        f8_rel = float((f8 - plain).abs().max()
+                       / plain.abs().max().clamp_min(1e-30))
+        out[name] = {"input": list(shape),
+                     "weight": list(w._wq.shape),
+                     "int32_equal_host_exact": exact_int,
+                     "op_at_batch_2_equal_host": op_equal,
+                     "acc_abs_max": int(acc.abs().max()),
+                     "fp8_rel_to_plain": f8_rel}
+        log(f"[quantize_resnet50] {name} {list(shape)}: int32 = host "
+            f"exact {exact_int}, op = host {op_equal}, fp8 rel "
+            f"{f8_rel:.3e}")
+    return out
+
+
+def _direct_rows_f32(net, images, batch):
+    """Each image's row of the net's direct forward in batches of
+    ``batch``, as float32 numpy (a bf16 net's logits widened)."""
+    import numpy as np
+    import torch
+
+    import mxnet_tpu_torch as mx
+
+    rows = []
+    with torch.no_grad():
+        for i in range(0, len(images), batch):
+            x = torch.from_numpy(images[i:i + batch]).to("cuda")
+            rows.append(net(mx.nd.NDArray(x))._data.float().cpu().numpy())
+    return np.concatenate(rows)
+
+
+def _agreement(rows, ref):
+    import numpy as np
+
+    return {"top1_agreement": float((rows.argmax(1)
+                                     == ref.argmax(1)).mean()),
+            "max_rel_logit_err": float(np.abs(rows - ref).max()
+                                       / np.abs(ref).max())}
+
+
+def quantize_resnet50_phase(workdir, served, seed=0):
+    """The zoo's ``resnet50_v1()`` (``serve_resnet50``'s fp32 weights)
+    calibrated (``naive``, 4 seeded batches of 32), rewritten by
+    ``quantize_net`` (every Conv2D and the Dense int8 wrappers,
+    BatchNorm fp32), its int8 and fp8 products checked at their real
+    shapes (:func:`_product_checks`), the arms raced by
+    ``tune_quantized`` on the card (timings and winners printed,
+    whatever they are), then exported three ways: int8 and fp8 under
+    ``autotune.force`` (the reference's drill), and the fp32 net
+    converted by ``contrib.amp.convert_hybrid_block(net, "bfloat16")``
+    under ``amp.init``.  Each arm's direct rows at batch 32 (the
+    served bucket), top-1 agreement with the fp32 net and the largest
+    relative logit error are recorded."""
+    import numpy as np
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autotune, deploy, quantization
+    from mxnet_tpu_torch.contrib import amp
+    from mxnet_tpu_torch.ops import quantization_ops as Q
+
+    cfg = QUANT
+    ctx = mx.gpu(0)
+    t_phase = time.perf_counter()
+    images, refs32 = served["images"], served["refs"][32]
+    net = _serve_net(ctx, seed)
+    rs = np.random.RandomState(cfg["calib_seed"])
+    calib = [rs.randn(cfg["calib_batch"], 3, SERVE["image"],
+                      SERVE["image"]).astype("float32")
+             for _ in range(cfg["calib_batches"])]
+    t0 = time.perf_counter()
+    cal = quantization.calibrate(net, calib, mode="naive",
+                                 num_batches=cfg["calib_batches"])
+    calib_s = time.perf_counter() - t0
+    quantization.quantize_net(net, cal)
+    wrappers = quantization.quantized_layers(net)
+    kinds = {}
+    for w in wrappers:
+        kinds[type(w).__name__] = kinds.get(type(w).__name__, 0) + 1
+    norms = sum(type(m).__name__ == "BatchNorm" for m in net.modules())
+    t0 = time.perf_counter()
+    products = _product_checks(net, SERVE["batch"], seed + 7)
+    products_s = time.perf_counter() - t0
+    x32 = torch.from_numpy(images[:SERVE["batch"]]).to("cuda")
+    t0 = time.perf_counter()
+    race = quantization.tune_quantized(net, mx.nd.NDArray(x32),
+                                       iters=cfg["tune_iters"])
+    race_s = time.perf_counter() - t0
+    for op, r in race.items():
+        log(f"[quantize_resnet50] race {op}: winner {r['winner']}, "
+            f"ms {({k: round(v * 1e3, 3) for k, v in r['timings'].items()})}")
+    # where one eager batch-32 forward of each arm spends the device
+    forward = {}
+    for arm, value in (("fp32", False), ("int8", True), ("fp8", "fp8")):
+        with autotune.force(quantized_conv=value, quantized_fc=value), \
+                torch.no_grad():
+            net(mx.nd.NDArray(x32))
+            torch.cuda.synchronize()
+            prof = torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CUDA])
+            with prof:
+                t0 = time.perf_counter()
+                net(mx.nd.NDArray(x32))
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        forward[arm] = device_profile(prof, wall, top=8, shares={
+            "gemm": ("gemm", "Gemm", "xmma", "cutlass", "sm90"),
+            "elementwise": ("elementwise", "vectorized", "unrolled")})
+        log(f"[quantize_resnet50] eager forward {arm}: wall "
+            f"{wall * 1e3:.2f} ms, device busy "
+            f"{forward[arm].get('device_busy_ms')} ms")
+    arms, paths = {}, {}
+    for arm, value in (("int8", True), ("fp8", "fp8")):
+        with autotune.force(quantized_conv=value, quantized_fc=value):
+            Q.reset_counts()
+            rows = _direct_rows_f32(net, images, SERVE["batch"])
+            gemms = Q.counts()
+            path = os.path.join(workdir, "serve", f"resnet50_v1_{arm}.mxje")
+            t0 = time.perf_counter()
+            deploy.export_model(net, x32, path)
+            arms[arm] = {"export_s": time.perf_counter() - t0,
+                         "direct_forward_gemms": gemms}
+        paths[arm] = path
+        arms[arm].update(rows=rows, **_agreement(rows, refs32))
+    bf = _serve_net(ctx, seed)
+    amp.convert_hybrid_block(bf, "bfloat16")
+    amp.init("bfloat16")
+    try:
+        rows = _direct_rows_f32(bf, images, SERVE["batch"])
+        path = os.path.join(workdir, "serve", "resnet50_v1_bf16.mxje")
+        t0 = time.perf_counter()
+        deploy.export_model(bf, x32, path)
+        arms["bf16"] = {"export_s": time.perf_counter() - t0}
+    finally:
+        amp._off()
+    paths["bf16"] = path
+    arms["bf16"].update(rows=rows, **_agreement(rows, refs32))
+    del bf
+    headers = {a: deploy.read_artifact_meta(p) for a, p in paths.items()}
+    for a in arms:
+        arms[a]["artifact_bytes"] = os.path.getsize(paths[a])
+        arms[a]["header"] = {k: headers[a].get(k) for k in (
+            "quantized", "quantized_layers", "param_dtypes")}
+        log(f"[quantize_resnet50] {a}: header {arms[a]['header']}, "
+            f"agreement {arms[a]['top1_agreement']:.4f}, rel logit err "
+            f"{arms[a]['max_rel_logit_err']:.3e}, "
+            f"{arms[a]['artifact_bytes']} bytes")
+    res = {"phase": "quantize_resnet50",
+           "model": {"name": "resnet50_v1", "layout": "NCHW",
+                     "classes": 1000, "weights": f"Xavier, seed {seed}"},
+           "calibration": {"mode": "naive", "batches": cfg["calib_batches"],
+                           "batch": cfg["calib_batch"], "layers": len(cal),
+                           "seconds": calib_s},
+           "wrappers": kinds, "batchnorm_fp32": norms,
+           "products": products, "products_s": products_s,
+           "fp8_product_tol": cfg["fp8_product_tol"],
+           "race": race, "race_s": race_s, "eager_forward_32": forward,
+           "arms": {a: {k: v for k, v in r.items() if k != "rows"}
+                    for a, r in arms.items()},
+           "seconds": time.perf_counter() - t_phase}
+    emit(res)
+    check(kinds.get("QuantizedConv") == 53 and kinds.get("QuantizedDense")
+          == 1, f"quantize_resnet50: wrappers {kinds}")
+    check(all(p["int32_equal_host_exact"] and p["op_at_batch_2_equal_host"]
+              for p in products.values()),
+          f"quantize_resnet50: int8 products differ from the host's: "
+          f"{products}")
+    check(all(p["fp8_rel_to_plain"] <= cfg["fp8_product_tol"]
+              for p in products.values()),
+          f"quantize_resnet50: fp8 products beyond "
+          f"{cfg['fp8_product_tol']} of the plain product")
+    check(set(race) == {"quantized_conv", "quantized_fc"},
+          f"quantize_resnet50: the race reported {sorted(race)}")
+    check(arms["int8"]["direct_forward_gemms"]["int_mm"] == 54 * 2
+          and arms["fp8"]["direct_forward_gemms"]["scaled_mm"] == 54 * 2,
+          f"quantize_resnet50: GEMM launches int8 "
+          f"{arms['int8']['direct_forward_gemms']}, fp8 "
+          f"{arms['fp8']['direct_forward_gemms']} (54 layers x 2 batches)")
+    for a, want in (("int8", "int8"), ("fp8", "float8_e4m3fn")):
+        h = arms[a]["header"]
+        check(h["quantized"] is True and h["quantized_layers"] == 54
+              and h["param_dtypes"].get(want, 0) >= 54,
+              f"quantize_resnet50: {a} header {h}")
+    check(arms["bf16"]["header"]["param_dtypes"].get("bfloat16", 0) > 0
+          and arms["bf16"]["header"]["quantized"] is False,
+          f"quantize_resnet50: bf16 header {arms['bf16']['header']}")
+    return res, {"net": net, "paths": paths, "images": images,
+                 "refs": {a: r["rows"] for a, r in arms.items()},
+                 "refs32": refs32, "fp32_path": served["path"]}
+
+
+def _drill_on_card(workdir):
+    """The reference's drill (``tests/test_quantization.py:612``) on the
+    card: a small net trained by the Gluon loop, calibrated
+    (``entropy``), rewritten, exported under the int8 force scope and
+    served from the artifact; top-1 agreement with the fp32 net over
+    the calibration corpus."""
+    import numpy as np
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, autotune, deploy, gluon
+    from mxnet_tpu_torch import quantization
+    from mxnet_tpu_torch.gluon import nn
+    from mxnet_tpu_torch.serving import ModelServer
+
+    cfg = QUANT_DRILL
+    rng = np.random.RandomState(cfg["seed"])
+    protos = rng.rand(cfg["classes"], *cfg["item"]).astype("float32")
+
+    def make_batch(n):
+        y = rng.randint(0, cfg["classes"], n)
+        return ((protos[y] + 0.15 * rng.rand(n, *cfg["item"]))
+                .astype("float32"), y.astype("float32"))
+
+    ctx = mx.gpu(0)
+    np.random.seed(cfg["seed"])
+    net = nn.HybridSequential()
+    with net.name_scope():
+        net.add(nn.Conv2D(8, 3, padding=1, in_channels=3),
+                nn.Activation("relu"), nn.MaxPool2D(), nn.Flatten(),
+                nn.Dense(cfg["classes"], in_units=8 * 8 * 8))
+    net.initialize(mx.init.Xavier(), ctx=ctx)
+    trainer = gluon.Trainer(net.collect_params(), "sgd",
+                            {"learning_rate": cfg["lr"]})
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    for _ in range(cfg["steps"]):
+        xb, yb = make_batch(cfg["batch"])
+        x, y = mx.nd.array(xb, ctx=ctx), mx.nd.array(yb, ctx=ctx)
+        with autograd.record():
+            loss = loss_fn(net(x), y)
+        loss.backward()
+        trainer.step(cfg["batch"])
+    corpus = [make_batch(cfg["batch"])[0] for _ in range(cfg["corpus"])]
+    fp32 = np.concatenate([net(mx.nd.array(b, ctx=ctx)).asnumpy()
+                           for b in corpus])
+    cal = quantization.calibrate(net, corpus, mode="entropy",
+                                 num_batches=cfg["corpus"])
+    quantization.quantize_net(net, cal)
+    path = os.path.join(workdir, "serve", "drill_int8.mxje")
+    with autotune.force(quantized_conv=True, quantized_fc=True):
+        deploy.export_model(net, corpus[0], path)
+    srv = ModelServer.from_artifact(path, slo_ms=30000.0, coalesce_ms=1.0,
+                                    name="drill_int8")
+    srv.start(warm=True)
+    try:
+        hs = [srv.submit(x) for x in np.concatenate(corpus)]
+        served = np.stack([np.asarray(h.result(timeout=120)) for h in hs])
+    finally:
+        srv.close()
+    torch.cuda.synchronize()
+    agreement = float((served.argmax(1) == fp32.argmax(1)).mean())
+    return {"agreement": agreement, "rows": int(served.shape[0]),
+            "header": {k: deploy.read_artifact_meta(path).get(k) for k in
+                       ("quantized", "quantized_layers", "param_dtypes")}}
+
+
+def serve_resnet50_int8_phase(workdir, quant):
+    """The int8, fp8 and bf16 artifacts of ``quantize_resnet50`` served
+    by ``ModelServer.from_artifact`` (one captured graph, the bucket of
+    32, as ``serve_resnet50`` serves the fp32 net), each driven by
+    ``_serve_levels``'s closed loop at 1, 8, 32 and 64 clients
+    (req/s, p50, p99, the idle share at 64; every row equal to the
+    direct forward of its arm at batch 32, bit for bit); then a
+    ``ModelHost`` holding the fp32 artifact beside the int8 and fp8
+    ones (and the bf16 one), its residency report read; then the
+    reference's drill on the card (agreement >= 0.99)."""
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch.gluon import _graph
+    from mxnet_tpu_torch.ops import quantization_ops as Q
+    from mxnet_tpu_torch.serving import ModelHost, ModelServer
+
+    t_phase = time.perf_counter()
+    images, paths = quant["images"], quant["paths"]
+    servers = {}
+    for arm in ("int8", "fp8", "bf16"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        c0 = _graph.captures
+        t0 = time.perf_counter()
+        Q.reset_counts()
+        srv = ModelServer.from_artifact(
+            paths[arm], slo_ms=SERVE["slo_ms"],
+            coalesce_ms=SERVE["coalesce_ms"], name=f"resnet50_{arm}")
+        srv.start(warm=True)
+        warm_s = time.perf_counter() - t0
+        c1 = _graph.captures
+        # the GEMMs the captured program holds (counted where the ops
+        # ran: warm-up and capture; a replay runs them again unseen)
+        gemms = Q.counts()
+        levels = _serve_levels(f"serve_resnet50_{arm}", srv, images,
+                               {32: quant["refs"][arm]})
+        servers[arm] = {
+            "buckets": list(srv.buckets), "warm_start_s": warm_s,
+            "captures_at_warmup": c1 - c0,
+            "captures_after_warmup": _graph.captures - c1,
+            "gemm_calls_warmup_and_capture": gemms,
+            "peak_above_base_bytes":
+                torch.cuda.max_memory_allocated() - base,
+            "levels": levels}
+        srv.close()
+        check(c1 - c0 == 1 and _graph.captures == c1,
+              f"serve_resnet50_{arm}: captures {c1 - c0} at warm-up, "
+              f"{_graph.captures - c1} after (1 and 0 expected)")
+        torch.cuda.empty_cache()
+    host = ModelHost(server_kw={"slo_ms": SERVE["slo_ms"],
+                                "coalesce_ms": SERVE["coalesce_ms"]})
+    try:
+        t0 = time.perf_counter()
+        for name, path in (("fp32", quant["fp32_path"]),
+                           ("int8", paths["int8"]), ("fp8", paths["fp8"]),
+                           ("bf16", paths["bf16"])):
+            host.load(name, path)
+        load_s = time.perf_counter() - t0
+        answers = {name: host.submit(images[3], model=name).result(
+            timeout=120) for name in ("fp32", "int8", "fp8", "bf16")}
+        residency = host.residency()
+    finally:
+        host.close_all()
+    resident = {n: {"quantized": m["quantized"],
+                    "param_dtypes": m["param_dtypes"]}
+                for n, m in residency["models"].items()}
+    log(f"[serve_resnet50_int8] ModelHost residency {resident}")
+    drill = _drill_on_card(workdir)
+    log(f"[serve_resnet50_int8] drill agreement {drill['agreement']:.4f} "
+        f"over {drill['rows']} rows, header {drill['header']}")
+    res = {"phase": "serve_resnet50_int8",
+           "slo_ms": SERVE["slo_ms"], "requests_per_level":
+               SERVE["requests"], "servers": servers,
+           "model_host": {"load_s": load_s, "residency": resident,
+                          "answers_equal_direct": {
+                              a: bool(np.array_equal(answers[a],
+                                                     quant["refs"][a][3]))
+                              for a in ("int8", "fp8", "bf16")}},
+           "drill": drill, "seconds": time.perf_counter() - t_phase}
+    emit(res)
+    check(resident["int8"]["quantized"] is True
+          and resident["fp8"]["quantized"] is True
+          and resident["fp32"]["quantized"] is False,
+          f"serve_resnet50_int8: residency {resident}")
+    check(all(res["model_host"]["answers_equal_direct"].values()),
+          f"serve_resnet50_int8: ModelHost answers "
+          f"{res['model_host']['answers_equal_direct']}")
+    # 54 layers, each run in the graph's warm-up passes and its capture
+    for arm, kind in (("int8", "int_mm"), ("fp8", "scaled_mm")):
+        n = servers[arm]["gemm_calls_warmup_and_capture"][kind]
+        check(n > 0 and n % 54 == 0,
+              f"serve_resnet50_int8: the {arm} program holds {n} {kind} "
+              f"calls (a multiple of 54 expected)")
+    check(drill["agreement"] >= QUANT_DRILL["min_agreement"],
+          f"serve_resnet50_int8: drill agreement {drill['agreement']}")
+    return res
+
+
+def amp_gluon_resnet50_phase(gres, seed=0):
+    """``gluon_resnet50``'s net (fp32 weights, the unfused tail) trained
+    by the Gluon loop under ``amp.init("bfloat16")`` with the Trainer's
+    loss scaler (``init_trainer`` + ``scale_loss``): warm-up, timed
+    steps (ms/step by CUDA events), then one step whose gradient is
+    planted non-finite, which the Trainer must skip (every parameter
+    unchanged) with the scale halved; and the same net's fp32 steps
+    without AMP for comparison, beside ``gluon_resnet50``'s bf16-cast
+    ms/step."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, autotune, gluon
+    from mxnet_tpu_torch.contrib import amp
+
+    cfg = AMP_RESNET
+    batch = cfg["batch"]
+    ctx = mx.gpu(0)
+    dev = ctx.torch_device()
+    net = gluon_resnet50(ctx, seed)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    x = mx.nd.NDArray(torch.randn((batch, cfg["image"], cfg["image"], 3),
+                                  generator=gen, device=dev))
+    y = mx.nd.NDArray(torch.randint(0, 1000, (batch,), generator=gen,
+                                    device=dev, dtype=torch.int32))
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    trainer = gluon.Trainer(net.collect_params(), "sgd", dict(cfg["opt"]))
+    amp.init_trainer(trainer)
+    params = list(net.collect_params().values())
+
+    def step(plant=False):
+        with autograd.record():
+            with amp.scale_loss(loss_fn(net(x), y), trainer) as scaled:
+                scaled.backward()
+        if plant:
+            g = params[0]._wrap()._grad
+            g._data.view(-1)[0] = float("inf")
+        trainer.step(batch)
+        return scaled
+
+    def timed(fn, n):
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(n + 1)]
+        marks[0].record()
+        out = []
+        for i in range(n):
+            out.append(fn())
+            marks[i + 1].record()
+        marks[-1].synchronize()
+        return marks[0].elapsed_time(marks[-1]) / n, out
+
+    torch.cuda.reset_peak_memory_stats()
+    amp.init("bfloat16")
+    try:
+        with autotune.force(pallas_bnreluconv="stock"):
+            for _ in range(cfg["warmup"]):
+                step()
+            scales = [trainer._amp_loss_scaler.loss_scale]
+            ms_amp, outs = timed(step, cfg["steps"])
+            losses = [float(o._data.float().mean())
+                      / trainer._amp_loss_scaler.loss_scale for o in outs]
+            conv_dtype = net(x)._data.dtype
+            # the trained parameters (a training forward moves the
+            # BatchNorm statistics, skipped update or not)
+            trained = [p for p in params if p.grad_req != "null"]
+            before = [p.data()._data.clone() for p in trained]
+            scale_before = trainer._amp_loss_scaler.loss_scale
+            step(plant=True)
+            torch.cuda.synchronize()
+            unchanged = all(torch.equal(b, p.data()._data)
+                            for b, p in zip(before, trained))
+            scale_after = trainer._amp_loss_scaler.loss_scale
+            step()  # the step after the skip trains again
+            torch.cuda.synchronize()
+            moved = sum(not torch.equal(b, p.data()._data)
+                        for b, p in zip(before, trained))
+    finally:
+        amp._off()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    fp32_trainer = gluon.Trainer(net.collect_params(), "sgd",
+                                 dict(cfg["opt"]))
+
+    def fp32_step():
+        return _gluon_loss_step(net, fp32_trainer, x, y)
+
+    with autotune.force(pallas_bnreluconv="stock"):
+        fp32_step()
+        ms_fp32, _ = timed(fp32_step, cfg["fp32_steps"])
+    res = {"phase": "amp_gluon_resnet50",
+           "model": {"name": "resnet50_v1", "layout": "NHWC",
+                     "no_bias": True, "tail": "stock (unfused)"},
+           "batch": batch, "image": cfg["image"],
+           "amp": {"target_dtype": "bfloat16", "logits_dtype":
+                   str(conv_dtype).replace("torch.", "")},
+           "ms_per_step": ms_amp, "img_s": batch / ms_amp * 1e3,
+           "fp32_ms_per_step_same_net": ms_fp32,
+           "gluon_resnet50_bf16_cast_ms_per_step": gres["ms_per_step"],
+           "loss_scale_after_warmup": scales[0],
+           "losses_unscaled": losses,
+           "planted_overflow": {"scale_before": scale_before,
+                                "scale_after": scale_after,
+                                "trained_parameters_unchanged": unchanged,
+                                "trained_parameters_moved_next_step":
+                                    f"{moved} of {len(trained)}"},
+           "peak_mem_gib": peak}
+    emit(res)
+    check(all(math.isfinite(v) for v in losses),
+          f"amp_gluon_resnet50: losses {losses}")
+    check(unchanged and scale_after == scale_before / 2,
+          f"amp_gluon_resnet50: the planted overflow was not skipped "
+          f"(unchanged {unchanged}, scale {scale_before} -> {scale_after})")
+    check(moved > 0, "amp_gluon_resnet50: the step after the skip moved "
+                     "nothing")
+    check(conv_dtype == torch.bfloat16,
+          f"amp_gluon_resnet50: logits {conv_dtype} under AMP")
+    return res
+
+
 def run(profile=False, old_brc=None, workdir=None):
     import torch
 
@@ -3523,8 +4100,27 @@ def run(profile=False, old_brc=None, workdir=None):
     log(f"[serve_http] predict host ms {shttp['predict_ms_host']}")
     torch.cuda.empty_cache()
     fleet = fleet_host_phase(workdir, served)
-    del served
     log(f"[serve phases] {time.perf_counter() - t0:.1f} s")
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    qres, quant = quantize_resnet50_phase(workdir, served)
+    del served
+    torch.cuda.empty_cache()
+    sq = serve_resnet50_int8_phase(workdir, quant)
+    del quant
+    for arm, s in sq["servers"].items():
+        busy = s["levels"][-1]
+        log(f"[serve_resnet50_int8] {arm}: busiest {busy['requests_s']:.1f}"
+            f" req/s p50 {busy['p50_ms']:.2f} p99 {busy['p99_ms']:.2f} ms, "
+            f"idle {busy.get('profile', {}).get('device_idle_share')}")
+    torch.cuda.empty_cache()
+    ares = amp_gluon_resnet50_phase(gres)
+    log(f"[amp_gluon_resnet50] {ares['ms_per_step']:.2f} ms/step under "
+        f"AMP, fp32 {ares['fp32_ms_per_step_same_net']:.2f}, bf16 cast "
+        f"{gres['ms_per_step']:.2f}; overflow "
+        f"{ares['planted_overflow']}")
+    log(f"[quantized phases] {time.perf_counter() - t0:.1f} s")
 
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -5990,6 +6586,7 @@ def main(argv=None):
     # the paged-attention race records its winner here, not in $HOME
     cache_dir = tempfile.mkdtemp(prefix="chip_smoke_autotune_")
     os.environ["MXNET_AUTOTUNE_CACHE_DIR"] = cache_dir
+    t_script = time.perf_counter()
     try:
         run(profile=args.profile,
             old_brc=args.old_brc and os.path.abspath(args.old_brc),
@@ -5999,6 +6596,8 @@ def main(argv=None):
         return 1
     finally:
         shutil.rmtree(cache_dir, ignore_errors=True)
+        log(f"chip_smoke: the whole script took "
+            f"{time.perf_counter() - t_script:.1f} s")
     return 0
 
 

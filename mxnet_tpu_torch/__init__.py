@@ -25,8 +25,10 @@ and the random foundation with the classification zoo
 (:mod:`~mxnet_tpu_torch.random`, ``mx.nd.random``, ``Dropout``, keyed
 train steps, ``gluon.model_zoo.vision``) and the serving path for
 trained models (:mod:`~mxnet_tpu_torch.deploy` artifacts,
-``serving.ModelServer``, the HTTP front, ``serving.ModelHost``), with
-what they run.
+``serving.ModelServer``, the HTTP front, ``serving.ModelHost``) and
+quantized and mixed-precision inference (:mod:`~mxnet_tpu_torch.
+quantization`, ``contrib.quantization``, ``contrib.amp``), with what
+they run.
 """
 __version__ = "0.1.0"
 
@@ -57,10 +59,12 @@ from . import monitor as mon  # noqa: F401
 from . import module  # noqa: F401
 from . import module as mod  # noqa: F401
 from . import deploy  # noqa: F401
+from . import contrib  # noqa: F401
+from . import quantization  # noqa: F401
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "num_gpus", "default_device", "resolve_device", "nd",
            "ndarray", "autograd", "library", "random", "gluon", "init", "initializer",
            "lr_scheduler", "metric", "optimizer", "sym", "symbol",
            "AttrScope", "io", "model", "callback", "monitor", "mon",
-           "mod", "module", "deploy"]
+           "mod", "module", "deploy", "contrib", "quantization"]

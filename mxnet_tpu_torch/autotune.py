@@ -11,7 +11,7 @@ to the host and the reverse.
 Decision precedence (``variant_choice``): a :func:`force` scope, then
 an explicitly set env override (``MXNET_FLASH_ATTENTION``,
 ``MXNET_PAGED_ATTENTION``, ``MXNET_BNRELUCONV_VARIANT``,
-``MXNET_PALLAS_OPT``), then the caller's default.
+``MXNET_PALLAS_OPT``, ``MXNET_QUANTIZE``), then the caller's default.
 
 ``MXNET_AUTOTUNE``: 0 = off (no race), 1 = consult the cache and race
 on a miss (default), 2 = race even on a hit.  Timing on the card is by
@@ -47,6 +47,13 @@ VARIANT_OPS = {
     # ops/pallas_opt.py: the fused bucket kernel against the plain
     # fused_bucket_update, consulted by parallel.zero
     "fused_bucket_opt": {"jnp": False, "pallas": True},
+    # quantization/rewrite.py: a rewritten net's QuantizedConv/
+    # QuantizedDense run the wrapped fp32 layer (False), the calibrated
+    # int8 program (True) or the fp8 one (e4m3 operands, f32
+    # accumulation); quantization.tune_quantized races them on the
+    # net's real forward
+    "quantized_conv": {"fp32": False, "int8": True, "fp8": "fp8"},
+    "quantized_fc": {"fp32": False, "int8": True, "fp8": "fp8"},
 }
 
 
@@ -70,6 +77,20 @@ def _parse_flash(raw):
     return None  # unknown value: no override
 
 
+def _parse_quantize(raw):
+    """MXNET_QUANTIZE: 0/off/fp32 pins the fp32 arm, 1/on/int8 the int8
+    program, fp8 the fp8 program; anything else (e.g. 'auto') carries no
+    override."""
+    lowered = raw.lower()
+    if lowered in ("0", "false", "no", "off", "fp32", "float32"):
+        return False
+    if lowered in ("1", "true", "yes", "on", "int8"):
+        return True
+    if lowered in ("fp8", "float8", "e4m3"):
+        return "fp8"
+    return None
+
+
 def _parse_paged(raw):
     lowered = raw.lower()
     if lowered in ("0", "false", "no", "off", "gather", "dense"):
@@ -85,6 +106,9 @@ _ENV_OVERRIDE = {
     "paged_decode_attention": ("MXNET_PAGED_ATTENTION", _parse_paged),
     "pallas_bnreluconv": ("MXNET_BNRELUCONV_VARIANT", _parse_bnreluconv),
     "fused_bucket_opt": ("MXNET_PALLAS_OPT", _parse_bool),
+    # one knob overrides both quantized arms
+    "quantized_conv": ("MXNET_QUANTIZE", _parse_quantize),
+    "quantized_fc": ("MXNET_QUANTIZE", _parse_quantize),
 }
 
 _tls = threading.local()

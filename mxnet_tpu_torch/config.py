@@ -77,6 +77,22 @@ register_env("MXNET_DECODE_SLOTS", 8, int,
              "Decode-slot capacity of the generative server: the "
              "decode step runs over this fixed slot tensor; sequences "
              "are admitted/evicted by in-place slot updates.")
+register_env("MXNET_QUANTIZE", "", str,
+             "Hand override of the quantized-inference race "
+             "(mxnet_tpu_torch.quantization; autotune variant ops "
+             "quantized_conv/quantized_fc): 0/off/fp32 pins every "
+             "rewritten layer to its fp32 arm, 1/on/int8 the int8 "
+             "program, fp8 the fp8 program (e4m3 operands, f32 "
+             "accumulation).  Unset/auto: the race's winner decides.")
+register_env("MXNET_QUANT_CALIB_MODE", "naive", str,
+             "Default calibration mode of quantization.calibrate: "
+             "'naive' (running min/max per observed tensor) or "
+             "'entropy' (the KL-divergence-optimal symmetric "
+             "threshold over an absolute-value histogram).")
+register_env("MXNET_QUANT_CALIB_BATCHES", 10, int,
+             "Default number of calibration batches "
+             "quantization.calibrate folds through the range "
+             "collector when the caller does not pass num_batches.")
 register_env("MXNET_KV_DTYPE", "float32", str,
              "KV-cache storage dtype of the generative server: "
              "'float32' or 'int8' (per-(token, head) symmetric "

@@ -24,8 +24,9 @@ needs neither.  A StableHLO artifact of the JAX package raises a clean
 
 Framing (the reference's): a v2 file is ``MXJE\\x02\\n``, then ``<IQI``
 = CRC32(metadata + payload), len(payload), len(metadata), the JSON
-metadata segment (input signature, ``quantized``, ``param_dtypes``,
-``platforms``, the caller's ``extra_meta``) and the payload; a v1 file
+metadata segment (input signature, ``quantized``, ``quantized_layers``,
+``param_dtypes``, ``platforms``, the caller's ``extra_meta``) and the
+payload; a v1 file
 is ``MXJE\\x01\\n``, ``<IQ`` = CRC32(payload), len(payload), payload;
 a file without either magic is all payload.  Integrity is checked
 before the payload is read.  Generative (decoder) artifacts carry the
@@ -91,18 +92,39 @@ def _example_array(x):
 
 
 def _net_meta(net, shape, dtype, platforms):
-    """The v2 header metadata of an export: input signature,
-    ``quantized`` (False, with 0 quantized layers: the quantized
-    inference blocks are ROADMAP §A 9) and a ``param_dtypes`` histogram
-    of the weights the payload carries, as the reference's
-    ``_net_meta`` counts them (each block's own parameters, then its
-    children's)."""
+    """The v2 header metadata of an export: the input signature,
+    ``quantized`` (does the program run int8 or fp8 layers),
+    ``quantized_layers`` and a ``param_dtypes`` histogram of the weights
+    the program bakes, counted as the reference's ``_net_meta`` counts
+    them: each block's own parameters, then its children's; a quantized
+    wrapper whose arm is int8 or fp8 counts its baked weights
+    (``export_dtypes``) in place of its fp32 original's, one armed fp32
+    counts the original's, a pooling/flatten wrapper nothing.  Computed
+    under the same autotune scope as the export trace, so it describes
+    the program, not the net's potential."""
     dtype_counts = {}
+    quantized = False
+    q_layers = 0
+
+    def _count(dt):
+        dt = _dtype_name(dt)
+        dtype_counts[dt] = dtype_counts.get(dt, 0) + 1
 
     def _walk(block):
+        nonlocal quantized, q_layers
+        if getattr(block, "_mxnet_quantized", False):
+            if block.variant_op is None:
+                return  # pooling/flatten pass-through: no weights
+            if block._arm() != "fp32":
+                quantized = True
+                q_layers += 1
+                for dt in block.export_dtypes():
+                    _count(dt)
+                return  # the shadowed fp32 original is dead here
+            _walk(block._orig)
+            return
         for p in getattr(block, "_reg_params", {}).values():
-            dt = _dtype_name(p.dtype)
-            dtype_counts[dt] = dtype_counts.get(dt, 0) + 1
+            _count(p.dtype)
         for child in getattr(block, "_children", {}).values():
             _walk(child)
 
@@ -112,8 +134,8 @@ def _net_meta(net, shape, dtype, platforms):
         "item_shape": [int(s) for s in shape[1:]],
         "dtype": dtype,
         "platforms": list(platforms),
-        "quantized": False,
-        "quantized_layers": 0,
+        "quantized": bool(quantized),
+        "quantized_layers": int(q_layers),
         "param_dtypes": dtype_counts,
     }
 
@@ -154,13 +176,15 @@ def export_model(net, example_input, path, platforms=("cpu", "cuda"),
     if any(p._tensor() is None for p in _collect_all_params(net)):
         net.infer_shape(x)
     out, graph, params = net._export_bytes()
+    # the metadata right after the trace, under the caller's autotune
+    # scope: it must describe the arm the trace baked
+    meta_doc = _net_meta(net, shape, dtype, platforms)
     if "data" not in out.list_inputs():
         raise MXNetError("export_model: the traced graph reads no 'data' "
                          "input")
     graph = graph.encode("utf-8")
     blob = _SYMBOL_MAGIC + _SYMBOL_HEADER.pack(len(graph), len(params)) \
         + graph + params
-    meta_doc = _net_meta(net, shape, dtype, platforms)
     atomic_write_bytes(path, _frame(meta_doc, blob, extra_meta),
                        inject_point=None)
     return path

@@ -16,7 +16,8 @@ import torch
 from .base import MXNetError
 
 __all__ = ["TYPE_FLAG_TO_NP", "NP_TO_TYPE_FLAG", "normalize_dtype",
-           "dtype_name", "to_numpy_dtype"]
+           "dtype_name", "to_numpy_dtype", "float8_supported",
+           "attr_dtype_name"]
 
 # mshadow type_flag <-> numpy dtype (base.h:307-314)
 TYPE_FLAG_TO_NP = {
@@ -59,6 +60,23 @@ _TORCH_BY_NAME = dict(_NO_NUMPY, bool=torch.bool, uint8=torch.uint8,
                       complex64=torch.complex64,
                       complex128=torch.complex128)
 _NAME_BY_TORCH = {v: k for k, v in _TORCH_BY_NAME.items()}
+_FLOAT8_NAMES = ("float8_e4m3fn", "float8_e5m2")
+
+
+def float8_supported() -> bool:
+    """True when this torch build carries the float8 types."""
+    return all(hasattr(torch, n) for n in _FLOAT8_NAMES)
+
+
+def _float8(name):
+    """The torch float8 dtype, or a loud MXNetError (never a silent
+    fp32 fallback) when this build lacks it."""
+    if not float8_supported():
+        raise MXNetError(
+            f"dtype {name!r} requires float8 support, which this torch "
+            f"build does not provide; use a torch with float8_e4m3fn/"
+            f"float8_e5m2 or use bfloat16")
+    return getattr(torch, name)
 
 
 def normalize_dtype(dtype, default="float32") -> torch.dtype:
@@ -71,6 +89,8 @@ def normalize_dtype(dtype, default="float32") -> torch.dtype:
         return dtype
     if isinstance(dtype, str):
         dtype = _STR_ALIASES.get(dtype, dtype)
+        if dtype in _FLOAT8_NAMES:
+            return _float8(dtype)
         if dtype in _NO_NUMPY:
             return _NO_NUMPY[dtype]
     try:
@@ -91,3 +111,18 @@ def to_numpy_dtype(dtype):
     numpy lacks) give float32, their exact widening."""
     name = dtype_name(dtype)
     return onp.dtype("float32" if name in _NO_NUMPY else name)
+
+
+def attr_dtype_name(value, default="float32"):
+    """The dtype name a symbol variable's ``__dtype__`` attribute gives:
+    a name (``int8``, as the port writes it) or an mshadow type flag
+    (``"5"``, as upstream writes it); ``default`` for none or one this
+    package cannot read."""
+    if value is None:
+        return default
+    try:
+        if str(value).isdigit():
+            return dtype_name(TYPE_FLAG_TO_NP[int(value)])
+        return dtype_name(value)
+    except (KeyError, MXNetError):
+        return default

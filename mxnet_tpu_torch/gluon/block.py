@@ -74,7 +74,7 @@ from ..symbol.symbol import Symbol
 from .parameter import DeferredInitializationError, Parameter, ParameterDict
 
 __all__ = ["Block", "HybridBlock", "SymbolBlock", "state_writes_dropped",
-           "drop_state_writes"]
+           "drop_state_writes", "trace_constant"]
 
 
 class _SuppressHooks(threading.local):
@@ -689,14 +689,57 @@ class HybridBlock(Block):
         from .. import symbol as sym
         from ..ndarray.ndarray import save_buffer
 
-        out = self(sym.var("data"))
+        with _recording_constants() as constants:
+            out = self(sym.var("data"))
         if isinstance(out, (list, tuple)):
             out = sym.Group(list(out))
         aux_names = set(out.list_auxiliary_states())
+        arrays = {name: p.data() for name, p in
+                  self.collect_params().items()}
+        if constants:
+            # a block that bakes constants (a quantized layer) reads them
+            # in place of the parameters it shadows: write what the graph
+            # reads
+            inputs = set(out.list_inputs())
+            arrays = {n: a for n, a in arrays.items() if n in inputs}
+            arrays.update((n, NDArray(t)) for n, t in constants.items())
         params = save_buffer(
-            {f"{'aux' if name in aux_names else 'arg'}:{name}": p.data()
-             for name, p in self.collect_params().items()})
+            {f"{'aux' if name in aux_names else 'arg'}:{name}": a
+             for name, a in arrays.items()})
         return out, out.tojson(), params
+
+
+class _TraceConstants(threading.local):
+    def __init__(self):
+        self.values = None
+
+
+_trace_constants = _TraceConstants()
+
+
+def trace_constant(name, value):
+    """The graph variable of a constant tensor that a block computes
+    with but does not hold as a Parameter (a quantized layer's baked
+    weights): named ``name``, with the tensor's shape and dtype as
+    attributes.  Inside :meth:`HybridBlock.export` the tensor is
+    recorded and written to ``.params`` beside the parameters."""
+    from .. import symbol as sym
+    from ..dtype import dtype_name
+
+    if _trace_constants.values is not None:
+        _trace_constants.values[name] = value
+    return sym.var(name, shape=tuple(value.shape),
+                   dtype=dtype_name(value.dtype))
+
+
+@contextlib.contextmanager
+def _recording_constants():
+    prev = _trace_constants.values
+    _trace_constants.values = OrderedDict()
+    try:
+        yield _trace_constants.values
+    finally:
+        _trace_constants.values = prev
 
 
 class _EagerEntry:
@@ -913,14 +956,19 @@ def _collect_all_params(block):
     return result
 
 
+_TRAINED_DTYPES = ("float16", "bfloat16", "float32", "float64")
+
+
 class SymbolBlock(HybridBlock):
     """A block that runs a Symbol graph (reference ``block.py:754-799``).
 
     Every graph input that is not one of ``inputs`` becomes a Parameter
-    named as the graph names it; an auxiliary one (BatchNorm's moving
-    statistics) takes ``grad_req="null"`` and is not differentiable.
-    ``forward`` evaluates the graph with the port's ops on the device of
-    the parameters (``symbol/executor.py``).  Outside
+    named as the graph names it, in the dtype its ``__dtype__`` attribute
+    gives (float32 without one); an auxiliary one (BatchNorm's moving
+    statistics), and one of an integer or float8 dtype (a quantized
+    layer's baked weights), takes ``grad_req="null"`` and is not
+    differentiable.  ``forward`` evaluates the graph with the port's ops
+    on the device of the parameters (``symbol/executor.py``).  Outside
     ``autograd.record()`` the graph predicts, as the reference's does;
     inside it, unlike the reference's (ROADMAP §C), the call is taped, so
     the gradients reach the parameters, and it trains exactly when
@@ -939,12 +987,22 @@ class SymbolBlock(HybridBlock):
         input_names = {s.name for s in self._inputs}
         aux = set(outputs.list_auxiliary_states())
         self._param_attrs = OrderedDict()  # graph name -> attribute
+        from ..dtype import attr_dtype_name
+
+        dtypes = {n.name: attr_dtype_name(n.attr_dict["__dtype__"])
+                  for n in outputs._topo()
+                  if n.op is None and "__dtype__" in n.attr_dict}
         for name in outputs.list_inputs():
             if name in input_names or name in self._param_attrs:
                 continue
+            # a variable with a dtype of its own (a quantized layer's
+            # int8 or e4m3 constant) is not trained
+            const = dtypes.get(name, "float32") not in _TRAINED_DTYPES
             param = self.params.get(
-                name, grad_req="null" if name in aux else "write",
-                allow_deferred_init=True, differentiable=name not in aux)
+                name, grad_req="null" if name in aux or const else "write",
+                allow_deferred_init=True,
+                differentiable=name not in aux and not const,
+                dtype=dtypes.get(name, "float32"))
             attr = name if name.isidentifier() and not hasattr(self, name) \
                 else f"param{len(self._param_attrs)}"
             setattr(self, attr, param)

@@ -11,8 +11,9 @@ is updated through an fp32 master copy.
 
 One process, one device: the kvstore ``"device"``, ``"local"`` or None.
 A ``dist*`` kvstore, a KVStore object and gradient compression raise
-(the distributed Trainer, ROADMAP §A item 11), and so does AMP's loss
-scaler (``_amp_loss_scaler``, ROADMAP §A item 9).
+(the distributed Trainer, ROADMAP §A item 11).  With AMP's loss scaler
+(``contrib.amp.init_trainer``) a step whose gradients are not all
+finite is skipped and the scale halves.
 """
 from __future__ import annotations
 
@@ -98,9 +99,17 @@ class Trainer:
         self._update(ignore_stale_grad)
 
     def _update(self, ignore_stale_grad=False):
-        if getattr(self, "_amp_loss_scaler", None) is not None:
-            raise MXNetError("AMP's dynamic loss scaling in the Trainer is "
-                             "not ported yet (ROADMAP §A item 9)")
+        scaler = getattr(self, "_amp_loss_scaler", None)
+        if scaler is not None:
+            # AMP's dynamic loss scaling: a step whose gradients overflow
+            # is skipped whole, and the scale backs off
+            overflow = scaler.has_overflow(self._params)
+            scaler.update_scale(overflow)
+            if overflow:
+                for param in self._params:
+                    if param._initialized:
+                        param._wrap()._fresh_grad = False
+                return
         updater = self._updaters[0]
         for i, param in enumerate(self._params):
             if param.grad_req == "null":

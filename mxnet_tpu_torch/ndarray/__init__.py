@@ -21,6 +21,7 @@ from ..ops import detection_ops as _detection_ops  # noqa: F401
 from ..ops import elemwise as _elemwise  # noqa: F401
 from ..ops import nn as _nn  # noqa: F401
 from ..ops import pallas_conv as _pallas_conv  # noqa: F401
+from ..ops import quantization_ops as _quantization_ops  # noqa: F401
 from ..ops import random_ops as _random_ops  # noqa: F401
 from ..ops import reduce as _reduce  # noqa: F401
 from ..ops import rnn as _rnn  # noqa: F401

@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from ..base import MXNetError
+from .elemwise import _inexact
 from .registry import register_op
 
 __all__ = ["convolution", "pooling", "CHANNEL_LAST", "CHANNEL_FIRST"]
@@ -122,9 +123,10 @@ def pooling(data, *, kernel=(), pool_type="max", global_pool=False,
             out = x.abs().pow(p_value).sum(dim=spatial, keepdim=True) \
                 .pow(1.0 / p_value)
         else:
-            out = x.sum(dim=spatial, keepdim=True)
+            # an integer sum keeps the input's type, as reduce_window's
+            out = x.sum(dim=spatial, keepdim=True, dtype=x.dtype)
             if pool_type == "avg":
-                out = out / math.prod(x.shape[2:])
+                out = _inexact(out) / math.prod(x.shape[2:])
         return _last(out) if cl else out
     kernel = _tup(kernel, nd)
     stride = _tup(stride, nd)
@@ -133,9 +135,39 @@ def pooling(data, *, kernel=(), pool_type="max", global_pool=False,
     if pooling_convention == "full":
         extra = [_full_extra(x.shape[2 + i], kernel[i], stride[i], pad[i])
                  for i in range(nd)]
-    out = _pool(x, pool_type, kernel, stride, pad, extra,
-                count_include_pad, p_value)
+    if pool_type in ("avg", "sum") and not x.is_floating_point():
+        out = _int_pool(x, pool_type, kernel, stride, pad, extra,
+                        count_include_pad)
+    else:
+        out = _pool(x, pool_type, kernel, stride, pad, extra,
+                    count_include_pad, p_value)
     return _last(out) if cl else out
+
+
+def _int_pool(x, pool_type, kernel, stride, pad, extra, count_include_pad):
+    """A windowed sum or average of integer ``x``, as the reference's
+    ``reduce_window`` gives it: the sum exact in the input's type, the
+    average that sum in float32 over the window's size (or, without
+    ``count_include_pad``, over its count of elements that are not
+    padding)."""
+    nd = len(kernel)
+    widths = []
+    for p, e in reversed(list(zip(pad, extra))):
+        widths += [p, p + e]
+    win = F.pad(x.to(torch.int64), widths)
+    for i in range(nd):
+        win = win.unfold(2 + i, kernel[i], stride[i])
+    dims = tuple(range(-nd, 0))
+    total = win.sum(dim=dims).to(x.dtype)
+    if pool_type == "sum":
+        return total
+    if count_include_pad:
+        return total.to(torch.float32) / math.prod(kernel)
+    ones = F.pad(torch.ones((1, 1) + tuple(x.shape[2:]), dtype=torch.int64,
+                            device=x.device), widths)
+    for i in range(nd):
+        ones = ones.unfold(2 + i, kernel[i], stride[i])
+    return total.to(torch.float32) / ones.sum(dim=dims).to(torch.float32)
 
 
 def _pool(x, pool_type, kernel, stride, pad, extra, count_include_pad,

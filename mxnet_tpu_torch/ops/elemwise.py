@@ -162,6 +162,12 @@ def _square(x):
     return torch.square(x.to(torch.int32) if x.dtype == torch.bool else x)
 
 
+def _bool_inexact(x):
+    """A bool array as float32, as jnp's arithmetic promotes it (an
+    integer array keeps its type)."""
+    return x.to(_f32) if x.dtype == torch.bool else x
+
+
 def _on_inexact(f):
     return lambda x: f(_inexact(x))
 
@@ -213,7 +219,8 @@ _UNARY = {
     "gamma": lambda x: torch.exp(_lgamma(x)),
     "gammaln": _lgamma,
     "sigmoid": _on_inexact(torch.sigmoid),
-    "softsign": lambda x: x / (torch.abs(x) + 1),
+    "softsign": lambda x: _bool_inexact(x) / (torch.abs(_bool_inexact(x))
+                                              + 1),
     "relu": _relu,
     "logical_not": lambda x: (x == 0).to(x.dtype),
 }
@@ -275,6 +282,7 @@ def clip(x, *, a_min, a_max):
 def smooth_l1(x, *, scalar=1.0):
     """Reference: src/operator/tensor/elemwise_binary_scalar_op_extended.cc."""
     s2 = scalar * scalar
+    x = _bool_inexact(x)
     ax = torch.abs(x)
     return torch.where(ax < 1.0 / s2, 0.5 * s2 * x * x, ax - 0.5 / s2)
 

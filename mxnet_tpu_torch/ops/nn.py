@@ -149,11 +149,13 @@ def softmin(x, *, axis=-1, temperature=None, dtype=None, use_length=False):
 @register_op("SoftmaxActivation")
 def softmax_activation(x, *, mode="instance"):
     """Reference ``SoftmaxActivation``: over axis 1 (``channel``) or
-    over all but the batch axis (``instance``)."""
+    over all but the batch axis (``instance``); an integer or bool input
+    gives float32, as jnp's softmax does."""
     if mode == "channel":
+        x = _float_of(x, 1)
         return torch.softmax(x, dim=1)
-    return torch.softmax(x.reshape(x.shape[0], -1), dim=-1) \
-        .reshape(x.shape)
+    flat = _float_of(x.reshape(x.shape[0], -1), -1)
+    return torch.softmax(flat, dim=-1).reshape(x.shape)
 
 
 @register_op("Dropout", key_param="key", train_param="train")
@@ -300,7 +302,7 @@ class _SoftmaxOutput(torch.autograd.Function):
     @staticmethod
     def forward(ctx, data, label, grad_scale, ignore_label, use_ignore,
                 smooth_alpha, normalize):
-        out = torch.softmax(data, dim=-1)
+        out = torch.softmax(_float_of(data, -1), dim=-1)
         ctx.save_for_backward(out, label)
         ctx.hyper = (grad_scale, ignore_label, use_ignore, smooth_alpha,
                      normalize)

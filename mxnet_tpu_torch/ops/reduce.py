@@ -138,6 +138,8 @@ register_op("argmin", differentiable=False)(_index_reduce(torch.argmin))
 
 @register_op("argmax_channel", differentiable=False)
 def argmax_channel(x):
+    if x.dtype == torch.bool:
+        x = x.to(torch.int32)
     return torch.argmax(x, 1).to(torch.float32)
 
 

@@ -7,14 +7,21 @@ hyper-parameters.  Shape and dtype inference is the function itself,
 and its gradient is ``torch.autograd``'s.  The registry feeds the
 generated ``mx.nd`` namespace (:mod:`mxnet_tpu_torch.ndarray`) and
 ``mx.library.load``.
+
+An op named in one of AMP's policy lists (``contrib/amp/lists.py``)
+casts its floating inputs while ``amp.init`` is on: the function the
+decorator returns (and the registry holds) applies the policy, so a
+Gluon layer calling it directly is cast as ``nd.invoke`` is.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import inspect
 from typing import Callable, Optional
 
 from ..base import MXNetError
+from ..contrib import amp as _amp
 
 __all__ = ["OpDef", "register_op", "get_op", "list_ops", "alias_op"]
 
@@ -65,6 +72,8 @@ def register_op(name=None, *, aliases=(), num_outputs=1, differentiable=True,
 
     def _do(fn):
         opname = name or fn.__name__
+        if opname in _amp.POLICY_OPS:
+            fn = _with_amp(opname, fn)
         op = OpDef(name=opname, fn=fn, num_outputs=num_outputs,
                    differentiable=differentiable, key_param=key_param,
                    train_param=train_param,
@@ -78,6 +87,18 @@ def register_op(name=None, *, aliases=(), num_outputs=1, differentiable=True,
         return fn
 
     return _do
+
+
+def _with_amp(opname, fn):
+    """``fn`` with AMP's cast of its inputs while AMP is on."""
+
+    @functools.wraps(fn)
+    def op(*inputs, **params):
+        if _amp.is_active():
+            inputs = _amp.cast_inputs(opname, inputs)
+        return fn(*inputs, **params)
+
+    return op
 
 
 def alias_op(existing: str, *aliases: str):

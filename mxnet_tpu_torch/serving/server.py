@@ -258,12 +258,18 @@ class _DeviceRunner:
 
     @staticmethod
     def _one(out):
-        """The one output of a served forward."""
+        """The one output of a served forward; a bfloat16 or float8 one
+        (an AMP-converted net's logits) as float32, numpy's widening."""
+        import torch
+
         if isinstance(out, (list, tuple)):
             if len(out) != 1:
                 raise MXNetError(
                     f"a served model returns one output, not {len(out)}")
             out = out[0]
+        if out.is_floating_point() and out.element_size() < 4 \
+                and out.dtype != torch.float16:
+            out = out.float()
         return out
 
 

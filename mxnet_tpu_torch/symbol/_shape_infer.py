@@ -102,15 +102,15 @@ def _deduce_param_shapes(op, attrs, input_shapes, slot_names):
     return out
 
 
-def _abstract_eval(opdef, node, in_shapes):
-    """The output shapes of one node from its input shapes."""
+def _abstract_eval(opdef, node, in_shapes, in_dtypes):
+    """The output shapes and dtypes of one node from its inputs'."""
     params = dict(node.attrs)
     if opdef.key_param:
         params[opdef.key_param] = torch.Generator()  # shapes only
     if opdef.train_param and opdef.train_param not in params:
         params[opdef.train_param] = False
-    metas = [torch.empty(s, dtype=torch.float32, device=_META)
-             for s in in_shapes]
+    metas = [torch.empty(s, dtype=d, device=_META)
+             for s, d in zip(in_shapes, in_dtypes)]
     try:
         with torch.no_grad():
             out = opdef.fn(*metas, **params)
@@ -119,17 +119,29 @@ def _abstract_eval(opdef, node, in_shapes):
             f"InferShape failed at op {node.op}({node.name}) with "
             f"input shapes {in_shapes}: {e}") from e
     outs = list(out) if isinstance(out, (list, tuple)) else [out]
-    return [tuple(o.shape) for o in outs]
+    return [tuple(o.shape) for o in outs], [o.dtype for o in outs]
+
+
+def _var_dtype(node):
+    """A variable's dtype: its ``__dtype__`` attribute (a quantized
+    layer's int8 or e4m3 constant), else float32."""
+    from ..dtype import attr_dtype_name, normalize_dtype
+
+    return normalize_dtype(attr_dtype_name(node.attr_dict.get("__dtype__")))
 
 
 def infer(sym, shapes):
-    """Return {var_name: shape, ("__out__", i): shape} or raise."""
+    """Return {var_name: shape, ("__out__", i): shape} or raise.  Each
+    node is evaluated on its inputs' dtypes (a variable's
+    ``__dtype__``), so an int8 graph traces in int8."""
     node_out_shapes = {}  # id(node) -> [shape per output]
+    node_out_dtypes = {}  # id(node) -> [dtype per output]
 
     for node in sym._topo():
         if node.op is None:
             s = shapes.get(node.name)
             node_out_shapes[id(node)] = [s]
+            node_out_dtypes[id(node)] = [_var_dtype(node)]
             continue
         if node.op == "_group":
             continue
@@ -164,8 +176,10 @@ def infer(sym, shapes):
             raise MXNetError(
                 f"InferShape: cannot deduce shapes of {missing} feeding "
                 f"op {node.op}({node.name})")
-        node_out_shapes[id(node)] = _abstract_eval(get_op(node.op), node,
-                                                   in_shapes)
+        in_dtypes = [node_out_dtypes[id(inp)][oi]
+                     for (inp, oi) in node.inputs]
+        node_out_shapes[id(node)], node_out_dtypes[id(node)] = \
+            _abstract_eval(get_op(node.op), node, in_shapes, in_dtypes)
 
     result = dict(shapes)
     for i, (n, oi) in enumerate(sym._outputs_list()):

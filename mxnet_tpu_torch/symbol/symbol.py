@@ -495,6 +495,11 @@ def _make_op_symbol(opname, input_syms, attrs, name, num_outputs=None):
             if slot in aux_slots:
                 v._node.attr_dict["__aux__"] = True
             input_syms.append(v)
+    from ..contrib import amp
+
+    if amp.is_active():
+        input_syms = amp.cast_symbols(opname, input_syms,
+                                      keep=_AUX_INPUTS.get(opname, ()))
     inputs = []
     for s in input_syms:
         inputs.append((s._node, s._out if s._out is not None else 0))

@@ -1809,3 +1809,129 @@ def test_model_fault_on_card_trips_breaker_never_runs_on_host(card,
     finally:
         srv.close()
     assert devices and set(devices) == {"cuda"}
+
+
+# ------------------------------------------- quantized and mixed precision
+#: fp8 products against the plain fp32 product of the same e4m3 values,
+#: over its largest |value| (``chip_smoke.QUANT["fp8_product_tol"]``)
+FP8_PRODUCT_TOL = 1e-3
+
+
+def _codes(shape, card, gen):
+    return torch.randint(-127, 128, shape, generator=gen, device=card,
+                         dtype=torch.int8)
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 147, 64), (16, 2048, 1000),
+                                   (17, 64, 24), (40, 5, 7)])
+def test_int8_products_equal_the_exact_host_result(card, m, k, n):
+    """``torch._int_mm`` through the padding rules (m past 16 rows, k and
+    n to multiples of 8) equals the host's exact product bit for bit."""
+    from mxnet_tpu_torch.ops import quantization_ops as Q
+
+    g = torch.Generator(device=card).manual_seed(m * k + n)
+    a, w = _codes((m, k), card, g), _codes((n, k), card, g)
+    Q.reset_counts()
+    acc = Q._int8_gemm(a, w)
+    assert Q.counts()["int_mm"] == 1 and acc.dtype == torch.int32
+    exact = (a.cpu().double() @ w.cpu().double().t()).to(torch.int64)
+    assert torch.equal(acc.cpu().to(torch.int64), exact)
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 147, 64), (32, 2048, 1000)])
+def test_fp8_products_within_the_bound_of_the_plain_product(card, m, k,
+                                                             n):
+    from mxnet_tpu_torch.ops import quantization_ops as Q
+
+    g = torch.Generator(device=card).manual_seed(k)
+    a, w = ((torch.randn(s, generator=g, device=card) * 100).clamp(
+        -448, 448).to(torch.float8_e4m3fn) for s in ((m, k), (n, k)))
+    scale = torch.full((), 2.5e-5, device=card)
+    Q.reset_counts()
+    out = Q._fp8_gemm(a, w, scale)
+    assert Q.counts()["scaled_mm"] == 1 and out.dtype == torch.float32
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        plain = (a.float() @ w.float().t()) * scale
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    assert float((out - plain).abs().max() / plain.abs().max()) <= \
+        FP8_PRODUCT_TOL
+
+
+@pytest.mark.parametrize("kw", [dict(kernel=(7, 7), stride=(2, 2),
+                                     pad=(3, 3)),
+                                dict(kernel=(3, 3), pad=(1, 1),
+                                     num_group=2),
+                                dict(kernel=(1, 1))])
+def test_quantized_conv_on_card_equals_the_host(card, kw):
+    from mxnet_tpu_torch.ops import quantization_ops as Q
+
+    g = torch.Generator(device=card).manual_seed(5)
+    groups = kw.get("num_group", 1)
+    x = _codes((2, 4, 12, 12), card, g)
+    w = _codes((8, 4 // groups) + kw["kernel"], card, g)
+    b = _codes((8,), card, g)
+    r = [torch.tensor([v], device=card) for v in
+         (-1.5, 2.0, -0.2, 0.3, -0.1, 0.1)]
+    out = Q.quantized_conv(x, w, b, *r, num_filter=8, **kw)
+    host = Q.quantized_conv(x.cpu(), w.cpu(), b.cpu(), *[t.cpu() for t in r],
+                            num_filter=8, **kw)
+    for a, h in zip(out, host):
+        assert torch.equal(a.cpu(), h)
+
+
+def test_quantized_net_replays_in_a_cuda_graph(card):
+    """A rewritten net hybridized with both static flags captures its
+    int8 ops (calibrated ranges are constants, nothing reads the host)
+    and its replays equal the eager int8 forward bit for bit."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import quantization
+    from mxnet_tpu_torch.gluon import nn
+
+    onp.random.seed(0)
+    net = nn.HybridSequential()
+    net.add(nn.Conv2D(16, 3, padding=1, in_channels=3),
+            nn.BatchNorm(in_channels=16), nn.Activation("relu"),
+            nn.Conv2D(16, 1, in_channels=16), nn.MaxPool2D(), nn.Flatten(),
+            nn.Dense(10, in_units=16 * 8 * 8))
+    net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+    x = onp.random.RandomState(1).randn(32, 3, 16, 16).astype("float32")
+    cal = quantization.calibrate(net, [x], mode="naive")
+    quantization.quantize_net(net, cal)
+    xd = mx.nd.array(x, ctx=mx.gpu(0))
+    eager = net(xd).asnumpy()
+    net.hybridize(static_alloc=True, static_shape=True)
+    for _ in range(3):
+        onp.testing.assert_array_equal(net(xd).asnumpy(), eager)
+    entry = next(iter(net._cached_op.values()))
+    assert entry.graphed
+
+
+def test_amp_loss_scaler_skips_a_planted_overflow_on_card(card):
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.contrib import amp
+
+    net = mx.gluon.nn.Dense(8, in_units=16)
+    net.initialize(ctx=mx.gpu(0))
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                               {"learning_rate": 0.1})
+    amp.init_trainer(trainer)
+    x = mx.nd.ones((4, 16), ctx=mx.gpu(0))
+    amp.init("bfloat16")
+    try:
+        with mx.autograd.record():
+            out = net(x)
+            with amp.scale_loss(out.astype("float32").sum(),
+                                trainer) as scaled:
+                scaled.backward()
+    finally:
+        amp._off()
+    assert out._data.dtype == torch.bfloat16
+    w = next(iter(net.collect_params().values()))
+    w.data()._grad._data[0, 0] = float("inf")
+    before = w.data()._data.clone()
+    trainer.step(4)
+    assert torch.equal(w.data()._data, before)
+    assert trainer._amp_loss_scaler.loss_scale == 2.0 ** 15

@@ -1,4 +1,4 @@
-"""Faults of the port against the reference, repaired (ROADMAP §C 1–7):
+"""Faults of the port against the reference, repaired (ROADMAP §C 1–8):
 both packages on the CPU, on the same numpy inputs (``with mx.cpu():``
 for the port).
 
@@ -9,7 +9,7 @@ for the port).
   ``_power`` at (0, 0), are the reference's, signs of zero included;
 - §C 3: a backward from a head cast to an integer type gives its input
   a zero gradient;
-- §C 4: integer and bool inputs that the reference takes;
+- §C 4 and §C 8: integer and bool inputs that the reference takes;
 - §C 5: ``np.random.seed(s)`` then ``initialize()`` gives the
   reference's fp32 weights bit for bit;
 - §C 6: the multi-card refusals cite ROADMAP §A 11;
@@ -222,6 +222,8 @@ def test_integer_head_beside_a_float_head():
 _B = onp.array([[True, False, True], [False, False, True]])
 _I = onp.array([[1, -2, 3], [0, 4, -1]])
 _F = onp.array([[0.5, -1.0, 2.0], [3.0, 0.0, -0.5]], onp.float32)
+_X6 = (onp.arange(36).reshape(1, 1, 6, 6) - 10).astype("int32")
+_I2 = onp.array([[1, -2, 3], [0, 2, 1]], "int32")
 _DTYPE_CASES = [
     *[("softmax", [_I.astype(d)], {}, ULPS)
       for d in ("int8", "uint8", "int32", "int64")],
@@ -239,6 +241,22 @@ _DTYPE_CASES = [
     ("argmax", [_B], {}, 0),
     ("argmax", [_B], dict(axis=1), 0),
     ("argmin", [_B], dict(axis=0), 0),
+    # §C 8: windowed avg in float32 and sum in int32, a global sum in
+    # int32; the softmax layers give float32; bool unary ops float32
+    *[("Pooling", [_X6], p, 0) for p in (
+        dict(kernel=(2, 2), stride=(2, 2), pool_type="avg"),
+        dict(kernel=(3, 3), stride=(2, 2), pad=(1, 1), pool_type="sum"),
+        dict(kernel=(3, 3), stride=(2, 2), pad=(1, 1), pool_type="avg",
+             count_include_pad=False),
+        dict(global_pool=True, pool_type="sum"),
+        dict(global_pool=True, pool_type="avg"),
+        dict(kernel=(2, 2), stride=(2, 2), pool_type="max"))],
+    ("SoftmaxActivation", [_I2], {}, ULPS),
+    ("SoftmaxActivation", [_I2], dict(mode="channel"), ULPS),
+    ("SoftmaxOutput", [_I2, onp.array([0, 1], onp.float32)], {}, ULPS),
+    ("softsign", [_B], {}, 0),
+    ("smooth_l1", [_B], {}, 0),
+    ("argmax_channel", [_B], {}, 0),
 ]
 
 

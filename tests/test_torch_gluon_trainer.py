@@ -371,8 +371,10 @@ def test_trainer_refusals():
     for kv in ("device", "local", None):
         t_gluon.Trainer(params, "sgd", kvstore=kv)
     tr = t_gluon.Trainer(params, "sgd")
-    tr._amp_loss_scaler = object()
-    with pytest.raises(MXNetError, match="§A item 9"):
+    # AMP's loss scaler is ported: the step reaches the update, whose
+    # stale-gradient check is the one that stops it here
+    tmx.contrib.amp.init_trainer(tr)
+    with pytest.raises(MXNetError, match="not been updated by backward"):
         tr.step(1)
     with pytest.raises(MXNetError, match="Parameters"):
         t_gluon.Trainer([1, 2], "sgd")
@@ -467,8 +469,15 @@ def _resnets(layout, no_bias):
     return jnet, tnet
 
 
-@pytest.mark.parametrize("case", list(RESNETS))
+@pytest.mark.parametrize("case", ["nhwc_plain"])
 def test_resnet_gluon_steps_match_reference(case, monkeypatch):
+    """The ``nhwc_fused`` and ``nchw`` cases have files of their own
+    (``test_torch_gluon_resnet_{nhwc_fused,nchw}.py``) for ``--dist
+    loadfile``."""
+    _hold_resnet_gluon_steps(case, monkeypatch)
+
+
+def _hold_resnet_gluon_steps(case, monkeypatch):
     """3 Gluon steps of a tiny ResNetV1 (SGD momentum, weight decay) on
     the fixed batch of ``test_torch_resnet_train.py``: losses,
     parameters and the running statistics, which the eager loop moves

@@ -1,7 +1,12 @@
 """The port's foundations held against the JAX reference on the CPU:
 the package imports neither JAX nor the JAX package; its env vars,
 fault-injection grammar, autotune overrides and percentile convention
-match the reference's; devices and the kernel build fail loudly."""
+match the reference's; devices and the kernel build fail loudly.
+
+Importing this file also shares the host's cores among pytest-xdist's
+workers for torch (:func:`_share_cores_among_workers`): every worker
+collects every test file, so the share holds for all the port's tests
+in a parallel run."""
 import os
 import re
 import subprocess
@@ -9,6 +14,23 @@ import sys
 
 import pytest
 import torch
+
+
+def _share_cores_among_workers():
+    """Under pytest-xdist each worker runs torch's ops on all the host's
+    cores by default, so N workers run N times as many OpenMP threads as
+    there are cores, and the threads spin against each other (the
+    port's tests took twice as long with 6 workers on 8 cores).  Give
+    each worker its share of the cores, and the processes it starts
+    too (``OMP_NUM_THREADS``); a run without workers keeps them all."""
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+    if workers > 1:
+        share = -(-(os.cpu_count() or 1) // workers)
+        torch.set_num_threads(share)
+        os.environ.setdefault("OMP_NUM_THREADS", str(share))
+
+
+_share_cores_among_workers()
 
 import jax
 

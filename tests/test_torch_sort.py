@@ -97,6 +97,21 @@ def test_topk_matches_reference(kind, axis, shape, is_ascend, ret_typ):
         _same_bits(a, b)
 
 
+@pytest.mark.parametrize("dtype", ["uint8", "bool"])
+def test_topk_mask_keeps_the_input_dtype_where_the_reference_promotes(
+        dtype):
+    """A divergence, pinned (ROADMAP §C 9): the port's mask has the
+    input's dtype, as upstream's does; the reference's one-hot ``sum``
+    promotes it (uint32 for uint8, int32 for bool).  The values agree."""
+    x = (onp.arange(12).reshape(3, 4) * 7 % 5).astype(dtype)
+    j, t = _both("topk", x, axis=-1, k=2, ret_typ="mask")
+    assert t[0].dtype == onp.dtype(dtype)
+    assert j[0].dtype == onp.dtype("uint32" if dtype == "uint8"
+                                   else "int32")
+    onp.testing.assert_array_equal(t[0].astype("int64"),
+                                   j[0].astype("int64"))
+
+
 def test_ties_order_is_the_reference_one():
     """Descending sort puts the highest index first among ties (a flip
     of the stable order), topk the lowest in both directions."""

@@ -352,9 +352,16 @@ def test_fused_steps_match_reference(family, monkeypatch):
     _match(tl, tp[-1], jl, jp[-1], STEP_TOL)
 
 
-@pytest.mark.parametrize("family", _ILL_CONDITIONED)
+@pytest.mark.parametrize("family", [f for f in _ILL_CONDITIONED
+                                    if f != "mobilenet"])
 def test_ill_conditioned_steps_match_reference_in_float64(family,
                                                           monkeypatch):
+    """MobileNet's case is ``test_torch_zoo_mobilenet_f64.py``'s, a file
+    of its own for ``--dist loadfile``."""
+    _hold_ill_conditioned(family, monkeypatch)
+
+
+def _hold_ill_conditioned(family, monkeypatch):
     """Three float64 steps to ``F64_TOL``; the fp32 step 1, as a whole
     and tensor by tensor, no farther from the reference's float64 step
     than the reference's fp32 step is (twice, plus ``STEP_TOL`` of the
