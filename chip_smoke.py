@@ -87,7 +87,16 @@ multibox targets, softmax cross-entropy and an L1 location loss, VOC's
 host sync inside the targets, its detections (``MultiBoxDetection``,
 ``nms_topk`` 400) at batch 32, the detection ops at SSD-300's shapes
 under torch's sync debug mode, and each detection and sort op, the RoI
-ops' gradients and three SSD-300 steps on the card against the host.
+ops' gradients and three SSD-300 steps on the card against the host;
+and the telemetry: the kernel-arm ResNet-50 step with nothing armed,
+with the run log, with a watchdog and the numerics knob, and with the
+profiler's device capture (its run logs held to the schema, its program
+report's FLOPs to the analytic count, the device trace's top operations
+and idle gaps named by the host work open), a watchdog fire drill and
+the replicated step's ``tensor_stats`` (``telemetry_resnet50``, after
+the training phases), and the served ``resnet50_v1()`` traced request
+by request through the HTTP front and through ``submit``
+(``serve_traced``, after ``serve_http``).
 Each phase
 prints one JSON line on stdout
 (progress goes to stderr); ``--out`` also appends them to FILE.  Any
@@ -3819,6 +3828,653 @@ def amp_gluon_resnet50_phase(gres, seed=0):
     return res
 
 
+# --------------------------------------------------------- telemetry
+#: the observed ResNet-50 step: ``train_resnet50``'s configuration
+#: (``TRAIN_PHASES``), four arms of 2 + 10 steps; the watchdog's
+#: fire drill (timeout, quiet seconds); the replicated step under the
+#: numerics monitor (steps after the warm-up, the sample period)
+TELEMETRY = dict(warmup=2, steps=10, watchdog_sec=60.0, drill_timeout=0.5,
+                 drill_quiet=1.5, nm_steps=6, nm_sample=2)
+#: the telemetry arms: the env knobs each sets, and whether the profiler
+#: runs with the device capture
+TELEMETRY_ARMS = {
+    "off": ({}, False),
+    "runlog": ({"MXNET_RUNLOG": "runlog.jsonl"}, False),
+    "runlog_sample1_watchdog_numerics": (
+        {"MXNET_RUNLOG": "runlog_s1.jsonl", "MXNET_TELEMETRY_SAMPLE": "1",
+         "MXNET_NUMERICS": "1"}, False),
+    "runlog_sample1_watchdog_numerics_profiler": (
+        {"MXNET_RUNLOG": "runlog_prof.jsonl", "MXNET_TELEMETRY_SAMPLE": "1",
+         "MXNET_NUMERICS": "1"}, True),
+}
+#: FLOPs of the program report against the analytic 3 x forward
+FLOPS_TOL = 0.10
+
+
+@contextlib.contextmanager
+def telemetry_env(workdir, env):
+    """Set the telemetry knobs ``env`` (a run-log file name is put under
+    ``workdir``), re-arm the run log from them, and restore both on
+    exit."""
+    from mxnet_tpu_torch import telemetry
+
+    keys = ("MXNET_RUNLOG", "MXNET_TELEMETRY_SAMPLE", "MXNET_NUMERICS",
+            "MXNET_NUMERICS_SAMPLE", "MXNET_WATCHDOG_SEC")
+    old = {k: os.environ.get(k) for k in keys}
+    for k in keys:
+        os.environ.pop(k, None)
+    for k, v in env.items():
+        os.environ[k] = os.path.join(workdir, v) if k == "MXNET_RUNLOG" \
+            else v
+    try:
+        telemetry.reset()  # re-resolved from the knobs on first use
+        yield telemetry.current()
+    finally:
+        telemetry.close()
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def read_runlog(path):
+    """(records, problems under the port's schema, count by type)."""
+    from mxnet_tpu_torch.telemetry import schema
+
+    with open(path) as f:
+        recs, problems = schema.validate_lines(f)
+    counts = {}
+    for r in recs:
+        counts[r["type"]] = counts.get(r["type"], 0) + 1
+    return recs, problems, counts
+
+
+def resnet50_forward_macs(net, device, image=224):
+    """Multiply-accumulates of one image's forward, from the net's own
+    layers: every convolution and dense layer's output elements times
+    its weight's fan-in, read by forward hooks on a batch-1 forward of
+    the unfused net (the fused tail's 1x1 conv then runs as a layer)."""
+    import torch
+
+    from mxnet_tpu_torch import autotune
+    from mxnet_tpu_torch import ndarray as nd
+    from mxnet_tpu_torch.gluon.nn import Conv2D, Dense
+
+    macs = [0]
+
+    def hook(block, inputs, out):
+        o = out._data if hasattr(out, "_data") else out
+        w = block.weight
+        w = w._tensor() if hasattr(w, "_tensor") else w
+        # output elements of one image x the weight's fan-in
+        macs[0] += (o.numel() // o.shape[0]) * (w.numel() // w.shape[0])
+
+    handles = [m.register_forward_hook(hook) for m in net.modules()
+               if isinstance(m, (Conv2D, Dense))]
+    try:
+        x = torch.zeros((1, image, image, 3), device=device)
+        with torch.no_grad(), autotune.force(pallas_bnreluconv="stock"):
+            net(nd.NDArray(x))
+    finally:
+        for h in handles:
+            h.detach()
+    return macs[0]
+
+
+def trace_top_and_gaps(path, top=10, scope=None):
+    """The device operations that took the most time (by kernel name,
+    summed) and the longest idle gaps of a ``torch.profiler`` Chrome
+    trace, each named by the host work open at the time: a kernel by
+    the host op that launched it (the trace's ``External id``) and the
+    user scope open at its launch; a gap by the innermost host op and
+    user scope open when it began.  ``scope`` keeps only the window from
+    the first user scope of that name to the end of the last (the timed
+    steps, with the boundaries between them)."""
+    with open(path) as f:
+        doc = json.load(f)
+    evs = doc["traceEvents"] if isinstance(doc, dict) else doc
+    dev = [e for e in evs if e.get("ph") == "X" and e.get("cat") in
+           ("kernel", "gpu_memcpy", "gpu_memset")]
+    host = [e for e in evs if e.get("ph") == "X" and e.get("cat") in
+            ("cpu_op", "user_annotation", "cuda_runtime", "cuda_driver")]
+    ops = {}
+    for e in host:
+        ext = (e.get("args") or {}).get("External id")
+        if ext is not None and e.get("cat") in ("cpu_op",
+                                                "user_annotation"):
+            ops.setdefault(ext, e["name"])
+    launch = {}
+    for e in host:
+        corr = (e.get("args") or {}).get("correlation")
+        if corr is not None and e.get("cat") in ("cuda_runtime",
+                                                 "cuda_driver"):
+            launch[corr] = e["ts"]
+    scopes = [e for e in host if e.get("cat") == "user_annotation"]
+    if scope is not None:
+        mine = [e for e in scopes if e["name"] == scope]
+        lo = min(e["ts"] for e in mine)
+        hi = max(e["ts"] + e.get("dur", 0) for e in mine)
+        dev = [e for e in dev if lo <= e["ts"] and
+               e["ts"] + e.get("dur", 0) <= hi]
+
+    def open_at(t, pool):
+        inner = None
+        for e in pool:
+            if e["ts"] <= t < e["ts"] + e.get("dur", 0):
+                if inner is None or e.get("dur", 0) < inner.get("dur", 0):
+                    inner = e
+        return inner["name"] if inner else None
+
+    by_name = {}
+    for e in dev:
+        row = by_name.setdefault(e["name"], {"ms": 0.0, "calls": 0,
+                                             "ops": {}, "ts": []})
+        row["ms"] += e.get("dur", 0) / 1e3
+        row["calls"] += 1
+        op = ops.get((e.get("args") or {}).get("External id"), "?")
+        row["ops"][op] = row["ops"].get(op, 0) + 1
+        corr = (e.get("args") or {}).get("correlation")
+        if corr in launch and len(row["ts"]) < 1:
+            row["ts"].append(launch[corr])
+    busy_ms = sum(r["ms"] for r in by_name.values())
+    top_ops = []
+    for name, r in sorted(by_name.items(), key=lambda kv: -kv[1]["ms"])[
+            :top]:
+        top_ops.append({
+            "name": name[:96], "ms": r["ms"], "calls": r["calls"],
+            "share": r["ms"] / busy_ms if busy_ms else None,
+            "host_op": max(r["ops"], key=r["ops"].get),
+            "host_span": open_at(r["ts"][0], scopes) if r["ts"] else None})
+    spans = sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in dev)
+    merged = []
+    for a, b in spans:
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    gaps = sorted(((merged[i + 1][0] - merged[i][1], merged[i][1])
+                   for i in range(len(merged) - 1)), reverse=True)[:top]
+    window_ms = (merged[-1][1] - merged[0][0]) / 1e3 if merged else 0.0
+    idle_ms = sum(merged[i + 1][0] - merged[i][1]
+                  for i in range(len(merged) - 1)) / 1e3
+    cpu = [e for e in host if e.get("cat") != "user_annotation"]
+    return {
+        "scope": scope, "device_ops": len(dev), "host_events": len(host),
+        "window_ms": window_ms, "device_busy_ms": busy_ms,
+        "idle_ms_in_window": idle_ms,
+        "top_device_ops": top_ops,
+        # no host op open: the host was in Python between ops
+        "top_idle_gaps": [{"ms": g / 1e3,
+                           "host_op": open_at(t, cpu) or "(python)",
+                           "host_span": open_at(t, scopes)}
+                          for g, t in gaps]}
+
+
+def _observed_steps(net, x, y, cfg, warmup, steps, wd=None, scope=None,
+                    counters=None):
+    """Build the kernel-arm step and drive it as a user loop records
+    into the run log (``telemetry.FitSession``: a step record each
+    step, the loss read on sampled steps); ``scope`` opens a profiler
+    user scope around each step.  Returns (ms/step over the timed
+    steps, losses, the build's warnings, the last state)."""
+    import warnings
+
+    import torch
+
+    from mxnet_tpu_torch import parallel, profiler, telemetry
+    from mxnet_tpu_torch.gluon import loss
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        step_fn, params, state = parallel.make_train_step(
+            net, loss.SoftmaxCrossEntropyLoss(), "sgd",
+            mesh=parallel.get_mesh(), compute_dtype="bfloat16",
+            loss_scale="dynamic", optimizer_sharding="ps",
+            **TRAIN_PHASES["train_resnet50"]["opt"])
+    session = telemetry.FitSession(telemetry.current(),
+                                   batch_size=cfg["batch"],
+                                   watchdog=wd if wd is not None else False)
+    dom = profiler.Domain("train")
+    carry = [params, state]
+    # the timed steps' scope; the warm-up steps (the first a miss the
+    # program report describes) open their own
+    losses = []
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for i in range(warmup + steps):
+        if i == warmup:
+            torch.cuda.synchronize()
+            start.record()
+        session.step_begin()
+        cm = dom.new_task(scope if i >= warmup else "warmup_step") \
+            if scope else contextlib.nullcontext()
+        with cm:
+            lv, carry[0], carry[1] = step_fn(*carry, x, y, None,
+                                             float(i + 1))
+        synced = session.should_sync()
+        session.step_end(0, i, loss=float(lv) if synced else None,
+                         synced=synced)
+        losses.append(lv)
+    end.record()
+    end.synchronize()
+    session.finish()
+    return (start.elapsed_time(end) / steps, [float(v) for v in losses],
+            [str(w.message) for w in caught], carry[1])
+
+
+def telemetry_resnet50_phase(workdir, seed=0):
+    """The kernel-arm ResNet-50 step of ``train_resnet50`` (batch 128,
+    bf16, channel-last, both kernels forced) driven as a user loop that
+    records into the run log, in four arms of 2 + 10 steps: nothing
+    armed; ``MXNET_RUNLOG`` at the default sampling; sampling 1 with a
+    watchdog beaten every step and ``MXNET_NUMERICS=1`` (which the
+    sharded-bucket step must warn about and turn off); that with the
+    profiler running and ``profile_device=True``.  Each armed run log
+    must validate under the port's schema with the expected records;
+    the step's ``program_report`` FLOPs must lie within 10 % of the
+    analytic 3 x forward count from the net's own layers; the device
+    capture's top operations and longest idle gaps are named by the host
+    work open at the time.  Then the watchdog fires on a quiet heartbeat
+    (its stack file and record checked), and the same net built as the
+    replicated step records ``tensor_stats`` under the numerics monitor
+    (no non-finite count), its ms/step with the monitor on and off."""
+    import torch
+
+    from mxnet_tpu_torch import autotune, parallel, profiler, telemetry
+    from mxnet_tpu_torch.gluon import loss
+    from mxnet_tpu_torch.ops import pallas_conv as pc
+    from mxnet_tpu_torch.telemetry.watchdog import (Watchdog,
+                                                    stack_path_for)
+
+    t_phase = time.perf_counter()
+    cfg = TRAIN_PHASES["train_resnet50"]
+    tc = TELEMETRY
+    counters = bucket_counters("sgd")
+    dev = torch.device("cuda", 0)
+    net = resnet50(dev, seed, cfg["net"])
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    x, y = image_batch(cfg["batch"], cfg["net"], gen, dev)
+    macs = resnet50_forward_macs(net, dev)
+    analytic = 3 * 2 * macs * cfg["batch"]
+    tdir = os.path.join(workdir, "telemetry")
+    os.makedirs(tdir, exist_ok=True)
+    pc.bnreluconv_bwd.launches = 0
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    n_steps = 0
+    arms = {}
+    with autotune.force(pallas_bnreluconv="pallas", fused_bucket_opt=True):
+        for arm, (env, prof_on) in TELEMETRY_ARMS.items():
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            with telemetry_env(tdir, env) as rl:
+                wd = Watchdog(timeout=tc["watchdog_sec"]) \
+                    if "watchdog" in arm else None
+                trace = None
+                if prof_on:
+                    profiler.set_config(
+                        profile_device=True, filename=os.path.join(
+                            tdir, "host_trace.json"),
+                        tensorboard_logdir=os.path.join(tdir, "tb"))
+                    profiler.set_state("run")
+                try:
+                    ms, losses, warns, _ = _observed_steps(
+                        net, x, y, cfg, tc["warmup"], tc["steps"], wd=wd,
+                        scope="train_step" if prof_on else None)
+                finally:
+                    if prof_on:
+                        profiler.set_state("stop")
+                        trace = profiler.device_trace_path()
+                        profiler.dump()
+                        profiler.set_config(profile_device=False)
+                n_steps += tc["warmup"] + tc["steps"]
+                peak = torch.cuda.max_memory_allocated()
+                path = rl.path if rl is not None else None
+            rec = {"ms_per_step": ms, "losses": losses, "warnings": warns,
+                   "max_memory_allocated": peak}
+            if path is not None:
+                recs, problems, counts = read_runlog(path)
+                rec.update(runlog_records=counts, schema_problems=problems)
+                reps = [r for r in recs if r["type"] == "program_report"]
+                check(len(reps) == 1, f"telemetry {arm}: program reports "
+                      f"{len(reps)}")
+                rep = reps[0]
+                rec["program_report"] = {
+                    "flops": rep["flops"], "analytic_flops": analytic,
+                    "flops_over_analytic": rep["flops"] / analytic,
+                    "memory": rep["memory"]}
+                check(not problems, f"telemetry {arm}: schema problems "
+                      f"{problems[:5]}")
+                want_steps = tc["warmup"] + tc["steps"]
+                sample = int(env.get("MXNET_TELEMETRY_SAMPLE", "25"))
+                synced = sum(1 for i in range(want_steps)
+                             if i % sample == 0)
+                check(counts.get("step") == want_steps
+                      and counts.get("compile") == 1
+                      and counts.get("run_start") == 1
+                      and counts.get("run_end") == 1
+                      and counts.get("span") == synced
+                      and counts.get("tensor_stats", 0) == 0
+                      and counts.get("watchdog", 0) == 0,
+                      f"telemetry {arm}: records {counts} (want "
+                      f"{want_steps} steps, {synced} spans)")
+                check(abs(rep["flops"] / analytic - 1.0) <= FLOPS_TOL,
+                      f"telemetry {arm}: program FLOPs {rep['flops']:.4g}"
+                      f" vs analytic {analytic:.4g}")
+                check(rep["memory"]["peak_bytes"] <= peak
+                      and rep["memory"]["argument_bytes"] > 0,
+                      f"telemetry {arm}: memory {rep['memory']} vs "
+                      f"max_memory_allocated {peak}")
+            if "numerics" in arm:
+                check(any("MXNET_NUMERICS under optimizer_sharding='ps'"
+                          in w for w in warns),
+                      f"telemetry {arm}: no numerics warning: {warns}")
+            if trace is not None:
+                rec["device_trace"] = trace_top_and_gaps(
+                    trace, scope="train_step")
+                rec["device_trace_mib"] = os.path.getsize(trace) / 2 ** 20
+                check(rec["device_trace"]["device_ops"] > 0
+                      and any(g["host_op"] or g["host_span"]
+                              for g in rec["device_trace"]["top_idle_gaps"])
+                      and any(o["host_span"] == "train_step" for o in
+                              rec["device_trace"]["top_device_ops"]),
+                      f"telemetry {arm}: device trace {rec['device_trace']}")
+            check(all(math.isfinite(v) for v in losses),
+                  f"telemetry {arm}: loss not finite {losses}")
+            arms[arm] = rec
+            log(f"[telemetry_resnet50] {arm}: {ms:.2f} ms/step, records "
+                f"{rec.get('runlog_records')}")
+
+        # the watchdog fires on a deliberately quiet heartbeat
+        with telemetry_env(tdir, {"MXNET_RUNLOG": "runlog_wd.jsonl"}) as rl:
+            step_fn, params, state = parallel.make_train_step(
+                net, loss.SoftmaxCrossEntropyLoss(), "sgd",
+                mesh=parallel.get_mesh(), compute_dtype="bfloat16",
+                loss_scale="dynamic", optimizer_sharding="ps", **cfg["opt"])
+            wd = Watchdog(timeout=tc["drill_timeout"]).arm("drill")
+            t0 = time.perf_counter()
+            i = 0
+            while wd.stalls == 0 and time.perf_counter() - t0 < 20.0:
+                _, params, state = step_fn(params, state, x, y, None,
+                                           float(i + 1))
+                torch.cuda.synchronize()
+                i += 1
+                if i <= 2:
+                    wd.beat()  # then quiet
+            quiet_s = time.perf_counter() - t0
+            wd.close()
+            n_steps += i
+            runlog_wd, stacks = rl.path, stack_path_for(rl.path)
+        recs, problems, counts = read_runlog(runlog_wd)
+        wrecs = [r for r in recs if r["type"] == "watchdog"]
+        drill = {"timeout_s": tc["drill_timeout"], "steps_run": i,
+                 "stalls": wd.stalls, "seconds_to_fire": quiet_s,
+                 "stack_file": os.path.basename(stacks),
+                 "stack_file_bytes": os.path.getsize(stacks)
+                 if os.path.exists(stacks) else 0,
+                 "watchdog_records": len(wrecs),
+                 "runlog_records": counts, "schema_problems": problems}
+        check(wd.stalls >= 1 and drill["stack_file_bytes"] > 0 and wrecs
+              and not problems, f"telemetry: the watchdog did not fire: "
+              f"{drill}")
+        n_brc = pc.bnreluconv_bwd.launches
+        launches = {k: getattr(fn, attr) for k, (fn, attr) in
+                    counters.items()}
+        check(n_brc == brc_per_step(cfg["net"]) * n_steps,
+              f"telemetry: bnreluconv launches {n_brc} != 16 x {n_steps}")
+        plan = step_fn.zero_plan
+        check(launches["bucket_sgd_mom"] == len(plan) * n_steps,
+              f"telemetry: bucket launches {launches} != {len(plan)} x "
+              f"{n_steps}")
+
+        # the replicated step under the numerics monitor, on and off
+        numerics = {}
+        for on in (True, False):
+            env = {"MXNET_RUNLOG": f"runlog_nm_{int(on)}.jsonl",
+                   "MXNET_NUMERICS_SAMPLE": str(tc["nm_sample"])}
+            if on:
+                env["MXNET_NUMERICS"] = "1"
+            torch.cuda.empty_cache()
+            with telemetry_env(tdir, env) as rl:
+                step_fn, params, state = parallel.make_train_step(
+                    net, loss.SoftmaxCrossEntropyLoss(), "sgd",
+                    compute_dtype="bfloat16", **cfg["opt"])
+                check(("_numerics" in state) == on,
+                      f"telemetry: _numerics in the state {on}")
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                for i in range(tc["warmup"] + tc["nm_steps"]):
+                    if i == tc["warmup"]:
+                        torch.cuda.synchronize()
+                        start.record()
+                    _, params, state = step_fn(params, state, x, y, None,
+                                               float(i + 1))
+                end.record()
+                end.synchronize()
+                path = rl.path
+            recs, problems, counts = read_runlog(path)
+            ts = [r for r in recs if r["type"] == "tensor_stats"]
+            row = {"ms_per_step": start.elapsed_time(end) / tc["nm_steps"],
+                   "tensor_stats_steps": [r["step"] for r in ts],
+                   "schema_problems": problems}
+            if ts:
+                rows = ts[-1]["tensors"]
+                row.update(
+                    tensors=len(rows),
+                    nonfinite=[r["nonfinite"] for r in ts],
+                    nan_inf=sum(v["nan"] + v["inf"] for r in ts
+                                for v in r["tensors"].values()),
+                    loss=rows["__loss"],
+                    largest_grad_l2=max((v["l2"], k) for k, v in
+                                        rows.items() if k != "__loss"))
+            numerics["on" if on else "off"] = row
+        n_total = tc["warmup"] + tc["nm_steps"]
+        on = numerics["on"]
+        check(on["tensor_stats_steps"] == list(range(0, n_total,
+                                                     tc["nm_sample"]))
+              and not any(on["nonfinite"]) and on["nan_inf"] == 0
+              and not on["schema_problems"]
+              and numerics["off"]["tensor_stats_steps"] == [],
+              f"telemetry: numerics rows {numerics}")
+    res = {"phase": "telemetry_resnet50", "net": cfg["net"],
+           "batch": cfg["batch"], "compute_dtype": "bfloat16",
+           "forward_macs_per_image": macs, "analytic_step_flops": analytic,
+           "arms": arms, "watchdog_drill": drill, "numerics": numerics,
+           "bnreluconv_launches": n_brc,
+           **{f"{k}_launches": v for k, v in launches.items()},
+           "steps_driven": n_steps,
+           "seconds": time.perf_counter() - t_phase}
+    emit(res)
+    return res
+
+
+#: the traced serving windows: clients, seconds each window submits
+#: (a window then waits for the requests in flight), the requests'
+#: deadline.  Through HTTP each request's JSON body (a 224² image) takes
+#: seconds under 64 clients, so that window submits for less time
+SERVE_TRACED = dict(clients=64, seconds={"http": 1.0, "submit": 3.0},
+                    slo_ms=10000.0)
+
+
+def _traced_window(srv, fe, images, bodies, how):
+    """``SERVE_TRACED["clients"]`` closed-loop clients for
+    ``SERVE_TRACED["seconds"]``, through the HTTP front (``how`` =
+    "http", the request's ``traceparent`` a client-side
+    ``fleet_request`` span's context) or ``submit`` under that context
+    ("submit"), profiled (CUDA activity): ``(outcomes, wall_s,
+    profile)``, an outcome ``(trace id, ok, seconds)``."""
+    import http.client
+    import threading as _th
+
+    import torch
+
+    from mxnet_tpu_torch.telemetry import tracing
+
+    cfg = SERVE_TRACED
+    stop = _th.Event()
+    lock = _th.Lock()
+    outcomes = []
+
+    def client(k):
+        i = k
+        while not stop.is_set():
+            root = tracing.mint()
+            t0 = time.perf_counter()
+            ok = False
+            if how == "http":
+                conn = http.client.HTTPConnection("127.0.0.1", fe.port,
+                                                  timeout=120)
+                conn.request("POST", "/v1/predict",
+                             body=bodies[i % len(bodies)],
+                             headers={"Content-Type": "application/json",
+                                      tracing.TRACEPARENT_HEADER:
+                                      root.to_header()})
+                resp = conn.getresponse()
+                resp.read()
+                conn.close()
+                ok = resp.status == 200
+            else:
+                with tracing.use(root):
+                    h = srv.submit(images[i % len(images)],
+                                   deadline_ms=cfg["slo_ms"])
+                h.result(timeout=120)
+                ok = h.ok
+            t1 = time.perf_counter()
+            tracing.emit_span("fleet_request", t0, t1, root, kind="client",
+                              via=how)
+            with lock:
+                outcomes.append((root.trace_id, ok, t1 - t0))
+            i += cfg["clients"]
+
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CUDA])
+    ts = [_th.Thread(target=client, args=(k,))
+          for k in range(cfg["clients"])]
+    with prof:
+        t0 = time.perf_counter()
+        for t in ts:
+            t.start()
+        time.sleep(cfg["seconds"][how])
+        stop.set()
+        for t in ts:
+            t.join()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return outcomes, wall, device_profile(prof, wall, top=6, shares={})
+
+
+def _decompose(recs, outcomes):
+    """Each request's end-to-end span (``fleet_request``) split into the
+    server's queue, coalesce and compute spans, the frontend's time
+    around them (``replica_request`` less those) and the rest, as
+    ``tools/tracemerge.py doctor`` splits a request: ``(shares of the
+    summed end-to-end time, requests with every span, mean ms)``."""
+    phase_of = {"serve_queue": "queue", "serve_coalesce": "coalesce",
+                "serve_model": "compute"}
+    by_trace = {}
+    for s in recs:
+        if s["type"] == "span":
+            by_trace.setdefault(s["trace_id"], {}).setdefault(
+                s["name"], []).append(s["dur_ms"])
+    parts = dict.fromkeys(("queue", "coalesce", "compute", "frontend",
+                           "other"), 0.0)
+    e2e_total, complete = 0.0, 0
+    for trace_id, ok, _ in outcomes:
+        got = by_trace.get(trace_id, {})
+        if not ok or not all(n in got for n in ("fleet_request",
+                                                 *phase_of)):
+            continue
+        complete += 1
+        e2e = got["fleet_request"][0]
+        inner = 0.0
+        for n, p in phase_of.items():
+            parts[p] += sum(got[n])
+            inner += sum(got[n])
+        served = got["replica_request"][0] if "replica_request" in got \
+            else inner
+        front = max(0.0, served - inner)
+        parts["frontend"] += front
+        parts["other"] += e2e - inner - front
+        e2e_total += e2e
+    shares = {k: v / e2e_total for k, v in parts.items()} \
+        if e2e_total else {}
+    return shares, complete, (e2e_total / complete if complete else None)
+
+
+def serve_traced_phase(served):
+    """``serve_resnet50``'s ``resnet50_v1()`` (fp32, the artifact's one
+    CUDA graph) with ``MXNET_RUNLOG`` on, 64 closed-loop clients for a few
+    seconds each way: through ``ServeFrontend`` (every request carrying
+    a ``traceparent`` under a client-side ``fleet_request`` span), and
+    through ``submit`` under the same kind of context.  Each request's
+    end-to-end time is split from the run log into queue, coalesce,
+    compute, the frontend and the rest; the device's idle share over
+    each window comes from a CUDA-activity profile."""
+    from mxnet_tpu_torch.serving import ModelServer, ServeFrontend
+    from mxnet_tpu_torch.telemetry.opstats import percentile
+
+    cfg = SERVE_TRACED
+    images = served["images"]
+    bodies = [json.dumps({"inputs": images[i:i + 1].tolist(),
+                          "deadline_ms": cfg["slo_ms"]}).encode()
+              for i in range(len(images))]
+    t_phase = time.perf_counter()
+    tdir = os.path.join(os.path.dirname(served["path"]), "traced")
+    os.makedirs(tdir, exist_ok=True)
+    windows = {}
+    with telemetry_env(tdir, {"MXNET_RUNLOG": "serve.jsonl"}) as rl:
+        srv = ModelServer.from_artifact(served["path"],
+                                        slo_ms=cfg["slo_ms"],
+                                        coalesce_ms=SERVE["coalesce_ms"],
+                                        name="resnet50_traced")
+        srv.start(warm=True)
+        fe = ServeFrontend(srv, port=0).start()
+        try:
+            for how in ("http", "submit"):
+                windows[how] = _traced_window(srv, fe, images, bodies, how)
+        finally:
+            fe.close()
+            srv.close()
+        path = rl.path
+    recs, problems, counts = read_runlog(path)
+    res = {"phase": "serve_traced",
+           "model": "resnet50_v1 (fp32, artifact bucket 32)",
+           "buckets": list(srv.buckets),
+           "compile_programs": sorted({r["program"] for r in recs
+                                       if r["type"] == "compile"}),
+           "clients": cfg["clients"], "runlog_records": counts,
+           "schema_problems": problems, "windows": {}}
+    for how, (outcomes, wall, prof) in windows.items():
+        ok = [o for o in outcomes if o[1]]
+        lat = sorted(o[2] * 1e3 for o in ok)
+        shares, complete, mean_ms = _decompose(recs, outcomes)
+        res["windows"][how] = {
+            "wall_s": wall, "requests": len(outcomes), "ok": len(ok),
+            "requests_s": len(ok) / wall, "p50_ms": percentile(lat, 0.5),
+            "p99_ms": percentile(lat, 0.99), "traced_complete": complete,
+            "shares_of_e2e": shares, "mean_e2e_ms": mean_ms,
+            "profile": prof}
+        log(f"[serve_traced] {how}: {len(ok) / wall:.1f} req/s, shares "
+            f"{ {k: round(v, 4) for k, v in shares.items()} }, idle "
+            f"{prof.get('device_idle_share')}")
+    res["seconds"] = time.perf_counter() - t_phase
+    emit(res)
+    check(not problems, f"serve_traced: schema problems {problems[:5]}")
+    for how, w in res["windows"].items():
+        check(w["ok"] == w["requests"] and w["traced_complete"] == w["ok"]
+              > 0, f"serve_traced {how}: {w['ok']} ok of {w['requests']},"
+              f" {w['traced_complete']} with every span")
+        check(abs(sum(w["shares_of_e2e"].values()) - 1.0) < 1e-6,
+              f"serve_traced {how}: shares {w['shares_of_e2e']}")
+    # the artifact cannot retrace; its one capture at warm-up is the
+    # CachedOp's one compile record (a capture counts as a trace)
+    check(counts.get("serve", 0) >= 1
+          and counts.get("compile", 0) == len(res["buckets"]),
+          f"serve_traced: records {counts}, buckets {res['buckets']}")
+    return res
+
+
 def run(profile=False, old_brc=None, workdir=None):
     import torch
 
@@ -4045,6 +4701,26 @@ def run(profile=False, old_brc=None, workdir=None):
         torch.cuda.empty_cache()
     train, t_lars, t_adam = (trains[n] for n in (
         "train_resnet50", "train_resnet50_lars", "train_resnet50_adam"))
+    t0 = time.perf_counter()
+    tel = telemetry_resnet50_phase(workdir)
+    log(f"[telemetry_resnet50] ms/step "
+        f"{ {k: round(a['ms_per_step'], 2) for k, a in tel['arms'].items()} }"
+        f", FLOPs / analytic "
+        f"{tel['arms']['runlog']['program_report']['flops_over_analytic']:.4f}"
+        f", watchdog fired after "
+        f"{tel['watchdog_drill']['seconds_to_fire']:.2f} s, numerics on/off ms "
+        f"{tel['numerics']['on']['ms_per_step']:.2f}/"
+        f"{tel['numerics']['off']['ms_per_step']:.2f} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    prof_arm = tel["arms"]["runlog_sample1_watchdog_numerics_profiler"]
+    for row in prof_arm["device_trace"]["top_device_ops"]:
+        log(f"[telemetry_resnet50] top op {row['ms']:.2f} ms x"
+            f"{row['calls']} {row['name'][:60]} <- {row['host_op']} in "
+            f"{row['host_span']}")
+    for row in prof_arm["device_trace"]["top_idle_gaps"]:
+        log(f"[telemetry_resnet50] idle gap {row['ms']:.3f} ms during "
+            f"{row['host_op']} in {row['host_span']}")
+    torch.cuda.empty_cache()
     sgd_trains = [t for t in trains.values() if t["optimizer"] == "sgd"]
     hosts = {}
     cvc = {}
@@ -4098,6 +4774,10 @@ def run(profile=False, old_brc=None, workdir=None):
             f"{busy.get('profile', {}).get('device_idle_share')}")
     shttp = serve_http_phase(served)
     log(f"[serve_http] predict host ms {shttp['predict_ms_host']}")
+    t1 = time.perf_counter()
+    straced = serve_traced_phase(served)
+    log(f"[serve_traced] {time.perf_counter() - t1:.1f} s")
+    del straced
     torch.cuda.empty_cache()
     fleet = fleet_host_phase(workdir, served)
     log(f"[serve phases] {time.perf_counter() - t0:.1f} s")
@@ -4249,12 +4929,14 @@ def run(profile=False, old_brc=None, workdir=None):
         entry("bnreluconv_bwd", "bnreluconv_bwd.cu",
               "mxnet_tpu/ops/pallas_conv.py:83",
               sum(t["bnreluconv_launches"] for t in trains.values())
+              + tel["bnreluconv_launches"]
               + gres["bnreluconv_launches"]
               + sbrc["bnreluconv_launches"],
               max(c["max_abs_err"] for c in brc_main), brc_head),
         entry("bucket_sgd_mom", "bucket_sgd.cu",
               "mxnet_tpu/ops/pallas_opt.py:157",
               sum(t["bucket_sgd_mom_launches"] for t in sgd_trains)
+              + tel["bucket_sgd_mom_launches"]
               + zoo["bucket_sgd_mom_launches"], 0.0, sgd[0]),
         # the same kernel at VGG-16's 102.76 M fc6 bucket, its own row
         entry("bucket_sgd_mom_vgg16", "bucket_sgd.cu",

@@ -27,13 +27,20 @@ train steps, ``gluon.model_zoo.vision``) and the serving path for
 trained models (:mod:`~mxnet_tpu_torch.deploy` artifacts,
 ``serving.ModelServer``, the HTTP front, ``serving.ModelHost``) and
 quantized and mixed-precision inference (:mod:`~mxnet_tpu_torch.
-quantization`, ``contrib.quantization``, ``contrib.amp``), with what
-they run.
+quantization`, ``contrib.quantization``, ``contrib.amp``) and the
+telemetry that observes them (:mod:`~mxnet_tpu_torch.telemetry`'s run
+log, spans, watchdog and numerics monitor, :mod:`~mxnet_tpu_torch.
+profiler` on ``torch.profiler``), with what they run.
 """
 __version__ = "0.1.0"
 
 from . import base  # noqa: F401
 from . import config  # noqa: F401
+
+if config.get_env("MXNET_PROFILER_AUTOSTART"):
+    from . import profiler as _profiler_autostart
+
+    _profiler_autostart.set_state("run")
 from .base import MXNetError  # noqa: F401
 from .context import (Context, cpu, current_context, default_device,  # noqa: F401
                       gpu, num_gpus, resolve_device)
@@ -61,10 +68,13 @@ from . import module as mod  # noqa: F401
 from . import deploy  # noqa: F401
 from . import contrib  # noqa: F401
 from . import quantization  # noqa: F401
+from . import profiler  # noqa: F401
+from . import telemetry  # noqa: F401
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "num_gpus", "default_device", "resolve_device", "nd",
            "ndarray", "autograd", "library", "random", "gluon", "init", "initializer",
            "lr_scheduler", "metric", "optimizer", "sym", "symbol",
            "AttrScope", "io", "model", "callback", "monitor", "mon",
-           "mod", "module", "deploy", "contrib", "quantization"]
+           "mod", "module", "deploy", "contrib", "quantization",
+           "profiler", "telemetry"]

@@ -63,9 +63,10 @@ class Speedometer:
 
     Timing uses ``time.perf_counter()`` — a monotonic clock — so an
     NTP step or wall-clock jump during training cannot produce
-    negative or absurd samples/sec.  The reference reads the run log's
-    throughput instead when run telemetry is on; the port's telemetry
-    waits for ROADMAP §A 12."""
+    negative or absurd samples/sec.  When run telemetry is active
+    (``MXNET_RUNLOG``), the reported rate is the RunLog's recent-step
+    throughput — the same number the run log and metrics textfile
+    carry — instead of a second independent measurement."""
 
     def __init__(self, batch_size, frequent=50, auto_reset=True):
         self.batch_size = batch_size
@@ -76,6 +77,19 @@ class Speedometer:
         self.auto_reset = auto_reset
 
     def _speed(self):
+        try:
+            from . import telemetry
+
+            rl = telemetry.current()
+            if rl is not None:
+                # only over the steps of this reporting interval (since
+                # tic): an eval loop records no steps, so this returns
+                # None and the own clock answers
+                authoritative = rl.recent_throughput(since=self.tic)
+                if authoritative is not None:
+                    return authoritative
+        except Exception:
+            pass  # broken telemetry must not silence the log line
         try:
             return (self.frequent * self.batch_size
                     / (time.perf_counter() - self.tic))

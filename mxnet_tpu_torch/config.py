@@ -132,19 +132,74 @@ register_env("MXNET_OPTIMIZER_SHARDING", "", str,
 register_env("MXNET_SNAPSHOT_EVERY", 0, int,
              "Batches between async snapshot checkpoints in Module.fit "
              "(needs checkpoint=).  Not ported: a value above 0 raises "
-             "(ROADMAP §A 12).")
+             "(ROADMAP §A 7, with §A 11's asynchronous checkpoint).")
+register_env("MXNET_PROFILER_AUTOSTART", False, bool,
+             "Start the profiler at import (reference knob; wired to "
+             "mx.profiler.set_state('run')).")
+register_env("MXNET_PROFILER_MODE", "imperative", str,
+             "Default profiler scope (symbolic/imperative/all).")
 register_env("MXNET_RUNLOG", "", str,
-             "Path of the per-step JSONL run log.  Not ported: Module.fit "
-             "raises when it is set (ROADMAP §A 12).")
-register_env("MXNET_NUMERICS", False, bool,
-             "Numerics monitor.  Not ported: Module.fit raises when it "
-             "is on (ROADMAP §A 12).")
+             "Path of the per-step JSONL run log (telemetry.RunLog). "
+             "Empty = telemetry off entirely: every wire point takes "
+             "the no-op fast exit and the fit loop performs no "
+             "per-step device syncs.  Set it and every subsystem "
+             "(step timing, compile/retrace causes, checkpoints, NaN "
+             "guard, fault injections, serving batches and spans) "
+             "reports into one JSONL file, plus a crash flight "
+             "recorder at <path>.flight.<pid>.json.")
+register_env("MXNET_TELEMETRY_SAMPLE", 25, int,
+             "Device-sync sampling period for telemetry: the fit loop "
+             "reads the loss/metric (one device sync) only every this "
+             "many steps; unsampled step records keep wall timing but "
+             "loss=null so the hot path stays async.")
+register_env("MXNET_FLIGHTREC_DEPTH", 64, int,
+             "Crash flight recorder ring depth: the last N step "
+             "records (plus config/env/compile fingerprints) dumped "
+             "atomically on SIGTERM drain, NaN-abort, fault-injection "
+             "crash, a watchdog stall or an unhandled exception inside "
+             "Module.fit.  0 disables the recorder (run log still "
+             "written).")
 register_env("MXNET_WATCHDOG_SEC", 0.0, float,
-             "Hang watchdog: >0 arms a background thread that dumps "
-             "every thread's stack when a heartbeat goes quiet for this "
-             "many seconds.  Not ported: a ModelServer whose "
-             "watchdog_sec resolves above 0 raises (ROADMAP §A 12).  "
-             "0 (default) = no thread, zero hot-path cost.")
+             "Hang watchdog (telemetry.Watchdog): >0 arms a background "
+             "thread per Module.fit / per ModelServer that, when the "
+             "heartbeat goes quiet for this many seconds — even with "
+             "the main thread blocked inside a native call — appends "
+             "an all-thread faulthandler stack dump, flushes the "
+             "flight recorder with reason 'stall', and emits a "
+             "'watchdog' run-log record.  It observes, it never "
+             "kills.  0 (default) = no thread, zero hot-path cost.")
+register_env("MXNET_NUMERICS", False, bool,
+             "Numerics monitor (telemetry.numerics): per-gradient "
+             "summary reductions (l2/min/max/NaN/Inf counts/zero "
+             "fraction) ride in the train step's optimizer state and "
+             "become sampled 'tensor_stats' run-log records, so a NaN "
+             "step is explained (which tensor, which step).  Off by "
+             "default: the built step is the step without the "
+             "monitor.")
+register_env("MXNET_NUMERICS_SAMPLE", 0, int,
+             "Steps between numerics-monitor tensor_stats emissions "
+             "(each costs one device readback of the summary "
+             "vectors).  0 = follow MXNET_TELEMETRY_SAMPLE.")
+register_env("MXNET_METRICS_TEXTFILE", "", str,
+             "Prometheus-textfile export path (node_exporter textfile "
+             "collector convention): telemetry counters + last "
+             "throughput/loss, atomically rewritten on every sampled "
+             "step.  Empty = off.")
+register_env("MXNET_TRACE_CONTEXT", "", str,
+             "Inbound W3C traceparent stamp "
+             "('00-<32hex trace>-<16hex span>-01') set by a spawner so "
+             "the child's spans parent onto the spawn "
+             "(telemetry.tracing).  Empty = this process roots its "
+             "own traces.")
+register_env("MXNET_PROCESS_ROLE", "", str,
+             "Process identity stamped by spawners into the child's "
+             "run_start record (trainer|replica|router|fit) — the "
+             "track-group label tools/tracemerge.py uses for the "
+             "merged timeline.")
+register_env("MXNET_PROCESS_RANK", "", str,
+             "Numeric rank within the role (replica index, trainer "
+             "attempt), stamped next to MXNET_PROCESS_ROLE into "
+             "run_start.")
 register_env("MXNET_SERVE_SLO_MS", 100.0, float,
              "Default per-request deadline (milliseconds) of the "
              "serving runtime (mxnet_tpu_torch.serving.ModelServer): a "

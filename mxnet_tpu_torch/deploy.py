@@ -187,6 +187,15 @@ def export_model(net, example_input, path, platforms=("cpu", "cuda"),
         + graph + params
     atomic_write_bytes(path, _frame(meta_doc, blob, extra_meta),
                        inject_point=None)
+    if meta_doc.get("quantized"):
+        try:
+            from . import telemetry
+
+            telemetry.quantize(
+                "export", mode="",
+                layers=int(meta_doc["quantized_layers"]))
+        except Exception:
+            pass  # telemetry must never kill an export
     return path
 
 

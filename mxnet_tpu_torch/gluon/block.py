@@ -644,10 +644,34 @@ class HybridBlock(Block):
                     entry = _GraphEntry(self, sig[-1])
                 else:
                     entry = _EagerEntry()
+                self._telemetry_trace(leaves)
             out = entry(self, args, kwargs)
         # stored once its first call (a capture) succeeded
         self._cached_op[sig] = entry
         return out
+
+    def _telemetry_trace(self, leaves):
+        """One ``compile`` record per new cache entry (a CUDA-graph
+        capture on the card counts as the reference's trace).  No-op
+        when ``MXNET_RUNLOG`` is unset (one call + dict lookup); the
+        RunLog diffs this fingerprint against the program's previous
+        one to name the retrace cause."""
+        from .. import telemetry
+
+        rl = telemetry.current()
+        if rl is None:
+            return
+        try:
+            arrays = [a for a in leaves if isinstance(a, NDArray)]
+            rl.compile_event(
+                f"cachedop:{self.name}",
+                telemetry.compile_fingerprint(
+                    [tuple(a.shape) for a in arrays],
+                    [str(a._data.dtype).replace("torch.", "")
+                     for a in arrays],
+                    autograd.is_training()))
+        except Exception:
+            pass  # telemetry must never kill a forward
 
     # --------------------------------------------------------- symbolic
     def _call_symbol(self, *args, **kwargs):

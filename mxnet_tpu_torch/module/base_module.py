@@ -7,11 +7,16 @@ update / metric / checkpoint; ``score``, ``predict``).
 
 ``fit`` feeds the iterator's host batches; ``forward`` moves each to the
 module's device.  The reference wraps the iterator in a device feed by
-default (``MXNET_DEVICE_FEED``), which waits for ROADMAP §A 6.  What
-waits for ROADMAP §A 12 raises: ``resume_from=``,
-``MXNET_SNAPSHOT_EVERY``, and the run log and numerics monitor when
-their variables arm them.  Peer healing and the preemption drain are
-not armed, and take no action, as the reference's do when unset.
+default (``MXNET_DEVICE_FEED``), which waits for ROADMAP §A 6.
+``resume_from=`` and ``MXNET_SNAPSHOT_EVERY`` raise: they wait for
+ROADMAP §A 7, with §A 11's asynchronous checkpoint.  ``fit`` runs a
+telemetry session (``telemetry.fit_session``: step records, sampled
+loss syncs, the numerics monitor's ``tensor_stats`` on sampled and bad
+steps, the hang watchdog of ``MXNET_WATCHDOG_SEC``, the flight dump on
+every in-fit death) and a preemption drain: SIGTERM/SIGINT finishes
+the step in flight, saves a checkpoint when fit has one, dumps the
+flight recorder and re-raises the signal.  Peer healing is not armed,
+and takes no action, as the reference's does when unset.
 """
 from __future__ import annotations
 
@@ -33,17 +38,13 @@ def _refuse_unported(resume_from):
     if resume_from is not None:
         raise MXNetError("fit(resume_from=...) restores the RNG, the batch "
                          "cursor and the topology stamp, which are not "
-                         "ported yet (ROADMAP §A 12)")
+                         "ported yet (ROADMAP §A 7, with §A 11's "
+                         "asynchronous checkpoint)")
     if int(get_env("MXNET_SNAPSHOT_EVERY")) > 0:
         raise MXNetError("MXNET_SNAPSHOT_EVERY needs the asynchronous "
                          "snapshot writer, which is not ported yet "
-                         "(ROADMAP §A 12)")
-    if get_env("MXNET_RUNLOG"):
-        raise MXNetError("MXNET_RUNLOG (the run log) is not ported yet "
-                         "(ROADMAP §A 12)")
-    if get_env("MXNET_NUMERICS"):
-        raise MXNetError("MXNET_NUMERICS (the numerics monitor) is not "
-                         "ported yet (ROADMAP §A 12)")
+                         "(ROADMAP §A 7, with §A 11's asynchronous "
+                         "checkpoint)")
 
 
 class BaseModule:
@@ -183,11 +184,39 @@ class BaseModule:
             validation_metric = eval_metric
         if not isinstance(eval_metric, metric_mod.EvalMetric):
             eval_metric = metric_mod.create(eval_metric)
-        self._fit_epochs(
-            train_data, eval_data, eval_metric, validation_metric,
-            begin_epoch, num_epoch, monitor, batch_end_callback,
-            epoch_end_callback, eval_end_callback, eval_batch_end_callback,
-            ckpt_mgr=ckpt_mgr, checkpoint_period=checkpoint_period)
+        # the telemetry session (a no-op shell when MXNET_RUNLOG is
+        # unset): step records, sampled loss syncs and the flight dumps
+        # of the in-fit death paths hang off it
+        from .. import telemetry as _tm
+        from ..resilience.preempt import PreemptionDrain
+
+        batch_size = 0
+        try:
+            batch_size = int(train_data.provide_data[0][1][0])
+        except Exception:
+            pass
+        session = _tm.fit_session(batch_size=batch_size)
+        drain = PreemptionDrain()
+        try:
+            with drain:
+                self._fit_epochs(
+                    train_data, eval_data, eval_metric, validation_metric,
+                    begin_epoch, num_epoch, monitor, batch_end_callback,
+                    epoch_end_callback, eval_end_callback,
+                    eval_batch_end_callback, ckpt_mgr=ckpt_mgr,
+                    checkpoint_period=checkpoint_period, drain=drain,
+                    session=session)
+            session.finish("preempted" if drain.requested is not None
+                           else "ok")
+        except BaseException as exc:  # noqa: BLE001 — flight-record
+            # every in-fit death (a NaN abort dumped at its raise site;
+            # the first dump's reason wins)
+            session.flight(f"exception:{type(exc).__name__}")
+            session.finish("error")
+            raise
+        # drained: the checkpoint and the flight dump are on disk — hand
+        # the signal back to its original disposition
+        drain.reraise()
 
     def _save_fit_checkpoint(self, ckpt_mgr, epoch, batch_cursor):
         """Flush one atomic checkpoint version (epoch boundaries): a
@@ -222,16 +251,50 @@ class BaseModule:
         the gradients."""
         return self._outputs_finite()
 
+    def _emit_tensor_stats(self, step, epoch):
+        """The numerics monitor's ``tensor_stats`` record of the named
+        gradient buffers; called only on sampled or bad steps, and a
+        telemetry failure never kills training."""
+        from .. import telemetry as _tm
+        from ..telemetry import numerics as _nm
+
+        rl = _tm.current()
+        grads_of = getattr(self, "_named_grads", None)
+        if rl is None or grads_of is None:
+            return
+        try:
+            grads = grads_of()
+            if grads:
+                _nm.emit(rl, step, _nm.summarize_named(grads),
+                         where="grad", epoch=epoch)
+        except Exception:
+            self.logger.debug("numerics monitor emission failed",
+                              exc_info=True)
+
     def _fit_epochs(self, train_data, eval_data, eval_metric,
                     validation_metric, begin_epoch, num_epoch, monitor,
                     batch_end_callback, epoch_end_callback,
                     eval_end_callback, eval_batch_end_callback,
-                    ckpt_mgr=None, checkpoint_period=1):
+                    ckpt_mgr=None, checkpoint_period=1, drain=None,
+                    session=None):
         from ..config import get_env
         from ..resilience import faultsim
+        from ..telemetry import numerics as _nm
 
+        if session is None:
+            # direct callers get the shell, run-log-less and watchdog-
+            # less: nothing on this path would close an armed watchdog
+            from ..telemetry.session import FitSession
+
+            session = FitSession(None, watchdog=False)
         bad_limit = int(get_env("MXNET_BAD_STEP_LIMIT"))
         bad_run = 0
+        # the numerics monitor: the gradients are host-visible buffers
+        # here, so the summaries run only on sampled steps and on every
+        # bad step
+        numerics_on = _nm.armed()
+        nm_period = _nm.sample_period() if numerics_on else 0
+        nm_step = 0
         checkpoint_period = int(max(1, checkpoint_period))
         for epoch in range(begin_epoch, num_epoch):
             tic = time.time()
@@ -245,11 +308,16 @@ class BaseModule:
                 data_batch = next_data_batch
                 if monitor is not None:
                     monitor.tic()
+                session.step_begin()
                 self.forward_backward(data_batch)
                 bad_step = False
                 if bad_limit > 0:
                     bad_step = (faultsim.inject("step.loss_nan")
                                 == "nan") or not self._step_finite()
+                if numerics_on and (bad_step
+                                    or nm_step % nm_period == 0):
+                    self._emit_tensor_stats(nm_step, epoch)
+                nm_step += 1
                 if bad_step:
                     # skip-and-count: the update is withheld so one NaN
                     # batch cannot poison the params
@@ -271,6 +339,7 @@ class BaseModule:
                                 if set_states is not None and \
                                         state.get("optimizer_states"):
                                     set_states(state["optimizer_states"])
+                        session.flight("nan_abort")
                         raise MXNetError(
                             f"aborting fit: {bad_run} consecutive "
                             f"non-finite steps (MXNET_BAD_STEP_LIMIT="
@@ -288,12 +357,37 @@ class BaseModule:
                 except StopIteration:
                     end_of_batch = True
                 self.update_metric(eval_metric, data_batch.label)
+                if session:
+                    # sampled device sync only: unsampled steps keep
+                    # wall timing but read no metric value
+                    synced = session.should_sync()
+                    loss_val = None
+                    if synced:
+                        try:
+                            nv = eval_metric.get_name_value()
+                            if nv and nv[0][1] == nv[0][1]:  # not NaN
+                                loss_val = float(nv[0][1])
+                        except Exception:
+                            pass
+                    session.step_end(epoch, nbatch, loss=loss_val,
+                                     synced=synced, bad_step=bad_step)
                 if monitor is not None:
                     monitor.toc_print()
                 if batch_end_callback is not None:
                     for cb in _as_list(batch_end_callback):
                         cb(_BatchEndParam(epoch, nbatch, eval_metric))
                 nbatch += 1
+                if drain is not None and drain.requested is not None:
+                    # preemption drain: the step in flight is done —
+                    # flush a checkpoint with the batch cursor, dump the
+                    # flight recorder, then unwind (fit re-raises)
+                    if ckpt_mgr is not None:
+                        self._save_fit_checkpoint(ckpt_mgr, epoch, nbatch)
+                    self.logger.info(
+                        "Preemption drain (signal %s) at epoch %d batch "
+                        "%d", drain.requested, epoch, nbatch)
+                    session.flight("preempt_drain")
+                    return
             for name, val in eval_metric.get_name_value():
                 self.logger.info("Epoch[%d] Train-%s=%f", epoch, name, val)
             toc = time.time()

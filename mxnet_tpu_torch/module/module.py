@@ -235,6 +235,12 @@ class Module(BaseModule):
                 if self._grad_req.get(n, "null") != "null"
                 and self._exec.grad_dict.get(n) is not None]
 
+    def _named_grads(self):
+        """The live gradient buffers by parameter name — the numerics
+        monitor's observation point in ``fit``."""
+        return {n: self._exec.grad_dict[n]
+                for n in self._update_param_names()}
+
     def init_optimizer(self, kvstore="local", optimizer="sgd",
                        optimizer_params=(("learning_rate", 0.01),),
                        force_init=False):

@@ -49,9 +49,16 @@ class Monitor:
 
             stat_func = asum_stat
         elif stat_func == "numerics":
-            raise MXNetError("Monitor(stat_func='numerics') needs the "
-                             "numerics monitor, which is not ported yet "
-                             "(ROADMAP §A 12)")
+            # the numerics monitor's six numbers (l2/min/max/nan/inf/
+            # zero_frac) through the classic tic/toc protocol, as the
+            # run log's tensor_stats rows carry them
+            from .telemetry import numerics as _nm
+
+            def numerics_stat(x):
+                row = _nm.stats_row(_nm.summary(getattr(x, "_data", x)))
+                return [f"{k}={row[k]:.6g}" for k in _nm.STAT_FIELDS]
+
+            stat_func = numerics_stat
         self.stat_func = stat_func
         self.interval = int(interval)
         self.activated = False

@@ -478,9 +478,29 @@ def invoke(op, inputs, out=None, **params):
     (src/imperative/imperative.cc:89).  The op runs under
     ``torch.set_grad_enabled``: torch records it only inside
     ``autograd.record()`` and only for a differentiable op; the outputs
-    of a non-differentiable op are constants.
+    of a non-differentiable op are constants.  While the profiler
+    collects, the dispatch is one op event (``profiler.op_scope``); while
+    it is stopped, that costs one check.
     """
     opdef: OpDef = get_op(op) if isinstance(op, str) else op
+    global _profiler
+    if _profiler is None:  # lazy: keep profiler import errors local
+        from .. import profiler as _profiler_mod
+
+        _profiler = _profiler_mod
+    scope = _profiler.op_scope(opdef.name)
+    if scope is not None:
+        with scope:
+            result = _invoke_impl(opdef, inputs, out, params)
+            scope.set_result(result)  # bytes column for opstats
+            return result
+    return _invoke_impl(opdef, inputs, out, params)
+
+
+_profiler = None
+
+
+def _invoke_impl(opdef, inputs, out, params):
     params = {k: v for k, v in params.items() if v is not None}
     first = next((i for i in inputs if isinstance(i, NDArray)), None)
     tensors = [i._data if isinstance(i, NDArray) else _as_tensor(i, first)

@@ -33,6 +33,7 @@ import threading
 import torch
 
 from ..base import MXNetError
+from ..telemetry import runlog as _runlog
 from .nn import _bn_stats
 from .registry import register_op
 
@@ -213,6 +214,9 @@ def _bwd_pass1_cuda(dy, u, w2, g, b, mu, inv):
                          f"{dy.dtype}")
     with _count_lock:
         bnreluconv_bwd.launches += 1
+    # the plain version's two products, d_act = dy·Wᵀ and dW = uᵀ·dy,
+    # for a program report (FlopCounterMode cannot see a ctypes launch)
+    _runlog.kernel_flops(4 * m * ci * co)
     return d_bn, dw, s[0:1], s[1:2]
 
 

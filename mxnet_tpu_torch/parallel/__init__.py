@@ -27,11 +27,21 @@ unchanged: they ride the buckets with a zero gradient, and the layer's
 running-average write inside the functional forward is dropped
 (``gluon.block.drop_state_writes``; ROADMAP §C).
 
+Telemetry, as in the reference: with ``MXNET_RUNLOG`` set the step
+writes a ``compile`` record for each new ``(shape, dtype)`` of its
+batch (the retrace causes diffed from the fingerprint) and, on a miss,
+runs that call under :func:`~mxnet_tpu_torch.telemetry.describe_call`
+for its ``program_report``; ``MXNET_NUMERICS`` puts per-gradient
+summaries into the replicated arm's optimizer state under
+``_numerics`` (sampled readback; the ps arm warns and runs without,
+as the reference's does); ``MXNET_FAULT_SPEC`` naming
+``step.loss_nan`` poisons the batch with NaN on the armed hits.
+
 Not ported yet (they raise): in-step variant tuning (``sample_data``,
 a true ``autotune``),
 tensor parallelism (``param_spec``), ZeRO stages 1 and 3, gradient
-compression, the dtype ladder and fp8, the numerics monitor, and any
-mesh of more than one card.
+compression, the dtype ladder and fp8, and any mesh of more than one
+card.
 """
 from __future__ import annotations
 
@@ -225,9 +235,7 @@ def _refuse_unported(param_spec, sample_data, autotune,
              sample_data is not None or bool(autotune)),
             ("gradient_compression", gradient_compression is not None),
             ("the dtype ladder and fp8 (MXNET_DTYPE_LADDER)",
-             compute_dtype is None and armed("MXNET_DTYPE_LADDER")),
-            ("the numerics monitor (MXNET_NUMERICS)",
-             armed("MXNET_NUMERICS"))):
+             compute_dtype is None and armed("MXNET_DTYPE_LADDER"))):
         if bad:
             raise MXNetError(f"make_train_step: {what} is not ported yet "
                              "(ROADMAP §A)")
@@ -364,6 +372,29 @@ def make_train_step(block, loss_fn, optimizer="sgd", learning_rate=0.01,
         opt_state["_bad_steps"] = torch.zeros((), dtype=torch.int32,
                                               device=dev)
 
+    # the numerics monitor: per-gradient summaries ride in the returned
+    # state under _numerics (no host sync); the telemetry wrapper below
+    # reads them back only on sampled steps.  Unarmed, the step is the
+    # step without it.
+    from ..telemetry import numerics as _nm
+
+    numerics_on = _nm.armed()
+    if numerics_on and ps_mode:
+        warnings.warn(
+            "MXNET_NUMERICS under optimizer_sharding='ps' is not "
+            "supported yet (gradients live as scattered bucket "
+            "shards, not named tensors) — monitor disabled for this "
+            "step", stacklevel=2)
+        numerics_on = False
+    if numerics_on:
+        opt_state["_numerics"] = _nm.summary_template(
+            dict.fromkeys([*names, "__loss"]), device=dev)
+
+    def nm_pack(grads, loss):
+        stats = _nm.summarize_tree(grads)
+        stats["__loss"] = _nm.summary(loss)
+        return stats
+
     def guarded(finite, up_p, up_s, params_, opt_state_):
         new_p = {n: torch.where(finite, up_p[n], params_[n]) for n in names}
         new_s = {n: tuple(torch.where(finite, u, o)
@@ -389,6 +420,8 @@ def make_train_step(block, loss_fn, optimizer="sgd", learning_rate=0.01,
                 params_, opt_state_, grads, t), params_, opt_state_)
             new_s["_loss_scale"] = _po.scale_bookkeeping(finite, scale,
                                                          good)
+            if numerics_on:
+                new_s["_numerics"] = nm_pack(grads, sloss / scale)
             # unscale with the scale the loss was computed with
             return sloss / scale, new_p, new_s
         if static_scale != 1.0:
@@ -404,8 +437,14 @@ def make_train_step(block, loss_fn, optimizer="sgd", learning_rate=0.01,
             new_s["_bad_steps"] = torch.where(
                 finite, torch.zeros_like(opt_state_["_bad_steps"]),
                 opt_state_["_bad_steps"] + 1)
+            if numerics_on:
+                # the step as it happened, guard or no guard: the bad
+                # step's NaN counts are the explanation
+                new_s["_numerics"] = nm_pack(grads, loss)
             return loss, new_p, new_s
         new_p, new_s = apply_updates(params_, opt_state_, grads, t)
+        if numerics_on:
+            new_s["_numerics"] = nm_pack(grads, loss)
         return loss, new_p, new_s
 
     if ps_mode:
@@ -493,10 +532,115 @@ def make_train_step(block, loss_fn, optimizer="sgd", learning_rate=0.01,
         return inner(params_, opt_state_, torch.as_tensor(x).to(dev),
                      torch.as_tensor(y).to(dev), key, t)
 
+    step_fn = _observed(step_fn, opt, ps_mode, numerics_on, dev)
     if ps_mode:
         step_fn.zero_stage = 2
         step_fn.zero_plan = plan
     return step_fn, params, opt_state
+
+
+def _observed(inner, opt, ps_mode, numerics_on, dev):
+    """The telemetry and fault wrappers of the reference
+    (``mxnet_tpu/parallel/__init__.py:951-1052``) around a built step.
+
+    Per call with nothing armed: one ``telemetry.current()`` lookup.
+    Armed: a ``compile`` record for each new ``(shape, dtype)`` of the
+    batch — a signature seen before that recurs after a change is a
+    cache ``hit`` — and, on a miss, the call itself runs under
+    ``describe_call`` for the ``program_report``; the numerics
+    summaries are read back on sampled steps.  ``step.loss_nan`` armed
+    in ``MXNET_FAULT_SPEC`` poisons the batch with NaN on its armed
+    hits, before the step, so the step's guard sees a non-finite step.
+    """
+    from .. import autotune as _at
+    from .. import telemetry as _tm
+    from ..resilience import faultsim
+    from ..telemetry import numerics as _nm
+
+    hyper = {k: v for k, v in sorted(vars(opt).items())
+             if not k.startswith("_")
+             and isinstance(v, (int, float, bool, str, type(None)))}
+    sharding = "ps" if ps_mode else "none"
+    seen = set()
+    last = [None]
+    nm_period = _nm.sample_period() if numerics_on else 0
+    nm_step = [0]
+
+    def step_fn(p, o, x, y, key, t):
+        rl = _tm.current()
+        result = None
+        if rl is not None:
+            sig = (tuple(x.shape), str(x.dtype).replace("torch.", ""))
+            if sig not in seen or sig != last[0]:
+                cache = "hit" if sig in seen else "miss"
+                ran = [False]
+
+                def call(*a):
+                    ran[0] = True
+                    return inner(*a)
+
+                try:
+                    winners = {}
+                    if _at.autotune_level() > 0:
+                        winners = {op: _at.lookup(op, sig[0], sig[1],
+                                                  platform=dev.type)
+                                   for op in ("pallas_bnreluconv",
+                                              "fused_bucket_opt")}
+                    rl.compile_event(
+                        "train_step",
+                        _tm.compile_fingerprint(
+                            sig[0], sig[1], True, winners=winners,
+                            hyper=hyper, sharding=sharding),
+                        cache=cache)
+                    if cache == "miss":
+                        # memory and FLOPs of the call about to run
+                        result, _ = _tm.describe_call(
+                            call, p, o, x, y, key, t,
+                            program="train_step")
+                except Exception:
+                    if ran[0]:
+                        raise  # the step itself failed
+                    result = None  # telemetry must never kill the step
+                seen.add(sig)
+                last[0] = sig
+        if result is None:
+            result = inner(p, o, x, y, key, t)
+        if numerics_on and rl is not None:
+            # sampled readback of the summaries: the only steps that pay
+            # a device sync for the monitor
+            try:
+                vecs = result[2].get("_numerics")
+                if vecs is not None:
+                    i = nm_step[0]
+                    nm_step[0] = i + 1
+                    if i % nm_period == 0:
+                        _nm.emit(rl, i, vecs, where="grad")
+            except Exception:
+                pass  # the monitor must never kill the step
+        return result
+
+    if faultsim.armed("step.loss_nan"):
+        # fault harness only: the disarmed fast path never grows this
+        # wrapper
+        observed = step_fn
+
+        def step_fn(p, o, x, y, key, t):
+            if faultsim.inject("step.loss_nan") == "nan":
+                # integer dtypes have no NaN: poison the first inexact
+                # input (token-id models poison through float labels)
+                x, y = torch.as_tensor(x), torch.as_tensor(y)
+                if x.is_floating_point():
+                    x = x * torch.tensor(float("nan"), dtype=x.dtype)
+                elif y.is_floating_point():
+                    y = y * torch.tensor(float("nan"), dtype=y.dtype)
+                else:
+                    warnings.warn(
+                        "step.loss_nan injection skipped: neither x "
+                        "nor y has an inexact dtype to poison",
+                        stacklevel=2)
+            return observed(p, o, x, y, key, t)
+
+    return step_fn
 
 
 class DataParallelTrainer:

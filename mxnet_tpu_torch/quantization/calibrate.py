@@ -423,7 +423,15 @@ def _finish(stats, mode, num_batches, excluded_names):
             which: s.range(mode)
             for which, s in entry.items() if s.batches
         }
-    return CalibrationResult(ranges, mode, num_batches, excluded_names)
+    result = CalibrationResult(ranges, mode, num_batches, excluded_names)
+    try:
+        from .. import telemetry
+
+        telemetry.quantize("calibrate", mode=mode, layers=len(ranges),
+                           excluded=len(result.excluded))
+    except Exception:
+        pass  # telemetry must never kill a calibration pass
+    return result
 
 
 def calibrate(net_or_module, calib_data, num_batches=None, mode=None,

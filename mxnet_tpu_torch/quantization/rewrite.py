@@ -433,6 +433,13 @@ def quantize_net(net, calib, excluded_names=()):
             "quantize_net: no quantizable layer carries a calibrated "
             "range (check excluded_names / the calibration data)")
     net._clear_cached_ops()
+    try:
+        from .. import telemetry
+
+        telemetry.quantize("rewrite", mode=calib.mode,
+                           layers=len(swapped), excluded=len(excluded))
+    except Exception:
+        pass  # telemetry must never kill a rewrite
     return net
 
 
@@ -518,4 +525,14 @@ def tune_quantized(net, sample_x, iters=8, level=None):
         if w.variant_op in decided:
             w._tuned = decided[w.variant_op]
     net._clear_cached_ops()
+    try:
+        from .. import telemetry
+
+        telemetry.quantize(
+            "race", mode="",
+            layers=len([r for r in report.values()
+                        if r["winner"] != "fp32"]),
+            excluded=0)
+    except Exception:
+        pass
     return report

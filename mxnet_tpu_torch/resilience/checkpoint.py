@@ -15,9 +15,11 @@
 ``prefix-symbol.json`` and ``prefix-NNNN.params`` are the reference's
 bytes for the same symbol and arrays; the manifest has the reference's
 keys.  Its ``rng`` is :func:`capture_rng`'s: numpy's global state as
-the reference writes it, and the port's generators.  The asynchronous snapshot
-writer, the emergency flush and the ZeRO stage-3 helpers wait for
-ROADMAP §A 11/§A 12.
+the reference writes it, and the port's generators.  Every save writes a
+``checkpoint`` run-log record, and a load that falls back past corrupt
+versions a ``checkpoint`` record with ``reason="fallback"``.  The
+asynchronous snapshot writer, the emergency flush and the ZeRO stage-3
+helpers wait for ROADMAP §A 11.
 """
 from __future__ import annotations
 
@@ -304,6 +306,7 @@ class CheckpointManager:
         bounds the wait for the writer lock (on timeout, None)."""
         from .. import ndarray as nd
 
+        t_save0 = time.perf_counter()
         version = cap["version"]
         if lock_timeout is None:
             self._write_lock.acquire()
@@ -384,6 +387,11 @@ class CheckpointManager:
             self._apply_retention()
         finally:
             self._write_lock.release()
+        from .. import telemetry
+
+        telemetry.checkpoint_event(
+            self.prefix, version, time.perf_counter() - t_save0,
+            sum(f["bytes"] for f in files.values()))
         return manifest
 
     def allocate_version(self, min_version=1):
@@ -571,19 +579,33 @@ class CheckpointManager:
         from .. import ndarray as nd
 
         man, blobs = {}, {}
+        t_load0 = time.perf_counter()
         if epoch is None:
             # newest-good fallback, ONE read per candidate: the blobs
             # that verified are the blobs that get decoded
+            skipped = []
             for cand in self._latest_candidates():
                 try:
                     man, blobs = self._read_verified(cand)
                     epoch = cand
                     break
                 except (OSError, ValueError, KeyError, MXNetError):
+                    skipped.append(int(cand))
                     continue
             if epoch is None:
                 raise MXNetError(
                     f"no verifiable checkpoint under {self.prefix!r}")
+            if skipped:
+                # a recovery past rotten versions is not silent: a
+                # checkpoint record names the skipped versions and the
+                # ckpt_fallbacks counter reaches the textfile
+                from .. import telemetry
+
+                telemetry.count("ckpt_fallbacks")
+                telemetry.checkpoint_event(
+                    self.prefix, epoch, time.perf_counter() - t_load0,
+                    sum(len(b) for b in blobs.values()),
+                    reason="fallback", skipped_versions=skipped)
         else:
             epoch = int(epoch)
             if self.has_manifest(epoch):

@@ -15,9 +15,14 @@ Spec grammar (env ``MXNET_FAULT_SPEC`` or ``faultsim.reset(spec)``)::
     action := crash | raise | delay | nan
     hits   := N | N-M | N+          (1-based per-point hit count)
 
-Actions: ``crash`` is ``os._exit(87)``; ``raise`` raises
-:class:`FaultInjected`; ``delay=S`` sleeps S seconds; ``nan`` returns
-``"nan"`` so the caller poisons its own value.
+Actions: ``crash`` is ``os._exit(87)`` after the flight dump and the
+:func:`on_crash` hooks; ``raise`` raises :class:`FaultInjected`;
+``delay=S`` sleeps S seconds; ``nan`` returns ``"nan"`` so the caller
+poisons its own value.  Every armed hit counts ``faults`` and writes a
+``fault`` event into the active run log.
+
+Built-in point: ``step.loss_nan`` (the ``make_train_step`` host wrapper
+and the ``Module.fit`` step guard).
 """
 from __future__ import annotations
 
@@ -27,17 +32,36 @@ import time
 
 from ..base import MXNetError
 
-__all__ = ["FaultInjected", "inject", "reset", "hits", "register_point",
-           "points", "CRASH_EXIT_CODE"]
+__all__ = ["FaultInjected", "inject", "probe", "reset", "hits",
+           "armed", "on_crash", "register_point", "points",
+           "CRASH_EXIT_CODE"]
 
 #: exit status of an armed ``crash`` action
 CRASH_EXIT_CODE = 87
 
 #: name -> one-line doc of every arm-able injection point
-_POINTS = {}
+_POINTS = {
+    "step.loss_nan": "train-step host wrapper + fit step guard",
+}
 _LOCK = threading.Lock()
 # spec None = not yet armed (first inject() reads MXNET_FAULT_SPEC)
 _STATE = {"spec": None, "rules": {}, "hits": {}}
+
+#: callbacks run on the ``crash`` path between the flight dump and
+#: ``os._exit`` (which skips atexit and every other thread's pending
+#: work): state that must survive the simulated power loss registers a
+#: flusher here
+_CRASH_HOOKS = []
+
+
+def on_crash(fn):
+    """Register ``fn()`` to run right before a ``crash`` action's
+    ``os._exit`` (after the flight dump).  A hook that raises is
+    skipped: the crash fires all the same.  Returns ``fn`` (usable as
+    a decorator)."""
+    if fn not in _CRASH_HOOKS:
+        _CRASH_HOOKS.append(fn)
+    return fn
 
 
 def register_point(name, doc=""):
@@ -152,20 +176,76 @@ def hits(point):
         return _STATE["hits"].get(point, 0)
 
 
-def inject(point):
-    """Count a hit at ``point`` and fire the armed action, if any.
+def armed(point):
+    """True when any clause names ``point`` — the cheap pre-check that
+    keeps optional wrappers (the train step's NaN poisoner) off the
+    fast path when the harness is disarmed."""
+    with _LOCK:
+        _ensure_locked()
+        return point in _STATE["rules"]
 
-    Returns ``"nan"`` when the caller must poison its value, else
-    ``None``.  Thread-safe: one counter per point per process."""
+
+def _fire(point):
+    """Count a hit at ``point``, match the armed rule and emit the
+    fault telemetry — the one core :func:`probe` and :func:`inject`
+    share.  Returns ``(rule, hit_number)``; rule None when nothing
+    armed matches."""
     with _LOCK:
         _ensure_locked()
         n = _STATE["hits"].get(point, 0) + 1
         _STATE["hits"][point] = n
         rule = next((r for r in _STATE["rules"].get(point, ())
                      if r.matches(n)), None)
+    if rule is not None:
+        try:
+            # armed hits are rare: the telemetry cost lands only on the
+            # fault path, never on the per-call fast path above
+            from .. import telemetry
+
+            telemetry.count("faults")
+            telemetry.event("fault", point=point, action=rule.action,
+                            hit=n)
+        except Exception:
+            pass  # the harness must fire even if telemetry is broken
+    return rule, n
+
+
+def probe(point):
+    """Count a hit at ``point`` and return the armed action's name
+    ('crash' / 'raise' / 'delay' / 'nan', or None) without executing
+    ``crash``/``raise``/``nan`` — for points whose caller owns the
+    blast radius (a worker thread that must die alone).  ``delay`` is
+    slept here, as :func:`inject` sleeps it."""
+    rule, _ = _fire(point)
+    if rule is None:
+        return None
+    if rule.action == "delay":
+        time.sleep(rule.value or 0.0)
+    return rule.action
+
+
+def inject(point):
+    """Count a hit at ``point`` and fire the armed action, if any.
+
+    Returns ``"nan"`` when the caller must poison its value, else
+    ``None``.  Thread-safe: one counter per point per process."""
+    rule, n = _fire(point)
     if rule is None:
         return None
     if rule.action == "crash":
+        try:
+            # os._exit skips atexit: the flight recorder is the only
+            # record the simulated power loss leaves behind
+            from .. import telemetry
+
+            telemetry.flight_dump(f"fault_crash:{point}")
+        except Exception:
+            pass
+        for hook in list(_CRASH_HOOKS):
+            try:
+                hook()
+            except Exception:
+                pass
         os._exit(CRASH_EXIT_CODE)
     if rule.action == "raise":
         raise FaultInjected(point, n)

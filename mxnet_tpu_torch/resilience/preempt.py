@@ -5,7 +5,8 @@ An orchestrator teardown delivers SIGTERM.  Inside a
 polls it (``serving.ModelServer.run_until_drained``) finishes the work
 in flight, and then the signal is re-raised under its original
 disposition, so the process exits as the orchestrator expects
-(killed by 15).
+(killed by 15).  ``Module.fit`` polls it at every step boundary: the
+drain saves a checkpoint (when fit has one) and the flight dump.
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ __all__ = ["PreemptionDrain"]
 
 class PreemptionDrain:
     """Context manager that converts termination signals to a drain
-    request the serving loop polls.
+    request the serving loop or the fit loop polls.
 
     Only the main thread can own signal handlers; entered from any
     other thread this is a no-op shell (``requested`` stays None).
@@ -50,6 +51,15 @@ class PreemptionDrain:
         # drain, don't die: the loop checks `requested` after the
         # in-flight step completes
         self._requested = signum
+        try:
+            # counter bump only (RunLog._lock is an RLock and handlers
+            # run in the main thread, so this cannot deadlock); the
+            # drain record and flight dump happen at the step boundary
+            from .. import telemetry
+
+            telemetry.count("preempt_signals")
+        except Exception:
+            pass
 
     def _restore(self):
         # keyed off _prev, not _installed: a PARTIAL install failure

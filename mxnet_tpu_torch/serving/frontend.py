@@ -33,12 +33,18 @@ Endpoints:
                             back)
 ==========================  ===========================================
 
-The reference's ``fleet.replica`` fault point (a replica process's
-deterministic death) comes with its ``FleetRouter`` (ROADMAP §A 10);
-its trace-context hop (``traceparent``) is ROADMAP §A 12.
+A ``POST /v1/predict`` carrying a W3C ``traceparent`` header is
+adopted (its rows are submitted under a child context, so the server's
+``serve_queue``/``serve_coalesce``/``serve_model`` spans join the
+caller's trace) and echoed in the answer with a ``replica_request``
+server span; with no header, an armed server (``MXNET_RUNLOG``) roots
+its own trace, an unarmed one mints nothing.  The reference's
+``fleet.replica`` fault point (a replica process's deterministic death)
+comes with its ``FleetRouter`` (ROADMAP §A 10).
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import threading
 import time
@@ -314,27 +320,45 @@ def _make_handler(host):
             x = onp.asarray(rows)
             deadline_ms = body.get("deadline_ms")
             model = body.get("model")
-            try:
-                handles = [host.submit(row, deadline_ms=deadline_ms,
-                                       model=model) for row in x]
-            except ServeRejected as exc:
-                # already-admitted sibling rows still reach their own
-                # terminal state server-side; the REQUEST is the unit
-                # of shed here
-                return self._send_rejection(exc)
-            wait_s = (float(deadline_ms) / 1e3 + 30.0) \
-                if deadline_ms is not None else 120.0
-            outs = []
-            try:
-                for h in handles:
-                    outs.append(onp.asarray(h.result(timeout=wait_s)))
-            except ServeRejected as exc:
-                return self._send_rejection(exc)
+            # trace context: an inbound traceparent is adopted and
+            # echoed; with none, an armed server roots its own trace.
+            # Unarmed with no header: no minting, no echo
+            from ..telemetry import tracing
+            inbound = tracing.from_header(
+                self.headers.get(tracing.TRACEPARENT_HEADER))
+            req_ctx = inbound.child() if inbound is not None else \
+                (tracing.mint() if tracing.enabled() else None)
+            bind = tracing.use(req_ctx) if req_ctx is not None \
+                else contextlib.nullcontext()
+            with bind:
+                try:
+                    handles = [host.submit(row, deadline_ms=deadline_ms,
+                                           model=model) for row in x]
+                except ServeRejected as exc:
+                    # already-admitted sibling rows still reach their
+                    # own terminal state server-side; the REQUEST is the
+                    # unit of shed here
+                    return self._send_rejection(exc)
+                wait_s = (float(deadline_ms) / 1e3 + 30.0) \
+                    if deadline_ms is not None else 120.0
+                outs = []
+                try:
+                    for h in handles:
+                        outs.append(onp.asarray(h.result(timeout=wait_s)))
+                except ServeRejected as exc:
+                    return self._send_rejection(exc)
             t1 = time.perf_counter()
+            if req_ctx is not None:
+                tracing.emit_span("replica_request", t0, t1, req_ctx,
+                                  kind="server", rows=int(len(x)),
+                                  model=model or "")
             self._send(200, {
                 "outputs": [o.tolist() for o in outs],
                 "latency_ms": round((t1 - t0) * 1e3, 3),
-                "model": model})
+                "model": model},
+                extra_headers={tracing.TRACEPARENT_HEADER:
+                               req_ctx.to_header()}
+                if req_ctx is not None else None)
 
         def _swap(self, body):
             from .fleet import SwapRolledBack

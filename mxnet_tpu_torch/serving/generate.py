@@ -47,6 +47,7 @@ from ..gluon._graph import device_lock
 from ..ops.flash_attention import flash_attention, paged_decode_attention
 from ..quantization.kv import kv_quantize
 from ..resilience import faultsim
+from ..telemetry import tracing as _tracing
 from .kvcache import PagedKVPool
 from .server import ServeRejected
 
@@ -175,9 +176,10 @@ class GenerateHandle:
 class _Seq:
     __slots__ = ("id", "handle", "prompt", "max_new", "generated",
                  "slot", "t_submit", "t_first", "deadline", "evictions",
-                 "counted_admit")
+                 "counted_admit", "trace", "t_submit_pc", "t_first_pc")
 
-    def __init__(self, seq_id, handle, prompt, max_new, deadline):
+    def __init__(self, seq_id, handle, prompt, max_new, deadline,
+                 trace=None):
         self.id = seq_id
         self.handle = handle
         self.prompt = list(prompt)
@@ -189,6 +191,12 @@ class _Seq:
         self.deadline = deadline
         self.evictions = 0
         self.counted_admit = False
+        # the trace context captured at submit (None = untraced: the
+        # scheduler emits no spans for this sequence)
+        self.trace = trace
+        self.t_submit_pc = time.perf_counter() if trace is not None \
+            else None
+        self.t_first_pc = None
 
     @property
     def context(self):
@@ -534,6 +542,34 @@ class GenerativeServer:
         self._traced.add(key)
         with self._lock:
             self.stats["warm_traces" if warm else "compiles"] += 1
+        try:
+            from .. import telemetry
+
+            kind, size = key
+            telemetry.compile_event(
+                f"generate:{self.name}:{kind}",
+                telemetry.compile_fingerprint((size,), "float32",
+                                              train=False))
+        except Exception:
+            pass
+
+    @staticmethod
+    def _telemetry_count(name, n=1):
+        try:
+            from .. import telemetry
+
+            telemetry.count(name, n)
+        except Exception:
+            pass
+
+    @staticmethod
+    def _telemetry_gauge(name, value):
+        try:
+            from .. import telemetry
+
+            telemetry.gauge(name, value)
+        except Exception:
+            pass
 
     def _reject(self, reason, detail=""):
         with self._lock:
@@ -580,10 +616,19 @@ class GenerativeServer:
                     f"{self.pool.capacity_tokens}-token budget")
             self._seq_counter += 1
             handle = GenerateHandle(self._seq_counter)
+            trace = None
+            if _tracing.enabled():
+                cur = _tracing.current_context()
+                # entry point: adopt the caller's context, else root a
+                # fresh trace for this generation request
+                trace = cur.child() if cur is not None \
+                    else _tracing.mint()
             seq = _Seq(self._seq_counter, handle, prompt, max_new,
-                       time.monotonic() + budget_ms / 1e3)
+                       time.monotonic() + budget_ms / 1e3, trace=trace)
             self._queue.append(seq)
             self.stats["requests"] += 1
+            self._telemetry_gauge("prefill_queue_depth",
+                                  len(self._queue))
         return handle
 
     def _bucket_for(self, n):
@@ -611,6 +656,8 @@ class GenerativeServer:
                 now = time.monotonic()
                 if now > seq.deadline:
                     self._queue.popleft()
+                    self._telemetry_gauge("prefill_queue_depth",
+                                          len(self._queue))
                     seq.handle._finish(err=self._reject(
                         "expired", "deadline passed while queued"))
                     continue
@@ -619,6 +666,8 @@ class GenerativeServer:
                     self.pool.can_admit(seq.budget_tokens)
                 if ok:
                     self._queue.popleft()
+                    self._telemetry_gauge("prefill_queue_depth",
+                                          len(self._queue))
                 else:
                     waited_ms = (now - seq.t_submit) * 1e3
                     if waited_ms >= self.evict_after_ms:
@@ -663,6 +712,9 @@ class GenerativeServer:
         seq.handle.evicted += 1
         self._queue.insert(1 if len(self._queue) >= 1 else 0, seq)
         self.stats["evictions"] += 1
+        self._telemetry_count("kv_evictions_total")
+        self._telemetry_gauge("kv_pages_in_use", self.pool.pages_in_use)
+        self._telemetry_gauge("prefill_queue_depth", len(self._queue))
 
     def _clear_slot(self, slot):
         self._slot_seq[slot] = None
@@ -675,6 +727,7 @@ class GenerativeServer:
         """Bucketed prefill + slot install: the prefill/decode
         disaggregation boundary."""
         faultsim.inject("serve.prefill")
+        t_pf0 = time.perf_counter()
         context = seq.context
         n = len(context)
         bucket = self._bucket_for(n)
@@ -692,14 +745,38 @@ class GenerativeServer:
         self.pool.alloc(seq.id, seq.budget_tokens)
         self.pool.write_prompt(seq.id, k[:, 0, :n], v[:, 0, :n])
         now = time.monotonic()
-        if seq.t_first is None:
+        was_first = seq.t_first is None
+        if was_first:
             seq.t_first = now
             seq.handle.ttft_ms = (now - seq.t_submit) * 1e3
             with self._lock:
                 self._ttft_ms.append(seq.handle.ttft_ms)
+        if seq.trace is not None:
+            # TTFT decomposition of a traced request: the admission
+            # wait (first install only) and the bucketed prefill
+            from .. import telemetry
+
+            rl = telemetry.current()
+            if rl is not None:
+                t_pf1 = time.perf_counter()
+                ctx = seq.trace
+                if was_first:
+                    seq.t_first_pc = t_pf1
+                    rl.span("gen_admit", seq.t_submit_pc, t_pf0,
+                            trace_id=ctx.trace_id,
+                            span_id=_tracing.new_span_id(),
+                            parent_span_id=ctx.span_id, flush=False)
+                rl.span("gen_prefill", t_pf0, t_pf1,
+                        trace_id=ctx.trace_id,
+                        span_id=_tracing.new_span_id(),
+                        parent_span_id=ctx.span_id, flush=False,
+                        bucket=int(bucket),
+                        reprefill=bool(seq.evictions))
         seq.generated.append(first)
         with self._lock:
             self.stats["tokens"] += 1
+        self._telemetry_count("serve_tokens_total")
+        self._telemetry_gauge("kv_pages_in_use", self.pool.pages_in_use)
         if self._seq_done(seq):
             self._finish_seq(seq, slot=None)
             return
@@ -729,7 +806,25 @@ class GenerativeServer:
         with self._lock:
             self.stats["completed"] += 1
             self._latency_ms.append(seq.handle.latency_ms)
+        if seq.trace is not None:
+            from .. import telemetry
+
+            rl = telemetry.current()
+            if rl is not None:
+                t1 = time.perf_counter()
+                ctx = seq.trace
+                if seq.t_first_pc is not None and t1 > seq.t_first_pc:
+                    rl.span("gen_decode", seq.t_first_pc, t1,
+                            trace_id=ctx.trace_id,
+                            span_id=_tracing.new_span_id(),
+                            parent_span_id=ctx.span_id, flush=False,
+                            tokens=len(seq.generated),
+                            evictions=int(seq.evictions))
+                _tracing.emit_span("gen_request", seq.t_submit_pc, t1,
+                                   ctx, kind="server",
+                                   tokens=len(seq.generated))
         seq.handle._finish(tokens=list(seq.generated))
+        self._telemetry_gauge("kv_pages_in_use", self.pool.pages_in_use)
 
     # ------------------------------------------------------ the loop
     def _loop(self):
@@ -765,6 +860,7 @@ class GenerativeServer:
         if stepped:
             with self._lock:
                 self.stats["tokens"] += len(stepped)
+            self._telemetry_count("serve_tokens_total", len(stepped))
         for slot, seq in stepped:
             seq.generated.append(int(next_np[slot]))
             if self._seq_done(seq):
@@ -783,6 +879,7 @@ class GenerativeServer:
                     self._rewarm_backoff
         if not trip:
             return
+        self._telemetry_count("serve_breaker_trips")
         # in-flight sequences fail structured and every page comes back
         for slot, seq in enumerate(list(self._slot_seq)):
             if seq is None:
@@ -797,6 +894,8 @@ class GenerativeServer:
             seq.handle._finish(err=self._reject(
                 "breaker_open", "breaker tripped while queued"))
         self.pool.reset()
+        self._telemetry_gauge("kv_pages_in_use", self.pool.pages_in_use)
+        self._telemetry_gauge("prefill_queue_depth", 0)
 
     def _try_rewarm(self):
         if time.monotonic() < self._rewarm_at:
@@ -817,8 +916,8 @@ class GenerativeServer:
         return int(self._active.sum())
 
     def report(self):
-        """Snapshot with the keys of the reference's ``generate``
-        record (the run-log record itself is not ported yet)."""
+        """Snapshot + one ``generate`` run-log record: the telemetry
+        contract of the generative path (schema.GENERATE_FIELDS)."""
         from ..telemetry.opstats import percentile
 
         with self._lock:
@@ -826,7 +925,7 @@ class GenerativeServer:
                   for k, v in self.stats.items()}
             ttft = sorted(self._ttft_ms)
             wall = max(time.monotonic() - self._t_start, 1e-9)
-        return {
+        rep = {
             "name": self.name,
             "tokens": st["tokens"],
             "tokens_s": round(st["tokens"] / wall, 2),
@@ -843,6 +942,13 @@ class GenerativeServer:
             "kv_dtype": self.pool.dtype,
             "compiles": st["compiles"],
         }
+        try:
+            from .. import telemetry
+
+            telemetry.generate(**rep)
+        except Exception:
+            pass
+        return rep
 
     def drain(self, timeout=10.0):
         """Stop admission, let queued + in-flight sequences finish."""

@@ -47,10 +47,17 @@ control, load shedding and a warm start from deploy artifacts
   model that fails on the card is a model failure; it never reruns on
   the host.
 
-The reference's run log, Perfetto spans and Prometheus textfile rows
-are ROADMAP §A 12: the ``_telemetry_*`` hooks do nothing, and a server
-built with ``MXNET_RUNLOG`` set or a watchdog armed raises.  Fault
-points: ``serve.admit`` (inside every admission decision),
+* **Telemetry.**  With ``MXNET_RUNLOG`` set every dispatched batch
+  writes a ``serve`` record, each new padded bucket of a server that can
+  retrace a ``compile`` record (a loaded artifact cannot: its run log
+  keeps ``compiles == 0``), and a request submitted under a trace
+  context (the frontend's ``traceparent``) gets its ``serve_queue``,
+  ``serve_coalesce`` and ``serve_model`` spans; counters, events and
+  the readiness gauges land in the run log and its textfile.  A hang
+  watchdog (``watchdog_sec`` / ``MXNET_WATCHDOG_SEC``) is beaten by the
+  batcher.
+
+Fault points: ``serve.admit`` (inside every admission decision),
 ``serve.batch`` (before each dispatched microbatch), ``serve.model``
 (inside every model invocation).
 """
@@ -67,6 +74,7 @@ import numpy as onp
 from ..base import MXNetError
 from ..resilience import faultsim
 from ..resilience.retry import retry_call
+from ..telemetry import tracing as _tracing
 
 __all__ = ["ModelServer", "ServeHandle", "ServeRejected",
            "default_buckets"]
@@ -174,13 +182,19 @@ class ServeHandle:
 
 
 class _Request:
-    __slots__ = ("x", "deadline", "t_submit", "handle")
+    __slots__ = ("x", "deadline", "t_submit", "handle", "trace",
+                 "t_submit_pc")
 
-    def __init__(self, x, deadline, t_submit, handle):
+    def __init__(self, x, deadline, t_submit, handle, trace=None,
+                 t_submit_pc=None):
         self.x = x
         self.deadline = deadline
         self.t_submit = t_submit
         self.handle = handle
+        # the trace context captured at submit: None on an untraced
+        # request, for which the dispatch loop emits no spans
+        self.trace = trace
+        self.t_submit_pc = t_submit_pc
 
 
 def _torch_dtype(dtype):
@@ -296,8 +310,9 @@ class ModelServer:
         How long the batcher waits for more arrivals while the batch
         is below the largest bucket.
     watchdog_sec : float or None
-        The hang watchdog (None follows ``MXNET_WATCHDOG_SEC``).  Not
-        ported (ROADMAP §A 12): a value above 0 raises.
+        The hang watchdog (None follows ``MXNET_WATCHDOG_SEC``; 0 is
+        off): the batcher beats it, a quiet heartbeat dumps every
+        thread's stack.
     aot : bool
         True when ``model_fn`` runs a program loaded from an artifact
         (the ``from_artifact`` path).
@@ -310,15 +325,6 @@ class ModelServer:
                  watchdog_sec=None, name="model", aot=False):
         from ..config import get_env
 
-        wd = watchdog_sec if watchdog_sec is not None \
-            else get_env("MXNET_WATCHDOG_SEC")
-        if wd and float(wd) > 0:
-            raise MXNetError("the serving watchdog (watchdog_sec, "
-                             "MXNET_WATCHDOG_SEC) is not ported yet "
-                             "(ROADMAP §A 12)")
-        if get_env("MXNET_RUNLOG"):
-            raise MXNetError("MXNET_RUNLOG (the run log) is not ported "
-                             "yet (ROADMAP §A 12)")
         self._model_fn = model_fn
         self.item_shape = tuple(int(s) for s in item_shape)
         self.dtype = onp.dtype(dtype)
@@ -351,6 +357,9 @@ class ModelServer:
         self._inflight = 0          # admitted, not yet terminal
         self._batch_running = False
         self._thread = None
+        self._watchdog_sec = watchdog_sec
+        self._wd = None
+        self._t_take_pc = None  # coalesce-start mark for trace spans
         self._hb = time.monotonic()
         self._ewma = {}             # bucket -> seconds
         self._ewma_alpha = 0.3
@@ -439,6 +448,15 @@ class ModelServer:
         if warm:
             self._warmup()
         self._warm_start_s = time.perf_counter() - t0
+        wd_sec = self._watchdog_sec
+        if wd_sec is None:
+            from ..telemetry.watchdog import default_timeout
+
+            wd_sec = default_timeout()
+        if wd_sec and wd_sec > 0:
+            from ..telemetry.watchdog import Watchdog
+
+            self._wd = Watchdog(timeout=wd_sec).arm("serve")
         self._thread = threading.Thread(
             target=self._loop, name=f"mxnet_tpu_torch-serve-{self.name}",
             daemon=True)
@@ -508,6 +526,9 @@ class ModelServer:
         t = self._thread
         if t is not None:
             t.join(timeout=10.0)
+        if self._wd is not None:
+            self._wd.close()
+            self._wd = None
 
     def run_until_drained(self, poll=0.05, on_drained=None):
         """Serve on the calling (main) thread until SIGTERM/SIGINT,
@@ -581,7 +602,13 @@ class ModelServer:
                     f"estimated completion +{est * 1e3:.1f} ms "
                     f"exceeds deadline +{budget_ms:.1f} ms")
             h = ServeHandle(deadline, now)
-            self._queue.append(_Request(x, deadline, now, h))
+            trace = t_pc = None
+            if _tracing.enabled():
+                trace = _tracing.current_context()
+                if trace is not None:
+                    t_pc = time.perf_counter()
+            self._queue.append(_Request(x, deadline, now, h, trace,
+                                        t_pc))
             self._inflight += 1
             self.stats["admitted"] += 1
             self._cond.notify_all()
@@ -664,6 +691,8 @@ class ModelServer:
                         self._cond.wait(0.02)
             self._shed_expired(overdue, detail=detail)
             self._hb = time.monotonic()
+            if self._wd is not None:
+                self._wd.beat("serve")
             if self._breaker == "open":
                 if not self._draining:
                     self._try_rewarm()
@@ -682,6 +711,7 @@ class ModelServer:
         """Coalesce: the moment the model is free we take what is
         queued, waiting at most ``coalesce_s`` for the batch to grow
         toward the largest bucket."""
+        self._t_take_pc = time.perf_counter()
         end = time.monotonic() + self.coalesce_s
         while len(self._queue) < self.max_batch and self._running:
             left = end - time.monotonic()
@@ -745,7 +775,7 @@ class ModelServer:
         finally:
             with self._cond:
                 self._batch_running = False
-        self._record_success(live, bucket, latency)
+        self._record_success(live, bucket, latency, t0)
         for i, r in enumerate(live):
             self._finish(r, out=out[i])
 
@@ -783,8 +813,18 @@ class ModelServer:
             return
         self._traced.add(shape)
         self.stats["warm_traces" if warm else "retraces"] += 1
+        if self.aot:
+            # a loaded artifact cannot retrace: its run log keeps
+            # compiles == 0, the load-not-retrace proof
+            return
+        from .. import telemetry
 
-    def _record_success(self, live, bucket, latency):
+        telemetry.compile_event(
+            f"serve:{self.name}",
+            telemetry.compile_fingerprint(shape, self.dtype,
+                                          train=False))
+
+    def _record_success(self, live, bucket, latency, t_invoke=None):
         with self._cond:
             prev = self._ewma.get(bucket)
             self._ewma[bucket] = latency if prev is None else \
@@ -793,7 +833,46 @@ class ModelServer:
             self._consecutive_failures = 0
             self.stats["batches"] += 1
             self.stats["padded_rows"] += bucket - len(live)
+            qd = len(self._queue)
+            shed = self.stats["shed"]
         self._telemetry_count("serve_batches")
+        from .. import telemetry
+
+        rl = telemetry.current()
+        if rl is not None:
+            margin_ms = min(
+                (r.deadline - time.monotonic()) * 1e3 for r in live)
+            if t_invoke is not None:
+                self._emit_request_spans(rl, live, bucket, t_invoke,
+                                         t_invoke + latency)
+            rl.serve(model=self.name, batch=len(live),
+                     padded_to=bucket, queue_depth=qd,
+                     latency_ms=latency * 1e3,
+                     deadline_margin_ms=margin_ms, shed=shed,
+                     breaker=self._breaker)
+
+    def _emit_request_spans(self, rl, live, bucket, t_invoke, t_end):
+        """Per-request decomposition of a traced request:
+        ``serve_queue`` (submit -> batch taken), ``serve_coalesce``
+        (batch formation -> model invoke) and ``serve_model`` (the
+        invocation), siblings under the request's context.  Untraced
+        requests cost one attribute check; the spans queue unflushed
+        behind the batch's flushing ``serve`` record."""
+        t_take = self._t_take_pc
+        for r in live:
+            ctx = r.trace
+            if ctx is None:
+                continue
+            qs = r.t_submit_pc
+            cs = min(max(qs, t_take if t_take is not None
+                         else t_invoke), t_invoke)
+            for name, a, b in (("serve_queue", qs, cs),
+                               ("serve_coalesce", cs, t_invoke),
+                               ("serve_model", t_invoke, t_end)):
+                rl.span(name, a, b, trace_id=ctx.trace_id,
+                        span_id=_tracing.new_span_id(),
+                        parent_span_id=ctx.span_id, flush=False,
+                        model=self.name, padded_to=int(bucket))
 
     def _model_failure(self, live, exc):
         err = exc if isinstance(exc, ServeRejected) else ServeRejected(
@@ -918,16 +997,29 @@ class ModelServer:
                 "steady_state_traces": self.stats["retraces"]}
 
     # -------------------------------------------------------- telemetry
-    # The reference's run-log counters, events and gauges (ROADMAP
-    # §A 12); the hooks keep their call sites.
     @staticmethod
     def _telemetry_count(counter, delta=1):
-        pass
+        try:
+            from .. import telemetry
+
+            telemetry.count(counter, delta)
+        except Exception:
+            pass
 
     @staticmethod
     def _telemetry_event(kind, **fields):
-        pass
+        try:
+            from .. import telemetry
+
+            telemetry.event(kind, **fields)
+        except Exception:
+            pass
 
     @staticmethod
     def _telemetry_gauge(name, value):
-        pass
+        try:
+            from .. import telemetry
+
+            telemetry.gauge(name, value)
+        except Exception:
+            pass

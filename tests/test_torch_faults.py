@@ -12,7 +12,9 @@ for the port).
 - §C 4 and §C 8: integer and bool inputs that the reference takes;
 - §C 5: ``np.random.seed(s)`` then ``initialize()`` gives the
   reference's fp32 weights bit for bit;
-- §C 6: the multi-card refusals cite ROADMAP §A 11;
+- §C 6: the multi-card refusals cite ROADMAP §A 11, and ``fit``'s
+  ``resume_from=`` and ``MXNET_SNAPSHOT_EVERY`` cite §A 7 with §A 11's
+  asynchronous checkpoint;
 - §C 7: ``LeakyReLU(act_type="rrelu")`` takes the midpoint slope in
   training and inference.
 
@@ -340,6 +342,33 @@ def test_multi_card_refusals_cite_the_multi_card_item():
                                  sgd.fused_state(w), 1.0, n_shards=2,
                                  idx=0)
     assert "§A 11" in parallel.get_mesh.__doc__
+
+
+@pytest.mark.parametrize("what", ["resume_from", "snapshot"])
+def test_fit_resume_refusals_cite_a7_with_a11(what, monkeypatch, tmp_path):
+    """``resume_from=`` and ``MXNET_SNAPSHOT_EVERY`` wait for ROADMAP
+    §A 7 with §A 11's asynchronous checkpoint, and say so."""
+    from mxnet_tpu_torch.config import _ENV
+
+    x = onp.zeros((8, 4), "float32")
+    y = onp.zeros((8,), "float32")
+    it = tmx.io.NDArrayIter(x, y, batch_size=4)
+    data = tmx.sym.Variable("data")
+    net = tmx.sym.SoftmaxOutput(
+        tmx.sym.FullyConnected(data, num_hidden=2, name="fc"),
+        tmx.sym.Variable("softmax_label"), name="softmax")
+    kw = {}
+    if what == "resume_from":
+        kw["resume_from"] = str(tmp_path)
+    else:
+        monkeypatch.setenv("MXNET_SNAPSHOT_EVERY", "5")
+    with tmx.cpu():
+        with pytest.raises(MXNetError,
+                           match=r"ROADMAP §A 7, with §A 11's "
+                                 r"asynchronous checkpoint\)"):
+            tmx.mod.Module(net).fit(it, num_epoch=1, **kw)
+    assert "§A 7, with §A 11" in _ENV["MXNET_SNAPSHOT_EVERY"].doc
+    assert "§A 12" not in _ENV["MXNET_SNAPSHOT_EVERY"].doc
 
 
 # ----------------------------------------------------- §C 7: rrelu

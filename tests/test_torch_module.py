@@ -441,6 +441,28 @@ def test_what_is_not_ported_raises(what, monkeypatch, tmp_path):
            "runlog": ("MXNET_RUNLOG", str(tmp_path / "r.jsonl")),
            "numerics": ("MXNET_NUMERICS", "1"),
            "sharding_typo": ("MXNET_OPTIMIZER_SHARDING", "bogus")}
+    if what in ("runlog", "numerics"):
+        # ported since: the run log and the numerics monitor no longer
+        # raise; fit writes the run log's step records and, with the
+        # monitor on, its tensor_stats
+        from mxnet_tpu.telemetry import schema as j_schema
+        from mxnet_tpu_torch import telemetry as t_tm
+
+        monkeypatch.setenv(*env[what])
+        monkeypatch.setenv("MXNET_NUMERICS_SAMPLE", "1")
+        path = tmp_path / "fit.jsonl"
+        t_tm.reset(str(path))
+        try:
+            tmx.mod.Module(s).fit(it, num_epoch=1)
+        finally:
+            t_tm.close()
+        with open(path) as f:
+            recs, problems = j_schema.validate_lines(f)
+        assert not problems, problems
+        types = [r["type"] for r in recs]
+        assert types.count("step") == 2
+        assert ("tensor_stats" in types) == (what == "numerics")
+        return
     with pytest.raises(MXNetError):
         if what == "contexts":
             tmx.mod.Module(s, context=[tmx.cpu(0), tmx.cpu(1)])

@@ -61,6 +61,14 @@ _MODULES = ["mxnet_tpu_torch", "mxnet_tpu_torch.autotune",
             "mxnet_tpu_torch.resilience.faultsim",
             "mxnet_tpu_torch.serving",
             "mxnet_tpu_torch.telemetry.opstats",
+            "mxnet_tpu_torch.telemetry",
+            "mxnet_tpu_torch.telemetry.runlog",
+            "mxnet_tpu_torch.telemetry.schema",
+            "mxnet_tpu_torch.telemetry.tracing",
+            "mxnet_tpu_torch.telemetry.watchdog",
+            "mxnet_tpu_torch.telemetry.numerics",
+            "mxnet_tpu_torch.telemetry.session",
+            "mxnet_tpu_torch.profiler",
             "mxnet_tpu_torch.initializer",
             "mxnet_tpu_torch.gluon",
             "mxnet_tpu_torch.gluon.model_zoo.vision.resnet",
@@ -136,7 +144,12 @@ _PORT_ENV = ["MXNET_AUTOTUNE", "MXNET_AUTOTUNE_CACHE_DIR",
              "MXNET_PALLAS_OPT", "MXNET_KVSTORE_BIGARRAY_BOUND",
              "MXNET_BAD_STEP_LIMIT", "MXNET_CKPT_KEEP",
              "MXNET_OPTIMIZER_SHARDING", "MXNET_SNAPSHOT_EVERY",
-             "MXNET_RUNLOG", "MXNET_NUMERICS"]
+             "MXNET_RUNLOG", "MXNET_NUMERICS",
+             "MXNET_TELEMETRY_SAMPLE", "MXNET_FLIGHTREC_DEPTH",
+             "MXNET_NUMERICS_SAMPLE", "MXNET_METRICS_TEXTFILE",
+             "MXNET_TRACE_CONTEXT", "MXNET_PROCESS_ROLE",
+             "MXNET_PROCESS_RANK", "MXNET_PROFILER_AUTOSTART",
+             "MXNET_PROFILER_MODE"]
 
 
 @pytest.mark.parametrize("name", _PORT_ENV)
