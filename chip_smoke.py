@@ -96,7 +96,15 @@ and idle gaps named by the host work open), a watchdog fire drill and
 the replicated step's ``tensor_stats`` (``telemetry_resnet50``, after
 the training phases), and the served ``resnet50_v1()`` traced request
 by request through the HTTP front and through ``submit``
-(``serve_traced``, after ``serve_http``).
+(``serve_traced``, after ``serve_http``); and the data plane: a probe
+of what the card's host has for decoding JPEGs (after the device line),
+a corpus of 1,536 JPEGs of 500x375 written by nvJPEG, the augment kernel
+(``csrc/image_augment.cu``) against its plain version bit for bit,
+nvJPEG's pixels against libjpeg's on a committed fixture, a damaged
+copy's quarantine manifest and ``mx.kv``'s stores on the card
+(``data_plane``), then ``example/train_imagenet.py`` at its defaults fed
+by ``ImageRecordIter`` decoding on the card, beside the same step on a
+resident batch and the iterator alone (``train_imagenet``).
 Each phase
 prints one JSON line on stdout
 (progress goes to stderr); ``--out`` also appends them to FILE.  Any
@@ -495,11 +503,43 @@ def campaign(srv, rng, n_req, vocab, max_prompt):
     return submitted, shed
 
 
+def device_busy_us(prof):
+    """(union, streams): the microseconds in which at least one device
+    activity (kernel, copy, set) of a torch.profiler run was running,
+    the union of their intervals over every stream, and the number of
+    streams they ran on.  None when the run holds no timed device
+    event."""
+    from torch.autograd import DeviceType
+
+    spans, streams = [], set()
+    for evt in prof.events():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        t0, t1 = evt.time_range.start, evt.time_range.end
+        if t1 > t0:
+            spans.append((t0, t1))
+            streams.add(getattr(evt, "device_resource_id", None))
+    if not spans:
+        return None
+    spans.sort()
+    busy, (lo, hi) = 0.0, spans[0]
+    for t0, t1 in spans[1:]:
+        if t0 > hi:
+            busy += hi - lo
+            lo, hi = t0, t1
+        else:
+            hi = max(hi, t1)
+    return busy + hi - lo, len(streams)
+
+
 def device_profile(prof, wall_s, top=12, shares=None):
     """Kernel time by name from a torch.profiler run over ``wall_s``
-    seconds of one stream: the busy share is the kernels' summed self
-    device time over the wall time.  ``shares`` ({label: name
-    fragments}) adds each label's share of the device time."""
+    seconds.  The busy time is the union of the device activities'
+    intervals across streams (``device_busy_us``), and the idle share
+    is 1 less it over the wall time, unclipped; the kernels' summed
+    self device time is kept beside it (above the union where two
+    streams overlap).  ``shares`` ({label: name fragments}) adds each
+    label's share of the summed device time."""
     rows = []
     for evt in prof.key_averages():
         t_us = getattr(evt, "self_device_time_total", None)
@@ -513,9 +553,15 @@ def device_profile(prof, wall_s, top=12, shares=None):
         return {"device_time": "not measured"}
     shares = shares or {"flash_attention": ("flash_fwd_kernel",
                                             "flash_combine_kernel")}
+    union = device_busy_us(prof)
+    if union is None:
+        return {"device_time": "not measured",
+                "device_kernel_sum_ms": busy_us / 1e3}
+    union_us, streams = union
     return {
-        "wall_ms": wall_s * 1e3, "device_busy_ms": busy_us / 1e3,
-        "device_idle_share": max(0.0, 1.0 - busy_us / 1e6 / wall_s),
+        "wall_ms": wall_s * 1e3, "device_busy_ms": union_us / 1e3,
+        "device_kernel_sum_ms": busy_us / 1e3, "device_streams": streams,
+        "device_idle_share": 1.0 - union_us / 1e6 / wall_s,
         "shares_of_device": {
             label: sum(r[0] for r in rows
                        if any(f in r[2] for f in frags)) / busy_us
@@ -4475,6 +4521,516 @@ def serve_traced_phase(served):
     return res
 
 
+# ------------------------------------------------------ the data plane
+#: the data plane's corpus: 12 batches of 128 landscape JPEGs of
+#: 500x375, ImageNet's typical size, written on the card by nvJPEG
+DATA_IMAGES = 1536
+DATA_HW = (375, 500)
+#: train_imagenet.py's ImageRecordIter settings (the example's defaults)
+IMAGENET_AUG = dict(data_shape=(3, 224, 224), resize=256,
+                    mean=(123.68, 116.28, 103.53),
+                    std=(58.395, 57.12, 57.375))
+#: the committed JPEGs (4:2:0, 4:4:4, grayscale, odd sizes) and the
+#: pixels libjpeg decodes from them (tests/test_torch_image_record_iter.py
+#: writes and checks the file)
+NVJPEG_FIXTURE = os.path.join("tests", "data", "nvjpeg_fixture.npz")
+
+
+def data_plane_probe():
+    """What the card's host has for decoding JPEGs: nvJPEG's header and
+    library in the CUDA toolkit, PIL, libjpeg's header, g++."""
+    import glob
+    import importlib.util
+
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    return {
+        "phase": "data_plane_probe",
+        "nvjpeg_h": os.path.exists(os.path.join(home, "include",
+                                                "nvjpeg.h")),
+        "libnvjpeg": sorted(os.path.basename(p) for p in glob.glob(
+            os.path.join(home, "lib64", "libnvjpeg.so*"))),
+        "pil": importlib.util.find_spec("PIL") is not None,
+        "jpeglib_h": os.path.exists("/usr/include/jpeglib.h"),
+        "gxx": shutil.which("g++"),
+        "nvidia_smi": nvidia_smi_line(),
+    }
+
+
+def smooth_images(n, hw, seed, device):
+    """``n`` (h, w, 3) uint8 images on the card: a low-frequency random
+    field with grain, so that they compress as photographs do."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    h, w = hw
+    out = []
+    for i in range(0, n, 64):
+        k = min(64, n - i)
+        small = torch.rand((k, 3, 6, 8), generator=g, device=device)
+        img = torch.nn.functional.interpolate(
+            small, size=(h, w), mode="bicubic", align_corners=False)
+        img = img * 255 + torch.randn((k, 3, h, w), generator=g,
+                                      device=device) * 6
+        img = img.clamp(0, 255).to(torch.uint8).permute(0, 2, 3, 1)
+        out.extend(img.contiguous().unbind(0))
+    return out
+
+
+def write_corpus(path, n, seed=0, hw=DATA_HW, quality=90):
+    """A ``.rec`` of ``n`` JPEGs encoded on the card by nvJPEG (4:2:0)
+    and framed by the port's ``recordio``; labels ``i % 1000``.
+    Returns each record's byte offset and the JPEG bytes in all."""
+    import torch
+
+    from mxnet_tpu_torch import recordio
+    from mxnet_tpu_torch.io import nvjpeg
+
+    dev = torch.device("cuda", 0)
+    enc = nvjpeg.decoder(dev)
+    w = recordio.MXRecordIO(path, "w")
+    offsets, jpeg_bytes = [], 0
+    try:
+        for i0 in range(0, n, 256):
+            for j, img in enumerate(smooth_images(min(256, n - i0), hw,
+                                                  seed + i0, dev)):
+                jpeg = enc.encode(img, quality, 2)
+                jpeg_bytes += len(jpeg)
+                offsets.append(w.tell())
+                w.write(recordio.pack(recordio.IRHeader(
+                    0, float((i0 + j) % 1000), i0 + j, 0), jpeg))
+    finally:
+        w.close()
+    return offsets, jpeg_bytes
+
+
+def damaged_copy(src, dst, offsets, n, torn=(), unpack=(), decode=()):
+    """The first ``n`` records of ``src`` with the three damage shapes
+    of the reference's ``test_utils.corrupt_rec``: a garbled frame
+    magic, a 0xFFFFFFFF header flag, a smeared JPEG payload."""
+    with open(src, "rb") as f:
+        blob = bytearray(f.read(offsets[n]))
+    for i in torn:
+        blob[offsets[i]:offsets[i] + 4] = b"\xde\xad\xbe\xef"
+    for i in unpack:
+        blob[offsets[i] + 8:offsets[i] + 12] = b"\xff\xff\xff\xff"
+    for i in decode:
+        blob[offsets[i] + 36:offsets[i] + 84] = b"\x55" * 48
+    with open(dst, "wb") as f:
+        f.write(blob)
+
+
+def _augment_case(name, buf, offs, hs, ws, out_hw, resize, seed, mirror,
+                  ms=None):
+    """``image_augment.cu`` against ``image_augment_plain`` on the card,
+    on the same decoded pixels and draws: bit for bit."""
+    import numpy as onp
+    import torch
+
+    from mxnet_tpu_torch.ops import image_augment as ia
+
+    n = len(hs)
+    rng = onp.random.RandomState(seed)
+    cx = rng.rand(n).astype("float32")
+    cy = rng.rand(n).astype("float32")
+    mir = {"random": (rng.rand(n) < 0.5), "on": onp.ones(n, bool),
+           "off": onp.zeros(n, bool)}[mirror].astype("uint8")
+    mean, std = IMAGENET_AUG["mean"], IMAGENET_AUG["std"]
+    args = (buf, offs, hs, ws, out_hw[0], out_hw[1], cx, cy, mir, mean,
+            std, resize)
+    got = ia.image_augment(*args)
+    want = ia.image_augment_plain(*args)
+    torch.cuda.synchronize()
+    g = ia.plan(hs, ws, out_hw[0], out_hw[1], cx, cy, resize)
+    res = {"case": name, "images": n, "out": list(out_hw),
+           "resize_short": resize, "mirror": mirror,
+           "whole_frame_resized": int((g[3] < 0).sum()),
+           "bit_equal": bool(torch.equal(got, want)),
+           "max_abs_err": float((got - want).abs().max()) if n else 0.0}
+    if ms is not None:
+        call = lambda: ia.image_augment(*args)  # noqa: E731
+        # the kernel alone on the card, averaged over the launches the
+        # profiler recorded (late in a long process it recorded as few
+        # as 8 of 20); back-to-back calls between CUDA events (``call_ms``)
+        # are timed by the wrapper's host work (plan, pinned metadata,
+        # copies, launch; ``host_ms``), which is several times longer
+        call()
+        torch.cuda.synchronize()
+        prof = torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA])
+        with prof:
+            for _ in range(20):
+                call()
+            torch.cuda.synchronize()
+        seen = [(getattr(e, "self_device_time_total", None)
+                 or getattr(e, "self_cuda_time_total", 0.0), e.count)
+                for e in prof.key_averages() if "augment_kernel" in e.key]
+        check(seen, "no augment kernel in the profile")
+        res["profiled_launches"] = sum(c for _, c in seen)
+        res["ms"] = sum(t for t, _ in seen) / 1e3 / res["profiled_launches"]
+        res["call_ms"] = time_ms(call)
+        res["plain_ms"] = time_ms(lambda: ia.image_augment_plain(*args),
+                                  budget_ms=600.0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(50):
+            call()
+        res["host_ms"] = (time.perf_counter() - t0) * 1e3 / 50
+        torch.cuda.synchronize()
+        read = augment_read_bytes(hs, ws, g, out_hw[0], out_hw[1])
+        nbytes = read + n * 3 * out_hw[0] * out_hw[1] * 4 + n * (8 * 4 + 8)
+        res["bound_ms"], res["bound_by"] = bound(0.0, nbytes, "float32")
+        res["bytes"] = nbytes
+        res["bytes_read_of_images"] = read
+    return res
+
+
+def augment_read_bytes(hs, ws, g, out_h, out_w):
+    """The decoded bytes ``image_augment`` must read, from ``plan``'s
+    geometry ``g``: of a cropped image, the source rows and columns its
+    crop window maps to (with the bilinear tap below and right of
+    them); of a cropped image with no resize, the window itself; of a
+    whole-frame resize, the whole image.  Scales in float32, as the
+    kernel computes them."""
+    import numpy as onp
+
+    def span(src, dst, first, count):
+        if dst <= 1:
+            return 1
+        s = onp.float32(src - 1) / onp.float32(dst - 1)
+        lo = int(onp.float32(first) * s)
+        hi = min(int(onp.float32(first + count - 1) * s) + 1, src - 1)
+        return hi - lo + 1
+
+    total = 0
+    for i, (h, w) in enumerate(zip(hs, ws)):
+        nh, nw, rs, x0, y0 = (int(v) for v in g[:, i])
+        if x0 < 0:
+            total += h * w * 3
+        elif not rs:
+            total += out_h * out_w * 3
+        else:
+            total += span(h, nh, y0, out_h) * span(w, nw, x0, out_w) * 3
+    return total
+
+
+def data_plane_phase(workdir, seed=0):
+    """The data plane on the card: the corpus written by nvJPEG, the
+    augment kernel against its plain version, nvJPEG against libjpeg on
+    the committed fixture, a damaged copy's quarantine manifest, the
+    ``mx.kv`` stores on ``cuda:0``."""
+    import numpy as onp
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.io import nvjpeg
+
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    corpus = os.path.join(workdir, "train.rec")
+    offsets, jpeg_bytes = write_corpus(corpus, DATA_IMAGES, seed)
+    encode_s = time.perf_counter() - t0
+    res = {"phase": "data_plane", "corpus": {
+        "images": DATA_IMAGES, "hw": list(DATA_HW), "jpeg_bytes": jpeg_bytes,
+        "mean_jpeg_bytes": jpeg_bytes / DATA_IMAGES,
+        "file_bytes": os.path.getsize(corpus), "encode_s": encode_s}}
+
+    # the kernel against its plain version: the main path's batch, odd
+    # sizes, images smaller than the crop, the mirror on and off
+    rec = mx.recordio.MXRecordIO(corpus, "r")
+    jpegs = [mx.recordio.unpack(rec.read())[1] for _ in range(128)]
+    rec.close()
+    buf, offs, hs, ws, bad, _ = nvjpeg.decode_batch(jpegs, dev)
+    check(not bad and len(hs) == 128, f"corpus decode failed: {bad}")
+    odd = []
+    for k, (h, w) in enumerate([(375, 500), (333, 257), (101, 99),
+                                (211, 1001), (17, 300), (224, 223),
+                                (999, 31), (1, 1)]):
+        img = smooth_images(1, (h, w), 50 + k, dev)[0]
+        odd += [nvjpeg.decoder(dev).encode(img, 90, ss) for ss in (2, 0)]
+    obuf, ooffs, ohs, ows, obad, _ = nvjpeg.decode_batch(odd, dev)
+    check(not obad, f"odd-size decode failed: {obad}")
+    cases = [
+        _augment_case("resnet_batch", buf, offs, hs, ws, (224, 224), 256,
+                      1, "random", ms=True),
+        _augment_case("odd_sizes_resize", obuf, ooffs, ohs, ows,
+                      (224, 224), 256, 2, "random"),
+        _augment_case("odd_sizes_no_resize", obuf, ooffs, ohs, ows,
+                      (224, 224), -1, 3, "on"),
+        _augment_case("odd_sizes_small_crop", obuf, ooffs, ohs, ows,
+                      (61, 47), 100, 4, "off"),
+        _augment_case("batch_mirror_on", buf, offs, hs, ws, (224, 224), 256,
+                      5, "on"),
+        _augment_case("batch_no_resize", buf, offs, hs, ws, (224, 224), -1,
+                      6, "off"),
+    ]
+    res["augment_cases"] = cases
+    check(all(c["bit_equal"] for c in cases),
+          f"image_augment differs from its plain version: "
+          f"{[(c['case'], c['max_abs_err']) for c in cases]}")
+    check(any(c["whole_frame_resized"] for c in cases),
+          "no image smaller than its crop was held")
+
+    # nvJPEG against libjpeg's pixels on the committed fixture
+    fx = onp.load(NVJPEG_FIXTURE)
+    names = sorted(k[5:] for k in fx.files if k.startswith("jpeg_"))
+    fbuf, foffs, fhs, fws, fbad, _ = nvjpeg.decode_batch(
+        [fx[f"jpeg_{n}"].tobytes() for n in names], dev)
+    check(not fbad, f"fixture decode failed: {fbad}")
+    diffs = {}
+    for k, n in enumerate(names):
+        h, w = fhs[k], fws[k]
+        mine = fbuf[int(foffs[k]):int(foffs[k]) + h * w * 3].cpu().numpy() \
+            .reshape(h, w, 3).astype(int)
+        want = fx[f"pix_{n}"].astype(int)
+        check(mine.shape == want.shape, f"fixture {n}: shape {mine.shape}")
+        d = onp.abs(mine - want)
+        diffs[n] = {"max": int(d.max()), "mean": float(d.mean()),
+                    "share_differing": float((d > 0).mean())}
+    res["nvjpeg_vs_libjpeg_fixture"] = diffs
+    res["nvjpeg_batched_backend"] = nvjpeg.decoder(dev).backend
+
+    # a damaged copy: the manifest names exactly the damaged records
+    bad_path = os.path.join(workdir, "damaged.rec")
+    damaged_copy(corpus, bad_path, offsets, 256, torn=(10,), unpack=(40,),
+                 decode=(100, 200))
+    manifest = os.path.join(workdir, "damaged.quarantine.json")
+    it = mx.io.ImageRecordIter(
+        path_imgrec=bad_path, batch_size=64, shuffle=True, rand_crop=True,
+        rand_mirror=True, max_skip_frac=0.5, quarantine_manifest=manifest,
+        ctx=mx.gpu(0), **_iter_aug())
+    n_batches = sum(1 for _ in it)
+    stats = it.data_plane_stats()
+    it.close()
+    with open(manifest) as f:
+        man = json.load(f)
+    # the torn frame drops out of the parsed stream: later ordinals
+    # shift down by one
+    got = sorted((e["stage"], e["record"]) for e in man["entries"])
+    want = [("decode", 99), ("decode", 199), ("read", None),
+            ("unpack", 39)]
+    res["damaged_copy"] = {"records": 256, "batches": n_batches,
+                           "entries": got, "stats": stats}
+    check(sorted(got, key=str) == sorted(want, key=str),
+          f"manifest {got} != {want}")
+    check(n_batches == 4 and stats["skipped"] == 4,
+          f"damaged copy: {n_batches} batches, stats {stats}")
+
+    res["kv_stores"] = kv_on_card()
+    return res, corpus
+
+
+def _iter_aug():
+    a = IMAGENET_AUG
+    return dict(data_shape=a["data_shape"], resize=a["resize"],
+                mean_r=a["mean"][0], mean_g=a["mean"][1],
+                mean_b=a["mean"][2], std_r=a["std"][0], std_g=a["std"][1],
+                std_b=a["std"][2])
+
+
+def kv_on_card():
+    """``mx.kv``'s stores with their values on ``cuda:0`` against the
+    same pushes on the host: sums, the optimizer on the store, 2-bit
+    compression."""
+    import numpy as onp
+
+    import mxnet_tpu_torch as mx
+
+    out = {}
+    rng = onp.random.RandomState(3)
+    grads = [rng.randn(4, 256, 256).astype("float32") for _ in range(6)]
+    w0 = rng.randn(256, 256).astype("float32")
+    for kind in ("local", "device"):
+        got = {}
+        for ctx in (mx.gpu(0), mx.cpu()):
+            with ctx:
+                kv = mx.kv.create(kind)
+                kv.init("w", mx.nd.array(w0))
+                kv.push("w", [mx.nd.array(g[0]) for g in grads[:3]])
+                plain = mx.nd.zeros((256, 256))
+                kv.pull("w", out=plain)
+                kv.set_optimizer(mx.optimizer.create(
+                    "sgd", learning_rate=0.1, momentum=0.9))
+                for g in grads[3:]:
+                    kv.push("w", mx.nd.array(g[0]))
+                upd = mx.nd.zeros((256, 256))
+                kv.pull("w", out=upd)
+                ck = mx.kv.create(kind)
+                ck.set_gradient_compression({"type": "2bit",
+                                             "threshold": 0.5})
+                ck.init("c", mx.nd.zeros((256, 256)))
+                for g in grads[:3]:
+                    ck.push("c", mx.nd.array(g[1]))
+                comp = mx.nd.zeros((256, 256))
+                ck.pull("c", out=comp)
+                got[str(ctx)] = (plain, upd, comp)
+                if ctx == mx.gpu(0):
+                    check(all(v._data.is_cuda for v in (plain, upd, comp))
+                          and kv._store["w"]._data.is_cuda,
+                          "a card store's value left the card")
+        card, host = got["gpu(0)"], got["cpu(0)"]
+        errs = [float(onp.abs(a.asnumpy() - b.asnumpy()).max())
+                for a, b in zip(card, host)]
+        out[kind] = dict(zip(("sum", "sgd_on_store", "2bit"), errs))
+        check(errs[0] == 0.0 and errs[2] == 0.0 and errs[1] <= 1e-6,
+              f"kv {kind} card vs host: {errs}")
+    return out
+
+
+def train_imagenet_phase(corpus, warmup=2, steps=10, seed=0):
+    """``example/train_imagenet.py`` on the card at its defaults
+    (``resnet50_v1``, 224², batch 128, bf16, SGD lr 0.1 momentum 0.9,
+    ``ImageRecordIter`` with resize 256, random crop and mirror, the
+    example's mean/std), its batches decoded on the card by nvJPEG and
+    the augment kernel ahead of the step; the one-card mesh and
+    ``MXNET_OPTIMIZER_SHARDING=ps`` put the update on the bucket kernel,
+    as ``train_resnet50_nchw`` forces it.  Launch counts are set to 0
+    just before the fed steps and read just after.  Then the same step
+    on a resident batch, the iterator alone, and 3 fed steps
+    profiled."""
+    import numpy as onp
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autotune
+    from mxnet_tpu_torch.example import train_imagenet as ex
+    from mxnet_tpu_torch.ops import image_augment as ia
+    from mxnet_tpu_torch.ops import pallas_opt as po
+
+    args = ex.parse_args(["--data-train", corpus, "--data-parallel-mesh"])
+    old = os.environ.get("MXNET_OPTIMIZER_SHARDING")
+    os.environ["MXNET_OPTIMIZER_SHARDING"] = "ps"
+    onp.random.seed(seed)
+    torch.cuda.reset_peak_memory_stats()
+    batch = args.batch_size
+    try:
+        with autotune.force(fused_bucket_opt=True):
+            t0 = time.perf_counter()
+            kv, it, step_fn, params, state = ex.build(args)
+            build_s = time.perf_counter() - t0
+            carry = [params, state]
+            t_step = [0]
+
+            def next_batch():
+                try:
+                    return it.next()
+                except StopIteration:
+                    it.reset()
+                    return it.next()
+
+            def step(batch):
+                t_step[0] += 1
+                lv, carry[0], carry[1] = step_fn(
+                    carry[0], carry[1], batch.data[0]._data,
+                    batch.label[0]._data, 0, float(t_step[0]))
+                return lv
+
+            po.bucket_sgd_mom.launches = 0
+            ia.image_augment.launches = 0
+            it.reset()  # the producer starts with the counts at 0
+            losses = []
+            on_card = True
+            for _ in range(warmup):
+                b = next_batch()
+                on_card &= b.data[0]._data.is_cuda and \
+                    b.label[0]._data.is_cuda
+                losses.append(step(b))
+            torch.cuda.synchronize()
+            s0 = it.stats()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(steps):
+                b = next_batch()
+                on_card &= b.data[0]._data.is_cuda
+                losses.append(step(b))
+            end.record()
+            end.synchronize()
+            s1 = it.stats()
+            bucket_launches = po.bucket_sgd_mom.launches
+            augment_launches = ia.image_augment.launches
+            fed_ms = start.elapsed_time(end) / steps
+            # the same step on a resident batch
+            start.record()
+            for _ in range(steps):
+                losses.append(step(b))
+            end.record()
+            end.synchronize()
+            resident_ms = start.elapsed_time(end) / steps
+            prof = torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CUDA])
+            with prof:
+                t1 = time.perf_counter()
+                for _ in range(3):
+                    step(next_batch())
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t1
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            plan = step_fn.zero_plan
+            # the iterator alone: one epoch, no step
+            it.reset()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            n_alone = 0
+            for bb in it:
+                n_alone += bb.data[0].shape[0]
+            torch.cuda.synchronize()
+            alone_s = time.perf_counter() - t2
+            dp = it.data_plane_stats()
+            it.close()
+            # every batch this iterator made: its bytes to the card are
+            # counted where it decodes it, its launch after the augment
+            h2d_per_batch = it.stats()["h2d_bytes"] / max(
+                1, ia.image_augment.launches)
+            # and with a pool of four decode workers
+            with_pool = mx.io.ImageRecordIter(
+                path_imgrec=corpus, batch_size=batch, shuffle=True,
+                rand_crop=True, rand_mirror=True, io_workers=4,
+                ctx=mx.gpu(0), **_iter_aug())
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            n_pool = sum(bb.data[0].shape[0] for bb in with_pool)
+            torch.cuda.synchronize()
+            pool_s = time.perf_counter() - t3
+            with_pool.close()
+    finally:
+        if old is None:
+            os.environ.pop("MXNET_OPTIMIZER_SHARDING", None)
+        else:
+            os.environ["MXNET_OPTIMIZER_SHARDING"] = old
+    losses = [float(v) for v in losses]
+    res = {
+        "phase": "train_imagenet", "network": args.network, "batch": batch,
+        "image": 224, "compute_dtype": args.dtype, "optimizer": "sgd",
+        "lr": args.lr, "kv": kv.type, "io_workers": dp["workers"],
+        "warmup_steps": warmup, "timed_steps": steps,
+        "fed_ms_per_step": fed_ms, "fed_img_s": batch / fed_ms * 1e3,
+        "resident_ms_per_step": resident_ms,
+        "resident_img_s": batch / resident_ms * 1e3,
+        "iterator_alone_img_s": n_alone / alone_s,
+        "iterator_alone_images": n_alone,
+        "iterator_alone_img_s_4_workers": n_pool / pool_s,
+        "feed_wait_s_per_batch": (s1["consumer_wait_s"]
+                                  - s0["consumer_wait_s"]) / steps,
+        "h2d_bytes_per_batch": h2d_per_batch,
+        "decoded_fp32_batch_bytes": batch * 3 * 224 * 224 * 4,
+        "peak_mem_gib": peak, "buckets": len(plan), "build_s": build_s,
+        "losses": losses, "bucket_sgd_mom_launches": bucket_launches,
+        "image_augment_launches": augment_launches,
+        "profile_3_fed_steps": device_profile(prof, wall, top=12,
+                                              shares=STEP_SHARES),
+    }
+    check(on_card, "a fed batch was not on the card")
+    check(all(math.isfinite(v) for v in losses),
+          f"train_imagenet: loss not finite: {losses}")
+    check(bucket_launches == len(plan) * (warmup + steps),
+          f"train_imagenet: bucket launches {bucket_launches} != "
+          f"{len(plan)} buckets x {warmup + steps} steps")
+    check(augment_launches >= warmup + steps,
+          f"train_imagenet: {augment_launches} augment launches for "
+          f"{warmup + steps} batches")
+    return res
+
+
 def run(profile=False, old_brc=None, workdir=None):
     import torch
 
@@ -4488,6 +5044,9 @@ def run(profile=False, old_brc=None, workdir=None):
     emit({"phase": "device", "nvidia_smi": smi, **emit_dev,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "python": sys.version.split()[0]})
+    probe = data_plane_probe()
+    log(f"[data_plane_probe] {probe}")
+    emit(probe)
 
     from mxnet_tpu_torch import _kernels
 
@@ -4899,6 +5458,37 @@ def run(profile=False, old_brc=None, workdir=None):
         f"{dcvc['ssd_cuda_vs_cpu']['closest_to_limit']} "
         f"({time.perf_counter() - t0:.1f} s)")
 
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    dres, corpus = data_plane_phase(workdir)
+    head_aug = dres["augment_cases"][0]
+    log(f"[data_plane] corpus {dres['corpus']['images']} JPEGs, mean "
+        f"{dres['corpus']['mean_jpeg_bytes']:.0f} B, encoded in "
+        f"{dres['corpus']['encode_s']:.1f} s; augment bit-equal "
+        f"{[c['bit_equal'] for c in dres['augment_cases']]}, "
+        f"{head_aug['ms']:.4f} ms on the card ("
+        f"{head_aug['profiled_launches']} of 20 launches profiled; a call "
+        f"back to back "
+        f"{head_aug['call_ms']:.4f}, its host work "
+        f"{head_aug['host_ms']:.4f}, plain {head_aug['plain_ms']:.3f}, "
+        f"bound {head_aug['bound_ms']:.4f}); nvJPEG vs libjpeg "
+        f"{ {k: v['max'] for k, v in dres['nvjpeg_vs_libjpeg_fixture'].items()} }"
+        f"; manifest {dres['damaged_copy']['entries']}; kv "
+        f"{dres['kv_stores']} ({time.perf_counter() - t0:.1f} s)")
+    emit(dres)
+    t0 = time.perf_counter()
+    tim = train_imagenet_phase(corpus)
+    log(f"[train_imagenet] fed {tim['fed_ms_per_step']:.2f} ms/step "
+        f"{tim['fed_img_s']:.1f} img/s, resident "
+        f"{tim['resident_img_s']:.1f} img/s, iterator alone "
+        f"{tim['iterator_alone_img_s']:.1f} img/s, feed wait "
+        f"{tim['feed_wait_s_per_batch'] * 1e3:.2f} ms and "
+        f"{tim['h2d_bytes_per_batch']:.0f} B a batch, idle "
+        f"{tim['profile_3_fed_steps'].get('device_idle_share')}, losses "
+        f"{[round(v, 3) for v in tim['losses'][:12]]} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    emit(tim)
+
     main = [c for c in cases if c["path"].startswith("serve")]
     head = next(c for c in cases if c["path"] == "serve_wide"
                 and c["shape"][2] == 2048)
@@ -4937,7 +5527,8 @@ def run(profile=False, old_brc=None, workdir=None):
               "mxnet_tpu/ops/pallas_opt.py:157",
               sum(t["bucket_sgd_mom_launches"] for t in sgd_trains)
               + tel["bucket_sgd_mom_launches"]
-              + zoo["bucket_sgd_mom_launches"], 0.0, sgd[0]),
+              + zoo["bucket_sgd_mom_launches"]
+              + tim["bucket_sgd_mom_launches"], 0.0, sgd[0]),
         # the same kernel at VGG-16's 102.76 M fc6 bucket, its own row
         entry("bucket_sgd_mom_vgg16", "bucket_sgd.cu",
               "mxnet_tpu/ops/pallas_opt.py:157",
@@ -4967,7 +5558,14 @@ def run(profile=False, old_brc=None, workdir=None):
         entry("scaled_add", "scaled_add.cu",
               "example/plugin/pallas_ops.py:14",
               plug["scaled_add_launches"],
-              max(c["max_abs_err"] for c in sa), sa[0])]})
+              max(c["max_abs_err"] for c in sa), sa[0]),
+        # no TPU kernel: it replaces the host C++ of the reference's
+        # decode_augment_batch, after the decode
+        entry("image_augment", "image_augment.cu",
+              "src/recordio_native.cc:142",
+              tim["image_augment_launches"],
+              max(c["max_abs_err"] for c in dres["augment_cases"]),
+              dict(head_aug, library_ms=None))]})
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": emit_dev}), flush=True)
 

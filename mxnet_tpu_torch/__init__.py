@@ -30,7 +30,11 @@ quantized and mixed-precision inference (:mod:`~mxnet_tpu_torch.
 quantization`, ``contrib.quantization``, ``contrib.amp``) and the
 telemetry that observes them (:mod:`~mxnet_tpu_torch.telemetry`'s run
 log, spans, watchdog and numerics monitor, :mod:`~mxnet_tpu_torch.
-profiler` on ``torch.profiler``), with what they run.
+profiler` on ``torch.profiler``) and the data plane that feeds them
+(:mod:`~mxnet_tpu_torch.recordio`, ``mx.io``'s iterators and device
+feed, ``ImageRecordIter`` decoding on the card, :mod:`~mxnet_tpu_torch.
+image`, the DataLoader's workers, the single-process ``mx.kv``), with
+what they run.
 """
 __version__ = "0.1.0"
 
@@ -59,6 +63,10 @@ from . import symbol  # noqa: F401
 from . import symbol as sym  # noqa: F401
 from .symbol import AttrScope  # noqa: F401
 from . import io  # noqa: F401
+from . import recordio  # noqa: F401
+from . import image  # noqa: F401
+from . import kvstore  # noqa: F401
+from . import kvstore as kv  # noqa: F401
 from . import model  # noqa: F401
 from . import callback  # noqa: F401
 from . import monitor  # noqa: F401
@@ -77,4 +85,5 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "lr_scheduler", "metric", "optimizer", "sym", "symbol",
            "AttrScope", "io", "model", "callback", "monitor", "mon",
            "mod", "module", "deploy", "contrib", "quantization",
-           "profiler", "telemetry"]
+           "profiler", "telemetry", "recordio", "image", "kv",
+           "kvstore"]

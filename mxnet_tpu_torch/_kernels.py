@@ -24,13 +24,17 @@ import time
 
 from .base import MXNetError
 
-__all__ = ["NVCC_FLAGS", "sources", "build", "load", "build_log"]
+__all__ = ["NVCC_FLAGS", "LINK_FLAGS", "sources", "build", "load",
+           "build_log"]
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+#: libraries a source links against, after the shared flags (a source
+#: not named here links against none)
+LINK_FLAGS = {"jpeg_nvjpeg": ("-lnvjpeg",)}
 
 _lock = threading.Lock()
 _libs = {}
@@ -54,6 +58,8 @@ def _nvcc():
 
 def _key(name):
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    if name in LINK_FLAGS:
+        h.update(" ".join(LINK_FLAGS[name]).encode())
     headers = sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
     for path in [os.path.join(CSRC, f"{name}.cu")] + headers:
         with open(path, "rb") as f:
@@ -92,7 +98,8 @@ def build(names=None):
             out = _lib_path(name)
             tmp = f"{out}.{os.getpid()}.tmp"
             cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
-                   os.path.join(CSRC, f"{name}.cu")]
+                   os.path.join(CSRC, f"{name}.cu"),
+                   *LINK_FLAGS.get(name, ())]
             proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                     stderr=subprocess.STDOUT, text=True)
             started[name] = (proc, tmp, out, time.perf_counter())

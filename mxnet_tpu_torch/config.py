@@ -232,3 +232,39 @@ register_env("MXNET_FLEET_HBM_BUDGET_MB", 0.0, float,
              "artifact's batch on the card) fit next to the resident "
              "models, else a structured "
              "ServeRejected(reason='hbm_budget').  0 = unlimited.")
+register_env("MXNET_CPU_WORKER_NTHREADS", 0, int,
+             "Host decode/augment threads of the native library (0 = "
+             "all cores); ImageRecordIter's preprocess_threads default.")
+register_env("MXNET_TPU_PREFETCH_BUFFER", 4, int,
+             "Batches kept ready ahead of the training loop "
+             "(ImageRecordIter prefetch_buffer default).")
+register_env("MXNET_IO_WORKERS", 0, int,
+             "Decode/augment worker pool size behind ImageRecordIter.  "
+             "0 keeps one producer thread; N>0 runs N workers behind a "
+             "sequence-ordered emitter (batches are assembled by index "
+             "plan, so worker count, respawns and stragglers never "
+             "change which sample lands in which row).")
+register_env("MXNET_IO_WORKER_RESPAWN", 2, int,
+             "Respawn budget of the io worker pool: a worker that dies "
+             "holding a batch or wedges past the per-batch deadline is "
+             "replaced (its batch re-dispatched) at most this many "
+             "times per iterator; exhausting it fails loudly with the "
+             "quarantine manifest named.")
+register_env("MXNET_IO_MAX_SKIP_FRAC", 0.1, float,
+             "Quarantine ceiling: the fraction of a .rec shard's "
+             "records that may be skipped (framing resyncs + unpack/"
+             "decode quarantines) before the data plane refuses to "
+             "continue.")
+register_env("MXNET_DEVICE_FEED", True, bool,
+             "Asynchronous device feed: DataLoader and Module.fit wrap "
+             "their batch source in io.DeviceFeedIter (pinned host "
+             "buffers, a side CUDA stream), and ImageRecordIter "
+             "decodes on the card ahead of the step.  0 gives host "
+             "batches that the consumer moves.")
+register_env("MXNET_DEVICE_FEED_DEPTH", 2, int,
+             "Batches DeviceFeedIter keeps on the card ahead of the "
+             "consumer.")
+register_env("MXNET_FEED_JOIN_TIMEOUT_SEC", 10.0, float,
+             "Bound on the feed's and the record iterator's producer "
+             "joins at close(): a wedged producer is abandoned (daemon) "
+             "after this many seconds.")

@@ -1,13 +1,17 @@
 """Datasets (counterpart of ``mxnet_tpu/gluon/data/dataset.py``):
 ``Dataset`` with ``transform``/``transform_first``/``filter``/
-``shard``/``take``/``sample``, ``SimpleDataset`` and ``ArrayDataset``.
-The RecordIO and downloaded datasets are not ported yet (ROADMAP §A
-item 6)."""
+``shard``/``take``/``sample``, ``SimpleDataset``, ``ArrayDataset`` and
+``RecordFileDataset``.  The downloaded datasets (``gluon/data/vision``)
+are not ported yet (ROADMAP §A 6)."""
 from __future__ import annotations
 
+import os
+
+from ... import recordio
 from ...ndarray import NDArray
 
-__all__ = ["Dataset", "SimpleDataset", "ArrayDataset"]
+__all__ = ["Dataset", "SimpleDataset", "ArrayDataset",
+           "RecordFileDataset"]
 
 
 class Dataset:
@@ -127,3 +131,21 @@ class ArrayDataset(Dataset):
 
     def __len__(self):
         return self._length
+
+
+class RecordFileDataset(Dataset):
+    """Dataset over a RecordIO (.rec) file and its .idx (reference
+    RecordFileDataset): item ``i`` is the raw bytes of the ``i``-th
+    indexed record."""
+
+    def __init__(self, filename):
+        self.idx_file = os.path.splitext(filename)[0] + ".idx"
+        self.filename = filename
+        self._record = recordio.MXIndexedRecordIO(
+            self.idx_file, self.filename, "r")
+
+    def __getitem__(self, idx):
+        return self._record.read_idx(self._record.keys[idx])
+
+    def __len__(self):
+        return len(self._record.keys)

@@ -5,11 +5,11 @@ Reference parity: python/mxnet/io/io.py (``DataIter`` base, ``NDArrayIter``
 :491 in-memory iterator with shuffle + last_batch_handling, ``ResizeIter``
 :282, ``PrefetchingIter`` :347) and ``DataDesc``/``DataBatch``.
 
-Batches are host NDArrays (``cpu(0)``): the consumer (``Module.forward``,
-an executor) moves them to its device.  The reference's device feed,
-which puts each batch on the device ahead of the step, waits for the
-port's data plane (ROADMAP §A 6); ``PrefetchingIter(device_feed=True)``
-raises until then.  ``NDArrayIter`` shuffles with numpy's global RNG,
+``NDArrayIter``'s batches are host NDArrays (``cpu(0)``): the consumer
+(``Module.forward``, an executor) or a ``DeviceFeedIter`` around the
+iterator moves them to its device.  ``PrefetchingIter`` puts each batch
+on the device in its prefetch threads when the device feed is on
+(``device_feed``, default ``MXNET_DEVICE_FEED``).  ``NDArrayIter`` shuffles with numpy's global RNG,
 as the reference does, so one ``np.random.seed`` gives one order in both
 packages.
 """
@@ -337,19 +337,21 @@ class ResizeIter(DataIter):
 
 class PrefetchingIter(DataIter):
     """Background-thread prefetch over one or more iterators (reference
-    io.py:347; C++ analog src/io/iter_prefetcher.h), of host batches.
+    io.py:347; C++ analog src/io/iter_prefetcher.h).
 
-    ``device_feed=True`` (the reference's copy of each batch to the
-    device inside the prefetch thread) is not ported yet and raises
-    (ROADMAP §A 6); None or False prefetch on the host."""
+    ``device_feed`` (None follows ``MXNET_DEVICE_FEED``, default on)
+    copies each batch to the current context's device (read at
+    construction) inside the prefetch thread, on the feed's side
+    stream; ``next()`` hands it over by a stream wait."""
 
     def __init__(self, iters, rename_data=None, rename_label=None,
                  device_feed=None):
         super().__init__()
-        if device_feed:
-            raise MXNetError("PrefetchingIter(device_feed=True) is not "
-                             "ported yet: batches stay on the host "
-                             "(ROADMAP §A 6)")
+        from .device_feed import _target, device_feed_enabled
+
+        if device_feed is None:
+            device_feed = device_feed_enabled()
+        self._feed_device = _target() if device_feed else None
         if not isinstance(iters, list):
             iters = [iters]
         self.n_iter = len(iters)
@@ -372,7 +374,15 @@ class PrefetchingIter(DataIter):
                 if not self.started:
                     break
                 try:
-                    self.next_batch[i] = self.iters[i].next()
+                    batch = self.iters[i].next()
+                    dev = self._feed_device
+                    if dev is not None:
+                        from .device_feed import (as_device_batch,
+                                                  side_stream_put)
+
+                        batch = side_stream_put(
+                            lambda b=batch: as_device_batch(b, dev), dev)
+                    self.next_batch[i] = batch
                 except StopIteration:
                     self.next_batch[i] = None
                 self.data_taken[i].clear()
@@ -432,8 +442,12 @@ class PrefetchingIter(DataIter):
             e.set()
 
     def iter_next(self):
+        from .device_feed import Ready
+
         for e in self.data_ready:
             e.wait()
+        self.next_batch = [b.take() if isinstance(b, Ready) else b
+                           for b in self.next_batch]
         if self.next_batch[0] is None:
             for i in self.next_batch:
                 assert i is None, (

@@ -5,9 +5,11 @@ Reference parity: python/mxnet/module/base_module.py (``fit`` :409-538 —
 bind → init_params → init_optimizer → epoch loop forward_backward /
 update / metric / checkpoint; ``score``, ``predict``).
 
-``fit`` feeds the iterator's host batches; ``forward`` moves each to the
-module's device.  The reference wraps the iterator in a device feed by
-default (``MXNET_DEVICE_FEED``), which waits for ROADMAP §A 6.
+``fit`` wraps ``train_data`` in the device feed (``io.DeviceFeedIter``,
+``MXNET_DEVICE_FEED``, on by default, as the reference's): batches reach
+the module's device on a side stream while the step before runs, so
+``forward``'s own move is a no-op.  fit closes the feed it made on the
+way out and hands the caller's iterator back reset.
 ``resume_from=`` and ``MXNET_SNAPSHOT_EVERY`` raise: they wait for
 ROADMAP §A 7, with §A 11's asynchronous checkpoint.  ``fit`` runs a
 telemetry session (``telemetry.fit_session``: step records, sampled
@@ -190,12 +192,27 @@ class BaseModule:
         from .. import telemetry as _tm
         from ..resilience.preempt import PreemptionDrain
 
+        # the device feed: fit owns the wrapper it makes and closes it
+        # on the way out, or its producer would go on reading the
+        # caller's iterator
+        from ..io.device_feed import DeviceFeedIter, device_feed_enabled
+
+        owned_feed = None
+        if device_feed_enabled() and \
+                not isinstance(train_data, DeviceFeedIter):
+            train_data = owned_feed = DeviceFeedIter(
+                train_data, device=getattr(self, "_context", None))
         batch_size = 0
         try:
             batch_size = int(train_data.provide_data[0][1][0])
         except Exception:
             pass
-        session = _tm.fit_session(batch_size=batch_size)
+        # feed-wait and H2D deltas come from whichever feed drives the
+        # loop: fit's own or one the caller made
+        feed = owned_feed if owned_feed is not None else (
+            train_data if isinstance(train_data, DeviceFeedIter)
+            else None)
+        session = _tm.fit_session(batch_size=batch_size, feed=feed)
         drain = PreemptionDrain()
         try:
             with drain:
@@ -214,6 +231,13 @@ class BaseModule:
             session.flight(f"exception:{type(exc).__name__}")
             session.finish("error")
             raise
+        finally:
+            if owned_feed is not None:
+                owned_feed.close()
+                # the caller's iterator comes back reset, not part-read
+                # by the producer's last read-ahead
+                if hasattr(owned_feed.base, "reset"):
+                    owned_feed.base.reset()
         # drained: the checkpoint and the flight dump are on disk — hand
         # the signal back to its original disposition
         drain.reraise()

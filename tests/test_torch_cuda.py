@@ -29,6 +29,7 @@ with the host raises, and an export on the card writes a host export's
 bytes.
 """
 import contextlib
+import os
 
 import numpy as onp
 import pytest
@@ -1935,3 +1936,80 @@ def test_amp_loss_scaler_skips_a_planted_overflow_on_card(card):
     trainer.step(4)
     assert torch.equal(w.data()._data, before)
     assert trainer._amp_loss_scaler.loss_scale == 2.0 ** 15
+
+
+# ------------------------------------------------------ the data plane
+def _card_jpegs(card, sizes, seed=0):
+    from chip_smoke import smooth_images
+    from mxnet_tpu_torch.io import nvjpeg
+
+    enc = nvjpeg.decoder(card)
+    return [enc.encode(img, 90, 2)
+            for img in (smooth_images(1, hw, seed + k, card)[0]
+                        for k, hw in enumerate(sizes))]
+
+
+def test_image_augment_kernel_equals_plain_bit_for_bit(card):
+    from mxnet_tpu_torch.io import nvjpeg
+    from mxnet_tpu_torch.ops import image_augment as ia
+
+    jpegs = _card_jpegs(card, [(375, 500), (101, 99), (17, 300), (1, 1),
+                               (224, 223), (999, 31)])
+    buf, offs, hs, ws, bad, _ = nvjpeg.decode_batch(jpegs, card)
+    assert not bad
+    rng = onp.random.RandomState(0)
+    n = len(hs)
+    for resize, out in ((256, (224, 224)), (-1, (224, 224)),
+                        (100, (61, 47))):
+        args = (buf, offs, hs, ws, out[0], out[1],
+                rng.rand(n).astype("float32"), rng.rand(n).astype("float32"),
+                (rng.rand(n) < 0.5).astype("uint8"), (1.0, 2.0, 3.0),
+                (2.0, 3.0, 4.0), resize)
+        before = ia.image_augment.launches
+        got = ia.image_augment(*args)
+        assert ia.image_augment.launches == before + 1
+        assert torch.equal(got, ia.image_augment_plain(*args))
+
+
+def test_card_record_iter_feeds_decoded_batches(card, tmp_path):
+    """ImageRecordIter on the card: batches on cuda:0 with the host's
+    labels and pads; a header nvJPEG cannot read is quarantined by its
+    record id; a toolkit without nvJPEG raises at construction."""
+    import json
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.io import nvjpeg
+
+    path = str(tmp_path / "c.rec")
+    w = mx.recordio.MXRecordIO(path, "w")
+    for i, j in enumerate(_card_jpegs(card, [(60 + i, 80) for i in range(10)])):
+        w.write(mx.recordio.pack(mx.recordio.IRHeader(0, float(i), i, 0),
+                                 b"garbage" if i == 3 else j))
+    w.close()
+    kw = dict(path_imgrec=path, data_shape=(3, 48, 48), batch_size=4,
+              rand_crop=True, rand_mirror=True, resize=56,
+              max_skip_frac=0.5, quarantine_manifest=str(tmp_path / "q.json"))
+    it = mx.io.ImageRecordIter(ctx=mx.gpu(0), **kw)
+    got = [(b.data[0]._data, b.label[0].asnumpy(), b.pad) for b in it]
+    it.close()
+    assert all(d.is_cuda and d.shape == (4, 3, 48, 48) for d, _, _ in got)
+    # record 3 drops out of the first batch (its row refilled and
+    # counted as pad); the last batch wraps around twice
+    assert [p for _, _, p in got] == [1, 0, 2]
+    labels = onp.concatenate([l for _, l, _ in got])
+    assert 3.0 not in labels
+    man = json.load(open(tmp_path / "q.json"))
+    assert [(e["record"], e["stage"]) for e in man["entries"]] == [
+        (3, "decode")]
+    home = os.environ.get("CUDA_HOME")
+    try:
+        os.environ["CUDA_HOME"] = str(tmp_path)
+        nvjpeg._lib = None
+        with pytest.raises(MXNetError, match="nvjpeg.h"):
+            mx.io.ImageRecordIter(ctx=mx.gpu(0), **kw)
+    finally:
+        if home is None:
+            os.environ.pop("CUDA_HOME", None)
+        else:
+            os.environ["CUDA_HOME"] = home
+        nvjpeg._lib = None

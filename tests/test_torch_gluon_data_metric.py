@@ -205,6 +205,20 @@ def test_dataset_transforms_and_samplers_match_reference():
 @pytest.mark.parametrize("kw", [dict(device_feed=True),
                                 dict(num_workers=2)])
 def test_dataloader_refuses_what_is_not_ported(kw):
-    with pytest.raises(MXNetError, match=r"not ported yet \(ROADMAP §A "
-                                         r"item 6\)"):
-        t_data.DataLoader(_dataset(t_data), batch_size=4, **kw)
+    """Ported since: the device feed and worker processes give the
+    reference's batches (more cases in
+    ``tests/test_torch_dataloader_workers.py``)."""
+    jl = j_data.DataLoader(_dataset(j_data), batch_size=4, shuffle=True,
+                           **kw)
+    tl = t_data.DataLoader(_dataset(t_data), batch_size=4, shuffle=True,
+                           **kw)
+    onp.random.seed(3)
+    want = _batches(jl)
+    onp.random.seed(3)
+    got = _batches(tl)
+    tl.close()
+    assert len(got) == len(want) == 6
+    for g, w in zip(got, want):
+        for (ga, gd, gs), (wa, wd, ws) in zip(g, w):
+            assert gd == wd and gs == ws
+            assert onp.array_equal(ga, wa)

@@ -155,12 +155,27 @@ def test_data_desc_and_batch_match_reference():
 
 
 def test_what_waits_for_the_data_plane_is_absent():
+    """The data plane is ported (its parity tests are
+    ``tests/test_torch_{recordio,io_iterators,device_feed,
+    image_record_iter}.py``); only ``ImageDetRecordIter`` still waits
+    (ROADMAP §A 6).  ``PrefetchingIter(device_feed=True)`` feeds the
+    current context's device, here the host."""
     for name in ("CSVIter", "LibSVMIter", "MNISTIter", "ImageRecordIter",
                  "DeviceFeedIter"):
-        assert hasattr(jmx.io, name) and not hasattr(tmx.io, name)
-    with pytest.raises(MXNetError, match="§A 6"):
-        tmx.io.PrefetchingIter(tmx.io.NDArrayIter(*_data()),
-                               device_feed=True)
+        assert hasattr(jmx.io, name) and hasattr(tmx.io, name)
+    assert hasattr(jmx.io, "ImageDetRecordIter")
+    assert not hasattr(tmx.io, "ImageDetRecordIter")
+    pf = tmx.io.PrefetchingIter(tmx.io.NDArrayIter(*_data(), batch_size=5),
+                                device_feed=True)
+    ref = jmx.io.PrefetchingIter(jmx.io.NDArrayIter(*_data(), batch_size=5),
+                                 device_feed=True)
+    got = [(b.data[0].asnumpy(), b.pad) for b in pf]
+    want = [(b.data[0].asnumpy(), b.pad) for b in ref]
+    assert len(got) == len(want) == 5
+    for (a, pa), (b, pb) in zip(got, want):
+        assert pa == pb
+        onp.testing.assert_array_equal(a, b)
+    assert all(b.data[0].context == tmx.cpu() for b in [pf.current_batch])
 
 
 # ---------------------------------------------------------- initializers

@@ -441,6 +441,23 @@ def test_what_is_not_ported_raises(what, monkeypatch, tmp_path):
            "runlog": ("MXNET_RUNLOG", str(tmp_path / "r.jsonl")),
            "numerics": ("MXNET_NUMERICS", "1"),
            "sharding_typo": ("MXNET_OPTIMIZER_SHARDING", "bogus")}
+    if what == "device_feed":
+        # ported since: fit feeds through io.DeviceFeedIter (on by
+        # default, MXNET_DEVICE_FEED) and PrefetchingIter(device_feed=
+        # True) feeds the device; the feed hands fit the same batches
+        mods = []
+        for feed in ("1", "0"):
+            monkeypatch.setenv("MXNET_DEVICE_FEED", feed)
+            onp.random.seed(0)
+            m = tmx.mod.Module(s)
+            m.fit(it, num_epoch=2)
+            mods.append(m.get_params()[0])
+        for n in mods[0]:
+            onp.testing.assert_array_equal(mods[0][n].asnumpy(),
+                                           mods[1][n].asnumpy())
+        pf = tmx.io.PrefetchingIter(it, device_feed=True)
+        assert next(iter(pf)).data[0].context == tmx.cpu()
+        return
     if what in ("runlog", "numerics"):
         # ported since: the run log and the numerics monitor no longer
         # raise; fit writes the run log's step records and, with the
@@ -476,7 +493,7 @@ def test_what_is_not_ported_raises(what, monkeypatch, tmp_path):
         elif what == "group2ctxs":
             tmx.mod.Module(s, group2ctxs={"dev1": tmx.cpu()})
         elif what == "device_feed":
-            tmx.io.PrefetchingIter(it, device_feed=True)
+            pass
         elif what == "cuda_without_card":
             # a CUDA request on a host without a card raises; the
             # default context is the card

@@ -106,7 +106,13 @@ _MODULES = ["mxnet_tpu_torch", "mxnet_tpu_torch.autotune",
             "mxnet_tpu_torch.ops.contrib_ops",
             "mxnet_tpu_torch.ndarray.contrib",
             "mxnet_tpu_torch.gluon.model_zoo.vision.ssd",
-            "mxnet_tpu_torch.example.train_ssd"]
+            "mxnet_tpu_torch.example.train_ssd",
+            "mxnet_tpu_torch.recordio", "mxnet_tpu_torch._native",
+            "mxnet_tpu_torch.io.device_feed", "mxnet_tpu_torch.io.iterators",
+            "mxnet_tpu_torch.io.image_record_iter",
+            "mxnet_tpu_torch.io.nvjpeg", "mxnet_tpu_torch.ops.image_augment",
+            "mxnet_tpu_torch.image", "mxnet_tpu_torch.kvstore",
+            "mxnet_tpu_torch.example.train_imagenet"]
 _FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(?:jax|jaxlib|mxnet_tpu)"
                         r"(?:\.|\s|$)", re.M)
 
@@ -149,7 +155,9 @@ _PORT_ENV = ["MXNET_AUTOTUNE", "MXNET_AUTOTUNE_CACHE_DIR",
              "MXNET_NUMERICS_SAMPLE", "MXNET_METRICS_TEXTFILE",
              "MXNET_TRACE_CONTEXT", "MXNET_PROCESS_ROLE",
              "MXNET_PROCESS_RANK", "MXNET_PROFILER_AUTOSTART",
-             "MXNET_PROFILER_MODE"]
+             "MXNET_PROFILER_MODE", "MXNET_CPU_WORKER_NTHREADS",
+             "MXNET_TPU_PREFETCH_BUFFER", "MXNET_IO_WORKERS",
+             "MXNET_IO_WORKER_RESPAWN", "MXNET_DEVICE_FEED_DEPTH"]
 
 
 @pytest.mark.parametrize("name", _PORT_ENV)
