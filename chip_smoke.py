@@ -104,7 +104,21 @@ nvJPEG's pixels against libjpeg's on a committed fixture, a damaged
 copy's quarantine manifest and ``mx.kv``'s stores on the card
 (``data_plane``), then ``example/train_imagenet.py`` at its defaults fed
 by ``ImageRecordIter`` decoding on the card, beside the same step on a
-resident batch and the iterator alone (``train_imagenet``).
+resident batch and the iterator alone (``train_imagenet``); and the
+optimizer and the distributed store: what the card's machine offers
+two workers (``dist_probe``: gloo and NCCL on one card, the native
+parameter-server shard built with g++), the store's closed-form
+invariants with two workers on the card (``dist_kvstore``), the
+distributed Trainer on the card against the host (``dist_trainer``:
+float64 with ``update_on_kvstore`` False and True, and the example's
+fp32 step), the ten new optimizer rules and the 18 update ops on the
+card against the host and the ``_pallas_bucket_*`` registry ops through
+the bucket kernels (``optimizer_rules_cuda_vs_cpu``), all started
+together; then ``example/distributed_training/cifar10_dist.py`` at its
+defaults with two workers on the card started by the port's launcher,
+``dist_sync`` and ``dist_async`` (``dist_cifar10``), SSD-300 fed by
+``ImageDetRecordIter`` (``ssd_rec``) and the MNIST example over IDX
+files (``mnist_data_dir``).
 Each phase
 prints one JSON line on stdout
 (progress goes to stderr); ``--out`` also appends them to FILE.  Any
@@ -119,6 +133,8 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import glob
+import hashlib
 import json
 import math
 import os
@@ -218,7 +234,9 @@ def device_ms(fn, calls=50, attempts=3, by_kernel=False):
     launch cost, which dominates kernels of a few tens of microseconds.
     A profiler session that records no device activity at all (seen
     once in a run of many sessions) is run again, up to ``attempts``
-    sessions."""
+    sessions.  A kernel with fewer recorded launches than calls (late
+    in the whole script a session recorded 8 of 20) is averaged over
+    the launches recorded, as a kernel launched once a call."""
     import torch
 
     fn()
@@ -230,14 +248,20 @@ def device_ms(fn, calls=50, attempts=3, by_kernel=False):
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        per = {}
+        per, counts = {}, {}
         for evt in prof.key_averages():
             t_us = getattr(evt, "self_device_time_total", None)
             if t_us is None:
                 t_us = getattr(evt, "self_cuda_time_total", 0.0)
             if t_us > 0:
-                per[evt.key] = per.get(evt.key, 0.0) + t_us / 1e3 / calls
+                per[evt.key] = per.get(evt.key, 0.0) + t_us / 1e3
+                counts[evt.key] = counts.get(evt.key, 0) + evt.count
         if per:
+            short = {k: c for k, c in counts.items() if c < calls}
+            if short:
+                log(f"[device_ms] recorded launches {short} of {calls} "
+                    "calls: averaged over the launches recorded")
+            per = {k: v / min(counts[k], calls) for k, v in per.items()}
             return per if by_kernel else sum(per.values())
         log("[device_ms] the profiler recorded no device time; again")
     raise CheckFailed(f"the profiler recorded no device time in "
@@ -4556,6 +4580,91 @@ def data_plane_probe():
     }
 
 
+_GROUP_PROBE = r"""
+import datetime, sys, torch, torch.distributed as dist
+rank, world = int(sys.argv[1]), int(sys.argv[2])
+store = dist.TCPStore("127.0.0.1", int(sys.argv[4]), world, rank == 0,
+                      timeout=datetime.timedelta(seconds=60))
+for backend in sys.argv[3].split(","):
+    try:
+        dist.init_process_group(backend, rank=rank, world_size=world,
+                                store=dist.PrefixStore(backend, store))
+        t = torch.full((1024,), float(rank + 1), device="cuda:0")
+        dist.all_reduce(t)
+        b = torch.full((8,), float(rank + 7), device="cuda:0")
+        dist.broadcast(b, src=0)
+        torch.cuda.synchronize()
+        want = world * (world + 1) / 2
+        ok = bool((t == want).all()) and bool((b == 7).all())
+        print("RESULT", backend, "ok" if ok else
+              f"wrong sum {t[0].item()} {b[0].item()}", flush=True)
+        dist.destroy_process_group()
+    except Exception as e:
+        print("RESULT", backend,
+              f"{type(e).__name__}: {str(e).splitlines()[0][:300]}",
+              flush=True)
+"""
+
+
+def _group_probe(backends, world=2, timeout=90):
+    """Start ``world`` processes that form one group of each of
+    ``backends`` in turn on ``cuda:0`` and all-reduce and broadcast a
+    tensor there; ``{backend: what each process saw}``."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _GROUP_PROBE, str(r), str(world),
+         ",".join(backends), str(port)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    said = {b: [] for b in backends}
+    for p in procs:
+        try:
+            out, _ = p.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            out, _ = p.communicate()
+        seen = dict(ln[7:].split(" ", 1) for ln in out.splitlines()
+                    if ln.startswith("RESULT "))
+        for b in backends:
+            said[b].append(seen.get(b, "timed out or died: "
+                                    + out.strip()[-300:]))
+    return said
+
+
+def dist_probe():
+    """What the card's machine offers the distributed store: gloo and
+    NCCL, a two-process gloo group all-reducing a tensor on the one
+    card, whether two NCCL ranks may share it (the same two processes,
+    after the gloo group), the parameter server's native shard built
+    with g++, PIL."""
+    import importlib.util
+
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    groups = _group_probe(("gloo", "nccl"))
+    res = {"phase": "dist_probe",
+           "gloo_available": dist.is_gloo_available(),
+           "nccl_available": dist.is_nccl_available(),
+           "gloo_cuda_two_ranks": groups["gloo"],
+           "nccl_one_card_two_ranks": groups["nccl"]}
+    try:
+        from mxnet_tpu_torch import _ps
+
+        lib = _ps.native_lib_path()
+        res["ps_native_build"] = lib
+    except Exception as e:  # noqa: BLE001 - reported, checked below
+        res["ps_native_build"] = f"{type(e).__name__}: {e}"
+    res["pil"] = importlib.util.find_spec("PIL") is not None
+    res["gxx"] = shutil.which("g++")
+    res["nvidia_smi"] = nvidia_smi_line()
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
 def smooth_images(n, hw, seed, device):
     """``n`` (h, w, 3) uint8 images on the card: a low-frequency random
     field with grain, so that they compress as photographs do."""
@@ -5051,7 +5160,17 @@ def run(profile=False, old_brc=None, workdir=None):
     from mxnet_tpu_torch import _kernels
 
     t0 = time.perf_counter()
-    built = _kernels.build()
+    # the parameter server's native shard (g++) builds beside the
+    # kernels (nvcc); dist_probe reports the build
+    from concurrent.futures import ThreadPoolExecutor
+
+    from mxnet_tpu_torch import _ps
+
+    with ThreadPoolExecutor(1) as pool:
+        ps_build = pool.submit(_ps.native_lib_path)
+        built = _kernels.build()
+        if ps_build.exception() is not None:
+            log(f"[build] the native shard: {ps_build.exception()}")
     build_s = time.perf_counter() - t0
     for name in _kernels.sources():
         for line in (_kernels.build_log(name) or "").splitlines():
@@ -5489,6 +5608,34 @@ def run(profile=False, old_brc=None, workdir=None):
         f"({time.perf_counter() - t0:.1f} s)")
     emit(tim)
 
+    # the optimizer and the distributed store
+    torch.cuda.empty_cache()
+    t_store = time.perf_counter()
+    # the checks that are not timed run together: the launched jobs,
+    # the probe's processes, and the rules here while they run
+    dist_jobs = dist_checks_start(workdir)
+    with ThreadPoolExecutor(1) as pool:
+        probing = pool.submit(dist_probe_phase)
+        orules = optimizer_rules_cuda_vs_cpu_phase()
+        probing.result()
+    op_launches = orules["bucket_ops_launches"]
+    dkv = dist_kvstore_phase(dist_jobs)
+    dtr = dist_trainer_phase(workdir, dist_jobs)
+    t_checks = time.perf_counter() - t_store
+    dcifar = dist_cifar10_phase(workdir)
+    ssdr = ssd_rec_phase(workdir)
+    log(f"[ssd_rec] fed {ssdr['fed_img_s']:.1f} img/s, resident "
+        f"{ssdr['resident_img_s']:.1f}, iterator alone "
+        f"{ssdr['iterator_alone_img_s']}, feed wait "
+        f"{ssdr['feed_wait_s_per_batch'] * 1e3:.2f} ms a batch")
+    mnist_data_dir_phase(workdir)
+    log(f"[the store's phases] {time.perf_counter() - t_store:.1f} s "
+        f"(the checks started together {t_checks:.1f} s: the card's "
+        f"launch {dkv['seconds']:.1f} s, the host's "
+        f"{dtr['seconds'][1]:.1f} s, the rules {orules['seconds']:.1f} s; "
+        f"dist_cifar10 "
+        f"{dcifar['seconds']:.1f} s)")
+
     main = [c for c in cases if c["path"].startswith("serve")]
     head = next(c for c in cases if c["path"] == "serve_wide"
                 and c["shape"][2] == 2048)
@@ -5528,7 +5675,8 @@ def run(profile=False, old_brc=None, workdir=None):
               sum(t["bucket_sgd_mom_launches"] for t in sgd_trains)
               + tel["bucket_sgd_mom_launches"]
               + zoo["bucket_sgd_mom_launches"]
-              + tim["bucket_sgd_mom_launches"], 0.0, sgd[0]),
+              + tim["bucket_sgd_mom_launches"]
+              + op_launches["bucket_sgd_mom"], 0.0, sgd[0]),
         # the same kernel at VGG-16's 102.76 M fc6 bucket, its own row
         entry("bucket_sgd_mom_vgg16", "bucket_sgd.cu",
               "mxnet_tpu/ops/pallas_opt.py:157",
@@ -5538,10 +5686,12 @@ def run(profile=False, old_brc=None, workdir=None):
               cvc["sgd0"]["bucket_sgd_launches"], 0.0, plain_head),
         entry("bucket_adam", "bucket_adam.cu",
               "mxnet_tpu/ops/pallas_opt.py:173",
-              t_adam["bucket_adam_launches"], 0.0, adam[0]),
+              t_adam["bucket_adam_launches"] + op_launches["bucket_adam"],
+              0.0, adam[0]),
         entry("bucket_lars_norms", "bucket_lars.cu",
               "mxnet_tpu/ops/pallas_opt.py:194",
-              t_lars["bucket_lars_norms_launches"],
+              t_lars["bucket_lars_norms_launches"]
+              + op_launches["bucket_lars_norms"],
               max(c["slr_max_abs_err"] for c in lars), {
                   "ms": lars_head["ms_norms"] + lars_head["ms_trust"],
                   "plain_ms": lars_head["plain_norms_trust_ms"],
@@ -5549,7 +5699,8 @@ def run(profile=False, old_brc=None, workdir=None):
                   "bound_by": "bytes", "library_ms": None}),
         entry("bucket_lars_update", "bucket_lars.cu",
               "mxnet_tpu/ops/pallas_opt.py:231",
-              t_lars["bucket_lars_update_launches"],
+              t_lars["bucket_lars_update_launches"]
+              + op_launches["bucket_lars_update"],
               max(c["max_abs_err"] for c in lars), {
                   "ms": lars_head["ms_update_cold"],
                   "plain_ms": lars_head["plain_update_ms"],
@@ -5568,6 +5719,799 @@ def run(profile=False, old_brc=None, workdir=None):
               dict(head_aug, library_ms=None))]})
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": emit_dev}), flush=True)
+
+
+# ------------------------------------- the optimizer and the distributed store
+#: the cifar10_dist example at its defaults: 2 workers on the one card
+DIST_WORKERS = 2
+#: the distributed Trainer's card-against-host checks
+#: (``tests/torch_dist_trainer_worker.py``, 2 workers a side; ResNet-18
+#: v1 at 32²).  ``f64``/``f64_uokv``: 3 steps of SGD momentum at batch 4
+#: a worker, each worker updating its replica / the store's updater
+#: applying the summed gradient, float64 throughout, held to
+#: CUDA_CPU_F64_TOL on each parameter's change (in fp32 the last
+#: stage's BatchNorm normalises 4 values a channel and two fp32 runs
+#: part by percents within 3 steps).  ``fp32_example``: one step of
+#: ``cifar10_dist.py``'s recipe (batch 64 a worker, lr 0.05) on each of
+#: 3 batches, against the host's ``f64_example``, with the host's own
+#: ``fp32_example`` setting CUDA_CPU_TOL's limit.  The card's step is
+#: held with its convolutions on PyTorch's own CUDA kernels
+#: (``fp32_example_native``); with cuDNN's (``fp32_example``, the
+#: example's path) it is read and reported, not held: on the H100
+#: cuDNN's fp32 convolutions put a few parameters just over the limit
+#: while PyTorch's stay inside it (PERF.md §6)
+DIST_TRAINER_WORKER = os.path.join("tests", "torch_dist_trainer_worker.py")
+DIST_TRAINER_RUNS = {"card": ("f64", "f64_uokv", "fp32_example",
+                              "fp32_example_native"),
+                     "host": ("f64", "f64_uokv", "fp32_example",
+                              "f64_example")}
+#: one warm start of workers runs scripts in turn: a JSON list of their
+#: command lines
+_RUN_SCRIPTS = """import json, runpy, sys
+for argv in json.loads(sys.argv[1]):
+    sys.argv = argv
+    runpy.run_path(argv[0], run_name="__main__")
+"""
+
+
+class _Launched:
+    """A job of the port's launcher, started now, read by :meth:`wait`."""
+
+    def __init__(self, n, args, cpu=False, env=None):
+        here = os.path.dirname(os.path.abspath(__file__))
+        cmd = [sys.executable, os.path.join(here, "mxnet_tpu_torch", "tools",
+                                            "launch.py"), "-n", str(n)] + \
+            (["--cpu"] if cpu else []) + [sys.executable] + \
+            [str(a) for a in args]
+        e = dict(os.environ)
+        e["PYTHONPATH"] = here + os.pathsep + e.get("PYTHONPATH", "")
+        e.update(env or {})
+        self.t0 = time.perf_counter()
+        self.out = self.err = None
+        # a session of its own: a job past its time is killed whole,
+        # the launcher with its workers
+        self._p = subprocess.Popen(cmd, cwd=here, env=e,
+                                   stdout=subprocess.PIPE,
+                                   stderr=subprocess.PIPE, text=True,
+                                   start_new_session=True)
+
+    def wait(self, timeout=240):
+        if self.out is not None:  # read already
+            return self._p.returncode
+        try:
+            out, err = self._p.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            os.killpg(self._p.pid, 9)
+            out, err = self._p.communicate()
+        self.seconds = time.perf_counter() - self.t0
+        self.out, self.err = out, err
+        return self._p.returncode
+
+    def check_ok(self, what, marker=None):
+        """Wait; fail unless the job exited 0 and, given ``marker``, every
+        worker printed ``[worker r] marker``."""
+        rc = self.wait()
+        if rc != 0:
+            log(self.err[-4000:])
+        check(rc == 0, f"{what}: the launcher exited {rc}")
+        for r in range(DIST_WORKERS if marker else 0):
+            check(f"[worker {r}] {marker}" in self.out,
+                  f"{what}: worker {r} did not report {marker!r}")
+        return self
+
+
+def dist_checks_start(workdir):
+    """Start the distributed checks that are not timed, at once: on the
+    card, one launch whose 2 workers run ``dist_kvstore``'s two scripts
+    and then the Trainer's card runs; with ``--cpu``, the Trainer's host
+    runs.  Returns ``{check: job}``; :func:`dist_probe_phase` runs while
+    they do (the native shard was built with the kernels)."""
+    def trainer(side):
+        return [DIST_TRAINER_WORKER, "torch", os.path.join(workdir, side),
+                *DIST_TRAINER_RUNS[side]]
+
+    card = _Launched(DIST_WORKERS, ["-c", _RUN_SCRIPTS, json.dumps([
+        [os.path.join("tests", "torch_dist_sync_kvstore.py")],
+        [os.path.join("tests", "torch_dist_async_worker.py")],
+        trainer("card")])], env={"OMP_NUM_THREADS": "2"})
+    host = _Launched(DIST_WORKERS, trainer("host"), cpu=True,
+                     env={"OMP_NUM_THREADS": "2"})
+    return {"kvstore": card, "trainer_card": card, "trainer_host": host}
+
+
+def dist_probe_phase():
+    """Step 0's answers (``dist_probe``), with the native shard required."""
+    res = dist_probe()
+    emit(res)
+    check(res["gloo_available"] and all(
+        s == "ok" for s in res["gloo_cuda_two_ranks"]),
+          f"dist_probe: gloo on cuda:0: {res['gloo_cuda_two_ranks']}")
+    check(os.path.exists(str(res["ps_native_build"])),
+          f"dist_probe: the native shard did not build: "
+          f"{res['ps_native_build']}")
+    return res
+
+
+def _trained(arrays):
+    """The parameter names of a trainer worker's arrays."""
+    return [n for n in arrays if ":" not in n]
+
+
+def _param_change_err(card, host):
+    """Each parameter's change from its start on the card against the
+    host's: the largest of max|dc - dh| / max|dh|."""
+    import numpy as onp
+
+    worst = 0.0
+    for name in _trained(host):
+        start = host["init:" + name]
+        dh, dc = host[name] - start, card[name] - start
+        scale = max(float(onp.abs(dh).max()), 1e-12)
+        worst = max(worst, float(onp.abs(dc - dh).max()) / scale)
+    return worst
+
+
+def _example_step_errs(cards, hosts, refs):
+    """CUDA_CPU_TOL on one fp32 step from the same weights on each of
+    several batches, as the zoo nets' card-vs-host steps hold it (one
+    batch is a single draw of fp32 noise, and the host's luckiest
+    reading of one parameter would set the card's limit): each
+    card run's (``cards``, ``{run: [arrays a batch]}``) and the host's
+    update of each parameter against the float64 step's (``refs``), as
+    norms relative to the float64 update, each the median over the
+    batches; parameters whose float64 update is below INERT_SHARE of
+    the whole are not held.  ``{run: readings}``."""
+    import statistics
+
+    import numpy as onp
+
+    check(len(refs) > 1 and len(hosts) == len(refs) and all(
+        len(runs) == len(refs) for runs in cards.values()),
+          f"the example step's batches: {len(refs)} float64, "
+          f"{len(hosts)} host, { {k: len(v) for k, v in cards.items()} }")
+
+    def upd(a, n):
+        return a[n].astype("float64") - a["init:" + n]
+
+    ref_upd = [{n: upd(r, n) for n in _trained(r)} for r in refs]
+    moved = {n: float(onp.linalg.norm(u)) for n, u in ref_upd[0].items()}
+    whole = math.sqrt(sum(v * v for v in moved.values()))
+    held = [n for n, v in moved.items() if v >= INERT_SHARE * whole]
+
+    def median_errs(runs):
+        per = [{n: float(onp.linalg.norm(upd(a, n) - ru[n])
+                         / max(onp.linalg.norm(ru[n]), 1e-30))
+                for n in held} for a, ru in zip(runs, ref_upd)]
+        return {n: statistics.median(e[n] for e in per) for n in held}
+
+    host = median_errs(hosts)
+    out = {}
+    for run, runs in cards.items():
+        card = median_errs(runs)
+        over = {n: (card[n], host[n]) for n in held
+                if card[n] > 2 * host[n] + 1e-3}
+        losses = [(float(c["loss:steps"][0]), float(h["loss:steps"][0]),
+                   float(r["loss:steps"][0]))
+                  for c, h, r in zip(runs, hosts, refs)]
+        worst = max(held, key=lambda n: card[n] - (2 * host[n] + 1e-3))
+        out[run] = {
+            "batches": len(runs), "losses_cuda_cpu_f64": losses,
+            "loss_rel": max(abs(c - h) / abs(h) for c, h, _ in losses),
+            "update_err_cuda_vs_f64_max": max(card.values()),
+            "update_err_cpu_vs_f64_max": max(host.values()),
+            "closest_to_limit": {"param": worst, "cuda_vs_f64": card[worst],
+                                 "cpu_vs_f64": host[worst]},
+            "params_checked": len(held),
+            "not_held_inert": len(moved) - len(held),
+            "over_limit": {n: list(v) for n, v in list(over.items())[:8]}}
+    return out
+
+
+def dist_trainer_phase(workdir, jobs):
+    """The distributed Trainer on the card against ``--cpu`` (2 workers
+    a side, ``DIST_TRAINER_RUNS``): the float64 runs' parameter changes
+    within CUDA_CPU_F64_TOL, with ``update_on_kvstore`` False and True,
+    the card's replicas equal bit for bit; the example's fp32 step with
+    PyTorch's convolutions within CUDA_CPU_TOL, with cuDNN's read."""
+    import numpy as onp
+
+    for side in DIST_TRAINER_RUNS:
+        jobs[f"trainer_{side}"].check_ok(f"dist trainer {side}",
+                                         "torch trainer OK")
+
+    def load(side, run, r=0, tag=""):
+        """A worker's arrays, read once (an ``NpzFile`` reads its zip
+        member again on every lookup)."""
+        with onp.load(os.path.join(workdir,
+                                   f"{side}.{run}{tag}.r{r}.npz")) as f:
+            return dict(f)
+
+    out = {"phase": "dist_trainer", "workers": DIST_WORKERS,
+           "seconds": [jobs[f"trainer_{s}"].seconds
+                       for s in DIST_TRAINER_RUNS],
+           # each run's seconds on worker 0, as the worker prints them
+           "run_seconds": {side: dict(
+               ln.split()[2:4] for ln in jobs[f"trainer_{side}"].out
+               .splitlines() if ln.startswith("[worker 0] ")
+               and ln.endswith(" s")) for side in DIST_TRAINER_RUNS}}
+    for run in ("f64", "f64_uokv"):
+        got = [load("card", run, r) for r in range(DIST_WORKERS)]
+        out[run] = {
+            "max_change_rel_err": _param_change_err(got[0],
+                                                    load("host", run)),
+            "bound": CUDA_CPU_F64_TOL,
+            # rank 1 wrote each parameter's SHA-256
+            "replicas_equal": all(
+                hashlib.sha256(got[0][n].tobytes()).hexdigest()
+                == str(got[1][n]) for n in _trained(got[0]))}
+    def batches(side, run):
+        """The run's batches, as many as the worker's ``RUNS`` says."""
+        n = len(glob.glob(os.path.join(workdir, f"{side}.{run}.b*.r0.npz")))
+        return [load(side, run, tag=f".b{b}") for b in range(n)]
+
+    exs = _example_step_errs(
+        {run: batches("card", run) for run in ("fp32_example_native",
+                                               "fp32_example")},
+        batches("host", "fp32_example"), batches("host", "f64_example"))
+    ex = exs["fp32_example_native"]
+    out["fp32_example_native"] = dict(ex, tol=CUDA_CPU_TOL, held=True)
+    out["fp32_example"] = dict(exs["fp32_example"], tol=CUDA_CPU_TOL,
+                               held=False)
+    emit(out)
+    for run in ("f64", "f64_uokv"):
+        check(out[run]["replicas_equal"],
+              f"dist trainer {run}: the card's two replicas differ")
+        check(out[run]["max_change_rel_err"] <= CUDA_CPU_F64_TOL,
+              f"dist trainer {run}: card vs host change "
+              f"{out[run]['max_change_rel_err']} > {CUDA_CPU_F64_TOL}")
+    check(ex["loss_rel"] <= CUDA_CPU_TOL["loss"] and not ex["over_limit"],
+          f"dist trainer fp32 example step (PyTorch's convolutions): loss "
+          f"rel {ex['loss_rel']}; "
+          f"over 2 x host + 1e-3 (card, host): {ex['over_limit']}")
+    return out
+
+
+def dist_cifar10_phase(workdir):
+    """``example/distributed_training/cifar10_dist.py`` at its defaults
+    (ResNet-18 v1, 3×32×32, batch 64 a worker, lr 0.05, 30 steps) with
+    the port's launcher starting 2 workers on ``cuda:0``, each running
+    the example under ``dist_sync`` (the Trainer all-reduces, each
+    worker updates), then under ``dist_async`` (the parameter server's
+    shards update): one warm start, nothing else on the card."""
+    import numpy as onp
+
+    example = os.path.join("mxnet_tpu_torch", "example",
+                           "distributed_training", "cifar10_dist.py")
+    prefix = os.path.join(workdir, "cifar")
+    job = _Launched(DIST_WORKERS, ["-c", _RUN_SCRIPTS, json.dumps([
+        [example, "--synthetic", "--kvstore", kv, "--out", f"{prefix}_{kv}"]
+        for kv in ("dist_sync", "dist_async")])])
+    job.check_ok("cifar10_dist")
+    runs = {}
+    for kv in ("dist_sync", "dist_async"):
+        reps = []
+        for r in range(DIST_WORKERS):
+            with open(f"{prefix}_{kv}.r{r}.json") as f:
+                reps.append(json.load(f))
+        params = [onp.load(f"{prefix}_{kv}.r{r}.npz") for r in
+                  range(DIST_WORKERS)]
+        for rep in reps:
+            check(all(math.isfinite(v) for v in rep["losses"]),
+                  f"cifar10_dist {kv}: a loss is not finite: "
+                  f"{rep['losses']}")
+            check(rep["device"] == "gpu(0)" and rep["backend"] == "gloo",
+                  f"cifar10_dist {kv}: {rep['device']} {rep['backend']}")
+        trained = [n for n in params[0].files if "running_" not in n]
+        unequal = [n for n in trained
+                   if not onp.array_equal(params[0][n], params[1][n])]
+        if kv == "dist_sync":
+            check(not unequal, f"cifar10_dist: the workers' parameters "
+                               f"differ: {unequal[:5]}")
+        else:
+            check(all(rep["shard"] == "native" for rep in reps),
+                  f"cifar10_dist async: shard {[r['shard'] for r in reps]}")
+        runs[kv] = {
+            "img_s_all_workers": reps[0]["img_s_all_workers"],
+            "ms_per_step": [rep["ms_per_step"] for rep in reps],
+            "trainer_step_host_ms": [rep["trainer_step_host_ms"]
+                                     for rep in reps],
+            "wire_bytes_per_step": reps[0]["wire_bytes_per_step"],
+            "backend": reps[0]["backend"], "shard": reps[0]["shard"],
+            "losses_rank0": [round(v, 4) for v in reps[0]["losses"]],
+            "replicas_unequal": len(unequal)}
+        log(f"[dist_cifar10] {kv}: {runs[kv]['img_s_all_workers']:.1f} "
+            f"img/s over both workers, {runs[kv]['ms_per_step']} ms/step, "
+            f"trainer.step host {runs[kv]['trainer_step_host_ms']} ms, "
+            f"{runs[kv]['wire_bytes_per_step']} wire B/step, shard "
+            f"{runs[kv]['shard']}")
+    out = {"phase": "dist_cifar10", "workers": DIST_WORKERS,
+           "config": "get_resnet(1, 18, classes=10), 3x32x32, batch 64 a "
+                     "worker, lr 0.05, 30 steps, synthetic",
+           **runs, "seconds": job.seconds}
+    emit(out)
+    return out
+
+
+def dist_kvstore_phase(jobs):
+    """``tests/torch_dist_sync_kvstore.py``'s closed-form invariants
+    (sums over rounds and dtypes, the server's dtypes, 2-bit compression
+    and its residual, ``set_optimizer`` on the server shards, the server
+    profiler) and ``tests/torch_dist_async_worker.py``'s closed-form
+    total, each with 2 workers on ``cuda:0`` (``jobs["kvstore"]``, started
+    by :func:`dist_checks_start`)."""
+    job = jobs["kvstore"]
+    job.check_ok("dist_sync_kvstore", "dist_sync_kvstore OK")
+    job.check_ok("dist_async_worker", "dist_async OK")
+    out = {"phase": "dist_kvstore", "workers": DIST_WORKERS,
+           "sync_ok": job.out.count("dist_sync_kvstore OK"),
+           "async_ok": job.out.count("dist_async OK"),
+           "native_shards": job.out.count("shard native"),
+           # the launch, the Trainer's card runs after the scripts
+           "seconds": job.seconds}
+    emit(out)
+    check(out["sync_ok"] == out["async_ok"] == DIST_WORKERS,
+          f"dist_kvstore: {out}")
+    check(out["native_shards"] == 2 * DIST_WORKERS,
+          f"dist_kvstore: a Python shard served on the card path: {out}")
+    return out
+
+
+#: the rules new in the optimizer's registry, as the CPU tests drive them
+NEW_RULES = {
+    "test": dict(), "adadelta": dict(rho=0.9, epsilon=1e-5),
+    "adamax": dict(learning_rate=0.01), "nadam": dict(learning_rate=0.01),
+    "ftrl": dict(learning_rate=0.1, lamda1=0.01),
+    "ftml": dict(learning_rate=0.01),
+    "lbsgd": dict(learning_rate=0.1, momentum=0.9),
+    "dcasgd": dict(learning_rate=0.1, momentum=0.9),
+    "sgld": dict(learning_rate=0.05), "groupadagrad": dict(learning_rate=0.1),
+}
+#: the update ops of the registry, 18 names with the alias: (state
+#: inputs, hyper-parameters); each op's outputs are the new weight and
+#: states, in the order of the inputs without the gradient
+UPDATE_OPS = {
+    "sgd_update": (0, dict(lr=0.1, wd=0.01)),
+    "sgd_mom_update": (1, dict(lr=0.1, momentum=0.9, wd=0.01)),
+    "nag_mom_update": (1, dict(lr=0.1, momentum=0.9, wd=0.01)),
+    "adam_update": (2, dict(lr=0.01, wd=0.01, t=3.0)),
+    "rmsprop_update": (1, dict(lr=0.01, gamma1=0.9, clip_weights=0.9)),
+    "rmspropalex_update": (3, dict(lr=0.01, gamma1=0.9, gamma2=0.8)),
+    "ftrl_update": (2, dict(lr=0.1, lamda1=0.01, beta=1.0, wd=0.01)),
+    "signsgd_update": (0, dict(lr=0.01, wd=0.01)),
+    "signum_update": (1, dict(lr=0.01, momentum=0.9, wd_lh=0.01)),
+    "adagrad_update": (1, dict(lr=0.1, wd=0.01)),
+    "_sparse_adagrad_update": (1, dict(lr=0.1)),
+    "_fused_bucket_sgd_mom_update": (1, dict(lr=0.1, momentum=0.9)),
+    "_fused_bucket_adam_update": (2, dict(lr=0.01, t=2.0)),
+    "_fused_bucket_lars_update": (1, dict(lr=0.5, num_segments=7,
+                                          momentum=0.9, wd=0.01,
+                                          lars_eta=0.001,
+                                          lars_epsilon=0.0)),
+}
+#: the multi-tensor ops, as ``tests/test_torch_optimizer_ops.py`` drives
+#: them: three weights of these shapes, their rates and decays
+MULTI_SHAPES = [(4, 3), (7,), (2, 2, 2)]
+MULTI_PARAMS = dict(lrs=[0.1, 0.2, 0.05], wds=[0.0, 0.01, 0.1],
+                    num_weights=3)
+#: ResNet-50's largest bucket (elements), as the kernels phases time it
+RESNET50_BUCKET = 2359296
+
+
+def optimizer_rules_cuda_vs_cpu_phase(seed=0):
+    """The ten new rules and the 18 update-op names, each over 3 steps
+    (the LARS helpers: 3 calls), on ``cuda:0`` against the host on the
+    same inputs (fp32; SGLD with its noise set to 0, its noise itself
+    drawn and checked for variance ``lr``), within 1e-6 of each tensor's
+    largest magnitude (``OPT_RULE_TOL``); then the
+    three ``_pallas_bucket_*`` registry ops at ResNet-50's largest
+    bucket, the kernels' launches counted by name, each result bit for
+    bit the kernel's own call (``bucket_update``) on the same inputs."""
+    import numpy as onp
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import optimizer as opt_mod
+    from mxnet_tpu_torch.ops import pallas_opt as po
+    from mxnet_tpu_torch.optimizer import optimizer as opt_impl
+
+    t0 = time.perf_counter()
+    rng = onp.random.RandomState(seed)
+
+    def rel(a, b):
+        """max|a - b| / max|b|; inf where a value is not finite."""
+        a, b = onp.asarray(a, "float64"), onp.asarray(b, "float64")
+        if not (onp.isfinite(a).all() and onp.isfinite(b).all()):
+            return math.inf
+        return float(onp.abs(a - b).max() / max(onp.abs(b).max(), 1e-30))
+
+    rules = {}
+    zero_noise = lambda shape, std, dtype, device, gen: torch.zeros(  # noqa
+        shape, dtype=dtype, device=device)
+    saved = opt_impl.sgld_noise
+    opt_impl.sgld_noise = zero_noise
+    try:
+        for name, kw in NEW_RULES.items():
+            shapes = [(64, 33), (17, 5, 3)] if name == "groupadagrad" \
+                else [(64, 33), (129,)]
+            if name not in ("groupadagrad", "test"):
+                kw = dict(kw, wd=0.01, clip_gradient=0.5, rescale_grad=0.5)
+            ws = [rng.randn(*s).astype("float32") for s in shapes]
+            gs = [[rng.randn(*s).astype("float32") for s in shapes]
+                  for _ in range(3)]
+            outs = {}
+            for dev in ("cuda", "cpu"):
+                ctx = mx.gpu(0) if dev == "cuda" else mx.cpu()
+                up = opt_mod.get_updater(opt_mod.create(name, **kw))
+                w = [mx.nd.array(a, ctx=ctx) for a in ws]
+                for step in range(3):
+                    for i in range(len(ws)):
+                        up(i, mx.nd.array(gs[step][i], ctx=ctx), w[i])
+                states = []
+                for i in range(len(ws)):
+                    st = up.states[i]
+                    st = st if isinstance(st, (tuple, list)) else (st,)
+                    states += [s.asnumpy() for s in st]
+                outs[dev] = ([a.asnumpy() for a in w], states,
+                             w[0]._data.device.type)
+            check(outs["cuda"][2] == "cuda", f"{name}: not on the card")
+            rules[name] = max(rel(a, b) for a, b in zip(
+                outs["cuda"][0] + outs["cuda"][1],
+                outs["cpu"][0] + outs["cpu"][1]))
+    finally:
+        opt_impl.sgld_noise = saved
+    mx.random.seed(seed)
+    w = mx.nd.zeros((512, 512), ctx=mx.gpu(0))
+    opt_mod.create("sgld", learning_rate=0.04).update(
+        0, w, mx.nd.zeros((512, 512), ctx=mx.gpu(0)), ())
+    sgld_var = float(w.asnumpy().var()) / 0.04
+    def on_both(name, arrays, params):
+        """``name`` on the card and on the host: (card, host) outputs."""
+        res = []
+        for ctx in (mx.gpu(0), mx.cpu()):
+            out = getattr(mx.nd, name)(*[mx.nd.array(a, ctx=ctx)
+                                         for a in arrays], **params)
+            res.append([o.asnumpy() for o in (out if isinstance(
+                out, (list, tuple)) else [out])])
+        return res
+
+    def three_steps(name, n_w, n_state, params, draw, extra=()):
+        """3 steps of an update op on each side, each with a fresh
+        gradient and the outputs fed back; ``n_w`` weights, then their
+        gradients, states and ``extra`` inputs.  The largest error over
+        the steps' outputs."""
+        weights = draw(n_w)
+        states = [a for k in range(n_state) for a in draw(n_w, state=k)]
+        sides = {"cuda": (weights, states), "cpu": (weights, states)}
+        worst = 0.0
+        for _ in range(3):
+            grads = draw(n_w)
+            outs = {}
+            for dev, (w, st) in sides.items():
+                ctx = mx.gpu(0) if dev == "cuda" else mx.cpu()
+                out = getattr(mx.nd, name)(*[mx.nd.array(a, ctx=ctx) for a in
+                                             (*w, *grads, *st, *extra)],
+                                           **params)
+                out = [o.asnumpy() for o in (out if isinstance(
+                    out, (list, tuple)) else [out])]
+                outs[dev] = out
+                sides[dev] = (out[:n_w], out[n_w:])
+            worst = max([worst] + [rel(a, b) for a, b in zip(outs["cuda"],
+                                                          outs["cpu"])])
+        return worst
+
+    def draw_like(shapes):
+        def draw(n, state=None):
+            """``n`` arrays of ``shapes`` in turn: normal, or the
+            ``state``-th state, positive and smaller for later ones
+            (RMSPropAlex's mean square stays above its mean's square)."""
+            arrays = [rng.randn(*shapes[i % len(shapes)]) for i in range(n)]
+            if state is not None:
+                arrays = [onp.abs(a) * 0.1 ** (state + 1)
+                          + (0.1 if state == 0 else 0.0) for a in arrays]
+            return [a.astype("float32") for a in arrays]
+        return draw
+
+    ops = {}
+    prep = dict(rescale_grad=0.5, clip_gradient=0.8)
+    for name, (n_state, params) in UPDATE_OPS.items():
+        extra = ()
+        if name == "_fused_bucket_lars_update":
+            extra = (onp.sort(rng.randint(0, 7, 360)).astype("int32"),)
+        ops[name] = three_steps(name, 1, n_state, dict(params, **prep),
+                                draw_like([(40, 9)] if not extra
+                                          else [(360,)]), extra)
+    for name, n_state in (("multi_sgd_update", 0),
+                          ("multi_sgd_mom_update", 1)):
+        params = dict(MULTI_PARAMS, **prep)
+        if n_state:
+            params["momentum"] = 0.9
+        ops[name] = three_steps(name, 3, n_state, params,
+                                draw_like(MULTI_SHAPES))
+    # the LARS helpers: three calls each on fresh inputs
+    ops["multi_sum_sq"] = ops["multi_lars"] = 0.0
+    for _ in range(3):
+        arrays = [rng.randn(5, 4).astype("float32"),
+                  rng.randn(9).astype("float32") * 3]
+        card, host = on_both("multi_sum_sq", arrays, dict(num_arrays=2))
+        ops["multi_sum_sq"] = max(ops["multi_sum_sq"], rel(card[0], host[0]))
+        norms = [rng.uniform(0.1, 0.3, 3), onp.abs(rng.randn(3)) * 9,
+                 onp.abs(rng.randn(3)) * 2, rng.uniform(0, 0.1, 3)]
+        norms[1][1] = 0.0  # a zero norm takes the rate unchanged
+        card, host = on_both("multi_lars",
+                             [a.astype("float32") for a in norms],
+                             dict(eta=0.001, eps=1e-8, rescale_grad=0.5))
+        ops["multi_lars"] = max(ops["multi_lars"], rel(card[0], host[0]))
+    # the registry's bucket-kernel ops at ResNet-50's largest bucket
+    dev = torch.device("cuda", 0)
+    n = RESNET50_BUCKET
+    g = torch.Generator(device=dev).manual_seed(seed)
+    w, gr, m = (torch.randn(n, generator=g, device=dev) for _ in range(3))
+    v = torch.rand(n, generator=g, device=dev) * 0.1
+    seg = torch.sort(torch.randint(0, 24, (n,), generator=g, device=dev,
+                                   dtype=torch.int32))[0]
+    calls = {
+        "_pallas_bucket_sgd_mom_update": ([w, gr, m], dict(
+            lr=0.1, momentum=0.9, wd=1e-4)),
+        "_pallas_bucket_adam_update": ([w, gr, m, v], dict(lr=0.001,
+                                                            wd=1e-4)),
+        "_pallas_bucket_lars_update": ([w, gr, m, seg], dict(
+            lr=0.1, num_segments=24, momentum=0.9, wd=1e-4)),
+    }
+    counters = {k: c for o in ("sgd", "adam", "lars")
+                for k, c in bucket_counters(o).items()}
+    for wrapper, attr in counters.values():
+        setattr(wrapper, attr, 0)
+    got = {name: getattr(mx.nd, name)(*[mx.nd.NDArray(a) for a in args],
+                                       **kw)
+           for name, (args, kw) in calls.items()}
+    torch.cuda.synchronize()
+    launches = {k: getattr(wr, attr) for k, (wr, attr) in counters.items()}
+    bits = {}
+    for name, (args, kw) in calls.items():
+        kind = name.split("_")[3]
+        params = {k: kw[k] for k in ("lr", "momentum", "wd") if k in kw}
+        opt = po._mk_opt({"sgd": "sgd_mom"}.get(kind, kind), params)
+        state = tuple(args[2:4]) if kind == "adam" else (args[2],)
+        seg_arg = (args[3], 24) if kind == "lars" else None
+        new_w, new_state, _ = po.bucket_update(opt, args[0], args[1], state,
+                                               1.0, seg=seg_arg)
+        want = [new_w, *new_state]
+        bits[name] = all(torch.equal(a._data, b)
+                         for a, b in zip(got[name], want))
+    out = {"phase": "optimizer_rules_cuda_vs_cpu", "rules_max_rel": rules,
+           "ops_max_rel": ops, "bound": OPT_RULE_TOL,
+           "sgld_noise_var_over_lr": sgld_var,
+           "bucket_ops_elements": n, "bucket_ops_launches": launches,
+           "bucket_ops_bit_equal": bits,
+           "seconds": time.perf_counter() - t0}
+    emit(out)
+    bad = {k: v for k, v in {**rules, **ops}.items()
+           if not v <= OPT_RULE_TOL}
+    check(not bad, f"optimizer_rules_cuda_vs_cpu: over {OPT_RULE_TOL}: {bad}")
+    check(abs(sgld_var - 1.0) < 0.05, f"SGLD noise variance {sgld_var}")
+    check(all(bits.values()), f"bucket ops differ from the kernels: {bits}")
+    check(launches["bucket_sgd_mom"] == launches["bucket_adam"] == 1
+          and launches["bucket_lars_norms"] == 1
+          and launches["bucket_lars_update"] == 1,
+          f"bucket ops launched {launches}")
+    return out
+
+
+#: the card's fp32 update rules against the host's, relative to each
+#: tensor's largest magnitude (the CPU tests' bound between packages)
+OPT_RULE_TOL = 1e-6
+#: the SSD-300 recipe fed by ImageDetRecordIter: the corpus and the run
+SSD_REC = dict(images=512, max_boxes=8, warmup=2, steps=10,
+               iterator_batches=8, io_workers=4)
+
+
+def write_det_corpus(path, n, seed=0, hw=DATA_HW, quality=90,
+                     max_boxes=8, classes=20):
+    """A detection ``.rec`` of ``n`` JPEGs encoded on the card by nvJPEG
+    (as :func:`write_corpus`), each with 1..``max_boxes`` boxes:
+    ``[2, 5, (id, xmin, ymin, xmax, ymax)...]``, normalised corners."""
+    import numpy as onp
+    import torch
+
+    from mxnet_tpu_torch import recordio
+    from mxnet_tpu_torch.io import nvjpeg
+
+    dev = torch.device("cuda", 0)
+    enc = nvjpeg.decoder(dev)
+    rng = onp.random.RandomState(seed)
+    w = recordio.MXRecordIO(path, "w")
+    try:
+        for i0 in range(0, n, 256):
+            for j, img in enumerate(smooth_images(min(256, n - i0), hw,
+                                                  seed + i0, dev)):
+                k = rng.randint(1, max_boxes + 1)
+                x0, y0 = rng.uniform(0, 0.6, (2, k))
+                box = onp.stack([rng.randint(0, classes, k), x0, y0,
+                                 x0 + rng.uniform(0.1, 0.4, k),
+                                 y0 + rng.uniform(0.1, 0.4, k)], 1)
+                lab = onp.concatenate([[2, 5], box.reshape(-1)])
+                w.write(recordio.pack(recordio.IRHeader(
+                    0, lab.astype("float32"), i0 + j, 0),
+                    enc.encode(img, quality, 2)))
+    finally:
+        w.close()
+
+
+def ssd_rec_phase(workdir, seed=0):
+    """``example/train_ssd.py --rec``: SSD-300 at ``SSD300``'s settings
+    (batch 32, 300², 20 classes) fed by ``ImageDetRecordIter`` (PIL
+    decode and resize on the host's workers, the device feed) from a
+    corpus of 512 synthetic 500×375 JPEGs with 1–8 boxes each: 2 + 10
+    fed steps against 10 steps on a resident batch (CUDA events), the
+    iterator's ``feed_wait_s``, the iterator alone with 0 and 4 workers;
+    labels ``(32, max_objects, 5)`` on ``cuda:0`` padded with -1, and the
+    mirror's remap checked on a fixed draw."""
+    import numpy as onp
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.example import train_ssd
+
+    cfg, sr = SSD300, SSD_REC
+    ctx = mx.gpu(0)
+    t_phase = time.perf_counter()
+    path = os.path.join(workdir, "det.rec")
+    t0 = time.perf_counter()
+    write_det_corpus(path, sr["images"], seed, max_boxes=sr["max_boxes"],
+                     classes=cfg["num_classes"])
+    write_s = time.perf_counter() - t0
+    shape = (3, cfg["data_shape"], cfg["data_shape"])
+    # the mirror on a fixed draw: flipped images have remapped boxes
+    plain = mx.io.ImageDetRecordIter(path_imgrec=path, data_shape=shape,
+                                     batch_size=8, ctx=mx.cpu())
+    mirr = mx.io.ImageDetRecordIter(path_imgrec=path, data_shape=shape,
+                                    batch_size=8, rand_mirror=True, seed=3,
+                                    ctx=mx.cpu())
+    try:
+        pb, mb = next(plain), next(mirr)
+    finally:
+        plain.close()
+        mirr.close()
+    pd, pl = pb.data[0].asnumpy(), pb.label[0].asnumpy()
+    md, ml = mb.data[0].asnumpy(), mb.label[0].asnumpy()
+    flipped, mirror_ok = 0, True
+    for k in range(len(pd)):
+        if onp.array_equal(md[k], pd[k]):
+            mirror_ok &= bool(onp.array_equal(ml[k], pl[k]))
+            continue
+        flipped += 1
+        valid = pl[k][:, 0] >= 0
+        mirror_ok &= bool(onp.array_equal(md[k], pd[k][:, :, ::-1])
+                          and onp.allclose(ml[k][valid, 1],
+                                           1 - pl[k][valid, 3])
+                          and onp.allclose(ml[k][valid, 3],
+                                           1 - pl[k][valid, 1]))
+    onp.random.seed(seed)  # the initializer's draws
+    net, trainer = train_ssd.build(cfg["num_classes"], cfg["lr"],
+                                   cfg["momentum"], cfg["wd"],
+                                   cfg["data_shape"], ctx, cfg["network"])
+    it = mx.io.ImageDetRecordIter(path_imgrec=path, data_shape=shape,
+                                  batch_size=cfg["batch"], ctx=ctx,
+                                  rand_mirror=True, shuffle=True,
+                                  io_workers=SSD_REC["io_workers"])
+    losses = []
+    try:
+        x, y = train_ssd.next_batch(it, ctx)
+        lab_shape, lab_dev = tuple(y.shape), str(y._data.device)
+        yl = y.asnumpy()
+        padded = bool((yl[yl[..., 0] < 0] == -1).all())
+        for _ in range(sr["warmup"]):
+            losses.append(train_ssd.step(net, trainer, x, y,
+                                         cfg["num_classes"]))
+            x, y = train_ssd.next_batch(it, ctx)
+        it_stats0 = it.stats()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for i in range(sr["steps"]):
+            losses.append(train_ssd.step(net, trainer, x, y,
+                                         cfg["num_classes"]))
+            if i + 1 < sr["steps"]:
+                x, y = train_ssd.next_batch(it, ctx)
+        end.record()
+        end.synchronize()
+        fed_ms = start.elapsed_time(end) / sr["steps"]
+        stats = it.stats()
+    finally:
+        it.close()
+    start.record()
+    for _ in range(sr["steps"]):
+        losses.append(train_ssd.step(net, trainer, x, y, cfg["num_classes"]))
+    end.record()
+    end.synchronize()
+    resident_ms = start.elapsed_time(end) / sr["steps"]
+    losses = [float(v.asnumpy()) for v in losses]
+    alone = {}
+    for workers in (0, 4):
+        it = mx.io.ImageDetRecordIter(path_imgrec=path, data_shape=shape,
+                                      batch_size=cfg["batch"], ctx=ctx,
+                                      io_workers=workers)
+        try:
+            next(it)
+            t0 = time.perf_counter()
+            for _ in range(sr["iterator_batches"]):
+                b = next(it)
+            torch.cuda.synchronize()
+            alone[workers] = cfg["batch"] * sr["iterator_batches"] / (
+                time.perf_counter() - t0)
+        finally:
+            it.close()
+    waited = stats["consumer_wait_s"] - it_stats0["consumer_wait_s"]
+    out = {"phase": "ssd_rec", "corpus": {
+               "images": sr["images"], "hw": list(DATA_HW),
+               "boxes": f"1-{sr['max_boxes']}", "write_s": write_s},
+           "batch": cfg["batch"], "data_shape": cfg["data_shape"],
+           "fed_ms_per_step": fed_ms,
+           "fed_img_s": cfg["batch"] * 1e3 / fed_ms,
+           "resident_ms_per_step": resident_ms,
+           "resident_img_s": cfg["batch"] * 1e3 / resident_ms,
+           "feed_wait_s_per_batch": waited / sr["steps"],
+           "iterator_alone_img_s": alone,
+           "label_shape": lab_shape, "label_device": lab_dev,
+           "labels_padded_minus_1": padded,
+           "mirror": {"flipped": flipped, "remap_ok": mirror_ok},
+           "losses": [round(v, 4) for v in losses],
+           "seconds": time.perf_counter() - t_phase}
+    emit(out)
+    check(lab_shape[0] == cfg["batch"] and lab_shape[2] == 5
+          and lab_shape[1] >= sr["max_boxes"] - 1 and
+          lab_dev == "cuda:0" and padded,
+          f"ssd_rec: labels {lab_shape} on {lab_dev}, padded {padded}")
+    check(flipped > 0 and mirror_ok, f"ssd_rec: mirror {out['mirror']}")
+    check(all(math.isfinite(v) for v in losses),
+          f"ssd_rec: a loss is not finite: {losses}")
+    return out
+
+
+def write_idx(path, arr):
+    """An IDX file of the uint8 array ``arr``."""
+    import struct
+
+    with open(path, "wb") as f:
+        f.write(struct.pack(">I", 0x0800 | arr.ndim)
+                + struct.pack(">" + "I" * arr.ndim, *arr.shape)
+                + arr.astype("uint8").tobytes())
+
+
+def mnist_data_dir_phase(workdir):
+    """``example/train_mnist.py --data-dir`` on ``mx.gpu(0)`` over IDX
+    files the phase writes from the reference's synthetic digits
+    (``synth(4096, 1)`` / ``synth(512, 2)``, rounded to uint8): 2 epochs,
+    validation accuracy at least ``gluon_lenet``'s 0.95."""
+    import numpy as onp
+    import torch
+
+    from mxnet_tpu_torch.example import train_mnist
+
+    t0 = time.perf_counter()
+    root = os.path.join(workdir, "mnist")
+    os.makedirs(root, exist_ok=True)
+    for split, n, seed in (("train", 4096, 1), ("t10k", 512, 2)):
+        ds = train_mnist.synth(n, seed)
+        x = onp.stack([ds[i][0] for i in range(n)])[..., 0]
+        y = onp.array([ds[i][1] for i in range(n)])
+        write_idx(os.path.join(root, f"{split}-images-idx3-ubyte"),
+                  onp.round(onp.clip(x, 0, 1) * 255))
+        write_idx(os.path.join(root, f"{split}-labels-idx1-ubyte"), y)
+    onp.random.seed(0)  # the sampler's shuffle
+    torch.manual_seed(0)
+    res = train_mnist.main(["--data-dir", root, "--epochs",
+                            str(LENET["epochs"]), "--batch-size",
+                            str(LENET["batch_size"]), "--lr",
+                            str(LENET["lr"])])
+    out = {"phase": "mnist_data_dir", "network": "lenet",
+           "epochs_loss_acc": res["epochs"], "val_acc": res["val_acc"],
+           "ms_per_step": res["ms_per_step"], "steps": res["steps"],
+           "seconds": time.perf_counter() - t0}
+    emit(out)
+    check(res["val_acc"] >= LENET["min_val_acc"],
+          f"mnist_data_dir: validation accuracy {res['val_acc']}")
+    return out
 
 
 # ------------------------------------------------- the symbolic half

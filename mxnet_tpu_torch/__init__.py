@@ -33,8 +33,12 @@ log, spans, watchdog and numerics monitor, :mod:`~mxnet_tpu_torch.
 profiler` on ``torch.profiler``) and the data plane that feeds them
 (:mod:`~mxnet_tpu_torch.recordio`, ``mx.io``'s iterators and device
 feed, ``ImageRecordIter`` decoding on the card, :mod:`~mxnet_tpu_torch.
-image`, the DataLoader's workers, the single-process ``mx.kv``), with
-what they run.
+image`, the DataLoader's workers, the single-process ``mx.kv``) and the
+optimizer and the distributed store (the rest of
+:mod:`~mxnet_tpu_torch.optimizer` and the update ops, ``mx.kv``'s
+``dist_*`` stores on gloo and the TCP parameter server, the launcher
+``tools/launch.py``, the distributed Trainer, ``ImageDetRecordIter``,
+``gluon.data.vision``), with what they run.
 """
 __version__ = "0.1.0"
 

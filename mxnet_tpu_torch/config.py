@@ -115,7 +115,25 @@ register_env("MXNET_KVSTORE_BIGARRAY_BOUND", 1000000, int,
              "Flat-bucket split threshold (elements) of the sharded-"
              "server exchange (optimizer_sharding='ps', parallel.zero): "
              "a bucket closes once the next parameter would push it "
-             "past this many elements.")
+             "past this many elements; and the bound above which a "
+             "compressed push to the parameter server is sliced into "
+             "bound-sized shards, each with its own residual.")
+register_env("MXNET_DEFAULT_CTX", "gpu", str,
+             "The default context of entry points: 'gpu' (cuda:0), or "
+             "'cpu' for the host (the launcher's --cpu sets it for its "
+             "workers, as the reference's sets JAX_PLATFORMS=cpu).")
+register_env("MXNET_PS_DEADLINE_SEC", 600.0, float,
+             "Parameter-server wait deadline (seconds) for sync "
+             "round-skew waits, pull readiness waits and the client's "
+             "total retry budget.  Lower it so fault-injection tests "
+             "fail in seconds; raise it for slow-merge deployments.")
+register_env("MXNET_PS_NATIVE", 1, int,
+             "1: each worker's parameter-server shard is the native C++ "
+             "server (src/ps_server_native.cc, built with g++ on first "
+             "use), else the Python shard; 0: always the Python shard.")
+register_env("MXNET_PS_HEARTBEAT_SEC", 0.3, float,
+             "Seconds between a worker's liveness heartbeats to every "
+             "parameter-server shard (num_dead_node reads them).")
 register_env("MXNET_BAD_STEP_LIMIT", 0, int,
              "Step-level NaN/Inf guard: >0 arms make_train_step's "
              "skip-and-count guard (opt_state['_bad_steps'] counts "

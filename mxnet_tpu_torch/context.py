@@ -92,10 +92,10 @@ def gpu(device_id=0):
 
 
 def current_context() -> Context:
-    """The thread's default context: ``gpu(0)`` unless a ``with ctx:``
-    scope set another."""
+    """The thread's default context: :func:`default_device` unless a
+    ``with ctx:`` scope set another."""
     ctx = getattr(Context._default_ctx, "value", None)
-    return ctx if ctx is not None else Context("gpu", 0)
+    return ctx if ctx is not None else default_device()
 
 
 def num_gpus():
@@ -113,11 +113,15 @@ def from_torch_device(dev: torch.device) -> Context:
 
 
 def default_device():
-    return gpu(0)
+    """``gpu(0)``; ``cpu(0)`` where ``MXNET_DEFAULT_CTX=cpu`` (what the
+    launcher's ``--cpu`` sets for its workers)."""
+    from .config import get_env
+
+    return cpu(0) if get_env("MXNET_DEFAULT_CTX") == "cpu" else gpu(0)
 
 
 def resolve_device(device=None):
-    """``None`` -> ``cuda:0``; a :class:`Context`, a string or a
+    """``None`` -> :func:`default_device` (``cuda:0``); a :class:`Context`, a string or a
     ``torch.device`` is taken as given.  A CUDA device on a host whose
     torch sees no card raises."""
     if device is None:

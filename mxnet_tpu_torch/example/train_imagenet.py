@@ -64,6 +64,12 @@ def build(args):
     Xavier-initialised (numpy's global RNG, as the reference's) with its
     shapes resolved by one forward, and the train step."""
     ctx = mx.gpu(0) if args.ctx == "gpu" else mx.cpu()
+    if args.kv_store.startswith("dist"):
+        # the reference's fused step spans processes on a global mesh
+        raise mx.MXNetError(
+            f"--kv-store {args.kv_store}: the fused train step across "
+            "worker processes is not ported yet (ROADMAP §A 11); the "
+            "Gluon Trainer's dist stores are (cifar10_dist.py)")
     kv = mx.kv.create(args.kv_store)
     shape = tuple(int(x) for x in args.image_shape.split(","))
     if args.gpus:

@@ -5,9 +5,10 @@ of ``example/image-classification/train_mnist.py``).
     python mxnet_tpu_torch/example/train_mnist.py --network lenet [--ctx cpu]
 
 The same flags as the reference's script, plus ``--ctx`` (``gpu``, the
-default: the first CUDA card; ``cpu``: the host).  Without
-``--data-dir`` it trains on the reference's synthetic digits (class k
-is a bright (k+2)x(k+2) top-left patch over noise).  :func:`train`
+default: the first CUDA card; ``cpu``: the host).  ``--data-dir DIR``
+trains on the MNIST IDX files there (``gluon.data.vision.MNIST``,
+scaled to [0, 1]); without it, on the reference's synthetic digits
+(class k is a bright (k+2)x(k+2) top-left patch over noise).  :func:`train`
 returns the per-epoch losses and accuracies and the step time.
 """
 from __future__ import annotations
@@ -55,6 +56,14 @@ def synth(n, seed):
         k = 2 + y[i]
         x[i, :k, :k, 0] += 0.8
     return gluon.data.ArrayDataset(x, y)
+
+
+def mnist(data_dir):
+    """The training and test sets of the MNIST IDX files in
+    ``data_dir``, as the reference's script reads them."""
+    return tuple(gluon.data.vision.MNIST(
+        root=data_dir, train=train).transform_first(
+        lambda x: x.astype("float32") / 255.0) for train in (True, False))
 
 
 def _on(data, ctx, network):
@@ -135,19 +144,21 @@ def main(argv=None):
     ap.add_argument("--epochs", type=int, default=2)
     ap.add_argument("--lr", type=float, default=0.02)
     ap.add_argument("--data-dir", default=None,
-                    help="directory with the MNIST idx files (not ported "
-                         "yet: the synthetic digits are used without it)")
+                    help="directory with the MNIST idx files")
     ap.add_argument("--ctx", default="gpu", choices=["gpu", "cpu"])
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
+    train_ds = val_ds = None
     if args.data_dir:
-        raise SystemExit("--data-dir: the MNIST dataset is not ported yet "
-                         "(ROADMAP §A item 6)")
-    logging.info("no --data-dir: training on synthetic digits")
+        train_ds, val_ds = mnist(args.data_dir)
+    else:
+        logging.info("no --data-dir: training on synthetic digits")
     ctx = mx.gpu(0) if args.ctx == "gpu" else mx.cpu()
-    res = train(args.network, args.batch_size, args.epochs, args.lr, ctx)
+    res = train(args.network, args.batch_size, args.epochs, args.lr, ctx,
+                train_ds, val_ds)
     logging.info("%.3f ms/step over %d steps", res["ms_per_step"],
                  res["steps"])
+    return res
 
 
 if __name__ == "__main__":

@@ -10,9 +10,11 @@ with SGD): ``MultiBoxTarget`` makes the targets, the loss is softmax
 cross-entropy over them plus an L1 location term, and the script fails
 unless the loss falls.  The reference script's flags, plus ``--ctx``
 (``gpu``, the default: the first CUDA card; ``cpu``: the host) and
-``--data-shape`` (the image side).  ``--rec`` waits for
-``ImageDetRecordIter`` (ROADMAP §A 6) and raises.  :func:`build`,
-:func:`step` and :func:`train` are what other scripts call.
+``--data-shape`` (the image side).  ``--rec FILE`` trains from a
+detection RecordIO corpus instead, through ``mx.io.ImageDetRecordIter``
+(labels padded with -1), its batches fed to the training device.
+:func:`build`, :func:`step` and :func:`train` are what other scripts
+call.
 """
 from __future__ import annotations
 
@@ -29,7 +31,6 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 import mxnet_tpu_torch as mx  # noqa: E402
 from mxnet_tpu_torch import autograd, gluon, nd  # noqa: E402
-from mxnet_tpu_torch.base import MXNetError  # noqa: E402
 
 
 def synthetic_batch(rng, batch_size, num_classes, data_shape=300, ctx=None):
@@ -90,26 +91,50 @@ def step(net, trainer, x, y, num_classes, host_ms=None):
     return loss
 
 
+def next_batch(it, ctx):
+    """The next ``(data, label)`` of the iterator ``it`` on ``ctx``,
+    starting a new epoch at the end of one."""
+    try:
+        batch = next(it)
+    except StopIteration:
+        it.reset()
+        batch = next(it)
+    return batch.data[0].as_in_context(ctx), batch.label[0].as_in_context(ctx)
+
+
 def train(batch_size=8, steps=30, lr=0.004, num_classes=4, data_shape=300,
-          ctx=None, seed=0, log=logging.info):
-    """The reference's loop: a fresh synthetic batch each step.  Returns
-    ``{"losses", "ms_per_step", "net"}``; ``ms_per_step`` is the wall
+          ctx=None, seed=0, log=logging.info, rec=None):
+    """The reference's loop: a fresh synthetic batch each step, or the
+    next batch of ``ImageDetRecordIter`` over the corpus ``rec``.
+    Returns ``{"losses", "ms_per_step", "net"}`` (and ``"feed"``, the
+    iterator's ``stats()``, with ``rec``); ``ms_per_step`` is the wall
     time of the steps, the device synchronized once at the end."""
     ctx = ctx if ctx is not None else mx.gpu(0)
     net, trainer = build(num_classes, lr, data_shape=data_shape, ctx=ctx)
     rng = onp.random.RandomState(seed)
+    it = None if rec is None else mx.io.ImageDetRecordIter(
+        path_imgrec=rec, batch_size=batch_size,
+        data_shape=(3, data_shape, data_shape), ctx=ctx)
     losses = []
     t0 = time.perf_counter()
     for i in range(steps):
-        x, y = synthetic_batch(rng, batch_size, num_classes, data_shape, ctx)
+        if it is not None:
+            x, y = next_batch(it, ctx)
+        else:
+            x, y = synthetic_batch(rng, batch_size, num_classes, data_shape,
+                                   ctx)
         losses.append(step(net, trainer, x, y, num_classes))
         if i % 10 == 0:
             log(f"step {i} multibox loss {float(losses[-1].asnumpy()):.4f}")
     mx.nd.waitall()
     wall = time.perf_counter() - t0
     losses = [float(v.asnumpy()) for v in losses]
-    return {"losses": losses, "ms_per_step": wall / max(steps, 1) * 1e3,
-            "net": net}
+    res = {"losses": losses, "ms_per_step": wall / max(steps, 1) * 1e3,
+           "net": net}
+    if it is not None:
+        res["feed"] = it.stats()
+        it.close()
+    return res
 
 
 def main(argv=None):
@@ -124,12 +149,9 @@ def main(argv=None):
     ap.add_argument("--ctx", default="gpu", choices=["gpu", "cpu"])
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
-    if args.rec:
-        raise MXNetError("--rec needs ImageDetRecordIter, which is not "
-                         "ported yet (ROADMAP §A 6)")
     ctx = mx.gpu(0) if args.ctx == "gpu" else mx.cpu()
     res = train(args.batch_size, args.steps, args.lr, args.num_classes,
-                args.data_shape, ctx)
+                args.data_shape, ctx, rec=args.rec)
     first, last = res["losses"][0], res["losses"][-1]
     logging.info("loss %.4f -> %.4f, %.1f ms/step", first, last,
                  res["ms_per_step"])

@@ -3,3 +3,4 @@ samplers and the ``DataLoader``, which batches on the host."""
 from .dataloader import *  # noqa: F401,F403
 from .dataset import *  # noqa: F401,F403
 from .sampler import *  # noqa: F401,F403
+from . import vision  # noqa: F401

@@ -1,8 +1,7 @@
 """Datasets (counterpart of ``mxnet_tpu/gluon/data/dataset.py``):
 ``Dataset`` with ``transform``/``transform_first``/``filter``/
 ``shard``/``take``/``sample``, ``SimpleDataset``, ``ArrayDataset`` and
-``RecordFileDataset``.  The downloaded datasets (``gluon/data/vision``)
-are not ported yet (ROADMAP §A 6)."""
+``RecordFileDataset``.  The vision datasets are in ``gluon/data/vision``."""
 from __future__ import annotations
 
 import os

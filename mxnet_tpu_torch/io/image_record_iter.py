@@ -1,5 +1,6 @@
-"""ImageRecordIter: the record -> decode -> augment -> batch pipeline
-(counterpart of ``mxnet_tpu/io/image_record_iter.py``).
+"""ImageRecordIter and ImageDetRecordIter: the record -> decode ->
+augment -> batch pipeline (counterpart of
+``mxnet_tpu/io/image_record_iter.py``).
 
 Reference parity: src/io/iter_image_recordio_2.cc:880 (ImageRecordIter2)
 and its ``mx.io.ImageRecordIter`` keyword surface.
@@ -28,6 +29,13 @@ the host):
   code as the reference's) decodes and augments into NCHW float32
   batches, equal to the reference's bit for bit; without it, PIL decodes
   and ``image_augment_plain`` augments.
+
+``ImageDetRecordIter`` (detection labels, padded with -1) computes the
+reference's arithmetic wherever its batches go: PIL decodes and PIL's
+``imresize`` resizes on the host's worker pool, so a batch equals the
+reference's bit for bit, and a card target receives it through the
+device feed (ROADMAP §C: nvJPEG and ``image_augment.cu`` compute
+another resize).
 
 The fault-tolerant data plane is the reference's: a record that fails
 framing, unpack or decode is quarantined (counted on
@@ -90,6 +98,9 @@ class ImageRecordIter(DataIter):
     #: label value for all-quarantined placeholder pad rows (the det
     #: subclass overrides with its -1 "no object" convention)
     _label_fill_value = 0.0
+    #: a card target decodes with nvJPEG (the det subclass decodes with
+    #: PIL on the host and feeds the card)
+    _decodes_on_card = True
 
     #: ImageNet PCA lighting basis (reference src/io/image_aug_default.cc
     #: — the AlexNet eigen decomposition, 0..255 pixel scale)
@@ -157,7 +168,7 @@ class ImageRecordIter(DataIter):
             ctx = current_context() if self._device_feed else cpu()
         self._dev = resolve_device(ctx)
         self._on_card = self._dev.type == "cuda"
-        if self._on_card:
+        if self._on_card and self._decodes_on_card:
             from . import nvjpeg
 
             nvjpeg.require()  # raises naming nvjpeg.h/libnvjpeg
@@ -1321,3 +1332,145 @@ class ImageRecordIter(DataIter):
             logging.warning("ImageRecordIter: mmap still referenced "
                             "by an abandoned worker; deferring close")
         self._file.close()
+
+
+class ImageDetRecordIter(ImageRecordIter):
+    """Detection RecordIO iterator (reference
+    src/io/iter_image_det_recordio.cc:597).
+
+    A record's label is the im2rec detection layout: a flat float vector
+    ``[header_width, object_width, <extra header...>, obj0 (object_width
+    values: id, xmin, ymin, xmax, ymax, ...), ...]`` with normalised
+    corners.  Batches carry labels shaped ``(batch, max_objects,
+    object_width)``, padded with -1 (what MultiBoxTarget takes);
+    ``max_objects`` is ``(label_pad_width - 2) // object_width`` or, without
+    ``label_pad_width``, the most objects a record holds.  Images are
+    resized to ``data_shape`` (PIL, bilinear; no crop: ``rand_crop``
+    raises, as the reference's) and ``rand_mirror`` flips the image and
+    remaps ``[xmin, xmax]`` to ``[1 - xmax, 1 - xmin]``.  Decoding and
+    resizing run on the host (see the module); a card target (``ctx``)
+    gets each batch through the device feed.
+    """
+
+    _defer_start = True  # the producer starts once the det config is set
+    _label_fill_value = -1.0  # "no object"
+    _decodes_on_card = False
+
+    def __init__(self, path_imgrec, data_shape, batch_size,
+                 label_pad_width=0, object_width=5, shuffle=False,
+                 rand_mirror=False, mean_r=0.0, mean_g=0.0, mean_b=0.0,
+                 std_r=1.0, std_g=1.0, std_b=1.0, label_width=-1,
+                 round_batch=True, part_index=0, num_parts=1, seed=0,
+                 dtype="float32", **kwargs):
+        if kwargs.pop("rand_crop", None):
+            raise MXNetError(
+                "ImageDetRecordIter: rand_crop is not bbox-aware yet; "
+                "use rand_mirror")
+        super().__init__(
+            path_imgrec, data_shape, batch_size, shuffle=shuffle,
+            rand_crop=False, rand_mirror=False, resize=-1,
+            mean_r=mean_r, mean_g=mean_g, mean_b=mean_b, std_r=std_r,
+            std_g=std_g, std_b=std_b, label_width=1,
+            round_batch=round_batch, part_index=part_index,
+            num_parts=num_parts, seed=seed, dtype=dtype, **kwargs)
+        self._det_mirror = rand_mirror
+        self._object_width = int(object_width)
+        if label_pad_width:
+            self._max_objs = (int(label_pad_width) - 2) \
+                // self._object_width
+        else:
+            self._max_objs = self._scan_max_objs()
+        self.reset()  # start the producer (deferred in the base init)
+
+    def _scan_max_objs(self):
+        m = 1
+        for rec in self._records:
+            # a header-only read; a record too corrupt to unpack is
+            # skipped here and quarantined when a batch first touches it
+            try:
+                header, _ = recordio.unpack(bytes(rec))
+            except Exception:  # noqa: BLE001
+                continue
+            lab = onp.atleast_1d(onp.asarray(header.label, "float32"))
+            if lab.size >= 2:
+                ow = int(lab[1])
+                hw = int(lab[0])
+                m = max(m, (lab.size - hw) // max(ow, 1))
+        return m
+
+    def _parse_det_label(self, lab):
+        lab = onp.atleast_1d(onp.asarray(lab, "float32"))
+        ow = self._object_width
+        out = onp.full((self._max_objs, ow), -1.0, "float32")
+        if lab.size < 2:
+            return out
+        hw = int(lab[0])
+        rec_ow = max(int(lab[1]), 1)  # a malformed record's zero
+        objs = lab[hw:]
+        nobj = min(objs.size // rec_ow, self._max_objs)
+        for k in range(nobj):
+            out[k, :min(ow, rec_ow)] = objs[k * rec_ow:
+                                            k * rec_ow + min(ow, rec_ow)]
+        return out
+
+    def _make_batch(self, idx, rng):
+        from .. import image as img_mod
+
+        c, h, w = self.data_shape
+        if c != 3:
+            raise MXNetError(
+                "ImageDetRecordIter decodes 3-channel images; "
+                f"data_shape[0]={c}")
+        mirror = ((rng.rand(len(idx)) < 0.5) if self._det_mirror
+                  else onp.zeros(len(idx), bool))
+        rows, labs, kept = [], [], []
+        for pos, j in enumerate(idx):
+            j = int(j)
+            payload = self._load_record(j)
+            if payload is None:
+                continue
+            header, img = payload
+            try:
+                im = img_mod.imdecode(img)
+                im = img_mod.imresize(im, w, h)
+                arr = im.asnumpy().astype("float32")
+            except Exception as exc:  # noqa: BLE001 - quarantined
+                self._quarantine(j, "decode", exc)
+                continue
+            lab = self._parse_det_label(header.label)
+            if mirror[pos]:
+                arr = arr[:, ::-1]
+                valid = lab[:, 0] >= 0
+                xmin = lab[valid, 1].copy()
+                xmax = lab[valid, 3].copy()
+                lab[valid, 1] = 1.0 - xmax
+                lab[valid, 3] = 1.0 - xmin
+            arr = (arr - self._mean) / self._std
+            rows.append(arr.transpose(2, 0, 1))
+            labs.append(lab)
+            kept.append(pos)
+        if rows:
+            batch = onp.stack(rows).astype("float32")
+            labels = onp.stack(labs).astype("float32")
+        else:
+            batch = onp.zeros((0, c, h, w), "float32")
+            labels = onp.full((0, self._max_objs, self._object_width),
+                              -1.0, "float32")
+        return batch, labels, kept
+
+    def _emit(self, batch, labels, pad):
+        if self._on_card and not isinstance(batch, torch.Tensor):
+            # the host's batch crosses to the card on the feed's stream
+            from .device_feed import _put_tensor
+
+            batch = _put_tensor(torch.from_numpy(
+                onp.ascontiguousarray(batch)), self._dev)
+            with self._feed_lock:
+                self._feed_stats["h2d_bytes"] += int(batch.numel()) * 4
+        return super()._emit(batch, labels, pad)
+
+    @property
+    def provide_label(self):
+        return [DataDesc(
+            "label", (self.batch_size, self._max_objs, self._object_width),
+            "float32")]

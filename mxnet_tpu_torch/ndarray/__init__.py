@@ -20,6 +20,8 @@ from ..ops import conv as _conv  # noqa: F401
 from ..ops import detection_ops as _detection_ops  # noqa: F401
 from ..ops import elemwise as _elemwise  # noqa: F401
 from ..ops import nn as _nn  # noqa: F401
+from ..ops import optimizer_ops as _optimizer_ops  # noqa: F401
+from ..ops import pallas_opt as _pallas_opt  # noqa: F401
 from ..ops import pallas_conv as _pallas_conv  # noqa: F401
 from ..ops import quantization_ops as _quantization_ops  # noqa: F401
 from ..ops import random_ops as _random_ops  # noqa: F401

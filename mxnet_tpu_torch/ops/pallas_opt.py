@@ -492,3 +492,72 @@ def scale_bookkeeping(finite, scale, good, growth_interval=2000):
         torch.clamp_min(scale * 0.5, 1.0))
     good = torch.where(good >= growth_interval, torch.zeros_like(good), good)
     return new_scale.to(torch.float32), good
+
+
+# ------------------------------------------------------- registry ops
+from .registry import register_op  # noqa: E402
+
+
+def _mk_opt(kind, params):
+    from ..optimizer.optimizer import LARS, SGD, Adam
+
+    if kind == "sgd_mom":
+        return SGD(momentum=params.get("momentum", 0.9),
+                   learning_rate=params.get("lr", 0.1),
+                   wd=params.get("wd", 0.0))
+    if kind == "adam":
+        return Adam(learning_rate=params.get("lr", 0.001),
+                    wd=params.get("wd", 0.0))
+    return LARS(momentum=params.get("momentum", 0.9),
+                learning_rate=params.get("lr", 0.1),
+                wd=params.get("wd", 0.0))
+
+
+def _op_bucket_update(op_name, opt, w, g, state, seg=None):
+    """The registry ops' dispatch through :func:`bucket_update` (a CUDA
+    tensor launches the kernel, a CPU tensor takes its plain version);
+    a bucket the kernels cannot run raises, naming the plain op."""
+    nseg = None if seg is None else int(seg[1])
+    reason = supported(opt, w.dtype, nseg=nseg)
+    res = None if reason else bucket_update(opt, w, g, state, 1.0, seg=seg)
+    if res is None:
+        raise MXNetError(
+            f"{op_name}: the bucket kernel cannot run this input "
+            f"({reason or 'no kernel form for this bucket'}); use the "
+            "plain op (_fused_bucket_*) instead")
+    return res
+
+
+@register_op("_pallas_bucket_sgd_mom_update", num_outputs=2,
+             differentiable=False, platform_sensitive=True)
+def pallas_bucket_sgd_mom_update(weight, grad, mom, *, lr, momentum=0.9,
+                                 wd=0.0):
+    """``_fused_bucket_sgd_mom_update`` through ``csrc/bucket_sgd.cu``."""
+    opt = _mk_opt("sgd_mom", dict(lr=lr, momentum=momentum, wd=wd))
+    new_w, (new_m,), _ = _op_bucket_update(
+        "_pallas_bucket_sgd_mom_update", opt, weight, grad, (mom,))
+    return new_w, new_m
+
+
+@register_op("_pallas_bucket_adam_update", num_outputs=3,
+             differentiable=False, platform_sensitive=True)
+def pallas_bucket_adam_update(weight, grad, mean, var, *, lr, wd=0.0):
+    """``_fused_bucket_adam_update`` (t = 1) through
+    ``csrc/bucket_adam.cu``."""
+    opt = _mk_opt("adam", dict(lr=lr, wd=wd))
+    new_w, (new_m, new_v), _ = _op_bucket_update(
+        "_pallas_bucket_adam_update", opt, weight, grad, (mean, var))
+    return new_w, new_m, new_v
+
+
+@register_op("_pallas_bucket_lars_update", num_outputs=2,
+             differentiable=False, platform_sensitive=True)
+def pallas_bucket_lars_update(weight, grad, mom, seg_ids, *, lr,
+                              num_segments, momentum=0.9, wd=0.0):
+    """``_fused_bucket_lars_update`` (eta 0.001, eps 0) through
+    ``csrc/bucket_lars.cu``."""
+    opt = _mk_opt("lars", dict(lr=lr, momentum=momentum, wd=wd))
+    new_w, (new_m,), _ = _op_bucket_update(
+        "_pallas_bucket_lars_update", opt, weight, grad, (mom,),
+        seg=(seg_ids.to(torch.int32).contiguous(), int(num_segments)))
+    return new_w, new_m

@@ -1,8 +1,4 @@
 """Optimizers (counterpart of ``mxnet_tpu/optimizer``)."""
-from .optimizer import (LARS, NAG, SGD, Adam, AdaGrad, AdamW,  # noqa: F401
-                        Optimizer, RMSProp, Signum, Updater, create,
-                        get_updater, register)
-
-__all__ = ["Optimizer", "SGD", "NAG", "Signum", "Adam", "AdamW", "AdaGrad",
-           "RMSProp", "LARS", "Updater", "create", "get_updater",
-           "register"]
+from .optimizer import *  # noqa: F401,F403
+from .optimizer import Optimizer, Updater, create, register  # noqa: F401
+from . import contrib  # noqa: F401

@@ -2,9 +2,10 @@
 ``Optimizer`` base (learning-rate schedule, per-parameter ``lr_mult``
 and ``wd_mult``, update counts, fp32 master weights under
 ``multi_precision``), the registry, the :class:`Updater` a
-``gluon.Trainer`` drives, and the rules SGD, NAG, Signum, Adam, AdamW,
-AdaGrad, RMSProp (plain and centered) and LARS.  The other rules are
-not ported yet (ROADMAP §A item 5).
+``gluon.Trainer`` drives, and the reference's 18 rules: SGD, Test, NAG,
+Signum, Adam, AdamW, AdaGrad, GroupAdaGrad, RMSProp (plain and
+centered), AdaDelta, Adamax, Nadam, Ftrl, FTML, LARS, LBSGD, SGLD and
+DCASGD.
 
 Each rule is one function on tensors, :meth:`Optimizer._step` ``(w, g,
 state, lr, wd, t) -> (new_w, new_state)``, evaluated in the reference's
@@ -30,6 +31,7 @@ seg_ids=, num_segments=)`` recovers the tensors' norms as segment sums.
 from __future__ import annotations
 
 import copy
+import math
 import pickle
 
 import numpy as onp
@@ -38,9 +40,11 @@ import torch
 from ..base import MXNetError
 from ..ndarray.ndarray import NDArray
 
-__all__ = ["Optimizer", "SGD", "NAG", "Signum", "Adam", "AdamW", "AdaGrad",
-           "RMSProp", "LARS", "Updater", "create", "register",
-           "get_updater", "scalar_as", "adam_lr_t", "segment_sum"]
+__all__ = ["Optimizer", "SGD", "Signum", "NAG", "Adam", "AdamW", "AdaGrad",
+           "RMSProp", "AdaDelta", "Adamax", "Nadam", "Ftrl", "FTML", "LARS",
+           "SGLD", "DCASGD", "LBSGD", "Updater", "create", "register",
+           "get_updater", "Test", "GroupAdaGrad", "scalar_as", "adam_lr_t",
+           "segment_sum"]
 
 _REGISTRY: dict[str, type] = {}
 _HALF = (torch.float16, torch.bfloat16)
@@ -82,7 +86,7 @@ class Optimizer:
 
     opt_registry = _REGISTRY
 
-    #: stochastic rules consume a PRNG key (none is ported)
+    #: stochastic rules (SGLD) consume a PRNG key in the fused step
     needs_key = False
     #: the rule treats every element alone, so it runs unchanged on a
     #: flat bucket of many parameters (parallel.zero relies on it)
@@ -504,6 +508,263 @@ class RMSProp(Optimizer):
         return new_w, tuple(new_state)
 
 
+@register
+class Test(Optimizer):
+    """The reference's test rule: ``w += grad * rescale_grad`` (no clip,
+    no update count)."""
+
+    def fused_state(self, w):
+        return (torch.zeros_like(w),)
+
+    def _step(self, w, g, state, lr, wd, t):
+        return w + g * scalar_as(self.rescale_grad, w.dtype), state
+
+    def update(self, index, weight, grad, state):
+        with torch.no_grad():
+            new_w, _ = self._step(weight._data, grad._data, (), 0.0, 0.0, 0)
+        weight._adopt(new_w)
+
+
+def _group_adagrad_step(w, hist, g, lr, eps):
+    hist = hist + torch.mean(g * g, dim=tuple(range(1, g.dim())),
+                             keepdim=True)
+    return w - lr * g / torch.sqrt(hist + eps), hist
+
+
+@register
+class GroupAdaGrad(Optimizer):
+    """Per-row AdaGrad: ``hist += mean(g*g, axis=1.., keepdims);
+    w -= lr*g/sqrt(hist + eps)``, one rate per row (the embedding
+    table's rule).  No weight decay; not elementwise."""
+
+    fused_elementwise = False
+
+    def __init__(self, eps=1e-5, **kwargs):
+        super().__init__(**kwargs)
+        self.float_stable_eps = eps
+
+    def fused_state(self, w):
+        assert w.dim() >= 2, \
+            "GroupAdaGrad needs >=2-dim weights (one group per row)"
+        return (w.new_zeros((w.shape[0],) + (1,) * (w.dim() - 1)),)
+
+    def _step(self, w, g, state, lr, wd, t):
+        assert wd == 0.0, "GroupAdaGrad does not support weight decay"
+        dt = w.dtype
+        (hist,) = state
+        new_w, new_h = _group_adagrad_step(
+            w, hist, self._prep(g), scalar_as(lr, dt),
+            scalar_as(self.float_stable_eps, dt))
+        return new_w, (new_h,)
+
+
+def _adadelta_step(w, acc_g, acc_delta, g, wd, rho, one_m_rho, eps):
+    g = g + wd * w
+    acc_g = rho * acc_g + one_m_rho * g * g
+    delta = torch.sqrt(acc_delta + eps) / torch.sqrt(acc_g + eps) * g
+    acc_delta = rho * acc_delta + one_m_rho * delta * delta
+    return w - delta, acc_g, acc_delta
+
+
+@register
+class AdaDelta(Optimizer):
+    """AdaDelta: ``acc_g = rho*acc_g + (1-rho)*g*g; delta =
+    sqrt(acc_delta + eps)/sqrt(acc_g + eps)*g; acc_delta = rho*acc_delta
+    + (1-rho)*delta*delta; w -= delta`` (``g`` including ``wd*w``; no
+    learning rate)."""
+
+    def __init__(self, rho=0.90, epsilon=1e-5, **kwargs):
+        super().__init__(**kwargs)
+        self.rho = rho
+        self.epsilon = epsilon
+
+    def fused_state(self, w):
+        return (torch.zeros_like(w), torch.zeros_like(w))
+
+    def _step(self, w, g, state, lr, wd, t):
+        dt = w.dtype
+        rho = _f32(self.rho)
+        new_w, *new_state = _adadelta_step(
+            w, *state, self._prep(g), scalar_as(wd, dt), scalar_as(rho, dt),
+            scalar_as(_f32(1) - rho, dt), scalar_as(self.epsilon, dt))
+        return new_w, tuple(new_state)
+
+
+def _adamax_step(w, m, u, g, lr_t, wd, beta1, one_m_beta1, beta2):
+    g = g + wd * w
+    m = beta1 * m + one_m_beta1 * g
+    u = torch.maximum(beta2 * u, torch.abs(g))
+    return w - lr_t * m / (u + 1e-8), m, u
+
+
+@register
+class Adamax(Optimizer):
+    """Adamax: ``m = b1*m + (1-b1)*g; u = max(b2*u, |g|); w -=
+    lr/(1-b1^t)*m/(u + 1e-8)`` (``g`` including ``wd*w``)."""
+
+    def __init__(self, learning_rate=0.002, beta1=0.9, beta2=0.999,
+                 **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1 = beta1
+        self.beta2 = beta2
+
+    def fused_state(self, w):
+        return (torch.zeros_like(w), torch.zeros_like(w))
+
+    def _step(self, w, g, state, lr, wd, t):
+        dt = w.dtype
+        b1 = _f32(self.beta1)
+        lr_t = _f32(lr) / (_f32(1) - b1 ** _f32(t))
+        new_w, *new_state = _adamax_step(
+            w, *state, self._prep(g), scalar_as(lr_t, dt), scalar_as(wd, dt),
+            scalar_as(b1, dt), scalar_as(_f32(1) - b1, dt),
+            scalar_as(self.beta2, dt))
+        return new_w, tuple(new_state)
+
+
+def _nadam_scalars(beta1, beta2, t, m_schedule, schedule_decay):
+    """Nadam's per-step scalars as the reference's jitted rule computes
+    them, in float32: ``(momentum_t, momentum_t_1, new_m_schedule,
+    m_schedule_next, 1 - beta2^t)``."""
+    f = _f32
+    b1, t, sd = f(beta1), f(t), f(schedule_decay)
+    mt = b1 * (f(1) - f(0.5) * f(0.96) ** (t * sd))
+    mt1 = b1 * (f(1) - f(0.5) * f(0.96) ** ((t + f(1)) * sd))
+    new_ms = f(m_schedule) * mt
+    return mt, mt1, new_ms, new_ms * mt1, f(1) - f(beta2) ** t
+
+
+def _nadam_step(w, m, v, g, lr, wd, beta1, one_m_beta1, beta2, one_m_beta2,
+                eps, mt, mt1, one_m_new_ms, one_m_ms_next, one_m_mt,
+                coef2):
+    g = g + wd * w
+    g_prime = g / one_m_new_ms
+    m = beta1 * m + one_m_beta1 * g
+    m_prime = m / one_m_ms_next
+    v = beta2 * v + one_m_beta2 * g * g
+    v_prime = v / coef2
+    m_bar = one_m_mt * g_prime + mt1 * m_prime
+    return w - lr * m_bar / (torch.sqrt(v_prime) + eps), m, v
+
+
+@register
+class Nadam(Optimizer):
+    """Nadam: Adam with Nesterov momentum and the momentum schedule
+    ``beta1*(1 - 0.5*0.96^(t*schedule_decay))``.  The eager rule keeps
+    the schedule's running product as the attribute ``m_schedule``;
+    the fused rule carries it per tensor as a third state slot."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, schedule_decay=0.004, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1 = beta1
+        self.beta2 = beta2
+        self.epsilon = epsilon
+        self.schedule_decay = schedule_decay
+        self.m_schedule = 1.0
+
+    def create_state(self, index, weight):
+        w = weight._data
+        return (NDArray(torch.zeros_like(w)), NDArray(torch.zeros_like(w)))
+
+    def fused_state(self, w):
+        return (torch.zeros_like(w), torch.zeros_like(w),
+                torch.ones((), dtype=torch.float32, device=w.device))
+
+    def _step(self, w, g, state, lr, wd, t):
+        dt = w.dtype
+        fused = len(state) == 3
+        ms = float(state[2]) if fused else self.m_schedule
+        mt, mt1, new_ms, ms_next, coef2 = _nadam_scalars(
+            self.beta1, self.beta2, t, ms, self.schedule_decay)
+        b1, b2 = _f32(self.beta1), _f32(self.beta2)
+        new_w, new_m, new_v = _nadam_step(
+            w, state[0], state[1], self._prep(g), scalar_as(lr, dt),
+            scalar_as(wd, dt), scalar_as(b1, dt),
+            scalar_as(_f32(1) - b1, dt), scalar_as(b2, dt),
+            scalar_as(_f32(1) - b2, dt), scalar_as(self.epsilon, dt),
+            scalar_as(mt, dt), scalar_as(mt1, dt),
+            scalar_as(_f32(1) - new_ms, dt),
+            scalar_as(_f32(1) - ms_next, dt),
+            scalar_as(_f32(1) - mt, dt), scalar_as(coef2, dt))
+        if fused:
+            return new_w, (new_m, new_v, torch.full_like(state[2],
+                                                         float(new_ms)))
+        self.m_schedule = float(new_ms)
+        return new_w, (new_m, new_v)
+
+
+def _ftrl_step(w, z, n, g, lr, wd, lamda1, beta):
+    sigma = (torch.sqrt(n + g * g) - torch.sqrt(n)) / lr
+    z = z + g - sigma * w
+    n = n + g * g
+    denom = wd + (beta + torch.sqrt(n)) / lr
+    new_w = torch.where(torch.abs(z) > lamda1,
+                        -(z - torch.sign(z) * lamda1) / denom,
+                        torch.zeros_like(w))
+    return new_w, z, n
+
+
+@register
+class Ftrl(Optimizer):
+    """FTRL-Proximal: ``z += g - (sqrt(n + g*g) - sqrt(n))/lr*w; n +=
+    g*g; w = -(z - sign(z)*lamda1)/(wd + (beta + sqrt(n))/lr)`` where
+    ``|z| > lamda1``, else 0."""
+
+    def __init__(self, lamda1=0.01, learning_rate=0.1, beta=1, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.lamda1 = lamda1
+        self.beta = beta
+
+    def fused_state(self, w):
+        return (torch.zeros_like(w), torch.zeros_like(w))
+
+    def _step(self, w, g, state, lr, wd, t):
+        dt = w.dtype
+        new_w, *new_state = _ftrl_step(
+            w, *state, self._prep(g), scalar_as(lr, dt), scalar_as(wd, dt),
+            scalar_as(self.lamda1, dt), scalar_as(self.beta, dt))
+        return new_w, tuple(new_state)
+
+
+def _ftml_step(w, d, s, z, g, wd, beta1, one_m_beta1, beta2, one_m_beta2,
+               eps, c1_over_lr, coef2):
+    g = g + wd * w
+    v = beta2 * s + one_m_beta2 * g * g
+    d_t = c1_over_lr * (torch.sqrt(v / coef2) + eps)
+    sigma_t = d_t - beta1 * d
+    z = beta1 * z + one_m_beta1 * g - sigma_t * w
+    return -z / d_t, d_t, v, z
+
+
+@register
+class FTML(Optimizer):
+    """FTML (Follow the Moving Leader): ``v = b2*s + (1-b2)*g*g; d_t =
+    (1-b1^t)/lr*(sqrt(v/(1-b2^t)) + eps); z = b1*z + (1-b1)*g -
+    (d_t - b1*d)*w; w = -z/d_t``."""
+
+    def __init__(self, beta1=0.6, beta2=0.999, epsilon=1e-8, **kwargs):
+        super().__init__(**kwargs)
+        self.beta1 = beta1
+        self.beta2 = beta2
+        self.epsilon = epsilon
+
+    def fused_state(self, w):
+        return tuple(torch.zeros_like(w) for _ in range(3))
+
+    def _step(self, w, g, state, lr, wd, t):
+        dt = w.dtype
+        f = _f32
+        b1, b2, ft = f(self.beta1), f(self.beta2), f(t)
+        new_w, *new_state = _ftml_step(
+            w, *state, self._prep(g), scalar_as(wd, dt), scalar_as(b1, dt),
+            scalar_as(f(1) - b1, dt), scalar_as(b2, dt),
+            scalar_as(f(1) - b2, dt), scalar_as(self.epsilon, dt),
+            scalar_as((f(1) - b1 ** ft) / f(lr), dt),
+            scalar_as(f(1) - b2 ** ft, dt))
+        return new_w, tuple(new_state)
+
+
 def segment_sum(x, seg_ids, num_segments):
     """``out[s] = Σ x[seg_ids == s]`` over ``num_segments`` segments."""
     return x.new_zeros((num_segments,)).index_add_(0, seg_ids, x)
@@ -576,6 +837,92 @@ class LARS(Optimizer):
         new_w, new_m = _lars_momentum(w, mom, g, slr[seg_ids], h["wd"],
                                       scalar_as(self.momentum, w.dtype))
         return new_w, (new_m,)
+
+
+@register
+class LBSGD(SGD):
+    """Large-batch SGD: SGD's rule, with the reference's warm-up
+    settings kept as attributes."""
+
+    def __init__(self, momentum=0.0, multi_precision=False,
+                 warmup_strategy="linear", warmup_epochs=5, batch_scale=1,
+                 updates_per_epoch=32, begin_epoch=0, num_epochs=60,
+                 **kwargs):
+        super().__init__(momentum=momentum,
+                         multi_precision=multi_precision, **kwargs)
+        self.warmup_strategy = warmup_strategy
+        self.warmup_epochs = warmup_epochs
+        self.batch_scale = batch_scale
+        self.updates_per_epoch = updates_per_epoch
+        self.init_updates = begin_epoch * updates_per_epoch
+        self.num_epochs = num_epochs
+
+
+def sgld_noise(shape, std, dtype, device, gen):
+    """SGLD's Gaussian noise: ``std * N(0, 1)`` of ``shape``, drawn in
+    float32 from the generator ``gen`` (half types are drawn in float32
+    and rounded, as the reference draws them)."""
+    draw_dt = torch.float32 if dtype == torch.bfloat16 else dtype
+    n = torch.randn(shape, generator=gen, dtype=draw_dt, device=device)
+    return (n * std).to(dtype)
+
+
+@register
+class SGLD(Optimizer):
+    """Stochastic Gradient Langevin Dynamics: ``w -= lr/2*(g + wd*w)``,
+    plus Gaussian noise of variance ``lr``.  The eager rule draws from
+    the weight's device generator (``mx.random.seed`` seeds it); the
+    fused rule from a generator seeded by the step's key."""
+
+    needs_key = True
+
+    def _step(self, w, g, state, lr, wd, t, gen=None):
+        dt = w.dtype
+        g = self._prep(g)
+        if gen is None:
+            from .. import _rng
+
+            gen = _rng.take_key(w.device)
+        noise = sgld_noise(w.shape, math.sqrt(lr), dt, w.device, gen)
+        return (w - scalar_as(lr / 2, dt) * (g + scalar_as(wd, dt) * w)
+                + noise), state
+
+    def fused_update(self, w, g, state, t, key=None):
+        if key is None:
+            raise MXNetError("SGLD fused rule needs a PRNG key")
+        gen = torch.Generator(device=w.device)
+        gen.manual_seed(int(key))
+        return self._step(w, g, state, self.learning_rate, self.wd, t,
+                          gen=gen)
+
+
+def _dcasgd_step(w, mom, prev_w, g, lr, wd, momentum, lamda):
+    g = g + wd * w
+    mom = momentum * mom - lr * (g + lamda * g * g * (w - prev_w))
+    return w + mom, mom, w
+
+
+@register
+class DCASGD(Optimizer):
+    """Delay-compensated asynchronous SGD: ``mom = momentum*mom -
+    lr*(g + lamda*g*g*(w - w_prev)); w += mom``, keeping the previous
+    weight (``g`` including ``wd*w``)."""
+
+    def __init__(self, momentum=0.0, lamda=0.04, **kwargs):
+        super().__init__(**kwargs)
+        self.momentum = momentum
+        self.weight_previous = {}
+        self.lamda = lamda
+
+    def fused_state(self, w):
+        return (torch.zeros_like(w), w.detach().clone())
+
+    def _step(self, w, g, state, lr, wd, t):
+        dt = w.dtype
+        new_w, *new_state = _dcasgd_step(
+            w, *state, self._prep(g), scalar_as(lr, dt), scalar_as(wd, dt),
+            scalar_as(self.momentum, dt), scalar_as(self.lamda, dt))
+        return new_w, tuple(new_state)
 
 
 # ================================================================ Updater

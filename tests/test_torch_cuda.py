@@ -822,14 +822,26 @@ def test_gluon_resnet_steps_launch_fused_backward(card):
 
 
 def test_gluon_trainer_refuses_dist_kvstore(card):
+    """A dist store outside a launched job is a group of one on the card:
+    the Trainer's step through it equals the local step."""
     import mxnet_tpu_torch as mx
-    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch import autograd, gluon
 
-    net = gluon.nn.Dense(3, in_units=4)
-    net.initialize(ctx=mx.gpu(0))
-    for kv in ("dist_sync", "dist_device_sync"):
-        with pytest.raises(MXNetError, match="not ported"):
-            gluon.Trainer(net.collect_params(), "sgd", kvstore=kv)
+    outs = []
+    for kv in ("dist_sync", "dist_device_sync", "device"):
+        mx.random.seed(0)
+        net = gluon.nn.Dense(3, in_units=4)
+        net.initialize(init=mx.init.Constant(0.5), ctx=mx.gpu(0))
+        tr = gluon.Trainer(net.collect_params(), "sgd",
+                           {"learning_rate": 0.1}, kvstore=kv)
+        x = mx.nd.ones((2, 4), ctx=mx.gpu(0))
+        with autograd.record():
+            loss = net(x).sum()
+        loss.backward()
+        tr.step(2)
+        assert net.weight.is_cuda
+        outs.append(net.weight.detach().cpu().numpy())
+    assert (outs[0] == outs[2]).all() and (outs[1] == outs[2]).all()
 
 
 # ------------------------------------------------------- the symbolic half

@@ -363,13 +363,20 @@ def test_trainer_refusals():
     net = _TwoHeads.make(t_gluon)
     net.initialize()
     params = net.collect_params()
-    for kv in ("dist_sync", "dist_async", object()):
-        with pytest.raises(MXNetError, match="not ported.*§A item 11"):
-            t_gluon.Trainer(params, "sgd", kvstore=kv)
-    with pytest.raises(MXNetError, match="compression"):
-        t_gluon.Trainer(params, "sgd", compression_params={"type": "2bit"})
+    # a dist store outside a launched job is a group of one; a store
+    # object is taken as given, and compression goes to the store
+    for kv in ("dist_sync", "dist_async", tmx.kv.create("local")):
+        tr = t_gluon.Trainer(params, "sgd", kvstore=kv)
+        tr._init_kvstore()
+        assert tr._kvstore.num_workers == 1
+        assert tr._update_on_kvstore is (not isinstance(kv, tmx.kv.KVStore))
+    with pytest.raises(MXNetError, match="unsupported compression"):
+        t_gluon.Trainer(params, "sgd", kvstore="dist_sync",
+                        compression_params={"type": "1bit"})._init_kvstore()
     for kv in ("device", "local", None):
-        t_gluon.Trainer(params, "sgd", kvstore=kv)
+        tr = t_gluon.Trainer(params, "sgd", kvstore=kv)
+        tr._init_kvstore()
+        assert tr._kvstore is None and tr._update_on_kvstore is False
     tr = t_gluon.Trainer(params, "sgd")
     # AMP's loss scaler is ported: the step reaches the update, whose
     # stale-gradient check is the one that stops it here

@@ -155,16 +155,14 @@ def test_data_desc_and_batch_match_reference():
 
 
 def test_what_waits_for_the_data_plane_is_absent():
-    """The data plane is ported (its parity tests are
-    ``tests/test_torch_{recordio,io_iterators,device_feed,
-    image_record_iter}.py``); only ``ImageDetRecordIter`` still waits
-    (ROADMAP §A 6).  ``PrefetchingIter(device_feed=True)`` feeds the
+    """The data plane is ported, ``ImageDetRecordIter`` included (its
+    parity tests are ``tests/test_torch_{recordio,io_iterators,
+    device_feed,image_record_iter,image_det_record_iter}.py``): nothing
+    of ``mx.io`` waits.  ``PrefetchingIter(device_feed=True)`` feeds the
     current context's device, here the host."""
     for name in ("CSVIter", "LibSVMIter", "MNISTIter", "ImageRecordIter",
-                 "DeviceFeedIter"):
+                 "DeviceFeedIter", "ImageDetRecordIter"):
         assert hasattr(jmx.io, name) and hasattr(tmx.io, name)
-    assert hasattr(jmx.io, "ImageDetRecordIter")
-    assert not hasattr(tmx.io, "ImageDetRecordIter")
     pf = tmx.io.PrefetchingIter(tmx.io.NDArrayIter(*_data(), batch_size=5),
                                 device_feed=True)
     ref = jmx.io.PrefetchingIter(jmx.io.NDArrayIter(*_data(), batch_size=5),

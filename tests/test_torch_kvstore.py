@@ -2,8 +2,11 @@
 the CPU: ``local`` and ``device`` stores (init, push of one and of
 several gradients, pull, pushpull, the optimizer on the store and its
 state files) and 2-bit gradient compression (values, residuals, the
-packed wire bytes) equal the reference's exactly; ``dist_*``,
-``init_distributed`` and ``row_sparse_pull`` raise."""
+packed wire bytes) equal the reference's exactly; a ``dist_*`` store
+outside a launched job is a group of one worker that sums, compresses
+and updates as the reference's does; ``row_sparse_pull`` raises
+(ROADMAP §A 3).  The multi-process stores are in
+``test_torch_dist.py``."""
 import numpy as onp
 import pytest
 
@@ -115,14 +118,49 @@ def test_two_bit_compression_matches_reference():
         tmx.kv.create().set_gradient_compression({"type": "1bit"})
 
 
+def _drive_dist(pkg, name):
+    """A group-of-one dist store: init, sums, an optimizer on it, then a
+    compressed store with its residual and wire bytes."""
+    kv = pkg.kv.create(name)
+    out = [kv.rank, kv.num_workers, kv.num_dead_node(0)]
+    w0 = _vals(seed=2, n=1)[0]
+    kv.init("w", pkg.nd.array(w0))
+    kv.push("w", [pkg.nd.array(g) for g in _vals(seed=3)])
+    o = pkg.nd.zeros((3, 4))
+    kv.pull("w", out=o)
+    out.append(o.asnumpy())
+    kv.set_optimizer(pkg.optimizer.create("sgd", learning_rate=0.1,
+                                          momentum=0.9))
+    kv.init("v", pkg.nd.array(w0))
+    for step in range(2):
+        kv.pushpull("v", pkg.nd.array(_vals(seed=20 + step, n=1)[0]), out=o)
+        out.append(o.asnumpy())
+    kc = pkg.kv.create(name)
+    kc.set_gradient_compression({"type": "2bit", "threshold": 0.5})
+    kc.init(0, pkg.nd.zeros((3, 4)))
+    for step in range(2):
+        kc.push(0, pkg.nd.array(_vals(seed=30 + step, n=1)[0] * 0.4))
+        kc.pull(0, out=o)
+        out.append(o.asnumpy())
+    out += [kc.last_wire_bytes, kc.last_uncompressed_bytes]
+    kv.barrier()
+    return out
+
+
 @pytest.mark.parametrize("name", ["dist_sync", "dist_async",
                                   "dist_device_sync"])
-def test_dist_stores_and_sparse_pull_raise(name):
-    with pytest.raises(MXNetError, match="§A 11"):
-        tmx.kv.create(name)
-    with pytest.raises(MXNetError, match="§A 11"):
-        tmx.kv.init_distributed()
-    kv = tmx.kv.create("local")
+def test_dist_store_is_a_group_of_one(name):
+    """Outside a launched job a dist store is rank 0 of 1 (no process
+    group, no parameter server): its values equal the reference's group
+    of one exactly, and sparse pulls still raise."""
+    want, got = _drive_dist(jmx, name), _drive_dist(tmx, name)
+    assert got[:3] == want[:3] == [0, 1, 0]
+    for a, b in zip(got[3:], want[3:]):
+        onp.testing.assert_array_equal(a, b)
+    kv = tmx.kv.create(name)
+    assert kv.backend is None and kv.shard is None
+    tmx.kv.init_distributed()  # one worker: nothing to join
+    assert tmx.kv.rendezvous_store() is None
     kv.init(0, tmx.nd.ones((4, 2)))
     with pytest.raises(MXNetError, match="§A 3"):
         kv.row_sparse_pull(0, out=tmx.nd.zeros((4, 2)),

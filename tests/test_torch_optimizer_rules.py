@@ -55,6 +55,14 @@ RULES = {
     "signum_no_momentum": ("signum", dict(learning_rate=0.01,
                                           momentum=0.0, wd_lh=0.01)),
     "lars": ("lars", dict(learning_rate=0.5, momentum=0.9, lars_eta=0.01)),
+    "test": ("test", dict()),
+    "adadelta": ("adadelta", dict(rho=0.9, epsilon=1e-5)),
+    "adamax": ("adamax", dict(learning_rate=0.01)),
+    "nadam": ("nadam", dict(learning_rate=0.01)),
+    "ftrl": ("ftrl", dict(learning_rate=0.1, lamda1=0.01)),
+    "ftml": ("ftml", dict(learning_rate=0.01)),
+    "lbsgd": ("lbsgd", dict(learning_rate=0.1, momentum=0.9)),
+    "dcasgd": ("dcasgd", dict(learning_rate=0.1, momentum=0.9)),
 }
 CONFIGS = {
     "plain": dict(),
@@ -145,7 +153,9 @@ def test_eager_rule_matches_reference(rule, config):
             assert len(js[i]) == len(ts[i])
             for a, b in zip(ts[i], js[i]):
                 assert _rel(a, b) <= TOL, (step, i)
-    assert topt.num_update == jopt.num_update == UPDATES
+    # the reference's Test rule counts no update
+    assert topt.num_update == jopt.num_update == (
+        0 if rule == "test" else UPDATES)
     assert topt._index_update_count == jopt._index_update_count
 
 
@@ -168,7 +178,8 @@ def test_eager_update_is_the_fused_rule(rule):
             assert torch.equal(s._data, f), step
 
 
-MP_RULES = ["sgd_momentum", "adam", "lars"]
+MP_RULES = ["sgd_momentum", "adam", "lars", "adadelta", "adamax", "nadam",
+            "ftrl", "ftml", "lbsgd", "dcasgd"]
 
 
 @pytest.mark.parametrize("rule", MP_RULES)
@@ -235,15 +246,18 @@ def test_scheduler_matches_reference(name):
 
 
 def test_registry_and_refusals():
-    for name in ("sgd", "nag", "signum", "adam", "adamw", "adagrad",
-                 "rmsprop", "lars"):
+    """Every rule name of the reference resolves in the port, by any
+    case; an unknown name raises as there."""
+    assert sorted(t_opt.optimizer._REGISTRY) == sorted(j_opt._REGISTRY)
+    for name in j_opt._REGISTRY:
         assert type(t_opt.create(name)).__name__.lower() == name
+        assert type(t_opt.create(name.upper())).__name__.lower() == name
         assert type(j_opt.create(name)).__name__.lower() == name
     opt = t_opt.SGD(learning_rate=0.3)
     assert t_opt.create(opt) is opt
-    for name in ("adadelta", "adamax", "nadam", "ftrl", "ftml", "sgld"):
-        with pytest.raises(MXNetError, match="Cannot find optimizer"):
-            t_opt.create(name)
+    from mxnet_tpu_torch.optimizer import contrib as t_contrib
+
+    assert t_contrib.GroupAdaGrad is t_opt.GroupAdaGrad
     with pytest.raises(MXNetError, match="Cannot find optimizer"):
         t_opt.create("bogus")
 
@@ -277,3 +291,96 @@ def test_updater_states_round_trip_keep_dtype_and_device():
     (mom,) = v.states[0]
     assert mom._data.dtype == torch.bfloat16
     assert torch.equal(mom._data, u.states[0][0]._data)
+
+
+def _three_steps(jopt, topt, ws, gs, dtype="float32"):
+    ju, tu = j_opt.get_updater(jopt), t_opt.get_updater(topt)
+    jw = [j_nd.array(w, dtype=dtype) for w in ws]
+    tw = [t_nd.array(w, dtype=dtype) for w in ws]
+    for step in range(3):
+        for i in range(len(ws)):
+            ju(i, j_nd.array(gs[step][i], dtype=dtype), jw[i])
+            tu(i, t_nd.array(gs[step][i], dtype=dtype), tw[i])
+        for i in range(len(ws)):
+            assert _rel(tw[i].asnumpy(), jw[i].asnumpy()) <= TOL, (step, i)
+            for a, b in zip(_flat_states(tu.states[i]),
+                            _flat_states(ju.states[i])):
+                assert _rel(a, b) <= TOL, (step, i)
+    return ju, tu
+
+
+@pytest.mark.parametrize("config", ["plain", "clip_rescale"])
+def test_group_adagrad_matches_reference(config):
+    """GroupAdaGrad: one history per row of a 2- or 3-dim weight; it
+    refuses weight decay and a 1-dim weight, as the reference does."""
+    kw = dict(learning_rate=0.1) if config == "plain" else dict(
+        learning_rate=0.1, clip_gradient=0.5, rescale_grad=0.5)
+    rng = onp.random.RandomState(11)
+    shapes = [(6, 5), (4, 3, 2)]
+    ws = [rng.randn(*s).astype("float32") for s in shapes]
+    gs = [[rng.randn(*s).astype("float32") for s in shapes]
+          for _ in range(3)]
+    _, tu = _three_steps(j_opt.create("groupadagrad", **kw),
+                         t_opt.create("groupadagrad", **kw), ws, gs)
+    assert tuple(tu.states[1][0].shape) == (4, 1, 1)
+    with pytest.raises(AssertionError, match="weight decay"):
+        t_opt.get_updater(t_opt.GroupAdaGrad(wd=0.1))(
+            0, t_nd.array(gs[0][0]), t_nd.array(ws[0]))
+    with pytest.raises(AssertionError, match="2-dim"):
+        t_opt.GroupAdaGrad().create_state(0, t_nd.array(onp.ones(3)))
+
+
+def test_sgld_rule_and_noise():
+    """SGLD's drift equals the reference's with the noise set to 0 in
+    both; its noise has variance ``lr`` and repeats under one seed."""
+    from mxnet_tpu_torch import random as t_random
+    from mxnet_tpu_torch.optimizer import optimizer as t_optmod
+
+    ws, gs = _data(5)
+    kw = dict(learning_rate=0.05, wd=1e-2, rescale_grad=0.5,
+              clip_gradient=0.4)
+    zero_j = lambda loc, scale, shape, dtype: j_nd.zeros(shape,
+                                                          dtype=dtype)
+    j_ndmod = j_opt.nd
+    zero_t = lambda shape, std, dtype, device, gen: torch.zeros(
+        shape, dtype=dtype, device=device)
+    mp = pytest.MonkeyPatch()
+    with mp.context() as m:
+        m.setattr(j_ndmod, "random_normal", zero_j)
+        m.setattr(t_optmod, "sgld_noise", zero_t)
+        _three_steps(j_opt.create("sgld", **kw), t_opt.create("sgld", **kw),
+                     ws, gs)
+    lr = 0.04
+    draws = []
+    for _ in range(2):
+        t_random.seed(5)
+        w = t_nd.zeros((200, 200))
+        t_opt.create("sgld", learning_rate=lr).update(
+            0, w, t_nd.zeros((200, 200)), ())
+        draws.append(w.asnumpy())
+    assert onp.array_equal(draws[0], draws[1])
+    assert abs(draws[0].mean()) < 0.01
+    assert abs(draws[0].var() / lr - 1.0) < 0.05
+    # the fused rule draws from its key's generator
+    opt = t_opt.create("sgld", learning_rate=lr)
+    a, _ = opt.fused_update(torch.zeros(64), torch.zeros(64), (), 1, key=3)
+    b, _ = opt.fused_update(torch.zeros(64), torch.zeros(64), (), 1, key=3)
+    c, _ = opt.fused_update(torch.zeros(64), torch.zeros(64), (), 1, key=4)
+    assert torch.equal(a, b) and not torch.equal(a, c)
+    with pytest.raises(MXNetError, match="needs a PRNG key"):
+        opt.fused_update(torch.zeros(4), torch.zeros(4), (), 1)
+
+
+def test_new_rules_keep_reference_state_layout():
+    """Each rule's state: the reference's count and shapes, Nadam's
+    fused third slot and DCASGD's copy of the weight."""
+    w = onp.arange(6, dtype="float32").reshape(2, 3)
+    for name in ("adadelta", "adamax", "nadam", "ftrl", "ftml", "dcasgd",
+                 "test", "sgld", "lbsgd", "groupadagrad"):
+        js = j_opt.create(name).create_state(0, j_nd.array(w))
+        ts = t_opt.create(name).create_state(0, t_nd.array(w))
+        assert [tuple(s.shape) for s in ts] == [tuple(s.shape) for s in js]
+        for a, b in zip(ts, js):
+            assert onp.array_equal(a.asnumpy(), b.asnumpy()), name
+    fused = t_opt.create("nadam").fused_state(torch.zeros(3))
+    assert len(fused) == 3 and float(fused[2]) == 1.0

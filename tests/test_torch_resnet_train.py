@@ -403,4 +403,7 @@ def test_unported_options_raise(weights):
     with pytest.raises(MXNetError, match="not ported"):
         t_par.get_mesh(devices=["cpu", "cpu"])
     with pytest.raises(MXNetError, match="unknown optimizer"):
-        t_par.make_train_step(net, loss, "ftml", device="cpu")
+        t_par.make_train_step(net, loss, "bogus", device="cpu")
+    # every rule of the reference's registry builds a step (FTML among
+    # the rules that once raised here)
+    t_par.make_train_step(net, loss, "ftml", device="cpu")

@@ -254,14 +254,21 @@ def _hold_steps(name, batches, loss_fn, lr, **opt):
     return runs[jmx, False], runs[tmx, False]
 
 
-def test_example_trains_on_the_host():
+def test_example_trains_on_the_host(tmp_path):
     res = train_ssd.train(batch_size=2, steps=3, lr=0.004, num_classes=2,
                           data_shape=64, ctx=tmx.cpu())
     assert len(res["losses"]) == 3 and all(onp.isfinite(res["losses"]))
     params = res["net"].collect_params()
     assert {str(p.data()._data.device) for p in params.values()} == {"cpu"}
-    with pytest.raises(MXNetError, match="§A 6"):
-        train_ssd.main(["--ctx", "cpu", "--rec", "voc.rec"])
+    # --rec: ImageDetRecordIter over a detection corpus, past an epoch
+    from test_torch_image_det_record_iter import write_det_corpus
+
+    rec = str(tmp_path / "det.rec")
+    write_det_corpus(rec, n=5, classes=2)
+    res = train_ssd.train(batch_size=2, steps=4, lr=0.004, num_classes=2,
+                          data_shape=64, ctx=tmx.cpu(), rec=rec)
+    assert len(res["losses"]) == 4 and all(onp.isfinite(res["losses"]))
+    assert res["feed"]["batches"] >= 4
 
 
 def test_example_script_runs_with_ctx_cpu():
