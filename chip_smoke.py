@@ -118,7 +118,14 @@ together; then ``example/distributed_training/cifar10_dist.py`` at its
 defaults with two workers on the card started by the port's launcher,
 ``dist_sync`` and ``dist_async`` (``dist_cifar10``), SSD-300 fed by
 ``ImageDetRecordIter`` (``ssd_rec``) and the MNIST example over IDX
-files (``mnist_data_dir``).
+files (``mnist_data_dir``); and the resilience: ``resnet50_v1_symbol``'s
+ResNet-50 trained by ``Module.fit`` with asynchronous snapshots, SIGKILLed,
+relaunched by the port's supervisor and resumed to the uninterrupted
+run's parameters bit for bit (``heal_module_resnet50``), and
+``cifar10_dist.py``'s ``dist_sync`` job losing a worker to SIGKILL, its
+survivor detecting the death, exiting 83 and healing to one worker
+(``heal_dist_cifar10``).  ``--heal-worker`` runs the commands those two
+phases start.
 Each phase
 prints one JSON line on stdout
 (progress goes to stderr); ``--out`` also appends them to FILE.  Any
@@ -5636,6 +5643,14 @@ def run(profile=False, old_brc=None, workdir=None):
         f"dist_cifar10 "
         f"{dcifar['seconds']:.1f} s)")
 
+    # resilience: the healed Module run and the healed dist_sync job
+    torch.cuda.empty_cache()
+    t_heal = time.perf_counter()
+    heal_module_resnet50_phase(workdir)
+    torch.cuda.empty_cache()
+    heal_dist_cifar10_phase(workdir)
+    log(f"[the resilience phases] {time.perf_counter() - t_heal:.1f} s")
+
     main = [c for c in cases if c["path"].startswith("serve")]
     head = next(c for c in cases if c["path"] == "serve_wide"
                 and c["shape"][2] == 2048)
@@ -8775,6 +8790,872 @@ def zero_segments(bucket, device):
     return ids.to(device), nseg
 
 
+# ------------------------------------------------------------- resilience
+#: the healed Module run: ``module_resnet50``'s recipe
+#: (``resnet50_v1_symbol``'s ResNet-50 v1, fp32, SGD, batch 128, 224²)
+#: by ``Module.fit`` on a fixed synthetic ``NDArrayIter`` of 4 batches,
+#: 2 epochs (8 steps);
+#: ``MXNET_SNAPSHOT_EVERY=2`` in the supervised run, whose first
+#: incarnation is SIGKILLed once the snapshot at epoch 1, cursor 2 (its
+#: 6th step) verifies on disk
+HEAL_RESNET = dict(batch=128, image=224, batches=4, epochs=2,
+                   snap_every=2, kill_at=(1, 2), seed=20,
+                   opt=MODULE_RESNET["opt"])
+#: the healed ``dist_sync`` job: ``cifar10_dist.py``'s recipe
+#: (``get_resnet(1, 18, classes=10)``, 3×32×32, batch 64 a worker, SGD at
+#: lr 0.05, ``dist_sync`` over gloo with each worker updating its
+#: replica) on a global stream (global batch ``t`` from
+#: ``RandomState(1000 + t)``, each rank its rows), 10 steps; rank 0
+#: saves synchronously at cursor 2 and snapshots asynchronously at
+#: cursors 4 and 6, the write of the cursor-6 snapshot held back by an
+#: armed ``ckpt.async`` delay; rank 1 SIGKILLs itself before its
+#: step-6 all-reduce, so the survivor's emergency flush writes that
+#: snapshot
+HEAL_CIFAR = dict(batch=64, workers=2, lr=0.05, steps=10, sync_at=2,
+                  snap_every=2, die_at=6, peer_timeout=5.0,
+                  held_write_s=60)
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN deterministic, its benchmark off, for the phase: a healed
+    run is held bit for bit against an uninterrupted one."""
+    import torch
+
+    prev = (torch.backends.cudnn.deterministic,
+            torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = prev
+
+
+def _free_port():
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _heal_env(**extra):
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+    for k in ("MXNET_RUNLOG", "MXNET_FAULT_SPEC", "MXNET_SNAPSHOT_EVERY",
+              "MXNET_HEAL_ATTEMPT", "DMLC_NUM_WORKER"):
+        env.pop(k, None)
+    env.update({k: str(v) for k, v in extra.items()})
+    return env
+
+
+def _heal_cmd(*args):
+    here = os.path.dirname(os.path.abspath(__file__))
+    return [sys.executable, os.path.join(here, "chip_smoke.py"),
+            "--heal-worker", *[str(a) for a in args]]
+
+
+def _supervised(cmd, env, max_relaunch=1):
+    return subprocess.Popen(
+        [sys.executable, "-m", "mxnet_tpu_torch.resilience.healing",
+         "--relaunch", "--max-relaunch", str(max_relaunch), "--", *cmd],
+        cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True)
+
+
+def _finish(p, what, timeout=300):
+    try:
+        out, err = p.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(p.pid, 9)
+        out, err = p.communicate()
+    if p.returncode != 0:
+        log(f"[{what}] stdout: {out[-3000:]}")
+        log(f"[{what}] stderr: {err[-6000:]}")
+    return p.returncode, out, err
+
+
+def _runlog_records(path):
+    """(records, problems) of a run log by the port's schema; a run cut
+    by SIGKILL keeps every record it flushed."""
+    from mxnet_tpu_torch.telemetry import schema
+
+    if not os.path.exists(path):
+        return [], [f"no run log {path}"]
+    with open(path) as f:
+        return schema.validate_lines(f)
+
+
+def _first_diff(a, b):
+    """(largest |a - b| over every array, first name that differs)."""
+    import numpy as onp
+
+    worst, first = 0.0, None
+    for k in sorted(a):
+        d = float(onp.abs(onp.asarray(a[k], "float64")
+                          - onp.asarray(b[k], "float64")).max())
+        if d > 0 and first is None:
+            first = k
+        worst = max(worst, d)
+    return worst, first
+
+
+def _heal_r50_data():
+    """HEAL_RESNET's batch set, drawn on the card from a seeded
+    generator (the same draws in every process on the card) and
+    brought to the host, where ``NDArrayIter`` reads it."""
+    import torch
+
+    cfg = HEAL_RESNET
+    g = torch.Generator(device="cuda").manual_seed(cfg["seed"])
+    n = cfg["batch"] * cfg["batches"]
+    x = torch.randn((n, 3, cfg["image"], cfg["image"]), generator=g,
+                    device="cuda")
+    y = torch.randint(0, 1000, (n,), generator=g, device="cuda")
+    return x.cpu().numpy(), y.float().cpu().numpy()
+
+
+def _heal_r50_fit(prefix=None, resume=False, block_at=None, on_block=None,
+                  times=None, before_fit=None):
+    """``Module.fit`` of HEAL_RESNET on the card: the same data, the same
+    Xavier draws (numpy's global RNG) every time.  ``times`` collects
+    ``(epoch, nbatch, host s)`` after a device sync at each step's end;
+    ``"capture_ms"`` the snapshots' host time on the step thread and
+    ``"capture_parts"`` each snapshot's pieces (``get_params``, the
+    optimizer states' pickle, the copies to the host); ``"marks"`` the
+    wall clock when the batch set is made (``data``), when ``fit`` is
+    called (``fit``) and at the first step's end (``first_step``);
+    ``"load_s"`` the resume's checkpoint load.  ``before_fit()`` runs
+    just before ``fit``; ``block_at=(epoch, nbatch)`` parks the step
+    thread at that callback (the kill lands there) after calling
+    ``on_block()``.  Returns the module."""
+    import numpy as onp
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.resilience import checkpoint as ck
+
+    cfg = HEAL_RESNET
+    times = {} if times is None else times
+    times.setdefault("steps", [])
+    times.setdefault("capture_ms", [])
+    times.setdefault("capture_parts", [])
+    marks = times.setdefault("marks", {})
+    x, y = _heal_r50_data()
+    marks["data"] = time.time()
+    it = mx.io.NDArrayIter(x, y, batch_size=cfg["batch"], shuffle=False)
+    onp.random.seed(cfg["seed"])
+    mx.random.seed(cfg["seed"])
+    mod = mx.mod.Module(resnet50_v1_symbol(mx.sym), context=mx.gpu(0))
+    snapshot = mod._snapshot_fit_checkpoint
+    parts = None
+
+    def timed(name, fn):
+        def call(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                if parts is not None:
+                    parts[name] = parts.get(name, 0.0) + (
+                        time.perf_counter() - t0) * 1e3
+        return call
+
+    def marked(name, fn):
+        def call(*a, **k):
+            out = fn(*a, **k)
+            marks.setdefault(name, time.time())
+            return out
+        return call
+
+    # the set-up's first ends, on the wall clock
+    for name in ("bind", "init_params", "init_optimizer"):
+        setattr(mod, name, marked(name, getattr(mod, name)))
+    # the capture's pieces, timed only inside a snapshot
+    mod.get_params = timed("get_params_ms", mod.get_params)
+    mod._get_optimizer_states = timed("optimizer_states_ms",
+                                      mod._get_optimizer_states)
+    host_copies = ck._host_copies
+
+    def timed_snapshot(*a, **k):
+        nonlocal parts
+        parts = {}
+        ck._host_copies = timed("host_copies_ms", host_copies)
+        t0 = time.perf_counter()
+        try:
+            snapshot(*a, **k)
+        finally:
+            ck._host_copies = host_copies
+        times["capture_ms"].append((time.perf_counter() - t0) * 1e3)
+        times["capture_parts"].append(parts)
+        parts = None
+
+    mod._snapshot_fit_checkpoint = timed_snapshot
+
+    def on_step(p):
+        torch.cuda.synchronize()
+        times["steps"].append((p.epoch, p.nbatch, time.perf_counter()))
+        marks.setdefault("first_step", time.time())
+        if block_at is not None and (p.epoch, p.nbatch) >= block_at:
+            on_block()
+            t_end = time.time() + 300
+            while time.time() < t_end:  # the kill lands here
+                time.sleep(0.05)
+            raise SystemExit("the worker was never killed")
+
+    resume_from = None
+    if resume:
+        resume_from = ck.CheckpointManager(prefix)
+        load = resume_from.load
+
+        def timed_load(*a, **k):
+            t0 = time.perf_counter()
+            st = load(*a, **k)
+            times["load_s"] = time.perf_counter() - t0
+            times["resumed"] = {k: st[k] for k in
+                                ("version", "epoch", "batch_cursor")}
+            return st
+
+        resume_from.load = timed_load
+    if before_fit is not None:
+        before_fit()
+    marks["fit"] = time.time()
+    mod.fit(it, num_epoch=cfg["epochs"], optimizer="sgd",
+            optimizer_params=cfg["opt"], initializer=mx.init.Xavier(),
+            checkpoint=prefix, resume_from=resume_from,
+            batch_end_callback=on_step)
+    return mod
+
+
+def _ms_per_step(steps):
+    """Mean host ms between consecutive step ends within one epoch (an
+    epoch's boundary save and its first step are left out)."""
+    gaps = [(b[2] - a[2]) * 1e3 for a, b in zip(steps, steps[1:])
+            if a[0] == b[0]]
+    return sum(gaps) / len(gaps) if gaps else float("nan"), gaps
+
+
+def _params_host(mod):
+    arg, aux = mod.get_params()
+    out = {f"arg:{k}": v.asnumpy() for k, v in arg.items()}
+    out.update({f"aux:{k}": v.asnumpy() for k, v in aux.items()})
+    return out
+
+
+def _heal_r50_worker(workdir, t_entry):
+    """The supervised run's command: attempt 0 writes its pid, makes its
+    batch set and Module while the phase times its own run, starts
+    ``fit`` once the phase writes ``go``, snapshots every 2 steps,
+    writes its step times and parks after its epoch-1 cursor-2 snapshot
+    until the phase SIGKILLs it; a relaunch resumes from the freshest
+    verified version (the version ``fit`` loaded, read back from its
+    load) and saves its final parameters."""
+    import numpy as onp
+
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.resilience import healing
+
+    attempt = healing.relaunch_attempt()
+    prefix = os.path.join(workdir, "ck")
+    times = {"marks": {"entry": t_entry, "imported": time.time()}}
+
+    def dump(path):
+        ms, gaps = _ms_per_step(times["steps"])
+        with open(path, "w") as f:
+            json.dump({"ms_per_step": ms, "gaps_ms": gaps,
+                       **{k: v for k, v in times.items() if k != "steps"}},
+                      f)
+
+    if attempt == 0:
+        with open(os.path.join(workdir, "worker.pid"), "w") as f:
+            f.write(str(os.getpid()))
+        go = os.path.join(workdir, "go")
+
+        def wait_go():
+            deadline = time.time() + 300
+            while not os.path.exists(go) and time.time() < deadline:
+                time.sleep(0.02)
+
+        with deterministic_cudnn():
+            _heal_r50_fit(prefix, block_at=HEAL_RESNET["kill_at"],
+                          on_block=lambda: dump(os.path.join(
+                              workdir, "times.a0.json")), times=times,
+                          before_fit=wait_go)
+        return 1
+    with deterministic_cudnn():
+        mod = _heal_r50_fit(prefix, resume=True, times=times)
+    onp.savez(os.path.join(workdir, "healed.npz"), **_params_host(mod))
+    telemetry.close()
+    dump(os.path.join(workdir, f"times.a{attempt}.json"))
+    return 0
+
+
+def heal_module_resnet50_phase(workdir):
+    """ResNet-50 v1 by ``Module.fit`` (HEAL_RESNET) three ways, cuDNN
+    deterministic: (1) here with ``checkpoint=`` and no snapshots, for
+    the step time, while the supervised worker starts; (2) under the
+    port's supervisor (``python -m mxnet_tpu_torch.resilience.healing
+    --relaunch``) with ``MXNET_SNAPSHOT_EVERY=2``, its ``fit`` started
+    once (1) is done, SIGKILLed once the epoch-1 cursor-2 snapshot
+    verifies, relaunched and resumed by ``fit(resume_from=)``; (3)
+    uninterrupted here, while the relaunch runs.  The healed final
+    parameters and moving statistics must equal (3)'s exactly."""
+    import numpy as onp
+    import torch
+
+    from mxnet_tpu_torch.resilience.checkpoint import CheckpointManager
+
+    cfg = HEAL_RESNET
+    t_phase = time.perf_counter()
+    d = os.path.join(workdir, "heal_resnet50")
+    os.makedirs(d, exist_ok=True)
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0  # the phase's in-process runs start here
+    # the worker's process start, imports, batch set and Module overlap
+    # run (1); its fit waits for the ``go`` file
+    t_sup = time.time()
+    sup = _supervised(_heal_cmd("module_resnet50", d),
+                      _heal_env(MXNET_SNAPSHOT_EVERY=cfg["snap_every"]))
+    plain = {}
+    torch.cuda.empty_cache()
+    t_run1 = time.time()
+    with deterministic_cudnn():
+        mod = _heal_r50_fit(os.path.join(d, "plain"), times=plain)
+    del mod
+    torch.cuda.empty_cache()
+    ms_plain, plain_gaps = _ms_per_step(plain["steps"])
+    marks = {"run_1": time.perf_counter() - t_phase}
+    t_go = time.time()
+    with open(os.path.join(d, "go"), "w"):
+        pass
+    mgr = CheckpointManager(os.path.join(d, "ck"))
+    kill_version = None
+    deadline = time.time() + 240
+    while kill_version is None and time.time() < deadline \
+            and sup.poll() is None:
+        for e in mgr.epochs():
+            try:
+                man = mgr._read_manifest(e)
+            except (OSError, ValueError):
+                continue
+            if (man["epoch"], man["batch_cursor"]) == cfg["kill_at"] \
+                    and mgr.verify(e):
+                kill_version = e
+                break
+        time.sleep(0.05)
+    check(kill_version is not None,
+          "heal_module_resnet50: the epoch-1 cursor-2 snapshot never "
+          "verified")
+    with open(os.path.join(d, "worker.pid")) as f:
+        os.kill(int(f.read()), 9)
+    t_kill = time.time()
+    marks["kill"] = time.perf_counter() - t_phase
+    # (3) uninterrupted, while the supervisor relaunches the worker
+    with deterministic_cudnn():
+        mod = _heal_r50_fit(None)
+    ref = _params_host(mod)
+    del mod
+    counts = {n: w.launches for n, w in wrappers.items()}
+    marks["run_3"] = time.perf_counter() - t_phase
+    rc, out, err = _finish(sup, "heal_module_resnet50 supervisor")
+    marks["healed"] = time.perf_counter() - t_phase
+    check(rc == 0, f"heal_module_resnet50: the supervisor exited {rc}")
+    with open(os.path.join(d, "times.a0.json")) as f:
+        t0 = json.load(f)
+    with open(os.path.join(d, "times.a1.json")) as f:
+        t1 = json.load(f)
+    healed = dict(onp.load(os.path.join(d, "healed.npz")))
+    check(sorted(healed) == sorted(ref),
+          "heal_module_resnet50: healed and uninterrupted arrays differ "
+          "in name")
+    worst, first = _first_diff(healed, ref)
+    # the killed incarnation's snapshots, from its run log's records
+    recs0, problems0 = _runlog_records(os.path.join(d, "runlog.a0.jsonl"))
+    recs1, problems1 = _runlog_records(os.path.join(d, "runlog.a1.jsonl"))
+    async_recs = [r for r in recs0 if r.get("type") == "checkpoint"
+                  and r.get("async")]
+    end1 = [r for r in recs1 if r.get("type") == "run_end"]
+    counters1 = end1[-1]["counters"] if end1 else {}
+    m0, m1 = t0["marks"], t1["marks"]
+    # each process's wall clock from the supervisor's start (attempt 0)
+    # or the kill (the relaunch)
+    worker_s = {
+        "a0": dict({k: v - t_sup for k, v in m0.items()},
+                   go=t_go - t_sup),
+        "a1": dict({k: v - t_kill for k, v in m1.items()},
+                   load_s=t1["load_s"]),
+        "run_1": {k: v - t_run1 for k, v in plain["marks"].items()},
+    }
+    res = {
+        "phase": "heal_module_resnet50",
+        "config": f"resnet50_v1_symbol, fp32, SGD {dict(cfg['opt'])}, batch "
+                  f"{cfg['batch']}, {cfg['image']}², {cfg['batches']} "
+                  f"batches x {cfg['epochs']} epochs, snapshots every "
+                  f"{cfg['snap_every']}, cuDNN deterministic",
+        "ms_per_step_no_snapshots": ms_plain,
+        "ms_per_step_with_snapshots": t0["ms_per_step"],
+        "gaps_ms_no_snapshots": plain_gaps,
+        "gaps_ms_with_snapshots": t0["gaps_ms"],
+        "capture_host_ms": t0["capture_ms"],
+        "capture_parts_ms": t0["capture_parts"],
+        "snapshot_bytes": [r["bytes"] for r in async_recs],
+        "writer_s_per_version": [r["duration_s"] for r in async_recs],
+        "ckpt_async_writes": {"a0": len(async_recs),
+                              "a1": counters1.get("ckpt_async_writes")},
+        "killed_after_version": kill_version,
+        "resumed": t1["resumed"],
+        "resume_fallbacks": counters1.get("ckpt_fallbacks"),
+        "relaunch_to_first_step_s": m1["first_step"] - t_kill,
+        "worker_s": worker_s,
+        "healed_vs_uninterrupted_max_abs": worst,
+        "first_differing": first,
+        "arrays": len(ref),
+        "kernel_launches": counts,
+        "timeline_s": marks,
+        "seconds": time.perf_counter() - t_phase,
+    }
+    emit(res)
+    log(f"[heal_module_resnet50] {ms_plain:.2f} ms/step without snapshots, "
+        f"{t0['ms_per_step']:.2f} with; capture {t0['capture_ms']} host ms "
+        f"({t0['capture_parts']}); {res['snapshot_bytes']} B, writer "
+        f"{res['writer_s_per_version']} s a version; resumed "
+        f"{t1['resumed']}; relaunch to first step "
+        f"{res['relaunch_to_first_step_s']:.2f} s ({worker_s}); max "
+        f"|healed - uninterrupted| {worst} ({res['seconds']:.1f} s)")
+    check(not problems0 and not problems1,
+          f"heal_module_resnet50: run logs {problems0[:3]} {problems1[:3]}")
+    check(len(async_recs) >= 2,
+          f"heal_module_resnet50: {len(async_recs)} async writes")
+    check(t1["resumed"]["version"] == kill_version
+          and t1["resumed"]["epoch"] == cfg["kill_at"][0]
+          and t1["resumed"]["batch_cursor"] == cfg["kill_at"][1]
+          and not counters1.get("ckpt_fallbacks"),
+          f"heal_module_resnet50: resumed from {t1['resumed']} "
+          f"(killed after version {kill_version}), "
+          f"{counters1.get('ckpt_fallbacks')} fallbacks")
+    check(worst == 0.0, f"heal_module_resnet50: the healed parameters "
+                        f"differ from the uninterrupted run's by {worst}, "
+                        f"first at {first}")
+    check(not any(counts.values()),
+          f"heal_module_resnet50: kernel launches {counts}")
+    return res
+
+
+def _heal_cifar_batch(t, rank, world):
+    """This rank's rows of global batch ``t`` (RandomState(1000 + t)):
+    every world size consumes the same global stream."""
+    import numpy as onp
+
+    cfg = HEAL_CIFAR
+    gb = cfg["batch"] * cfg["workers"]
+    rng = onp.random.RandomState(1000 + t)
+    x = rng.rand(gb, 3, 32, 32).astype("float32")
+    y = rng.randint(0, 10, gb).astype("float32")
+    b = gb // world
+    return x[rank * b:(rank + 1) * b], y[rank * b:(rank + 1) * b]
+
+
+def _heal_cifar_model(mx):
+    """The example's net and Trainer (SGD at lr 0.05 over ``dist_sync``,
+    each worker updating its replica), the initializers seeded with 0
+    on every rank."""
+    import numpy as onp
+
+    from mxnet_tpu_torch import gluon
+
+    onp.random.seed(0)
+    mx.random.seed(0)
+    net = gluon.model_zoo.vision.get_resnet(1, 18, classes=10)
+    net.initialize(init=mx.init.Xavier(), ctx=mx.gpu(0))
+    trainer = gluon.Trainer(net.collect_params(), "sgd",
+                            {"learning_rate": HEAL_CIFAR["lr"]},
+                            kvstore="dist_sync", update_on_kvstore=False)
+    return net, trainer
+
+
+def _heal_cifar_step(mx, net, trainer, t, rank, world):
+    """One step of global batch ``t`` on this rank's rows: forward,
+    backward, the Trainer's all-reduce and update, the loss read back
+    (so the collective completes inside the caller's guard)."""
+    from mxnet_tpu_torch import autograd, gluon
+
+    x, y = _heal_cifar_batch(t, rank, world)
+    ctx = mx.gpu(0)
+    x, y = mx.nd.array(x, ctx=ctx), mx.nd.array(y, ctx=ctx)
+    with autograd.record():
+        loss = gluon.loss.SoftmaxCrossEntropyLoss()(net(x), y)
+    loss.backward()
+    trainer.step(HEAL_CIFAR["batch"] * HEAL_CIFAR["workers"])
+    return float(loss.mean().asnumpy())
+
+
+def _heal_cifar_state(net, trainer, path):
+    """(params, optimizer-state bytes) of the replica, on the host."""
+    trainer.save_states(path)
+    with open(path, "rb") as f:
+        states = f.read()
+    return {n: p.data() for n, p in net.collect_params().items()}, states
+
+
+def _heal_cifar_topo(world):
+    from mxnet_tpu_torch.resilience.elastic import topology_block
+
+    cfg = HEAL_CIFAR
+    return topology_block(world_size=world, num_processes=world,
+                          sharding="none",
+                          global_batch=cfg["batch"] * cfg["workers"])
+
+
+def _heal_cifar_resume(mx, st, workdir, tag):
+    """World 1: the net from the loaded checkpoint ``st``, the remaining
+    steps from ``cursor`` at the global batch; saves the final
+    parameters and returns the first step's wall clock."""
+    import numpy as onp
+
+    net, trainer = _heal_cifar_model(mx)
+    for n, p in net.collect_params().items():
+        p.set_data(st["arg_params"][n])
+    states = os.path.join(workdir, f"{tag}.states")
+    with open(states, "wb") as f:
+        f.write(st["optimizer_states"])
+    trainer.load_states(states)
+    first = None
+    for t in range(st["batch_cursor"], HEAL_CIFAR["steps"]):
+        _heal_cifar_step(mx, net, trainer, t, 0, 1)
+        first = first or time.time()
+    params = {n: p.data().asnumpy() for n, p in
+              net.collect_params().items()}
+    onp.savez(os.path.join(workdir, f"{tag}.npz"), **params)
+    return first
+
+
+def _heal_cifar_worker(args, t_entry):
+    """``run <coordinator> <rank> <prefix> <hb_dir>`` (rank 0 under the
+    supervisor; a relaunch heals to world 1) or ``resume <prefix>
+    <version> <workdir>`` (the independent world-1 resume)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.resilience import elastic, faultsim, healing
+    from mxnet_tpu_torch.resilience.checkpoint import CheckpointManager
+
+    cfg = HEAL_CIFAR
+    marks = {"entry": t_entry, "imported": time.time()}
+    if args[0] == "resume":
+        prefix, version, workdir = args[1], int(args[2]), args[3]
+        st = CheckpointManager(prefix).load(version, ctx=mx.cpu())
+        with deterministic_cudnn():
+            _heal_cifar_resume(mx, st, workdir, "independent")
+        return 0
+    coordinator, rank, prefix, hb_dir = args[1], int(args[2]), args[3], \
+        args[4]
+    workdir = os.path.dirname(prefix)
+    attempt = healing.relaunch_attempt()
+    if attempt > 0:
+        survivors = healing.surviving_ranks(hb_dir, cfg["workers"],
+                                            self_rank=rank)
+        coord_rank, remap = healing.elect_coordinator(survivors)
+        elastic.elastic_init()  # the surviving world: one process
+        st = CheckpointManager(prefix).load(ctx=mx.cpu())
+        marks["loaded"] = time.time()
+        # the verdict, the re-sliced cursor, and the counts and records
+        # of a healed reshard, as Module.fit's resume takes them
+        cursor, verdict = elastic._apply_resume_topology(
+            st["topology"], _heal_cifar_topo(1), st["batch_cursor"])
+        st["batch_cursor"] = cursor
+        with deterministic_cudnn():
+            first = _heal_cifar_resume(mx, st, workdir, "healed")
+        telemetry.close()
+        with open(os.path.join(workdir, "healed.json"), "w") as f:
+            json.dump({"survivors": survivors, "coordinator": coord_rank,
+                       "remap": {str(k): v for k, v in remap.items()},
+                       "verdict": {k: verdict[k] for k in
+                                   ("reshard", "old_world", "new_world")},
+                       "version": st["version"], "cursor": cursor,
+                       "global_batch": st["topology"]["global_batch"],
+                       "first_step": first, "marks": marks}, f)
+        return 0
+    ctx = elastic.elastic_init(coordinator=coordinator,
+                               num_processes=cfg["workers"],
+                               process_id=rank)
+    marks["init"] = time.time()
+    det = healing.arm(hb_dir, rank, cfg["workers"])
+    mgr = CheckpointManager(prefix)
+    with deterministic_cudnn():
+        net, trainer = _heal_cifar_model(mx)
+        marks["model"] = time.time()
+        t_step = time.time()
+        try:
+            for t in range(cfg["steps"]):
+                if rank == 1 and t == cfg["die_at"]:
+                    # rank 0's last snapshot is captured (and held) first
+                    captured = os.path.join(workdir, "captured")
+                    deadline = time.time() + 60
+                    while not os.path.exists(captured) \
+                            and time.time() < deadline:
+                        time.sleep(0.01)
+                    with open(os.path.join(workdir, "victim.json"),
+                              "w") as f:
+                        json.dump({"killed_at": time.time(), "step": t,
+                                   "marks": marks}, f)
+                    os.kill(os.getpid(), 9)  # before its step's all-reduce
+                t_step = time.time()
+                healing.guard_collective(
+                    lambda: _heal_cifar_step(mx, net, trainer, t, rank,
+                                             ctx.num_processes),
+                    det, poll=0.05, label=f"step{t}")
+                marks.setdefault("first_step", time.time())
+                healing.poll(step=t)
+                if rank != 0:
+                    continue
+                cursor = t + 1
+                if cursor == cfg["die_at"]:
+                    # the last snapshot before the death stays in memory:
+                    # its write waits behind an armed delay, so the
+                    # survivor's emergency flush is what writes it
+                    mgr.wait_async()
+                    faultsim.reset(
+                        f"ckpt.async:delay={cfg['held_write_s']}@1+")
+                if cursor == cfg["sync_at"] or (
+                        cursor > cfg["sync_at"]
+                        and cursor % cfg["snap_every"] == 0):
+                    params, states = _heal_cifar_state(
+                        net, trainer, os.path.join(workdir, "r0.states"))
+                    save = mgr.save if cursor == cfg["sync_at"] \
+                        else mgr.save_async
+                    save(mgr.allocate_version(), arg_params=params,
+                         optimizer_states=states, batch_cursor=cursor,
+                         topology=_heal_cifar_topo(ctx.num_processes))
+                if cursor == cfg["die_at"]:
+                    with open(os.path.join(workdir, "captured"), "w"):
+                        pass
+        except healing.PeerDeadError as e:
+            t_detect = time.time()
+            t0 = time.perf_counter()
+            paths = healing.fire_emergency("peer_death")
+            flush_ms = (time.perf_counter() - t0) * 1e3
+            latest = mgr.latest_epoch()
+            report = os.path.join(workdir, "survivor.json")
+            with open(report + ".tmp", "w") as f:  # renamed whole below
+                json.dump({"detected_at": t_detect,
+                           "detect_s_in_step": t_detect - t_step,
+                           "emergency_flush_ms": flush_ms,
+                           "emergency_paths": paths, "dead": e.dead,
+                           "latest": latest,
+                           "latest_manifest": mgr.manifest_path(latest),
+                           "latest_extra": mgr._read_manifest(latest).get(
+                               "extra", {}),
+                           "latest_cursor": mgr._read_manifest(latest)[
+                               "batch_cursor"],
+                           "async_errors": len(mgr._async.errors)
+                           if mgr._async is not None else None,
+                           "marks": marks, "exit_at": time.time()}, f)
+            os.replace(report + ".tmp", report)
+            healing.heal_exit("peer_death")
+    raise SystemExit("the peer death never came")
+
+
+def heal_dist_cifar10_phase(workdir):
+    """Two workers of HEAL_CIFAR's ``dist_sync`` job on the one card
+    under the port's healing (heartbeats, every step under
+    ``guard_collective``), rank 0 under the supervisor, rank 1
+    SIGKILLing itself before its step-6 all-reduce while rank 0's
+    cursor-6 snapshot is captured but unwritten: the survivor detects
+    the death, flushes that snapshot as the emergency checkpoint and
+    exits 83; the supervisor relaunches it, which reads the surviving
+    world from the heartbeat directory, takes the 2 → 1 verdict,
+    resumes from the emergency checkpoint at the global batch of 128
+    and finishes.  Its final parameters must equal, bit for bit, those
+    of an independent world-1 process resuming from the same
+    emergency checkpoint."""
+    import numpy as onp
+
+    from mxnet_tpu_torch.tools import ckpt_fsck
+
+    cfg = HEAL_CIFAR
+    t_phase = time.perf_counter()
+    d = os.path.join(workdir, "heal_cifar")
+    os.makedirs(d, exist_ok=True)
+    prefix, hb = os.path.join(d, "ck"), os.path.join(d, "hb")
+    coord = f"127.0.0.1:{_free_port()}"
+    env = _heal_env(MXNET_PEER_TIMEOUT_SEC=cfg["peer_timeout"])
+    t_start = time.time()
+    sup = _supervised(_heal_cmd("cifar10", "run", coord, 0, prefix, hb),
+                      dict(env, MXNET_RUNLOG=os.path.join(
+                          d, "runlog.supervisor.jsonl")))
+    victim = subprocess.Popen(
+        _heal_cmd("cifar10", "run", coord, 1, prefix, hb),
+        cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True)
+    rc1, _, _ = _finish(victim, "heal_dist_cifar10 rank 1")
+    marks = {"victim_dead": time.perf_counter() - t_phase}
+    check(rc1 == -9, f"heal_dist_cifar10: rank 1 exited {rc1}, not SIGKILL")
+    # the independent world-1 resume starts as soon as the survivor has
+    # named the version it left
+    survivor = os.path.join(d, "survivor.json")
+    deadline = time.time() + 120
+    while not os.path.exists(survivor) and time.time() < deadline \
+            and sup.poll() is None:
+        time.sleep(0.05)
+    check(os.path.exists(survivor),
+          "heal_dist_cifar10: the survivor never reported the death")
+    with open(survivor) as f:
+        surv = json.load(f)
+    indep = subprocess.Popen(
+        _heal_cmd("cifar10", "resume", prefix, surv["latest"], d),
+        cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True)
+    marks["survivor_reported"] = time.perf_counter() - t_phase
+    rc0, out0, err0 = _finish(sup, "heal_dist_cifar10 supervisor")
+    marks["healed"] = time.perf_counter() - t_phase
+    rci, _, _ = _finish(indep, "heal_dist_cifar10 independent resume")
+    marks["independent"] = time.perf_counter() - t_phase
+    check(rc0 == 0, f"heal_dist_cifar10: the supervisor exited {rc0}")
+    check(rci == 0, f"heal_dist_cifar10: the independent resume exited {rci}")
+    with open(os.path.join(d, "victim.json")) as f:
+        vic = json.load(f)
+    with open(os.path.join(d, "healed.json")) as f:
+        healed = json.load(f)
+    a = dict(onp.load(os.path.join(d, "healed.npz")))
+    b = dict(onp.load(os.path.join(d, "independent.npz")))
+    worst, first = _first_diff(a, b)
+    report = ckpt_fsck.fsck(d, check_all=True)
+    # rank 0's run logs, one an attempt, and the supervisor's
+    logs = {k: _runlog_records(f"{prefix}.runlog.r0.{k}.jsonl")
+            for k in ("a0", "a1")}
+    logs["supervisor"] = _runlog_records(
+        os.path.join(d, "runlog.supervisor.jsonl"))
+    problems = [p for _, probs in logs.values() for p in probs]
+    heals = {k: [r for r in recs if r.get("type") == "heal"]
+             for k, (recs, _) in logs.items()}
+    counters = {}
+    for recs, _ in logs.values():
+        for r in recs:
+            if r.get("type") == "run_end":
+                for k in ("peer_deaths", "auto_reshards", "emergency_ckpts",
+                          "heal_relaunches", "ckpt_async_writes"):
+                    counters[k] = counters.get(k, 0) + r["counters"].get(k, 0)
+    relaunch = [h for h in heals["supervisor"] if h["action"] == "relaunch"]
+    detect_s = surv["detected_at"] - vic["killed_at"]
+    emergency_bytes = [r["bytes"] for r in logs["a0"][0]
+                       if r.get("type") == "checkpoint"
+                       and r.get("emergency")]
+    # each process's wall clock from the phase's start (the two
+    # workers) or the survivor's exit (the relaunch)
+    worker_s = {
+        f"r{r}": {k: v - t_start for k, v in m.items()}
+        for r, m in ((0, surv["marks"]), (1, vic["marks"]))}
+    worker_s["relaunch"] = {k: v - surv["exit_at"]
+                            for k, v in healed["marks"].items()}
+    res = {
+        "phase": "heal_dist_cifar10",
+        "config": "get_resnet(1, 18, classes=10), 3x32x32, batch 64 a "
+                  "worker, SGD lr 0.05, dist_sync over gloo, 2 workers on "
+                  f"cuda:0, {cfg['steps']} steps; rank 1 SIGKILLed before "
+                  f"step {cfg['die_at']}; MXNET_PEER_TIMEOUT_SEC "
+                  f"{cfg['peer_timeout']}",
+        "detect_s_from_kill": detect_s,
+        "detect_s_in_step": surv["detect_s_in_step"],
+        "emergency_flush_ms": surv["emergency_flush_ms"],
+        "emergency_paths": surv["emergency_paths"],
+        "emergency_version": surv["latest"],
+        "emergency_extra": surv["latest_extra"],
+        "emergency_cursor": surv["latest_cursor"],
+        "emergency_bytes": emergency_bytes,
+        "survivor_rc": relaunch[0]["code"] if relaunch else None,
+        "relaunch": healed,
+        "relaunch_to_first_step_s": healed["first_step"] - surv["exit_at"],
+        "healed_vs_independent_max_abs": worst,
+        "first_differing": first,
+        "fsck_clean": report["clean"], "fsck_problems": report["problems"],
+        "heal_actions": {k: [h["action"] for h in v]
+                         for k, v in heals.items()},
+        "counters": counters,
+        "runlog_problems": problems[:5],
+        "timeline_s": marks,
+        "worker_s": worker_s,
+        "seconds": time.perf_counter() - t_phase,
+    }
+    emit(res)
+    log(f"[heal_dist_cifar10] detected {detect_s:.3f} s after the kill "
+        f"({surv['detect_s_in_step']:.3f} s into the step), emergency flush "
+        f"{surv['emergency_flush_ms']:.2f} ms {surv['emergency_paths']}, "
+        f"relaunch {healed} ; relaunch to first step "
+        f"{res['relaunch_to_first_step_s']:.2f} s; max |healed - "
+        f"independent| {worst} ({res['seconds']:.1f} s)")
+    check(surv["emergency_paths"] == [surv["latest_manifest"]]
+          and surv["latest_extra"].get("emergency") == "peer_death"
+          and surv["latest_cursor"] == cfg["die_at"]
+          and counters.get("emergency_ckpts") == 1,
+          f"heal_dist_cifar10: emergency {surv['emergency_paths']} "
+          f"latest {surv['latest']} {surv['latest_extra']} cursor "
+          f"{surv['latest_cursor']}, {counters.get('emergency_ckpts')} "
+          "emergency checkpoints")
+    check(healed["version"] == surv["latest"],
+          f"heal_dist_cifar10: the relaunch resumed version "
+          f"{healed['version']}, not the emergency {surv['latest']}")
+    check(detect_s < cfg["peer_timeout"],
+          f"heal_dist_cifar10: detection took {detect_s:.2f} s")
+    check(res["survivor_rc"] == 83,
+          f"heal_dist_cifar10: the survivor exited {res['survivor_rc']}")
+    check({"peer_death", "emergency_ckpt", "heal_exit"}
+          <= set(res["heal_actions"]["a0"])
+          and "resume" in res["heal_actions"]["a1"],
+          f"heal_dist_cifar10: heal records {res['heal_actions']}")
+    check(healed["survivors"] == [0] and healed["coordinator"] == 0,
+          f"heal_dist_cifar10: survivors {healed['survivors']}")
+    check(healed["verdict"] == {"reshard": True, "old_world": 2,
+                                "new_world": 1},
+          f"heal_dist_cifar10: verdict {healed['verdict']}")
+    check(healed["cursor"] > cfg["sync_at"]
+          and healed["global_batch"] == cfg["batch"] * cfg["workers"],
+          f"heal_dist_cifar10: resumed at cursor {healed['cursor']}, global "
+          f"batch {healed['global_batch']}")
+    check(report["clean"], f"heal_dist_cifar10: fsck {report['problems']}")
+    check(not problems, f"heal_dist_cifar10: run log {problems[:3]}")
+    check(counters.get("peer_deaths") == 1
+          and counters.get("auto_reshards") == 1,
+          f"heal_dist_cifar10: counters {counters}")
+    check(worst == 0.0, f"heal_dist_cifar10: healed and independent "
+                        f"resumes differ by {worst}, first at {first}")
+    return res
+
+
+def heal_worker(argv):
+    """``chip_smoke.py --heal-worker module_resnet50 WORKDIR`` or
+    ``--heal-worker cifar10 ...``: the commands the resilience phases
+    start (under the port's supervisor where they heal)."""
+    t_entry = time.time()
+    import torch
+
+    if not torch.cuda.is_available():
+        log("chip_smoke: torch sees no CUDA card; nothing to drive")
+        return 2
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, here)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    attempt = os.environ.get("MXNET_HEAL_ATTEMPT", "0")
+    if argv[0] == "module_resnet50":
+        os.environ["MXNET_RUNLOG"] = os.path.join(
+            argv[1], f"runlog.a{attempt}.jsonl")
+        return _heal_r50_worker(argv[1], t_entry)
+    if argv[0] == "cifar10":
+        if argv[1] == "run":  # rank r's run log of this attempt
+            os.environ["MXNET_RUNLOG"] = \
+                f"{argv[4]}.runlog.r{argv[3]}.a{attempt}.jsonl"
+        return _heal_cifar_worker(argv[1:], t_entry)
+    raise SystemExit(f"unknown heal worker {argv[0]!r}")
+
+
 def main(argv=None):
     global _out_file
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -8790,6 +9671,9 @@ def main(argv=None):
                          "csrc/bnreluconv_bwd.cu (same C interface), "
                          "built from SOURCE, at the fused backward's "
                          "stage shapes")
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv[:1] == ["--heal-worker"]:
+        return heal_worker(argv[1:])
     args = ap.parse_args(argv)
     try:
         import torch

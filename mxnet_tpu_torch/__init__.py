@@ -38,7 +38,10 @@ optimizer and the distributed store (the rest of
 :mod:`~mxnet_tpu_torch.optimizer` and the update ops, ``mx.kv``'s
 ``dist_*`` stores on gloo and the TCP parameter server, the launcher
 ``tools/launch.py``, the distributed Trainer, ``ImageDetRecordIter``,
-``gluon.data.vision``), with what they run.
+``gluon.data.vision``) and the resilience that keeps them running
+(:mod:`~mxnet_tpu_torch.resilience`'s asynchronous checkpoint, elastic
+bring-up and peer healing with its supervisor,
+:mod:`~mxnet_tpu_torch.runtime`), with what they run.
 """
 __version__ = "0.1.0"
 
@@ -82,6 +85,8 @@ from . import contrib  # noqa: F401
 from . import quantization  # noqa: F401
 from . import profiler  # noqa: F401
 from . import telemetry  # noqa: F401
+from . import resilience  # noqa: F401
+from . import runtime  # noqa: F401
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "num_gpus", "default_device", "resolve_device", "nd",
@@ -90,4 +95,4 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "AttrScope", "io", "model", "callback", "monitor", "mon",
            "mod", "module", "deploy", "contrib", "quantization",
            "profiler", "telemetry", "recordio", "image", "kv",
-           "kvstore"]
+           "kvstore", "resilience", "runtime"]

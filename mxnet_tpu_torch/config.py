@@ -147,10 +147,87 @@ register_env("MXNET_OPTIMIZER_SHARDING", "", str,
              "Module over several contexts, '0'/'off' forces it off, "
              "empty defers to the caller.  A Module on one context "
              "updates per parameter either way.")
+register_env("MXNET_ZERO_STAGE", "", str,
+             "ZeRO stage of the sharded-server exchange "
+             "(optimizer_sharding='ps', parallel.zero): '1' = classic "
+             "ZeRO-1 (per-bucket all-reduce, grads replicated, "
+             "optimizer state sharded), '2' = gradient shards "
+             "(per-bucket reduce-scatter — the default program when "
+             "unset), '3' = parameter shards (params live sharded as "
+             "flat buckets).  Unset defers to the caller's zero_stage/"
+             "optimizer_sharding arguments.  Unknown values raise.")
 register_env("MXNET_SNAPSHOT_EVERY", 0, int,
-             "Batches between async snapshot checkpoints in Module.fit "
-             "(needs checkpoint=).  Not ported: a value above 0 raises "
-             "(ROADMAP §A 7, with §A 11's asynchronous checkpoint).")
+             "Batches between async snapshot checkpoints in "
+             "Module.fit (needs checkpoint=).  0 (default) keeps the "
+             "epoch-boundary-only cadence; N>0 makes the recovery "
+             "point at most N batches old — the freshest snapshot is "
+             "also what an emergency checkpoint (peer death, "
+             "watchdog abort) flushes without any collective.")
+register_env("MXNET_ELASTIC", False, bool,
+             "Elastic multi-process runtime (resilience.elastic): arms "
+             "runtime.init_distributed()/elastic_init() multi-process "
+             "bring-up over torch.distributed, topology-stamped "
+             "checkpoints, and reshard-on-resize resume — a job "
+             "resumed at a different world size re-slices its cursor "
+             "instead of dying.")
+register_env("MXNET_COORDINATOR", "", str,
+             "Rendezvous address of the elastic job as host:port "
+             "(process 0 serves the TCPStore there).  Empty falls back "
+             "to the DMLC_* launcher contract (DMLC_PS_ROOT_URI:"
+             "DMLC_PS_ROOT_PORT when DMLC_NUM_WORKER > 1); "
+             "unresolvable = single-process bring-up.")
+register_env("MXNET_NUM_PROCESSES", 0, int,
+             "Process count of the elastic job (0 = fall back to "
+             "DMLC_NUM_WORKER, then single-process).")
+register_env("MXNET_PROCESS_ID", -1, int,
+             "This process's id in the elastic job (-1 = fall back to "
+             "DMLC_WORKER_ID).")
+register_env("MXNET_DIST_INIT_ATTEMPTS", 4, int,
+             "Bounded-retry attempts around the process-group bring-up "
+             "in elastic_init (backoff + jitter via resilience.retry; "
+             "the dist.init fault point fires inside every attempt).")
+register_env("MXNET_DIST_INIT_TIMEOUT_SEC", 120.0, float,
+             "Total time budget (seconds) for elastic_init's bring-up "
+             "retry loop — the deadline_sec cap, so attempt counts "
+             "cannot overshoot the bring-up SLA once backoff grows.")
+register_env("MXNET_PEER_TIMEOUT_SEC", 10.0, float,
+             "Peer liveness timeout (resilience.healing): a peer "
+             "whose heartbeat file goes stale for this many seconds "
+             "is declared DEAD by every survivor's FailureDetector "
+             "(a same-host peer whose pid vanished is declared dead "
+             "immediately — the SIGKILL fast path).  Also sets the "
+             "Heartbeater's default beat interval (timeout/4).")
+register_env("MXNET_HEARTBEAT_DIR", "", str,
+             "Shared directory of per-rank heartbeat files "
+             "(resilience.healing).  Set on a multi-process elastic "
+             "job and Module.fit arms the self-healing loop: this "
+             "rank beats, the failure detector polls at step "
+             "boundaries, and a declared peer death fires the "
+             "emergency checkpoint + PeerDeadError instead of "
+             "wedging in a collective.  Empty = healing unarmed.")
+register_env("MXNET_CKPT_ASYNC", True, bool,
+             "Snapshot checkpoints write asynchronously "
+             "(CheckpointManager.save_async: device->host capture at "
+             "the step boundary, serialization + atomic write on a "
+             "background thread with a bounded back-pressure queue). "
+             "0 forces the MXNET_SNAPSHOT_EVERY cadence writes "
+             "synchronous — the A/B arm and a debugging escape "
+             "hatch.")
+register_env("MXNET_HEAL_MAX_RELAUNCH", 2, int,
+             "Respawn bound of the self-healing supervisor "
+             "(python -m mxnet_tpu_torch.resilience.healing "
+             "--relaunch): a training command dying with a healable "
+             "status (peer death rc 83, any signal kill, the faultsim "
+             "crash 87) is relaunched at most this many times with "
+             "MXNET_HEAL_ATTEMPT exported; anything else is final.")
+register_env("MXNET_WATCHDOG_ABORT", False, bool,
+             "Hang-watchdog escalation (default OFF — the observe-only "
+             "contract is unchanged): after max_dumps stall dumps "
+             "with the heartbeat still dead a full timeout later, "
+             "flush the flight ring + the emergency checkpoint "
+             "(freshest snapshot) and os._exit(85), so a permanently "
+             "wedged job is rescheduled instead of burning its whole "
+             "wall budget.")
 register_env("MXNET_PROFILER_AUTOSTART", False, bool,
              "Start the profiler at import (reference knob; wired to "
              "mx.profiler.set_state('run')).")

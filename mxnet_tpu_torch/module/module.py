@@ -22,6 +22,7 @@ from .. import ndarray as nd
 from .. import optimizer as opt
 from ..base import MXNetError
 from ..context import current_context
+from ..parallel.zero import resolve_sharding_env
 from .base_module import BaseModule
 
 __all__ = ["Module"]
@@ -40,19 +41,6 @@ def _one_context(context):
     return context
 
 
-def _check_sharding_env():
-    """``MXNET_OPTIMIZER_SHARDING`` takes the reference's values; on one
-    context each of them leaves the per-parameter updater in place, as
-    in the reference (there is nothing to shard over)."""
-    from ..config import get_env
-
-    raw = str(get_env("MXNET_OPTIMIZER_SHARDING")).strip().lower()
-    if raw and raw not in ("ps", "1", "on", "true", "yes", "0", "off",
-                           "false", "no"):
-        raise MXNetError(
-            f"MXNET_OPTIMIZER_SHARDING={raw!r} is not a recognized "
-            "value (use 'ps' to force sharding on, '0' to force it "
-            "off, or unset)")
 
 
 class Module(BaseModule):
@@ -255,7 +243,10 @@ class Module(BaseModule):
         if kvstore is not None and not isinstance(kvstore, str):
             raise MXNetError("a KVStore object is not ported: pass its "
                              "name (ROADMAP §A 11)")
-        _check_sharding_env()
+        # the reference's values are checked; on one context each of
+        # them leaves the per-parameter updater in place, as in the
+        # reference (there is nothing to shard over)
+        resolve_sharding_env()
         if isinstance(optimizer, str):
             # state keyed by parameter NAME, so buckets whose graphs
             # order their parameters differently share one updater
@@ -341,6 +332,28 @@ class Module(BaseModule):
             return False
         return all(bool(torch.isfinite(self._exec.grad_dict[n]._data).all())
                    for n in self._update_param_names())
+
+    def _topology_block(self):
+        """The world this module trains in, for the checkpoint
+        manifest's ``topology`` stamp: the port's Module updates per
+        parameter on one card (``sharding="none"``), the world is the
+        elastic context's process count, and the GLOBAL batch is the
+        local batch times it — the unit the resume cursor is kept in,
+        so it re-slices across any world."""
+        from ..resilience import elastic
+
+        ctx = elastic.context()
+        world = ctx.num_processes if ctx is not None else 1
+        global_batch = None
+        try:
+            global_batch = int(
+                self._exec.arg_dict[self._data_names[0]].shape[0]) * world
+        except Exception:
+            pass
+        return elastic.topology_block(world_size=world,
+                                      num_processes=world,
+                                      sharding="none",
+                                      global_batch=global_batch)
 
     def _get_optimizer_states(self):
         if self._updater is None:

@@ -242,18 +242,30 @@ def _refuse_unported(param_spec, sample_data, autotune,
 
 
 def _resolve_ps_mode(optimizer_sharding, zero_stage, mesh):
-    """Does the step run the sharded-bucket arm?  A ``zero_stage``
-    implies it; stage 2 is the one ported."""
-    if optimizer_sharding not in (None, False, "", "ps"):
+    """Does the step run the sharded-bucket arm?  The reference's
+    precedence: ``MXNET_OPTIMIZER_SHARDING=0`` vetoes even an explicit
+    opt-in and ``ps`` opts in when the argument is None;
+    ``MXNET_ZERO_STAGE`` overrides ``zero_stage``, and a stage implies
+    the arm unless the env vetoed it.  Stage 2 is the one ported."""
+    ps_mode = optimizer_sharding
+    env_ps = zero.resolve_sharding_env()
+    if env_ps is False:
+        ps_mode = None
+    elif ps_mode is None and env_ps == "ps":
+        ps_mode = "ps"
+    if ps_mode not in (None, False, "", "ps"):
         raise MXNetError(
-            f"unknown optimizer_sharding {optimizer_sharding!r} (only 'ps')")
-    if zero_stage not in (None, 1, 2, 3):
+            f"unknown optimizer_sharding {ps_mode!r} (only 'ps')")
+    env_stage = zero.resolve_zero_stage()
+    stage = env_stage if env_stage is not None else zero_stage
+    if stage not in (None, 1, 2, 3):
         raise MXNetError(
-            f"unknown zero_stage {zero_stage!r} (use 1, 2 or 3)")
-    if zero_stage in (1, 3):
-        raise MXNetError(f"ZeRO stage {zero_stage} is not ported yet "
+            f"unknown zero_stage {stage!r} (use 1, 2 or 3)")
+    if stage in (1, 3):
+        raise MXNetError(f"ZeRO stage {stage} is not ported yet "
                          "(ROADMAP §A 11)")
-    ps_mode = optimizer_sharding == "ps" or zero_stage is not None
+    ps_mode = ps_mode == "ps" or (stage is not None
+                                  and env_ps is not False)
     if ps_mode and mesh is None:
         warnings.warn(
             "optimizer_sharding='ps' needs a mesh (nothing to shard over "

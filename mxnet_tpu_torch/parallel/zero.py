@@ -20,7 +20,9 @@ from ..base import MXNetError
 
 __all__ = ["Bucket", "plan_buckets", "flatten_bucket", "unflatten_bucket",
            "shard_slice", "bucket_shard_update", "check_bucket_rule",
-           "resolve_bucket_variant", "stage3_param_keys", "bucket_segments"]
+           "resolve_bucket_variant", "stage3_param_keys", "bucket_segments",
+           "plan_fingerprint", "resolve_sharding_env",
+           "resolve_zero_stage"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -194,6 +196,62 @@ def resolve_bucket_variant():
     from ..autotune import variant_choice
 
     return bool(variant_choice("fused_bucket_opt", False))
+
+
+def plan_fingerprint(plan, n_shards, stage=None):
+    """Stable fingerprint of a bucket plan at a shard count — the
+    checkpoint manifest's ``topology.plan_fingerprint``
+    (``resilience.elastic``), equal to the reference's for the same
+    plan.  Two runs share a fingerprint iff their flat layouts are
+    interchangeable: same buckets in the same order with the same
+    member names/shapes/dtypes/padding, sharded the same number of
+    ways.  Stages None/1/2 hash alike (their checkpoints hold the
+    replicated named tree); stage 3 is tagged, since it persists
+    parameter shards in the flat-bucket layout."""
+    import hashlib
+
+    h = hashlib.sha256()
+    h.update(f"shards={int(n_shards)}".encode())
+    if stage == 3:
+        h.update(b"stage=3")
+    for b in plan:
+        h.update(repr((b.dtype, b.names, b.shapes, b.offsets,
+                       b.size, b.padded, b.group)).encode())
+    return h.hexdigest()[:16]
+
+
+def resolve_sharding_env():
+    """The ``MXNET_OPTIMIZER_SHARDING`` tri-state: "ps" forced on, False
+    forced off, None unset (the caller decides).  Unknown values raise,
+    as the reference's."""
+    from ..config import get_env
+
+    raw = str(get_env("MXNET_OPTIMIZER_SHARDING")).strip().lower()
+    if raw in ("ps", "1", "on", "true", "yes"):
+        return "ps"
+    if raw in ("0", "off", "false", "no"):
+        return False
+    if raw:
+        raise MXNetError(
+            f"MXNET_OPTIMIZER_SHARDING={raw!r} is not a recognized "
+            "value (use 'ps' to force sharding on, '0' to force it "
+            "off, or unset)")
+    return None
+
+
+def resolve_zero_stage():
+    """The ``MXNET_ZERO_STAGE`` knob: 1/2/3, or None when unset.
+    Unknown values raise, as the reference's."""
+    from ..config import get_env
+
+    raw = str(get_env("MXNET_ZERO_STAGE")).strip()
+    if not raw:
+        return None
+    if raw in ("1", "2", "3"):
+        return int(raw)
+    raise MXNetError(
+        f"MXNET_ZERO_STAGE={raw!r} is not a recognized stage (use 1, "
+        "2 or 3, or unset)")
 
 
 def stage3_param_keys(plan):

@@ -1,5 +1,5 @@
 """Atomic, versioned, verifiable checkpoints (counterpart of
-``mxnet_tpu/resilience/checkpoint.py``, its synchronous part).
+``mxnet_tpu/resilience/checkpoint.py``).
 
 * **Atomic writes** — every payload goes write-to-temp + fsync +
   ``os.replace``; the final path is either its previous content or the
@@ -11,21 +11,28 @@
   detects truncated/corrupt payloads by size+CRC; ``load()`` /
   ``latest_epoch()`` fall back to the newest version that verifies.
 * **Retention** — ``keep_n`` prunes old versions after each save.
+* **Asynchronous snapshots** — :meth:`CheckpointManager.save_async`
+  copies every array to the host at the caller's step boundary (the
+  copy is complete when it returns, so an in-place optimizer update of
+  the next step cannot reach the snapshot) and writes it on a
+  background thread through a bounded queue; the freshest capture is
+  the emergency checkpoint :mod:`.healing` flushes on a peer death or
+  a watchdog abort.
 
 ``prefix-symbol.json`` and ``prefix-NNNN.params`` are the reference's
 bytes for the same symbol and arrays; the manifest has the reference's
 keys.  Its ``rng`` is :func:`capture_rng`'s: numpy's global state as
 the reference writes it, and the port's generators.  Every save writes a
 ``checkpoint`` run-log record, and a load that falls back past corrupt
-versions a ``checkpoint`` record with ``reason="fallback"``.  The
-asynchronous snapshot writer, the emergency flush and the ZeRO stage-3
-helpers wait for ROADMAP §A 11.
+versions a ``checkpoint`` record with ``reason="fallback"``.  The ZeRO
+stage-3 helpers wait for ZeRO beyond one card (ROADMAP §A 11).
 """
 from __future__ import annotations
 
 import hashlib
 import json
 import os
+import queue
 import threading
 import time
 import zlib
@@ -38,6 +45,12 @@ from . import faultsim
 
 __all__ = ["CheckpointManager", "atomic_write_bytes", "capture_rng",
            "restore_rng"]
+
+faultsim.register_point("ckpt.write", "mid-payload in checkpoint "
+                        "atomic_write")
+faultsim.register_point("ckpt.async", "async snapshot writer thread, "
+                        "mid-payload in every atomic write of a "
+                        "save_async version")
 
 def capture_rng():
     """The host and device RNG state as JSON-serializable data, so a
@@ -168,11 +181,36 @@ def _autotune_hash():
 def _crc(blob):
     return zlib.crc32(blob) & 0xFFFFFFFF
 
-def _as_nd(v):
+def _host_copies(named):
+    """``{key: host NDArray}`` of ``named`` (NDArrays, or anything numpy
+    takes), every copy complete when this returns and sharing no
+    storage with its source, so a step that updates a source in place
+    later cannot reach a captured snapshot (the reference's arrays are
+    immutable; the port's are not).  Card tensors go to pinned host
+    buffers (PyTorch's caching host allocator reuses them once a
+    snapshot is written), every copy queued before one wait on each
+    stream that carries them."""
+    import torch
+
     from .. import ndarray as nd
 
-    return v if isinstance(v, nd.NDArray) else nd.array(onp.asarray(v),
-                                                        ctx=cpu())
+    out, streams = {}, {}
+    for k, v in named.items():
+        if not isinstance(v, nd.NDArray):
+            out[k] = nd.array(onp.asarray(v), ctx=cpu())
+            continue
+        t = v._data.detach()
+        if t.is_cuda:
+            buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            buf.copy_(t, non_blocking=True)
+            stream = torch.cuda.current_stream(t.device)
+            streams[id(stream)] = stream
+        else:
+            buf = t.clone()
+        out[k] = nd.NDArray(buf)
+    for stream in streams.values():
+        stream.synchronize()
+    return out
 
 
 def _split_params(save_dict):
@@ -212,6 +250,8 @@ class CheckpointManager:
         self._write_lock = threading.Lock()  # serializes version writes
         self._written = set()     # versions already durably written
         self._good_cache = set()  # versions that verified (this process)
+        self._async = None        # lazy _AsyncWriter
+        self._freshest = None     # newest captured snapshot (host-side)
 
     # ------------------------------------------------------------ paths
     def params_path(self, epoch):
@@ -270,15 +310,17 @@ class CheckpointManager:
                  arg_params=None, aux_params=None,
                  optimizer_states=None, step=None, batch_cursor=0,
                  extra=None, epoch=None, topology=None):
-        """Everything a checkpoint version needs, now: the arrays, the
-        symbol's JSON and the autotune hash."""
+        """Snapshot everything a checkpoint version needs onto the
+        HOST, now: every array copied off its device (``_host_copies``), the
+        symbol's JSON, the RNG state and the autotune hash.  The
+        returned dict is self-contained: writing it later (the async
+        writer thread, an emergency flush) touches no device."""
         version = int(version)
         with self._vlock:
             self._reserved = max(self._reserved, version)
-        save_dict = {f"arg:{k}": _as_nd(v) for k, v in
-                     (arg_params or {}).items()}
-        save_dict.update({f"aux:{k}": _as_nd(v) for k, v in
-                          (aux_params or {}).items()})
+        named = {f"arg:{k}": v for k, v in (arg_params or {}).items()}
+        named.update({f"aux:{k}": v for k, v in (aux_params or {}).items()})
+        save_dict = _host_copies(named)
         if symbol_json is None and symbol is not None:
             symbol_json = symbol.tojson()
         return {
@@ -296,14 +338,21 @@ class CheckpointManager:
         }
 
     def _write_version(self, cap, inject_point="ckpt.write",
-                       skip_if_written=False, lock_timeout=None):
+                       telemetry_extra=None, skip_if_written=False,
+                       lock_timeout=None):
         """Serialize + atomically write one captured version: every
         payload write-to-temp+fsync+rename, manifest after payloads,
         ``latest`` pointer LAST — a crash anywhere leaves the previous
         complete version as ``latest``.  Serialized against concurrent
-        writers.  ``skip_if_written`` returns None instead of rewriting
-        a version this process already made durable; ``lock_timeout``
-        bounds the wait for the writer lock (on timeout, None)."""
+        writers (async thread vs emergency flush vs sync save).
+        ``skip_if_written`` (the async/emergency paths, which race
+        toward the same allocated version) returns None instead of
+        rewriting a version this process already made durable; the sync
+        ``save()`` keeps its rewrite-in-place semantics.
+        ``lock_timeout`` bounds the wait for the writer lock (the
+        emergency/abort paths: when the wedge IS a hung write holding
+        the lock, blocking here would stop the abort from ever reaching
+        its ``os._exit``) — on timeout, None."""
         from .. import ndarray as nd
 
         t_save0 = time.perf_counter()
@@ -391,20 +440,115 @@ class CheckpointManager:
 
         telemetry.checkpoint_event(
             self.prefix, version, time.perf_counter() - t_save0,
-            sum(f["bytes"] for f in files.values()))
+            sum(f["bytes"] for f in files.values()),
+            **(telemetry_extra or {}))
         return manifest
 
     def allocate_version(self, min_version=1):
-        """A fresh monotonic version id: past everything on disk and
-        everything handed out in this process.  ``min_version`` lets fit
-        keep the legacy version==epoch naming for the first clean
-        save."""
+        """A fresh monotonic version id: past everything on disk AND
+        everything handed out in this process (the async queue
+        included), so sync saves, async snapshots and emergency flushes
+        never collide.  ``min_version`` lets fit keep the legacy
+        version==epoch naming for the first clean save."""
         with self._vlock:
             eps = self.epochs()
             v = max((eps[-1] + 1) if eps else 1, self._reserved + 1,
                     int(min_version))
             self._reserved = v
             return v
+
+    # -------------------------------------------------- async snapshots
+    def save_async(self, version=None, symbol=None, symbol_json=None,
+                   arg_params=None, aux_params=None,
+                   optimizer_states=None, step=None, batch_cursor=0,
+                   extra=None, epoch=None, topology=None,
+                   queue_depth=2):
+        """Asynchronous snapshot checkpoint: capture NOW (device→host
+        at the caller's step boundary), write LATER (serialization +
+        atomic writes on a background thread), so the training step
+        never waits on the disk.
+
+        * the bounded queue (``queue_depth``) back-pressures: when the
+          disk cannot keep up, the CALLER blocks on the next
+          ``save_async`` instead of snapshots accumulating in host
+          memory;
+        * the freshest capture is retained in memory and registered as
+          the EMERGENCY checkpoint source (:mod:`.healing`): a peer
+          death or watchdog abort flushes it synchronously — no
+          collective and no device needed;
+        * the ``ckpt.async`` fault point fires mid-payload inside the
+          writer thread: an armed ``crash`` proves a mid-write death
+          leaves ``latest`` == previous-good with no torn final file;
+        * each completed write bumps the ``ckpt_async_writes`` counter
+          and emits the standard ``checkpoint`` record with
+          ``async=True``.
+
+        Returns the allocated version id immediately.
+        """
+        if version is None:
+            version = self.allocate_version()
+        cap = self._capture(version, symbol=symbol,
+                            symbol_json=symbol_json,
+                            arg_params=arg_params,
+                            aux_params=aux_params,
+                            optimizer_states=optimizer_states,
+                            step=step, batch_cursor=batch_cursor,
+                            extra=extra, epoch=epoch,
+                            topology=topology)
+        self._freshest = cap
+        if self._async is None:
+            self._async = _AsyncWriter(self, depth=int(queue_depth))
+            from . import healing
+
+            healing.register_emergency(self._emergency_hook)
+        self._async.submit(cap)
+        return int(version)
+
+    def wait_async(self, timeout=None):
+        """Block until every queued snapshot is durably written (the
+        drain/exit path: a final sync save must not overtake a queued
+        async one in the version order a resume trusts)."""
+        if self._async is not None:
+            return self._async.drain(timeout=timeout)
+        return True
+
+    def close_async(self, timeout=None):
+        """Drain and stop the writer thread; unregisters the emergency
+        hook.  Idempotent."""
+        wr, self._async = self._async, None
+        if wr is None:
+            return True
+        from . import healing
+
+        healing.unregister_emergency(self._emergency_hook)
+        return wr.close(timeout=timeout)
+
+    def flush_emergency(self, reason="emergency", lock_timeout=10.0):
+        """Synchronously write the freshest captured snapshot if it is
+        not yet on disk — the failure detector's death path and the
+        watchdog's abort escalation call this (directly or through
+        ``healing.fire_emergency``).  Fault injection is disabled for
+        this write, and the writer lock is taken with a timeout: when
+        the wedge being escaped is itself a hung checkpoint write
+        holding the lock, the emergency gives up and lets the abort
+        reach its ``os._exit``.  Returns the manifest path written, or
+        None when the freshest snapshot is already durable (or
+        unreachable)."""
+        cap = self._freshest
+        if cap is None or cap["version"] in self._written:
+            return None
+        cap = dict(cap)
+        cap["extra"] = dict(cap.get("extra") or {}, emergency=reason)
+        man = self._write_version(cap, inject_point=None,
+                                  telemetry_extra={"emergency": reason},
+                                  skip_if_written=True,
+                                  lock_timeout=lock_timeout)
+        if man is None:
+            return None
+        return self.manifest_path(cap["version"])
+
+    def _emergency_hook(self, reason):
+        return self.flush_emergency(reason)
 
     # --------------------------------------------------------- retention
     def _verified_good(self, e):
@@ -667,3 +811,100 @@ class CheckpointManager:
                 return nd.load_buffer(blobs[pname], ctx=ctx)
         return nd.load(self.params_path(version), ctx=ctx)
 
+
+class _AsyncWriter:
+    """The snapshot-checkpoint background writer: one daemon thread
+    draining a BOUNDED queue of captured snapshots.
+
+    The bound is the back-pressure contract: a disk slower than the
+    snapshot cadence blocks the producer (the training loop's
+    ``save_async``) on ``queue.put`` instead of accumulating host
+    copies without limit.  The ``ckpt.async`` fault point fires
+    mid-payload inside every write this thread performs — an armed
+    ``crash`` is the power-loss-during-async-write drill.  The thread
+    writes host bytes only: every capture it receives was copied off
+    the device before ``save_async`` returned.
+    """
+
+    def __init__(self, mgr, depth=2):
+        self.mgr = mgr
+        self._q = queue.Queue(maxsize=max(1, int(depth)))
+        self._cv = threading.Condition()
+        self._submitted = 0
+        self._completed = 0
+        self._stop = False
+        self._errors = []
+        self._thread = threading.Thread(
+            target=self._run, name="mxnet_tpu_torch-ckpt-async",
+            daemon=True)
+        self._thread.start()
+
+    def submit(self, cap):
+        with self._cv:
+            self._submitted += 1
+        self._q.put(cap)  # blocks when the disk is behind: backpressure
+
+    def _run(self):
+        while True:
+            cap = self._q.get()
+            if cap is None:
+                return
+            try:
+                faultsim.inject("ckpt.async")
+                man = self.mgr._write_version(
+                    cap, inject_point="ckpt.async",
+                    telemetry_extra={"async": True},
+                    skip_if_written=True)
+                if man is not None:
+                    from .. import telemetry
+
+                    telemetry.count("ckpt_async_writes")
+            except Exception as e:  # a broken disk must not kill the
+                # writer thread, nor be silent: every failed snapshot is
+                # logged, counted and recorded
+                self._errors.append(e)
+                import logging
+
+                logging.getLogger("mxnet_tpu_torch").warning(
+                    "async snapshot write failed (version %s): %r",
+                    cap.get("version"), e)
+                try:
+                    from .. import telemetry
+
+                    telemetry.count("ckpt_async_errors")
+                    telemetry.event("ckpt_async_error",
+                                    version=cap.get("version"),
+                                    error=repr(e))
+                except Exception:
+                    pass
+            finally:
+                with self._cv:
+                    self._completed += 1
+                    self._cv.notify_all()
+
+    def drain(self, timeout=None):
+        """True once every snapshot submitted so far is written (or
+        failed into ``errors``)."""
+        with self._cv:
+            return self._cv.wait_for(
+                lambda: self._completed >= self._submitted,
+                timeout=timeout)
+
+    def close(self, timeout=None):
+        timeout = 10.0 if timeout is None else float(timeout)
+        if not self._stop:
+            self._stop = True
+            try:
+                # the sentinel must not block forever: with the writer
+                # wedged on a bad disk the bounded queue stays full, and
+                # close() abandons the daemon thread instead of joining
+                # the hang
+                self._q.put(None, timeout=timeout)
+            except queue.Full:
+                pass
+        self._thread.join(timeout=timeout)
+        return not self._thread.is_alive()
+
+    @property
+    def errors(self):
+        return list(self._errors)

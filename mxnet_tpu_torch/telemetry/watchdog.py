@@ -18,11 +18,18 @@ blocked in native code — the watchdog thread:
   RunLog (both best-effort: telemetry may be unarmed);
 * invokes the optional ``on_stall`` callback.
 
-The watchdog observes, it never kills.  After firing it re-arms, so a
-long stall produces a bounded series of dumps (``max_dumps``) showing
-whether the stack moves.  (The reference's ``MXNET_WATCHDOG_ABORT``
-escalation fires the peer-healing emergency checkpoint, which the port
-does not have yet: ROADMAP §A 11.)
+The watchdog observes, it never kills — by default.  After firing it
+re-arms, so a long stall produces a bounded series of dumps
+(``max_dumps``) showing whether the stack moves.
+
+``MXNET_WATCHDOG_ABORT`` (default off) is the escalation for jobs whose
+orchestrator has no external executioner: once the ``max_dumps`` stall
+dumps of one episode are spent and the heartbeat is still quiet for
+another full timeout, the watchdog flushes the flight ring, fires the
+emergency checkpoint (``resilience.healing``: the freshest async
+snapshot, no collective needed) and leaves through ``os._exit`` with
+:data:`WATCHDOG_ABORT_EXIT_CODE`, so a wedged job is rescheduled
+instead of burning its wall budget.
 
 Unarmed contract: ``MXNET_WATCHDOG_SEC`` unset/0 means no thread is
 ever started and ``beat()`` is a single attribute check.
@@ -37,7 +44,13 @@ import threading
 import time
 
 __all__ = ["Watchdog", "stack_path_for", "find_stack_dumps",
-           "default_timeout"]
+           "default_timeout", "WATCHDOG_ABORT_EXIT_CODE"]
+
+#: exit status of a MXNET_WATCHDOG_ABORT escalation — distinct from the
+#: faultsim crash code (87), a healing peer-death exit (83) and any
+#: signal status, so a supervisor can tell "wedged and self-aborted"
+#: from every other death
+WATCHDOG_ABORT_EXIT_CODE = 85
 
 
 def stack_path_for(runlog_path, pid=None):
@@ -94,12 +107,25 @@ class Watchdog:
     """
 
     def __init__(self, timeout=None, stack_path=None, on_stall=None,
-                 max_dumps=5, poll=None):
+                 max_dumps=5, poll=None, abort=None):
         self.timeout = default_timeout() if timeout is None \
             else float(timeout)
         self._explicit_stack_path = stack_path
         self.on_stall = on_stall
         self.max_dumps = int(max_dumps)
+        #: consecutive quiet periods in the CURRENT stall episode, reset
+        #: by every beat: the abort escalation keys off it, so a run that
+        #: stalled early and recovered is not executed on its next
+        #: single-timeout hiccup
+        self.episode_stalls = 0
+        if abort is None:
+            try:
+                from ..config import get_env
+
+                abort = bool(get_env("MXNET_WATCHDOG_ABORT"))
+            except Exception:
+                abort = False
+        self.abort = bool(abort)
         self.stalls = 0
         self._poll = poll  # test hook; default derives from timeout
         self._lock = threading.Lock()
@@ -147,6 +173,7 @@ class Watchdog:
             return
         with self._lock:
             self._last_beat = time.monotonic()
+            self.episode_stalls = 0  # recovery ends the stall episode
             if phase is not None:
                 self._phase = str(phase)
 
@@ -184,6 +211,13 @@ class Watchdog:
                 phase = self._phase
             if not armed or quiet < self.timeout:
                 continue
+            self.episode_stalls += 1
+            if self.abort and self.episode_stalls > self.max_dumps:
+                # escalation (MXNET_WATCHDOG_ABORT): max_dumps quiet
+                # periods of this episode are spent and the heartbeat
+                # is still dead a full timeout later — leave every
+                # post-mortem artifact and die with a distinct status
+                self._abort(phase, quiet)
             if self.stalls < self.max_dumps:
                 self._fire(phase, quiet)
             with self._lock:
@@ -226,6 +260,33 @@ class Watchdog:
                 self.on_stall(phase, quiet_s, path)
             except Exception:
                 pass
+
+    def _abort(self, phase, quiet_s):
+        """The MXNET_WATCHDOG_ABORT escalation: the emergency checkpoint
+        from the freshest snapshot, a ``heal`` record, the flight ring,
+        the run log closed, then ``os._exit`` — a wedged native call
+        cannot be unwound, only abandoned, and the exit code says
+        why."""
+        try:
+            from ..resilience import healing
+
+            healing.fire_emergency("watchdog_abort")
+        except Exception:
+            pass
+        try:
+            from . import runlog as _rl
+
+            rl = _rl.current()
+            if rl is not None:
+                rl.heal("watchdog_abort", phase=str(phase),
+                        quiet_s=round(float(quiet_s), 3),
+                        stalls=self.stalls,
+                        code=WATCHDOG_ABORT_EXIT_CODE)
+                rl.flight_dump("watchdog_abort")
+                rl.close()
+        except Exception:
+            pass
+        os._exit(WATCHDOG_ABORT_EXIT_CODE)
 
     @staticmethod
     def _dump_stacks(f):

@@ -1,1 +1,2 @@
-"""Command-line tools of the port (``python -m mxnet_tpu_torch.tools.launch``)."""
+"""Command-line tools of the port (``python -m mxnet_tpu_torch.tools.launch``,
+``python -m mxnet_tpu_torch.tools.ckpt_fsck``)."""

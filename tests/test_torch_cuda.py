@@ -26,7 +26,9 @@ and gradients survive later replays, a block called twice in one
 static child of a plain Block replays graphs of its own (held to eager
 at 1e-6), a replayed Dropout draws as eager does, a block that syncs
 with the host raises, and an export on the card writes a host export's
-bytes.
+bytes.  The asynchronous checkpoint's capture of card tensors, updated
+in place right after ``save_async`` returns, writes a synchronous
+``save``'s bytes.
 """
 import contextlib
 import os
@@ -2025,3 +2027,29 @@ def test_card_record_iter_feeds_decoded_batches(card, tmp_path):
         else:
             os.environ["CUDA_HOME"] = home
         nvjpeg._lib = None
+
+
+def test_async_capture_of_cuda_tensors_equals_sync_save(card, tmp_path):
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.resilience import faultsim
+    from mxnet_tpu_torch.resilience.checkpoint import CheckpointManager
+
+    gen = torch.Generator(device=card).manual_seed(0)
+    live = {f"p{i}": torch.randn((256, 1024), generator=gen, device=card)
+            for i in range(4)}
+    params = {k: mx.nd.NDArray(t) for k, t in live.items()}
+    mgr = CheckpointManager(str(tmp_path / "ck"))
+    mgr.save(1, arg_params=params, batch_cursor=1)
+    faultsim.reset("ckpt.async:delay=0.2@1")
+    try:
+        mgr.save_async(2, arg_params=params, batch_cursor=1)
+        for t in live.values():  # the next step's in-place update
+            t.mul_(-3.0).add_(1.0)
+        torch.cuda.synchronize()
+        assert mgr.wait_async(timeout=30)
+    finally:
+        faultsim.reset("")
+        mgr.close_async()
+    with open(mgr.params_path(1), "rb") as a, \
+            open(mgr.params_path(2), "rb") as b:
+        assert a.read() == b.read()

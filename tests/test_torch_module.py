@@ -437,8 +437,7 @@ def test_what_is_not_ported_raises(what, monkeypatch, tmp_path):
     x, y = _mlp_data(n=32)
     it = tmx.io.NDArrayIter(x, y, batch_size=16)
     s = _mlp(tmx.sym)
-    env = {"snapshot": ("MXNET_SNAPSHOT_EVERY", "5"),
-           "runlog": ("MXNET_RUNLOG", str(tmp_path / "r.jsonl")),
+    env = {"runlog": ("MXNET_RUNLOG", str(tmp_path / "r.jsonl")),
            "numerics": ("MXNET_NUMERICS", "1"),
            "sharding_typo": ("MXNET_OPTIMIZER_SHARDING", "bogus")}
     if what == "device_feed":
@@ -457,6 +456,32 @@ def test_what_is_not_ported_raises(what, monkeypatch, tmp_path):
                                            mods[1][n].asnumpy())
         pf = tmx.io.PrefetchingIter(it, device_feed=True)
         assert next(iter(pf)).data[0].context == tmx.cpu()
+        return
+    if what in ("resume_from", "snapshot"):
+        # ported since: fit(resume_from=) restores the parameters, the
+        # optimizer states, the RNG and the batch cursor, and
+        # MXNET_SNAPSHOT_EVERY takes asynchronous snapshots mid-epoch
+        from mxnet_tpu_torch.resilience.checkpoint import \
+            CheckpointManager
+
+        prefix = str(tmp_path / "ck")
+        if what == "snapshot":
+            monkeypatch.setenv("MXNET_SNAPSHOT_EVERY", "1")
+        onp.random.seed(0)
+        first = tmx.mod.Module(s)
+        first.fit(it, num_epoch=1, checkpoint=prefix)
+        mgr = CheckpointManager(prefix)
+        cursors = [mgr.load(e)["batch_cursor"] for e in mgr.epochs()]
+        # two batches an epoch: a snapshot after each, then the epoch's
+        assert cursors == ([1, 2, 0] if what == "snapshot" else [0])
+        onp.random.seed(0)
+        whole = tmx.mod.Module(s)
+        whole.fit(it, num_epoch=2)
+        resumed = tmx.mod.Module(s)
+        resumed.fit(it, num_epoch=2, resume_from=prefix)
+        for n, v in whole.get_params()[0].items():
+            onp.testing.assert_array_equal(
+                resumed.get_params()[0][n].asnumpy(), v.asnumpy())
         return
     if what in ("runlog", "numerics"):
         # ported since: the run log and the numerics monitor no longer
@@ -483,8 +508,6 @@ def test_what_is_not_ported_raises(what, monkeypatch, tmp_path):
     with pytest.raises(MXNetError):
         if what == "contexts":
             tmx.mod.Module(s, context=[tmx.cpu(0), tmx.cpu(1)])
-        elif what == "resume_from":
-            tmx.mod.Module(s).fit(it, num_epoch=1, resume_from=str(tmp_path))
         elif what == "kvstore":
             mod = tmx.mod.Module(s)
             mod.bind(it.provide_data, it.provide_label)

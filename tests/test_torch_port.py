@@ -112,7 +112,10 @@ _MODULES = ["mxnet_tpu_torch", "mxnet_tpu_torch.autotune",
             "mxnet_tpu_torch.io.image_record_iter",
             "mxnet_tpu_torch.io.nvjpeg", "mxnet_tpu_torch.ops.image_augment",
             "mxnet_tpu_torch.image", "mxnet_tpu_torch.kvstore",
-            "mxnet_tpu_torch.example.train_imagenet"]
+            "mxnet_tpu_torch.example.train_imagenet",
+            "mxnet_tpu_torch.resilience.elastic",
+            "mxnet_tpu_torch.resilience.healing",
+            "mxnet_tpu_torch.runtime", "mxnet_tpu_torch.tools.ckpt_fsck"]
 _FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(?:jax|jaxlib|mxnet_tpu)"
                         r"(?:\.|\s|$)", re.M)
 
@@ -157,7 +160,12 @@ _PORT_ENV = ["MXNET_AUTOTUNE", "MXNET_AUTOTUNE_CACHE_DIR",
              "MXNET_PROCESS_RANK", "MXNET_PROFILER_AUTOSTART",
              "MXNET_PROFILER_MODE", "MXNET_CPU_WORKER_NTHREADS",
              "MXNET_TPU_PREFETCH_BUFFER", "MXNET_IO_WORKERS",
-             "MXNET_IO_WORKER_RESPAWN", "MXNET_DEVICE_FEED_DEPTH"]
+             "MXNET_IO_WORKER_RESPAWN", "MXNET_DEVICE_FEED_DEPTH",
+             "MXNET_ZERO_STAGE", "MXNET_ELASTIC", "MXNET_COORDINATOR",
+             "MXNET_NUM_PROCESSES", "MXNET_PROCESS_ID",
+             "MXNET_DIST_INIT_ATTEMPTS", "MXNET_HEARTBEAT_DIR",
+             "MXNET_CKPT_ASYNC", "MXNET_HEAL_MAX_RELAUNCH",
+             "MXNET_WATCHDOG_ABORT"]
 
 
 @pytest.mark.parametrize("name", _PORT_ENV)

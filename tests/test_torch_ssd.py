@@ -25,6 +25,8 @@ Tolerances (fp32):
   step there, 1.5e-6 in the port (ROADMAP §C);
 - every loss of ``gluon.loss``, forward and gradient to 1e-5.
 """
+import contextlib
+import importlib
 import os
 import subprocess
 import sys
@@ -79,11 +81,27 @@ def _image(side, batch=2, seed=1):
         .astype("float32")
 
 
+@contextlib.contextmanager
+def _fresh_names(pkg):
+    """Each package's per-process block-name counter
+    (``gluon.block._NM``) starts from zero for one build and comes back
+    as it was after: the auto-generated prefixes (``resnetv10_``, ...)
+    then do not depend on which nets earlier tests of the same process
+    built with only one of the packages."""
+    nm = importlib.import_module(pkg.__name__ + ".gluon.block")._NM
+    saved, nm._counter = nm._counter, {}
+    try:
+        yield
+    finally:
+        nm._counter = saved
+
+
 def _built(pkg, name, seed=0):
     classes, side = SSD_NETS[name]
     onp.random.seed(seed)
-    net = (j_vision if pkg is jmx else t_vision).get_model(
-        name, num_classes=classes)
+    with _fresh_names(pkg):
+        net = (j_vision if pkg is jmx else t_vision).get_model(
+            name, num_classes=classes)
     net.initialize(init=pkg.init.Xavier())
     net(pkg.nd.array(_image(side, batch=1)))  # resolve deferred shapes
     return net
