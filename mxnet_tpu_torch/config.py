@@ -106,11 +106,37 @@ register_env("MXNET_BNRELUCONV_VARIANT", "", str,
              "Hand override for the 'pallas_bnreluconv' variant: stock "
              "(unfused layer path), jnp (fused op, plain backward), "
              "pallas (fused op, the hand-written backward kernel).  "
-             "Unset: MXNET_FUSED_BNRELUCONV.")
+             "Unset: the cached per-shape winner, then "
+             "MXNET_FUSED_BNRELUCONV.")
 register_env("MXNET_PALLAS_OPT", "", str,
              "Hand override for the 'fused_bucket_opt' variant: 1 forces "
              "the fused bucket kernel (prep + update + loss-scale count "
-             "in one pass), 0 the plain fused_bucket_update.")
+             "in one pass), 0 the plain fused_bucket_update.  Unset: "
+             "the cached winner, then the kernel on the card and the "
+             "plain rule on the host.")
+register_env("MXNET_CONV_1X1_DOT", False, bool,
+             "Lower channel-last 1x1 convolutions to one matmul over the "
+             "channel dimension (no layout change).  Off by default; "
+             "the 'conv1x1_dot' variant of make_train_step's in-step "
+             "race.  When set explicitly it overrides any autotuned "
+             "winner.")
+register_env("MXNET_DTYPE_LADDER", "", str,
+             "The dtype-ladder knob.  Unset/0: the ladder never races "
+             "or applies (a dtype change is not numerics-neutral, so "
+             "it is opt-in).  1/auto: make_train_step races fp32 vs "
+             "bf16 compute in-step (compute_dtype=None steps only) and "
+             "applies the cached per-program winner.  A comma roster "
+             "like 'fp32,bf16,fp8' races exactly those rungs — fp8 "
+             "(e4m3 fwd / e5m2 grad, delayed per-tensor scaling in "
+             "opt_state) only ever joins by being named.  "
+             "bf16/fp32/fp8: hand-pin the arm.")
+register_env("MXNET_FP8_AMAX_HISTORY", 16, int,
+             "Length of the rolling amax history behind the fp8 rung's "
+             "delayed scaling: each quantized tensor class (input / "
+             "weights / grads) carries this many steps of observed "
+             "|t|_inf in opt_state['_fp8'], and the next step's scale "
+             "is fp8_max / (2 * max(history)) — on the device, no host "
+             "sync (ops/pallas_opt.fp8_delayed_scale).")
 register_env("MXNET_KVSTORE_BIGARRAY_BOUND", 1000000, int,
              "Flat-bucket split threshold (elements) of the sharded-"
              "server exchange (optimizer_sharding='ps', parallel.zero): "

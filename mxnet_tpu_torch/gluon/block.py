@@ -619,7 +619,10 @@ class HybridBlock(Block):
         call.  A captured entry whose parameters or buffers were replaced
         since its capture is dropped first.  The block's own deferred
         shapes resolve first, as the eager call resolves them; before a
-        capture, one internal pass resolves those of the subtree."""
+        capture, one internal pass resolves those of the subtree.  The
+        call runs under ``autotune.program_scope`` of its first array
+        argument, so a capture bakes in that signature's cached
+        winners."""
         if self._deferred_pending:
             self._finish_deferred(*args)
         leaves = _leaves(args)
@@ -633,10 +636,18 @@ class HybridBlock(Block):
         if entry is not None and not entry.valid(self):
             del self._cached_op[sig]
             entry = None
-        with _program():
+        first = next((a._data for a in leaves if isinstance(a, NDArray)),
+                     None)
+        # the cached autotune winners of this call's signature apply
+        # while the entry is made and runs (reference ``block.py:618``)
+        from .. import autotune
+
+        scope = autotune.program_scope(
+            () if first is None else tuple(first.shape),
+            "none" if first is None else first.dtype,
+            platform=None if first is None else first.device.type)
+        with _program(), scope:
             if entry is None:
-                first = next((a._data for a in leaves
-                              if isinstance(a, NDArray)), None)
                 if self._static() and first is not None and first.is_cuda:
                     if any(p._tensor() is None
                            for p in _collect_all_params(self)):

@@ -10,7 +10,9 @@ have channels-last strides, so cuDNN runs its NHWC kernels and nothing
 is copied.  As the reference leaves convolutions to XLA, the port
 leaves them to cuDNN.  Both are registered ops under the reference's
 names and keywords (``workspace``, ``cudnn_tune`` and ``cudnn_off`` are
-taken and ignored, as there).
+taken and ignored, as there).  A channel-last 1x1 convolution may run as
+one matmul instead (the ``conv1x1_dot`` variant, :func:`_conv1x1_dot`),
+as make_train_step's in-step race decides.
 """
 from __future__ import annotations
 
@@ -65,6 +67,26 @@ def _last(x):
     return x.movedim(1, -1)
 
 
+def _conv1x1_dot_chosen():
+    """The ``conv1x1_dot`` variant: a force scope, ``MXNET_CONV_1X1_DOT``,
+    a cached winner applied by ``program_scope``, default off."""
+    from ..autotune import variant_choice
+
+    return bool(variant_choice("conv1x1_dot", default=False))
+
+
+def _conv1x1_dot(data, weight, stride):
+    """A channel-last 1x1 convolution as one matmul over the channel
+    dimension (reference ``_conv1x1_dot``, ``mxnet_tpu/ops/conv.py:68``):
+    data [N, *sp, Ci], weight [Co, *(1,) * nd, Ci] -> [N, *sp', Co], a
+    stride taken by slicing.  The output comes out channel-last and
+    contiguous, with no layout change."""
+    if any(s != 1 for s in stride):
+        data = data[(slice(None),) + tuple(slice(None, None, s)
+                                           for s in stride)]
+    return torch.matmul(data, weight.reshape(weight.shape[0], -1).t())
+
+
 @register_op("Convolution", aliases=("Convolution_v1",))
 def convolution(data, weight, bias=None, *, kernel, num_filter,
                 stride=None, dilate=None, pad=None, num_group=1,
@@ -78,11 +100,17 @@ def convolution(data, weight, bias=None, *, kernel, num_filter,
     if weight.shape[0] != num_filter:
         raise MXNetError(f"Convolution: weight has {weight.shape[0]} "
                          f"filters, num_filter={num_filter}")
-    x, w = (_first(data), _first(weight)) if cl else (data, weight)
-    out = _CONV[nd](x, w, None, _tup(stride, nd), _tup(pad, nd, 0),
-                    _tup(dilate, nd), num_group)
-    if cl:
-        out = _last(out)
+    stride, pad, dilate = _tup(stride, nd), _tup(pad, nd, 0), \
+        _tup(dilate, nd)
+    if (cl and tuple(kernel) == (1,) * nd and pad == (0,) * nd
+            and dilate == (1,) * nd and num_group == 1
+            and _conv1x1_dot_chosen()):
+        out = _conv1x1_dot(data, weight, stride)
+    else:
+        x, w = (_first(data), _first(weight)) if cl else (data, weight)
+        out = _CONV[nd](x, w, None, stride, pad, dilate, num_group)
+        if cl:
+            out = _last(out)
     if not no_bias and bias is not None:
         out = out + (bias if cl else bias.reshape((1, -1) + (1,) * nd))
     return out

@@ -60,11 +60,12 @@ _count_lock = threading.Lock()
 def enabled():
     """Is the fused block used by model code?  The ``pallas_bnreluconv``
     variant (``stock`` = the unfused layer path, ``jnp``/``pallas`` =
-    the fused op with that backward) from a force scope or
-    ``MXNET_BNRELUCONV_VARIANT``, then ``MXNET_FUSED_BNRELUCONV`` (1 =
-    fused), default off — the reference's order (``enabled``,
-    ``mxnet_tpu/ops/pallas_conv.py:49``).  The reference's cached
-    per-shape winner (the in-step race) is not ported yet."""
+    the fused op with that backward) from a force scope,
+    ``MXNET_BNRELUCONV_VARIANT`` or the cached per-shape winner of the
+    in-step race that the entry points' ``program_scope`` applies, then
+    ``MXNET_FUSED_BNRELUCONV`` (1 = fused), default off — the
+    reference's order (``enabled``, ``mxnet_tpu/ops/pallas_conv.py:49``).
+    Read on every call: toggle before the call, not inside it."""
     from ..autotune import variant_choice
 
     choice = variant_choice("pallas_bnreluconv")
@@ -81,8 +82,9 @@ def enabled():
 def _use_pallas(x):
     """Kernel backward or plain backward for a fused block on ``x``:
     ``MXNET_PALLAS=0`` never, ``=1`` wherever the kernel can run (a
-    CUDA tensor), else the ``pallas_bnreluconv`` variant, else the
-    kernel on a CUDA tensor (the reference's ``_use_pallas``).  On a
+    CUDA tensor), else the ``pallas_bnreluconv`` variant (a force scope,
+    the env override or a winner applied by ``program_scope``), else
+    the kernel on a CUDA tensor (the reference's ``_use_pallas``).  On a
     CPU tensor the kernel arm computes the plain version, as the
     reference runs its kernel in interpret mode off the TPU."""
     env = os.environ.get("MXNET_PALLAS")

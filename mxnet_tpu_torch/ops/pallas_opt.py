@@ -33,7 +33,9 @@ sums: the whole LARS update agrees with its plain version to rtol/atol
 rule), and is deterministic: no float atomics.
 
 :func:`scale_bookkeeping` is the dynamic loss scale's update rule,
-verbatim.
+verbatim, and :func:`fp8_delayed_scale` / :func:`fp8_qdq` the dtype
+ladder's fp8 rung beside it (elementwise PyTorch, as the reference's
+are jnp).
 """
 from __future__ import annotations
 
@@ -48,7 +50,8 @@ from ..optimizer.optimizer import scalar_as
 
 __all__ = ["supported", "bucket_update", "bucket_sgd", "bucket_sgd_mom",
            "bucket_adam", "bucket_lars_norms", "bucket_lars_update",
-           "scale_bookkeeping", "MAX_SEGMENTS"]
+           "scale_bookkeeping", "MAX_SEGMENTS", "E4M3_MAX", "E5M2_MAX",
+           "fp8_delayed_scale", "fp8_qdq"]
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: the most tensors a LARS bucket may hold (the reference's
@@ -492,6 +495,72 @@ def scale_bookkeeping(finite, scale, good, growth_interval=2000):
         torch.clamp_min(scale * 0.5, 1.0))
     good = torch.where(good >= growth_interval, torch.zeros_like(good), good)
     return new_scale.to(torch.float32), good
+
+
+# ------------------------------------------------------- the fp8 rung
+#: largest finite value of each fp8 format: e4m3fn is the forward and
+#: weight format, e5m2 the gradient format
+E4M3_MAX = 448.0
+E5M2_MAX = 57344.0
+
+
+def fp8_delayed_scale(hist, new_amax, fmax=E4M3_MAX, margin=2.0):
+    """One step of the fp8 delayed-scaling recipe (reference
+    ``fp8_delayed_scale``, ``mxnet_tpu/ops/pallas_opt.py:494``): roll
+    ``new_amax`` (this step's observed |t|_inf) into the amax history
+    and derive the scale the next step quantizes with, ``fmax / (margin
+    * max(history))`` — the scale lags the observation by one step, so
+    no step waits on its own amax and nothing syncs with the host.  A
+    non-finite observation enters the history as twice the previous
+    maximum (at least 1), so the next scale backs off by half instead
+    of the history being poisoned.  Returns ``(new_hist, next_scale)``,
+    both float32."""
+    hist = hist.to(torch.float32)
+    new_amax = torch.as_tensor(new_amax, dtype=torch.float32,
+                               device=hist.device)
+    prev = hist.max()
+    safe = torch.where(torch.isfinite(new_amax), new_amax,
+                       torch.clamp_min(prev, 1.0) * 2.0)
+    new_hist = torch.cat([hist[1:], safe.reshape(1)])
+    amax = torch.clamp_min(new_hist.max(), 1e-12)
+    # a true division: ``fmax / tensor`` would be fmax * (1 / tensor),
+    # one rounding more than the reference's
+    return new_hist, torch.div(torch.full_like(amax, fmax), margin * amax)
+
+
+def _fp8_qdq_cast(v, scale, fmax, f8):
+    """Quantize-dequantize through an fp8 grid: clip to ±fmax first (an
+    out-of-range e4m3 cast is NaN), cast, and return to ``v``'s dtype,
+    so the surrounding program is unchanged."""
+    wide = v.to(torch.float32) * scale
+    q = torch.clamp(wide, -fmax, fmax).to(f8)
+    return (q.to(torch.float32) / scale).to(v.dtype)
+
+
+class _Fp8Qdq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, v, scale, gscale):
+        ctx.save_for_backward(gscale)
+        return _fp8_qdq_cast(v, scale, E4M3_MAX, torch.float8_e4m3fn)
+
+    @staticmethod
+    def backward(ctx, g):
+        (gscale,) = ctx.saved_tensors
+        return (_fp8_qdq_cast(g, gscale, E5M2_MAX, torch.float8_e5m2),
+                None, None)
+
+
+def fp8_qdq(v, scale, gscale):
+    """The dtype ladder's fp8 rung (reference ``fp8_qdq``,
+    ``mxnet_tpu/ops/pallas_opt.py:530``): the forward snaps ``v`` to the
+    ``float8_e4m3fn`` grid at ``scale``, the backward snaps the incoming
+    gradient to the ``float8_e5m2`` grid at ``gscale`` — straight
+    through in both directions, so a matmul or convolution sees
+    fp8-valued operands while everything around it stays wide.  The
+    scales are 0-d float32 tensors (``opt_state['_fp8']``,
+    :func:`fp8_delayed_scale`); neither takes a gradient.  Elementwise
+    PyTorch on either device, as the reference's is jnp."""
+    return _Fp8Qdq.apply(v, scale, gscale)
 
 
 # ------------------------------------------------------- registry ops

@@ -37,18 +37,27 @@ summaries into the replicated arm's optimizer state under
 as the reference's does); ``MXNET_FAULT_SPEC`` naming
 ``step.loss_nan`` poisons the batch with NaN on the armed hits.
 
-Not ported yet (they raise): in-step variant tuning (``sample_data``,
-a true ``autotune``),
-tensor parallelism (``param_spec``), ZeRO stages 1 and 3, gradient
-compression, the dtype ladder and fp8, and any mesh of more than one
-card.
+In-step variant tuning, as in the reference: ``sample_data=(x, y)``
+races each op of ``variant_ops`` inside chained runs of this step
+(``autotune.tune_train_step``), the winners persist in
+``autotune.json`` keyed on (op, batch shape, dtype, platform, mesh),
+and every call of the returned step enters ``autotune.program_scope``
+for its batch, so cached winners apply with or without a race.  The
+dtype ladder (``MXNET_DTYPE_LADDER``) adds the compute dtype to the
+race: fp32, bf16 (``amp_cast_params``) and, where the knob names it,
+the fp8 rung (matmul/conv weights and the input through
+``ops.pallas_opt.fp8_qdq`` at delayed per-tensor scales kept in
+``opt_state['_fp8']``).
+
+Not ported yet (they raise): tensor parallelism (``param_spec``, ROADMAP
+§A 8), ZeRO stages 1 and 3, gradient compression and any mesh of more
+than one card (§A 11).
 """
 from __future__ import annotations
 
 import dataclasses
 import inspect
 import math
-import os
 import warnings
 
 import numpy as onp
@@ -222,23 +231,14 @@ def _build_optimizer(optimizer, learning_rate, momentum, wd, beta1, beta2,
     return klass(**kwargs)
 
 
-def _refuse_unported(param_spec, sample_data, autotune,
-                     gradient_compression, compute_dtype):
-    def armed(var):
-        raw = os.environ.get(var)
-        return raw is not None and raw.lower() not in (
-            "", "0", "off", "false", "no")
-
-    for what, bad in (
-            ("tensor parallelism (param_spec)", param_spec),
-            ("in-step variant tuning (sample_data, autotune)",
-             sample_data is not None or bool(autotune)),
-            ("gradient_compression", gradient_compression is not None),
-            ("the dtype ladder and fp8 (MXNET_DTYPE_LADDER)",
-             compute_dtype is None and armed("MXNET_DTYPE_LADDER"))):
+def _refuse_unported(param_spec, gradient_compression):
+    for what, item, bad in (
+            ("tensor parallelism (param_spec)", "§A 8", param_spec),
+            ("gradient_compression", "§A 11",
+             gradient_compression is not None)):
         if bad:
             raise MXNetError(f"make_train_step: {what} is not ported yet "
-                             "(ROADMAP §A)")
+                             f"(ROADMAP {item})")
 
 
 def _resolve_ps_mode(optimizer_sharding, zero_stage, mesh):
@@ -304,34 +304,80 @@ def make_train_step(block, loss_fn, optimizer="sgd", learning_rate=0.01,
                     loss_scale=None, sample_data=None, autotune=None,
                     nan_guard=None, optimizer_sharding=None,
                     bucket_bound=None, zero_stage=None,
-                    gradient_compression=None, device=None, **opt_kwargs):
+                    gradient_compression=None, device=None,
+                    variant_ops=None, **opt_kwargs):
     """Build the train step.  Returns ``(step_fn, params, opt_state)``
     with ``step_fn(params, opt_state, x, y, key, t) -> (loss, params,
     opt_state)``; see the module docstring for the arms.  The step runs
     on the mesh's card, or on ``device`` (default ``cuda:0``) without a
-    mesh."""
+    mesh.
+
+    ``sample_data=(x, y)`` races ``variant_ops`` (default
+    ``("conv1x1_dot",)``, plus ``"dtype_ladder"`` when
+    ``MXNET_DTYPE_LADDER`` arms it, ``compute_dtype`` is None and no
+    env pin decides) inside this step before it is returned; on a warm
+    cache no step runs.  ``autotune=None`` follows ``MXNET_AUTOTUNE``,
+    ``False`` opts this step out of races and cached winners alike.
+    Under a mesh ``sample_data`` warns and is ignored (the reference
+    times in-step on one device only); winners cached for the mesh key
+    still apply."""
+    from .. import autotune as _at
     from ..ops import pallas_opt as _po
 
-    _refuse_unported(param_spec, sample_data, autotune,
-                     gradient_compression, compute_dtype)
+    _refuse_unported(param_spec, gradient_compression)
     dev = mesh.devices[0] if mesh is not None else resolve_device(device)
     params, apply_fn = functionalize(block, train=True)
     opt = _build_optimizer(optimizer, learning_rate, momentum, wd, beta1,
                            beta2, epsilon, opt_kwargs)
     cdt = None if compute_dtype is None else _torch_dtype(compute_dtype)
 
-    def loss_of(param_dict, x, y, key):
-        if cdt is not None:
-            param_dict = amp_cast_params(param_dict, cdt)
-            x = x.to(cdt)
+    if variant_ops is None:
+        # the dtype ladder joins the default roster only when the knob
+        # arms it, no compute_dtype pins the answer and no env pin
+        # already decided it (racing a pinned step wastes the race)
+        variant_ops = ("conv1x1_dot",)
+        if (compute_dtype is None and _at.dtype_ladder_armed()
+                and _at.variant_choice("dtype_ladder") is None):
+            variant_ops += ("dtype_ladder",)
+    variant_ops = tuple(variant_ops)
+
+    def ladder_arm():
+        """This call's dtype-ladder rung (None: not consulted): a force
+        scope, the MXNET_DTYPE_LADDER pin or the cached winner that
+        ``program_scope`` applies; an explicit compute_dtype wins."""
+        if compute_dtype is not None or not _at.dtype_ladder_armed():
+            return None
+        return _at.variant_choice("dtype_ladder")
+
+    def loss_of(param_dict, x, y, key, fp8=None):
+        c = cdt
+        arm = ladder_arm()
+        if arm == "bf16":
+            c = torch.bfloat16
+        if arm == "fp8" and fp8 is not None:
+            # the fp8 rung: matmul/conv weights and the input snap to
+            # the e4m3 grid at the delayed scales of opt_state['_fp8'],
+            # their gradients to e5m2; norm parameters and every other
+            # op stay fp32.  A cached fp8 winner reaching a step whose
+            # build did not provision the state (fp8 None) runs fp32
+            gscale = fp8["g"][0]
+            param_dict = {
+                n: (_po.fp8_qdq(v, fp8["w"][n][0], gscale)
+                    if n in fp8["w"] else v)
+                for n, v in param_dict.items()}
+            if x.is_floating_point():
+                x = _po.fp8_qdq(x, fp8["x"][0], gscale)
+        if c is not None:
+            param_dict = amp_cast_params(param_dict, c)
+            x = x.to(c)
         out = apply_fn(param_dict, x, key=key)
         return loss_fn(out.to(torch.float32), y).mean()
 
-    def scaled_grads(params_, x, y, key, scale):
+    def scaled_grads(params_, x, y, key, scale, fp8=None):
         """(loss · scale, d(loss · scale)/dparams); scale None = 1."""
         leaves = {n: v.detach().requires_grad_(v.is_floating_point())
                   for n, v in params_.items()}
-        loss = loss_of(leaves, x, y, key)
+        loss = loss_of(leaves, x, y, key, fp8)
         if scale is not None:
             loss = loss * scale
         gs = torch.autograd.grad(
@@ -402,6 +448,53 @@ def make_train_step(block, loss_fn, optimizer="sgd", learning_rate=0.01,
         opt_state["_numerics"] = _nm.summary_template(
             dict.fromkeys([*names, "__loss"]), device=dev)
 
+    # the fp8 rung's delayed-scaling state, provisioned at build time
+    # whenever the armed roster names fp8 (the race's fp8 arm and a
+    # cached fp8 winner both need it in the state every arm threads
+    # through), absent otherwise: an unarmed build is today's step.
+    # One (scale, amax history) pair per matmul/conv weight, one for
+    # the input, one e5m2 pair for the gradients.  Not composed with
+    # the sharded-bucket arm (its gradients are flat buckets), as in
+    # the reference
+    fp8_rung = (compute_dtype is None and _at.dtype_ladder_armed()
+                and "fp8" in _at.ladder_rungs() and not ps_mode)
+    if fp8_rung:
+        from ..config import get_env
+
+        hist_len = max(1, int(get_env("MXNET_FP8_AMAX_HISTORY")))
+
+        def fp8_pair():
+            # step 1's scale is the identity until a real amax is seen
+            return (torch.ones((), **f32), torch.zeros((hist_len,), **f32))
+
+        opt_state["_fp8"] = {
+            "x": fp8_pair(), "g": fp8_pair(),
+            "w": {n: fp8_pair() for n in names
+                  if not _is_norm_stat(n) and params[n].dim() >= 2}}
+
+    def fp8_bookkeeping(fp8_state, params_, x, grads):
+        """This step's |t|_inf of each quantized tensor class rolled into
+        its history, and the next step's scales (on the device; an
+        overflowed observation backs the scale off)."""
+        _, xh = fp8_state["x"]
+        x_amax = x.to(torch.float32).abs().max() if x.is_floating_point() \
+            else xh.max()  # integer inputs never quantize
+        nh, ns = _po.fp8_delayed_scale(xh, x_amax)
+        new = {"x": (ns, nh)}
+        _, gh = fp8_state["g"]
+        g_amax = torch.zeros((), **f32)
+        for n in fp8_state["w"]:
+            g_amax = torch.maximum(g_amax,
+                                   grads[n].to(torch.float32).abs().max())
+        ngh, ngs = _po.fp8_delayed_scale(gh, g_amax, fmax=_po.E5M2_MAX)
+        new["g"] = (ngs, ngh)
+        new["w"] = {}
+        for n, (_, wh) in fp8_state["w"].items():
+            nwh, nws = _po.fp8_delayed_scale(
+                wh, params_[n].to(torch.float32).abs().max())
+            new["w"][n] = (nws, nwh)
+        return new
+
     def nm_pack(grads, loss):
         stats = _nm.summarize_tree(grads)
         stats["__loss"] = _nm.summary(loss)
@@ -422,9 +515,23 @@ def make_train_step(block, loss_fn, optimizer="sgd", learning_rate=0.01,
         return new_p, new_s
 
     def replicated_step(params_, opt_state_, x, y, key, t):
+        # the fp8 rung, decided for this call: the delayed scales go
+        # into the loss and this step's amax observations into the
+        # histories — on every step, a skipped one included (the
+        # overflow observation is what backs the scale off).  On the
+        # other rungs the provisioned state passes through untouched
+        fp8_state = opt_state_["_fp8"] if fp8_rung else None
+        fp8 = fp8_state if fp8_rung and ladder_arm() == "fp8" else None
+
+        def fp8_carry(new_s, grads):
+            if fp8_rung:
+                new_s["_fp8"] = fp8_state if fp8 is None else \
+                    fp8_bookkeeping(fp8_state, params_, x, grads)
+            return new_s
+
         if dynamic:
             scale, good = opt_state_["_loss_scale"]
-            sloss, sgrads = scaled_grads(params_, x, y, key, scale)
+            sloss, sgrads = scaled_grads(params_, x, y, key, scale, fp8)
             inv = 1.0 / scale
             grads = {n: g * inv for n, g in sgrads.items()}
             finite = _all_finite(grads.values())
@@ -432,16 +539,18 @@ def make_train_step(block, loss_fn, optimizer="sgd", learning_rate=0.01,
                 params_, opt_state_, grads, t), params_, opt_state_)
             new_s["_loss_scale"] = _po.scale_bookkeeping(finite, scale,
                                                          good)
+            new_s = fp8_carry(new_s, grads)
             if numerics_on:
                 new_s["_numerics"] = nm_pack(grads, sloss / scale)
             # unscale with the scale the loss was computed with
             return sloss / scale, new_p, new_s
         if static_scale != 1.0:
-            loss, grads = scaled_grads(params_, x, y, key, static_scale)
+            loss, grads = scaled_grads(params_, x, y, key, static_scale,
+                                       fp8)
             loss = loss / static_scale
             grads = {n: g / static_scale for n, g in grads.items()}
         else:
-            loss, grads = scaled_grads(params_, x, y, key, None)
+            loss, grads = scaled_grads(params_, x, y, key, None, fp8)
         if nan_guard:
             finite = torch.isfinite(loss) & _all_finite(grads.values())
             new_p, new_s = guarded(finite, *apply_updates(
@@ -449,19 +558,25 @@ def make_train_step(block, loss_fn, optimizer="sgd", learning_rate=0.01,
             new_s["_bad_steps"] = torch.where(
                 finite, torch.zeros_like(opt_state_["_bad_steps"]),
                 opt_state_["_bad_steps"] + 1)
+            new_s = fp8_carry(new_s, grads)
             if numerics_on:
                 # the step as it happened, guard or no guard: the bad
                 # step's NaN counts are the explanation
                 new_s["_numerics"] = nm_pack(grads, loss)
             return loss, new_p, new_s
         new_p, new_s = apply_updates(params_, opt_state_, grads, t)
+        new_s = fp8_carry(new_s, grads)
         if numerics_on:
             new_s["_numerics"] = nm_pack(grads, loss)
         return loss, new_p, new_s
 
     if ps_mode:
         check_finite = dynamic or nan_guard
-        ps_pallas = zero.resolve_bucket_variant()
+        # the fused_bucket_opt lowering, resolved at build time under
+        # the plan's flat key; None (undecided on the host) leaves it
+        # to each call's variant_choice (a force scope or a winner of
+        # the program scope)
+        ps_pallas = zero.resolve_bucket_variant(opt, plan, mesh, 2)
 
         def ps_step(params_, opt_state_, x, y, key, t):
             scale = opt_state_["_loss_scale"][0] if dynamic else None
@@ -537,28 +652,58 @@ def make_train_step(block, loss_fn, optimizer="sgd", learning_rate=0.01,
 
     inner = ps_step if ps_mode else replicated_step
 
-    def step_fn(params_, opt_state_, x, y, key, t):
+    def step(params_, opt_state_, x, y, key, t):
         # ``key`` seeds the step's random layers (None: key 0); one card,
         # so the reference's per-shard fold_in of the shard index 0 is
         # the key itself
         return inner(params_, opt_state_, torch.as_tensor(x).to(dev),
                      torch.as_tensor(y).to(dev), key, t)
 
-    step_fn = _observed(step_fn, opt, ps_mode, numerics_on, dev)
+    # ---- the in-step variant race (autotune.tune_train_step)
+    mesh_d = _at.mesh_desc(mesh)
+    tune_level = None if autotune is None else int(autotune)
+    if sample_data is not None and _at.enabled(tune_level):
+        if mesh is None:
+            xs, ys = sample_data
+            _at.tune_train_step(
+                step, params, opt_state, torch.as_tensor(xs).to(dev),
+                torch.as_tensor(ys).to(dev), None, variant_ops=variant_ops,
+                platform=dev.type, mesh=mesh_d, level=tune_level)
+        else:
+            warnings.warn(
+                "make_train_step: in-step autotuning under a mesh is not "
+                "yet supported; sample_data ignored (cached winners for "
+                "this mesh key still apply)", stacklevel=2)
+
+    def step_fn(params_, opt_state_, x, y, key, t):
+        # the cached winners of this batch's signature apply to the call
+        # (autotune=False opts the step out)
+        x = torch.as_tensor(x)
+        if not _at.enabled(tune_level):
+            return step(params_, opt_state_, x, y, key, t)
+        with _at.program_scope(x.shape, x.dtype, platform=dev.type,
+                               mesh=mesh_d):
+            return step(params_, opt_state_, x, y, key, t)
+
+    step_fn = _observed(step_fn, opt, ps_mode, numerics_on, dev,
+                        variant_ops, mesh_d, tune_level)
     if ps_mode:
         step_fn.zero_stage = 2
         step_fn.zero_plan = plan
     return step_fn, params, opt_state
 
 
-def _observed(inner, opt, ps_mode, numerics_on, dev):
+def _observed(inner, opt, ps_mode, numerics_on, dev, variant_ops, mesh_d,
+              tune_level):
     """The telemetry and fault wrappers of the reference
     (``mxnet_tpu/parallel/__init__.py:951-1052``) around a built step.
 
     Per call with nothing armed: one ``telemetry.current()`` lookup.
     Armed: a ``compile`` record for each new ``(shape, dtype)`` of the
     batch — a signature seen before that recurs after a change is a
-    cache ``hit`` — and, on a miss, the call itself runs under
+    cache ``hit``; its fingerprint's winners are the cached winners of
+    ``variant_ops`` under the step's platform and mesh key — and, on a
+    miss, the call itself runs under
     ``describe_call`` for the ``program_report``; the numerics
     summaries are read back on sampled steps.  ``step.loss_nan`` armed
     in ``MXNET_FAULT_SPEC`` poisons the batch with NaN on its armed
@@ -593,11 +738,11 @@ def _observed(inner, opt, ps_mode, numerics_on, dev):
 
                 try:
                     winners = {}
-                    if _at.autotune_level() > 0:
+                    if _at.enabled(tune_level):
                         winners = {op: _at.lookup(op, sig[0], sig[1],
-                                                  platform=dev.type)
-                                   for op in ("pallas_bnreluconv",
-                                              "fused_bucket_opt")}
+                                                  platform=dev.type,
+                                                  mesh=mesh_d)
+                                   for op in variant_ops}
                     rl.compile_event(
                         "train_step",
                         _tm.compile_fingerprint(

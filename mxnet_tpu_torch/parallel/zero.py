@@ -20,7 +20,8 @@ from ..base import MXNetError
 
 __all__ = ["Bucket", "plan_buckets", "flatten_bucket", "unflatten_bucket",
            "shard_slice", "bucket_shard_update", "check_bucket_rule",
-           "resolve_bucket_variant", "stage3_param_keys", "bucket_segments",
+           "resolve_bucket_variant", "flat_variant_key",
+           "stage3_param_keys", "bucket_segments",
            "plan_fingerprint", "resolve_sharding_env",
            "resolve_zero_stage"]
 
@@ -148,8 +149,10 @@ def bucket_shard_update(bucket, opt, params, g_sh, state, t, *, n_shards,
     bucket (:func:`bucket_segments`), for a rule that reduces per
     tensor; the shard's ids are sliced here.  ``pallas``: True runs the
     fused kernel arm (:func:`ops.pallas_opt.bucket_update`), False the
-    plain ``opt.fused_bucket_update``, None asks
-    :func:`resolve_bucket_variant`.  A kernel arm that cannot run this
+    plain ``opt.fused_bucket_update``, None consults the
+    ``fused_bucket_opt`` variant now (force > ``MXNET_PALLAS_OPT`` > a
+    winner of ``program_scope`` > the plain arm), what
+    :func:`resolve_bucket_variant` leaves undecided on the host.  A kernel arm that cannot run this
     bucket raises — the port never falls back.  ``want_finite`` adds
     the verdict of the raw gradient: the kernel's fused count, or None
     on the plain arm (the caller checks).  ``out`` (tensors like
@@ -165,7 +168,9 @@ def bucket_shard_update(bucket, opt, params, g_sh, state, t, *, n_shards,
         ids, nseg = seg
         seg_sh = (shard_slice(ids, n_shards, idx), nseg)
     if pallas is None:
-        pallas = resolve_bucket_variant()
+        from ..autotune import variant_choice
+
+        pallas = bool(variant_choice("fused_bucket_opt"))
     if pallas:
         from ..ops import pallas_opt
 
@@ -187,15 +192,58 @@ def bucket_shard_update(bucket, opt, params, g_sh, state, t, *, n_shards,
     return (w_sh, uw, us, None) if want_finite else (w_sh, uw, us)
 
 
-def resolve_bucket_variant():
-    """The ``fused_bucket_opt`` lowering, at build time: a force scope
-    or ``MXNET_PALLAS_OPT`` picks the kernel (True) or the plain
-    ``fused_bucket_update`` (False); unset, the plain arm.  The
-    reference's third source, a winner of the in-step race cached in
-    ``autotune.json``, comes with that race (ROADMAP §A)."""
-    from ..autotune import variant_choice
+def flat_variant_key(plan, stage=None):
+    """The ``fused_bucket_opt`` autotune key of a bucket plan (reference
+    ``flat_variant_key``, ``mxnet_tpu/parallel/zero.py:268``): the total
+    padded element count and the lead dtype — what the kernels stream —
+    so that a winner measured on one consumer of the plan reaches the
+    others.  Stages None/2 share the key; stages 1 and 3 wrap the
+    kernel in another exchange and add their own dimension."""
+    shape = (sum(b.padded for b in plan),)
+    if stage not in (None, 2):
+        shape = shape + (int(stage),)
+    return (shape, plan[0].dtype if plan else "float32")
 
-    return bool(variant_choice("fused_bucket_opt", False))
+
+def resolve_bucket_variant(optimizer, plan, mesh=None, stage=None,
+                           platform=None):
+    """The ``fused_bucket_opt`` lowering of a bucket plan, at build time
+    (reference ``resolve_bucket_variant``,
+    ``mxnet_tpu/parallel/zero.py:287``): a force scope or
+    ``MXNET_PALLAS_OPT`` first, then whether the kernels take the rule
+    and the bucket dtype (False where they do not: the rule's own
+    ``fused_bucket_update``, which is no kernel's twin), then — on the
+    host, with autotune on — the cached winner under
+    :func:`flat_variant_key` and the mesh.
+
+    ``platform`` (default: the mesh's card, else the current context's)
+    decides what stays undecided: on ``cuda`` the kernel (True), the
+    card's roster having that arm alone (ROADMAP §C); on the CPU None,
+    so that the call-time ``variant_choice`` still applies (a force
+    scope or a winner of ``program_scope``), the plain arm by default,
+    as in the reference off the TPU.  Returns True, False or None."""
+    from .. import autotune as _at
+    from ..ops import pallas_opt
+
+    choice = _at.variant_choice("fused_bucket_opt")
+    if choice is not None:
+        return bool(choice)
+    shape, dtype = flat_variant_key(plan, stage)
+    if pallas_opt.supported(optimizer, getattr(torch, dtype)) is not None:
+        return False
+    if platform is None:
+        platform = mesh.devices[0].type if mesh is not None \
+            else _at._current_platform()
+    if platform == "cuda":
+        return True
+    if not _at.enabled():
+        return False
+    cached = _at.lookup("fused_bucket_opt", shape, dtype,
+                        platform=platform, mesh=_at.mesh_desc(mesh))
+    if cached is not None:
+        return bool(_at.VARIANT_OPS["fused_bucket_opt"].get(cached,
+                                                            False))
+    return None
 
 
 def plan_fingerprint(plan, n_shards, stage=None):

@@ -192,7 +192,8 @@ class Executor:
         """Evaluate the graph; ``kwargs`` feed arguments by name (moved
         to the executor's device).  With ``is_train`` the BatchNorm
         moving statistics are updated and, when any argument takes a
-        gradient, the graph is kept for :meth:`backward`."""
+        gradient, the graph is kept for :meth:`backward`.  The graph runs
+        under ``autotune.program_scope`` of the first argument."""
         for k, v in kwargs.items():
             if k not in self.arg_dict:
                 raise MXNetError(f"unknown argument {k}")
@@ -209,7 +210,17 @@ class Executor:
                 t = t.detach().requires_grad_(True)
                 leaves[n] = t
             value_of[n] = t
-        with torch.set_grad_enabled(bool(leaves)):
+        # the cached autotune winners of the first argument's signature
+        # apply to the evaluation (reference ``executor.py:316-323``)
+        from .. import autotune
+
+        first = self.arg_dict[self._arg_names[0]]._data \
+            if self._arg_names else None
+        scope = autotune.program_scope(
+            () if first is None else tuple(first.shape),
+            "none" if first is None else first.dtype,
+            platform=self._device.type)
+        with torch.set_grad_enabled(bool(leaves)), scope:
             outs, aux_updates = _eval_graph(self._symbol, value_of,
                                             is_train, self._device)
         self._pending = (outs, leaves) if leaves else None

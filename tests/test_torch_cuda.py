@@ -2053,3 +2053,76 @@ def test_async_capture_of_cuda_tensors_equals_sync_save(card, tmp_path):
     with open(mgr.params_path(1), "rb") as a, \
             open(mgr.params_path(2), "rb") as b:
         assert a.read() == b.read()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fp8_qdq_on_the_card_equals_the_host(card, dtype):
+    """The fp8 rung's quantize-dequantize, forward and backward, gives
+    the host's bits on the card (values past both formats' ranges,
+    zeros and subnormals included)."""
+    from mxnet_tpu_torch.ops import pallas_opt as po
+
+    gen = torch.Generator().manual_seed(5)
+    v = (torch.randn(1 << 14, generator=gen)
+         * 10.0 ** (torch.rand(1 << 14, generator=gen) * 12 - 6)).to(dtype)
+    v[:4] = torch.tensor([0.0, -0.0, 1e6, -7e4])
+    g = (torch.randn(1 << 14, generator=gen) * 1e4).to(dtype)
+    out = []
+    for dev in (card, torch.device("cpu")):
+        vv = v.to(dev).requires_grad_(True)
+        o = po.fp8_qdq(vv, torch.tensor(3.7, device=dev),
+                       torch.tensor(0.013, device=dev))
+        (gv,) = torch.autograd.grad(o, vv, g.to(dev))
+        out.append((o.detach().cpu(), gv.cpu()))
+    assert torch.equal(out[0][0], out[1][0])
+    assert torch.equal(out[0][1], out[1][1])
+
+
+def test_default_sharded_step_launches_the_bucket_kernel(card, tmp_path,
+                                                         monkeypatch):
+    """With nothing forced and no variant env var, the sharded-bucket
+    step on the card runs the bucket kernel once per bucket per step,
+    and a ``pallas_bnreluconv`` winner recorded for its batch under the
+    mesh key makes a rebuilt step launch the fused backward."""
+    from mxnet_tpu_torch import autotune, initializer, parallel
+    from mxnet_tpu_torch.gluon import loss, nn
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet
+    from mxnet_tpu_torch.ops import pallas_conv as pc
+    from mxnet_tpu_torch.ops import pallas_opt as po
+
+    for var in ("MXNET_PALLAS_OPT", "MXNET_BNRELUCONV_VARIANT",
+                "MXNET_FUSED_BNRELUCONV", "MXNET_AUTOTUNE"):
+        monkeypatch.delenv(var, raising=False)
+    monkeypatch.setenv("MXNET_AUTOTUNE_CACHE_DIR", str(tmp_path))
+    autotune.cache_clear()
+    with nn.default_layout("NHWC"):
+        net = resnet.ResNetV1(resnet.BottleneckV1, [1, 1, 1, 1],
+                              [8, 16, 32, 64, 128], classes=10,
+                              no_bias=True)
+    net.initialize(initializer.Xavier(), device=card,
+                   generator=torch.Generator().manual_seed(0))
+    rng = onp.random.RandomState(0)
+    x = torch.from_numpy(rng.randn(8, 64, 64, 3).astype("float32"))
+    y = torch.from_numpy(rng.randint(0, 10, 8).astype("float32"))
+
+    def three_steps():
+        step, p, s = parallel.make_train_step(
+            net, loss.SoftmaxCrossEntropyLoss(), "sgd", learning_rate=0.1,
+            momentum=0.9, mesh=parallel.get_mesh(), loss_scale="dynamic",
+            compute_dtype="bfloat16", optimizer_sharding="ps",
+            bucket_bound=30000)
+        b0, m0 = pc.bnreluconv_bwd.launches, po.bucket_sgd_mom.launches
+        for i in range(3):
+            loss_v, p, s = step(p, s, x, y, None, float(i + 1))
+            assert bool(torch.isfinite(loss_v))
+        torch.cuda.synchronize()
+        return (pc.bnreluconv_bwd.launches - b0,
+                po.bucket_sgd_mom.launches - m0, len(step.zero_plan))
+
+    brc, buckets, n = three_steps()
+    assert (brc, buckets) == (0, n * 3)
+    autotune.record("pallas_bnreluconv", x.shape, x.dtype, "pallas",
+                    platform="cuda", mesh="data=1")
+    brc, buckets, n = three_steps()
+    assert (brc, buckets) == (4 * 3, n * 3)
+    autotune.cache_clear()

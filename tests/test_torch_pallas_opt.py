@@ -240,15 +240,27 @@ def test_plan_and_flat_layout_match_reference(capacity, n_shards):
                 tf.untyped_storage().data_ptr()
 
 
-def test_bucket_variant_resolution(monkeypatch):
-    """A force scope, then MXNET_PALLAS_OPT, then the plain arm."""
+def test_bucket_variant_resolution(monkeypatch, tmp_path):
+    """A force scope, then MXNET_PALLAS_OPT, then (on the host, nothing
+    cached) undecided: the call-time consult, whose default is the plain
+    arm."""
     monkeypatch.delenv("MXNET_PALLAS_OPT", raising=False)
-    assert t_zero.resolve_bucket_variant() is False
+    monkeypatch.setenv("MXNET_AUTOTUNE_CACHE_DIR", str(tmp_path))
+    t_at.cache_clear()
+    plan = t_zero.plan_buckets({"w": torch.zeros(10)}, 1)
+    opt = TSGD(momentum=0.9)
+
+    def resolve():
+        return t_zero.resolve_bucket_variant(opt, plan, platform="cpu")
+
+    assert resolve() is None
+    assert bool(t_at.variant_choice("fused_bucket_opt")) is False
     with t_at.force(fused_bucket_opt=True):
-        assert t_zero.resolve_bucket_variant() is True
+        assert resolve() is True
     monkeypatch.setenv("MXNET_PALLAS_OPT", "1")
-    assert t_zero.resolve_bucket_variant() is True
+    assert resolve() is True
     with t_at.force(fused_bucket_opt=False):
-        assert t_zero.resolve_bucket_variant() is False
+        assert resolve() is False
     monkeypatch.setenv("MXNET_PALLAS_OPT", "0")
-    assert t_zero.resolve_bucket_variant() is False
+    assert resolve() is False
+    t_at.cache_clear()

@@ -165,7 +165,8 @@ _PORT_ENV = ["MXNET_AUTOTUNE", "MXNET_AUTOTUNE_CACHE_DIR",
              "MXNET_NUM_PROCESSES", "MXNET_PROCESS_ID",
              "MXNET_DIST_INIT_ATTEMPTS", "MXNET_HEARTBEAT_DIR",
              "MXNET_CKPT_ASYNC", "MXNET_HEAL_MAX_RELAUNCH",
-             "MXNET_WATCHDOG_ABORT"]
+             "MXNET_WATCHDOG_ABORT", "MXNET_CONV_1X1_DOT",
+             "MXNET_DTYPE_LADDER", "MXNET_FP8_AMAX_HISTORY"]
 
 
 @pytest.mark.parametrize("name", _PORT_ENV)

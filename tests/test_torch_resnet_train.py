@@ -390,15 +390,28 @@ def test_nan_guard_skips_and_counts_bad_steps(weights):
     assert int(s["_bad_steps"]) == 0
 
 
-def test_unported_options_raise(weights):
+def test_unported_options_raise(weights, tmp_path, monkeypatch):
+    monkeypatch.setenv("MXNET_AUTOTUNE_CACHE_DIR", str(tmp_path))
+    t_at.cache_clear()
     net = _port_net()
     net.initialize(device="cpu")
     loss = t_loss.SoftmaxCrossEntropyLoss()
-    for kw in (dict(sample_data=(1, 2)), dict(autotune=True),
-               dict(param_spec={"a": 1}),
-               dict(zero_stage=3, mesh=t_par.get_mesh(devices=["cpu"]),
-                    optimizer_sharding="ps")):
-        with pytest.raises(MXNetError, match="not ported"):
+    x, y = _small_batch()
+    # the in-step race is ported: sample data and autotune= build a step
+    # that runs
+    for kw in (dict(sample_data=(x, y)), dict(autotune=True)):
+        step, p, s = t_par.make_train_step(net, loss, "sgd", device="cpu",
+                                           **kw)
+        lv, p, s = step(p, s, x, y, None, 1.0)
+        assert bool(torch.isfinite(lv))
+    t_at.cache_clear()
+    for kw, item in ((dict(param_spec={"a": 1}), "§A 8"),
+                     (dict(zero_stage=3,
+                           mesh=t_par.get_mesh(devices=["cpu"]),
+                           optimizer_sharding="ps"), "§A 11"),
+                     (dict(gradient_compression={"type": "2bit"}),
+                      "§A 11")):
+        with pytest.raises(MXNetError, match=f"not ported.*{item}"):
             t_par.make_train_step(net, loss, "sgd", device="cpu", **kw)
     with pytest.raises(MXNetError, match="not ported"):
         t_par.get_mesh(devices=["cpu", "cpu"])

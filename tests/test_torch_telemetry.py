@@ -405,6 +405,53 @@ def _run_port_dense(n, **kw):
     return out
 
 
+def _mesh_winner_compiles(pkg, path):
+    """Two builds of the dense step on the one-device mesh, a
+    ``conv1x1_dot`` winner recorded under the mesh key between them;
+    ``(causes, fingerprint winners)`` of the train step's compile
+    records."""
+    tm, at = (j_tm, j_at) if pkg == "jax" else (t_tm, t_at)
+    mesh = jax.sharding.Mesh(onp.array(jax.devices()[:1]), ("data",)) \
+        if pkg == "jax" else t_par.get_mesh(devices=["cpu"])
+    x, y = _dense_batch(0)
+    tm.reset(path)
+    for i in range(3):
+        if i == 1:
+            # a winner under the mesh-less key names no cause
+            at.record("conv1x1_dot", x.shape, "float32", winner="dot",
+                      platform="cpu", mesh="none")
+        if i == 2:
+            at.record("conv1x1_dot", x.shape, "float32", winner="dot",
+                      platform="cpu", mesh="data=1")
+        step, p, s = _dense_steps(pkg, mesh=mesh)
+        if pkg == "jax":
+            step(p, s, x, y, jax.random.key(0), 1.0)
+        else:
+            step(p, s, torch.from_numpy(x), torch.from_numpy(y), None, 1.0)
+    tm.close()
+    recs = _read(path)[0]
+    return [(r["causes"], r["fingerprint"]["autotune"]) for r in recs
+            if r["type"] == "compile" and r["program"] == "train_step"]
+
+
+def test_retrace_cause_names_a_winner_under_the_mesh_key(tmp_path,
+                                                         monkeypatch):
+    """The fingerprint's winners are those of the step's ``variant_ops``
+    under its mesh key, as the reference's: a winner recorded for the
+    one-device mesh names ``autotune_winner`` as the cause of the next
+    build's compile record, one recorded without the mesh does not."""
+    got = {}
+    for pkg in ("jax", "port"):
+        monkeypatch.setenv("MXNET_AUTOTUNE_CACHE_DIR", str(tmp_path / pkg))
+        j_at.cache_clear()
+        t_at.cache_clear()
+        got[pkg] = _mesh_winner_compiles(pkg, str(tmp_path / f"{pkg}.jsonl"))
+    j_at.cache_clear()
+    t_at.cache_clear()
+    assert got["port"] == got["jax"]
+    assert got["port"][-1] == (["autotune_winner"], {"conv1x1_dot": "dot"})
+
+
 def test_unarmed_step_is_bit_identical_and_has_no_numerics(tmp_path,
                                                           monkeypatch):
     plain = _run_port_dense(3)
