@@ -106,7 +106,8 @@ copy's quarantine manifest and ``mx.kv``'s stores on the card
 by ``ImageRecordIter`` decoding on the card, beside the same step on a
 resident batch and the iterator alone (``train_imagenet``); and the
 optimizer and the distributed store: what the card's machine offers
-two workers (``dist_probe``: gloo and NCCL on one card, the native
+two workers (``dist_probe``: gloo and NCCL on one card, gloo's
+reduce-scatter and all-gather of ``cuda:0`` tensors, the native
 parameter-server shard built with g++), the store's closed-form
 invariants with two workers on the card (``dist_kvstore``), the
 distributed Trainer on the card against the host (``dist_trainer``:
@@ -116,7 +117,12 @@ card against the host and the ``_pallas_bucket_*`` registry ops through
 the bucket kernels (``optimizer_rules_cuda_vs_cpu``), all started
 together; then ``example/distributed_training/cifar10_dist.py`` at its
 defaults with two workers on the card started by the port's launcher,
-``dist_sync`` and ``dist_async`` (``dist_cifar10``), SSD-300 fed by
+``dist_sync`` and ``dist_async`` (``dist_cifar10``), the fused train
+step across two workers on the card (``dist_train_step``: the
+example under ``--kv-store dist_sync --data-parallel-mesh``, replicated
+with global BatchNorm, the replicas equal; ZeRO stages 1, 2 and 3 bit
+for bit; the bucket kernels on the workers' shards against the plain
+rule; 2-bit compression; ``--dist-train-worker`` is its worker), SSD-300 fed by
 ``ImageDetRecordIter`` (``ssd_rec``) and the MNIST example over IDX
 files (``mnist_data_dir``); and the resilience: ``resnet50_v1_symbol``'s
 ResNet-50 trained by ``Module.fit`` with asynchronous snapshots, SIGKILLed,
@@ -1137,12 +1143,31 @@ def lars_case(ids, nseg, path, seed):
         return (slr, w_ss, g_ss, nf), po._lars_update_reference(
             ws, gs, ms_, ids_, slr, hp["wd"], mom, 1.0, None)
 
+    from mxnet_tpu_torch.ops.collective_ops import Exchange
+    from mxnet_tpu_torch.parallel import get_mesh
+
+    # the launches of a bucket sharded over processes: the reduce, the
+    # (here one-process) sum and the trust from the summed norms
+    one = Exchange(get_mesh(devices=[dev]))
+
+    def split(ws, gs, ids_):
+        return po.bucket_lars_norms(ws, gs, ids_, nseg, axis=one, **norm_kw)
+
     counts = lambda: (po.bucket_lars_norms.launches,  # noqa: E731
                       po.bucket_lars_norms.trust_launches,
                       po.bucket_lars_update.launches)
     n0 = counts()
     (slr, w_ss, g_ss, nf), (nw, nm) = kernels(w, g, m, ids)
     (slr2, w_ss2, _, nf2), (nw2, nm2) = kernels(w, g, m, ids)
+    r0 = po.bucket_lars_norms.reduce_launches
+    s_slr, s_w_ss, s_g_ss, s_nf = split(w, g, ids)
+    check(po.bucket_lars_norms.reduce_launches == r0 + 1,
+          "lars split: no reduce launch")
+    check(all(torch.equal(a, b) for a, b in ((s_slr, slr), (s_w_ss, w_ss),
+                                            (s_g_ss, g_ss), (s_nf, nf))),
+          f"lars split launches {n}/{nseg} are not bit-identical to the "
+          "fused reduce-and-trust at one process")
+    n0 = tuple(c + d for c, d in zip(n0, (1, 1, 0)))
     (rslr, rw_ss, rg_ss, rnf), (rw, rm) = plain(w, g, m, ids)
     cw, cm = po._lars_update_reference(w, g, m, ids, slr, hp["wd"], mom, 1.0,
                                        None)
@@ -1169,6 +1194,10 @@ def lars_case(ids, nseg, path, seed):
     phase = {k: sum(t for name, t in per.items() if k in name)
              for k in ("lars_norms_kernel", "lars_trust_kernel",
                        "lars_update_kernel")}
+    split_per = device_ms(lambda: (lambda st: split(st[0], st[1], st[3]))(
+        next_set()), by_kernel=True)
+    split_ms = {k: sum(t for name, t in split_per.items() if k in name)
+                for k in ("lars_trust_kernel", "lars_trust_sums_kernel")}
     # phase (c) alone, cold: after phase (a) in the same call it finds
     # w, g and the ids of a bucket of up to 50 MB still in L2, as in the
     # step
@@ -1196,6 +1225,9 @@ def lars_case(ids, nseg, path, seed):
             "slr_max_abs_err": float((slr - rslr).abs().max()),
             "ms_norms": phase["lars_norms_kernel"],
             "ms_trust": phase["lars_trust_kernel"],
+            "split_bit_identical": True,
+            "ms_split_reduce": split_ms["lars_trust_kernel"],
+            "ms_split_trust": split_ms["lars_trust_sums_kernel"],
             "ms_update": phase["lars_update_kernel"],
             "ms_update_cold": update_cold_ms,
             "ms": sum(per.values()), "plain_ms": plain_ms,
@@ -1667,6 +1699,7 @@ def train_phase(name, warmup, steps, seed=0):
     from mxnet_tpu_torch import autotune, parallel
     from mxnet_tpu_torch.gluon import loss
     from mxnet_tpu_torch.ops import pallas_conv as pc
+    from mxnet_tpu_torch.ops import pallas_opt as po
 
     cfg = TRAIN_PHASES[name]
     batch, optimizer = cfg["batch"], cfg["optimizer"]
@@ -1704,6 +1737,8 @@ def train_phase(name, warmup, steps, seed=0):
         pc.bnreluconv_bwd.launches = 0
         for fn, attr in counters.values():
             setattr(fn, attr, 0)
+        # a one-card LARS step reduces and takes the trust in one launch
+        po.bucket_lars_norms.reduce_launches = 0
         losses, goods = [], []
         for i in range(warmup):
             lv, params, state = step(i)
@@ -1722,6 +1757,7 @@ def train_phase(name, warmup, steps, seed=0):
         n_brc = pc.bnreluconv_bwd.launches
         launches = {k: getattr(fn, attr) for k, (fn, attr) in
                     counters.items()}
+        split_reduces = po.bucket_lars_norms.reduce_launches
         scale, good = (float(v) for v in state["_loss_scale"])
         stats_after = {n: params[n].clone() for n in stats}
         prof = torch.profiler.profile(activities=[
@@ -1752,6 +1788,7 @@ def train_phase(name, warmup, steps, seed=0):
         "steps_applied": sum(applied),
         "bnreluconv_launches": n_brc,
         **{f"{k}_launches": v for k, v in launches.items()},
+        "bucket_lars_reduce_launches": split_reduces,
         "build_s": build_s,
         "profile_3_steps": device_profile(prof, wall, top=25,
                                           shares=STEP_SHARES),
@@ -1766,6 +1803,8 @@ def train_phase(name, warmup, steps, seed=0):
     for k, v in launches.items():
         check(v == len(plan) * total, f"{name}: {k} launches {v} != "
               f"{len(plan)} buckets x {total} steps")
+    check(split_reduces == 0, f"{name}: {split_reduces} split LARS "
+          "reduces on the one-card mesh")
     check((scale == 2.0 ** 16 and good == total) or
           (scale < 2.0 ** 16 and good < total),
           f"loss scale {scale} after {good} good of {total} steps")
@@ -4605,6 +4644,27 @@ for backend in sys.argv[3].split(","):
         ok = bool((t == want).all()) and bool((b == 7).all())
         print("RESULT", backend, "ok" if ok else
               f"wrong sum {t[0].item()} {b[0].item()}", flush=True)
+        if backend == "gloo":
+            # the ZeRO exchange's two collectives on cuda:0, as given
+            # (each rank prints what it saw: rank r's shard of the sum,
+            # and the whole gathered bucket)
+            for name in ("reduce_scatter_tensor", "all_gather_into_tensor"):
+                try:
+                    if name == "reduce_scatter_tensor":
+                        x = torch.arange(4 * world, dtype=torch.float32,
+                                         device="cuda:0") + rank
+                        o = torch.empty(4, device="cuda:0")
+                        dist.reduce_scatter_tensor(o, x)
+                    else:
+                        x = torch.full((4,), float(rank + 1),
+                                       device="cuda:0")
+                        o = torch.empty(4 * world, device="cuda:0")
+                        dist.all_gather_into_tensor(o, x)
+                    torch.cuda.synchronize()
+                    print("RESULT", f"gloo.{name}", o.tolist(), flush=True)
+                except Exception as e:
+                    print("RESULT", f"gloo.{name}", f"{type(e).__name__}: "
+                          f"{str(e).splitlines()[0][:300]}", flush=True)
         dist.destroy_process_group()
     except Exception as e:
         print("RESULT", backend,
@@ -4626,7 +4686,9 @@ def _group_probe(backends, world=2, timeout=90):
         [sys.executable, "-c", _GROUP_PROBE, str(r), str(world),
          ",".join(backends), str(port)], stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True) for r in range(world)]
-    said = {b: [] for b in backends}
+    keys = list(backends) + [f"gloo.{c}" for c in GLOO_ZERO_COLLECTIVES
+                             if "gloo" in backends]
+    said = {b: [] for b in keys}
     for p in procs:
         try:
             out, _ = p.communicate(timeout=timeout)
@@ -4635,10 +4697,16 @@ def _group_probe(backends, world=2, timeout=90):
             out, _ = p.communicate()
         seen = dict(ln[7:].split(" ", 1) for ln in out.splitlines()
                     if ln.startswith("RESULT "))
-        for b in backends:
+        for b in keys:
             said[b].append(seen.get(b, "timed out or died: "
                                     + out.strip()[-300:]))
     return said
+
+
+#: the collectives of the ZeRO exchange that the probe asks of gloo on
+#: ``cuda:0``; the port calls them on CUDA tensors as they are, so a
+#: refusal fails the probe (no staging is switched on silently)
+GLOO_ZERO_COLLECTIVES = ("reduce_scatter_tensor", "all_gather_into_tensor")
 
 
 def dist_probe():
@@ -4657,7 +4725,9 @@ def dist_probe():
            "gloo_available": dist.is_gloo_available(),
            "nccl_available": dist.is_nccl_available(),
            "gloo_cuda_two_ranks": groups["gloo"],
-           "nccl_one_card_two_ranks": groups["nccl"]}
+           "nccl_one_card_two_ranks": groups["nccl"],
+           **{f"gloo_cuda_{c}": groups[f"gloo.{c}"]
+              for c in GLOO_ZERO_COLLECTIVES}}
     try:
         from mxnet_tpu_torch import _ps
 
@@ -5634,6 +5704,9 @@ def run(profile=False, old_brc=None, workdir=None):
     dtr = dist_trainer_phase(workdir, dist_jobs)
     t_checks = time.perf_counter() - t_store
     dcifar = dist_cifar10_phase(workdir)
+    # the fused train step across the two workers
+    torch.cuda.empty_cache()
+    dstep = dist_train_step_phase(workdir, corpus, trains)
     ssdr = ssd_rec_phase(workdir)
     log(f"[ssd_rec] fed {ssdr['fed_img_s']:.1f} img/s, resident "
         f"{ssdr['resident_img_s']:.1f}, iterator alone "
@@ -5697,6 +5770,7 @@ def run(profile=False, old_brc=None, workdir=None):
               + race["bucket_sgd_mom_launches"]
               + zoo["bucket_sgd_mom_launches"]
               + tim["bucket_sgd_mom_launches"]
+              + dstep["launches"]["bucket_sgd_mom"]
               + op_launches["bucket_sgd_mom"], 0.0, sgd[0]),
         # the same kernel at VGG-16's 102.76 M fc6 bucket, its own row
         entry("bucket_sgd_mom_vgg16", "bucket_sgd.cu",
@@ -5707,12 +5781,14 @@ def run(profile=False, old_brc=None, workdir=None):
               cvc["sgd0"]["bucket_sgd_launches"], 0.0, plain_head),
         entry("bucket_adam", "bucket_adam.cu",
               "mxnet_tpu/ops/pallas_opt.py:173",
-              t_adam["bucket_adam_launches"] + op_launches["bucket_adam"],
+              t_adam["bucket_adam_launches"] + op_launches["bucket_adam"]
+              + dstep["launches"]["bucket_adam"],
               0.0, adam[0]),
         entry("bucket_lars_norms", "bucket_lars.cu",
               "mxnet_tpu/ops/pallas_opt.py:194",
               t_lars["bucket_lars_norms_launches"]
-              + op_launches["bucket_lars_norms"],
+              + op_launches["bucket_lars_norms"]
+              + dstep["launches"]["bucket_lars_norms"],
               max(c["slr_max_abs_err"] for c in lars), {
                   "ms": lars_head["ms_norms"] + lars_head["ms_trust"],
                   "plain_ms": lars_head["plain_norms_trust_ms"],
@@ -5721,7 +5797,8 @@ def run(profile=False, old_brc=None, workdir=None):
         entry("bucket_lars_update", "bucket_lars.cu",
               "mxnet_tpu/ops/pallas_opt.py:231",
               t_lars["bucket_lars_update_launches"]
-              + op_launches["bucket_lars_update"],
+              + op_launches["bucket_lars_update"]
+              + dstep["launches"]["bucket_lars_update"],
               max(c["max_abs_err"] for c in lars), {
                   "ms": lars_head["ms_update_cold"],
                   "plain_ms": lars_head["plain_update_ms"],
@@ -5856,6 +5933,16 @@ def dist_probe_phase():
     check(res["gloo_available"] and all(
         s == "ok" for s in res["gloo_cuda_two_ranks"]),
           f"dist_probe: gloo on cuda:0: {res['gloo_cuda_two_ranks']}")
+    # rank r's shard of sum_r(arange(8) + r) and the gathered (1, 2)s
+    want = {"reduce_scatter_tensor": [str([1.0, 3.0, 5.0, 7.0]),
+                                      str([9.0, 11.0, 13.0, 15.0])],
+            "all_gather_into_tensor": [str([1.0] * 4 + [2.0] * 4)] * 2}
+    for c in GLOO_ZERO_COLLECTIVES:
+        log(f"[dist_probe] gloo {c} on cuda:0, what each rank saw: "
+            f"{res[f'gloo_cuda_{c}']}")
+        check(res[f"gloo_cuda_{c}"] == want[c],
+              f"dist_probe: gloo {c} on cuda:0: {res[f'gloo_cuda_{c}']} "
+              "(the exchange hands gloo CUDA tensors as they are)")
     check(os.path.exists(str(res["ps_native_build"])),
           f"dist_probe: the native shard did not build: "
           f"{res['ps_native_build']}")
@@ -10082,6 +10169,596 @@ def _autotune_race_d(smi, warmup=2, steps=10, seed=0):
     return out
 
 
+# ------------------------------------- the fused train step across processes
+#: ``dist_train_step``: 2 workers on ``cuda:0`` over gloo (one warm
+#: launch).  (a) ``example/train_imagenet.py --kv-store dist_sync
+#: --data-parallel-mesh`` at its defaults, fed from ``data_plane``'s
+#: corpus; (b) ZeRO stages 1-3, (c) the bucket kernels against their
+#: plain versions in stage 2 and (d) 2-bit compression, on the
+#: kernel-arm ResNet-50 with a resident batch of ``batch`` a worker
+DIST_STEP = dict(fed_warmup=2, fed_steps=10, batch=64, stage_steps=6,
+                 kernel_steps=3, comp_steps=6, comp_threshold=0.5,
+                 lr=0.1, momentum=0.9)
+#: (c): the optimizers, their settings, and the kernel launch counters
+#: each step makes once a bucket
+DIST_KERNEL_OPTS = {
+    "sgd": dict(learning_rate=0.1, momentum=0.9),
+    "adam": dict(learning_rate=ADAM_HYPER["lr"], wd=ADAM_HYPER["wd"]),
+    "lars": dict(learning_rate=LARS_HYPER["lr"],
+                 momentum=LARS_HYPER["momentum"], lars_eta=LARS_HYPER["eta"],
+                 wd=LARS_HYPER["wd"]),
+}
+
+
+def _dist_counters(optimizer):
+    """``{name: (wrapper, attribute)}`` of the kernel launches a sharded
+    step of ``optimizer`` makes once a bucket (LARS: the split reduce
+    too)."""
+    from mxnet_tpu_torch.ops import pallas_opt as po
+
+    c = dict(bucket_counters(optimizer))
+    if optimizer == "lars":
+        c["bucket_lars_reduce"] = (po.bucket_lars_norms, "reduce_launches")
+    return c
+
+
+def _bucket_plain_twin(opt, w, g, state, t, seg, axis, with_finite):
+    """The plain version of ``pallas_opt.bucket_update`` on the same card
+    tensors: ``(new_w, new_state, finite)`` from each kernel's
+    ``_reference`` with its wrapper's constants; a LARS shard's sums add
+    up over ``axis`` before the trust, as the split launch does."""
+    import torch
+
+    from mxnet_tpu_torch.ops import pallas_opt as po
+    from mxnet_tpu_torch.ops.collective_ops import all_reduce_sum
+    from mxnet_tpu_torch.optimizer.optimizer import (LARS, SGD, adam_lr_t,
+                                                     scalar_as)
+
+    if type(opt) is SGD:
+        dt = w.dtype
+        rescale = scalar_as(opt.rescale_grad, dt)
+        clip = None if opt.clip_gradient is None else \
+            scalar_as(opt.clip_gradient, dt)
+        lr, wd = scalar_as(opt.learning_rate, dt), scalar_as(opt.wd, dt)
+        if float(opt.momentum) == 0.0:
+            nw, _, nf = po._sgd_reference(w, g, None, lr, wd, 0.0, rescale,
+                                          clip, with_finite)
+            new_state = state
+        else:
+            nw, nm, nf = po._sgd_reference(
+                w, g, state[0], lr, wd, scalar_as(opt.momentum, dt),
+                rescale, clip, with_finite)
+            new_state = (nm,)
+    elif type(opt) is LARS:
+        g = g.to(torch.float32)
+        ids, nseg = seg
+        w_ss, g_ss, nf = po._lars_norms_reference(
+            w, g, ids, nseg, opt.rescale_grad, opt.clip_gradient,
+            with_finite)
+        if axis is not None:
+            sums = torch.cat([w_ss, g_ss] + (
+                [nf.reshape(1).to(torch.float32)] if with_finite else []))
+            all_reduce_sum(sums, axis)
+            w_ss, g_ss = sums[:nseg], sums[nseg:2 * nseg]
+            if with_finite:
+                nf = sums[2 * nseg].to(torch.int32)
+        slr = po._lars_trust_reference(w_ss, g_ss, opt.learning_rate,
+                                       opt.wd, opt.eta, opt.epsilon)
+        nw, nm = po._lars_update_reference(
+            w, g, state[0], ids, slr, opt.wd, opt.momentum,
+            opt.rescale_grad, opt.clip_gradient)
+        new_state = (nm,)
+    else:
+        nw, nm, nv, nf = po._adam_reference(
+            w, g.to(torch.float32), *state,
+            adam_lr_t(opt.learning_rate, opt.beta1, opt.beta2, t), opt.wd,
+            opt.beta1, opt.beta2, opt.epsilon, opt.rescale_grad,
+            opt.clip_gradient, with_finite)
+        new_state = (nm, nv)
+    return nw, new_state, (nf == 0) if with_finite else None
+
+
+class _TwinCheck:
+    """While entered, every ``pallas_opt.bucket_update`` (the sharded
+    step's kernel arm, once a bucket a step) is held against
+    :func:`_bucket_plain_twin` on copies of the same inputs: the new
+    shard, its optimizer state and the verdict.  Records the calls and
+    the largest differences, and how far they go past ``LARS_TOL``."""
+
+    def __init__(self):
+        self.calls, self.bitwise, self.max_abs, self.over_tol = 0, True, \
+            0.0, float("-inf")
+
+    def __enter__(self):
+        from mxnet_tpu_torch.ops import pallas_opt as po
+
+        self._po, self._real = po, po.bucket_update
+        po.bucket_update = self._checked
+        return self
+
+    def __exit__(self, *exc):
+        self._po.bucket_update = self._real
+
+    def _checked(self, opt, w, g, state, t, *, seg=None, axis_name=None,
+                 with_finite=False, out=None):
+        import torch
+
+        ins = (w.clone(), g.clone(), tuple(v.clone() for v in state))
+        res = self._real(opt, w, g, state, t, seg=seg, axis_name=axis_name,
+                         with_finite=with_finite, out=out)
+        nw, ns, fin = res
+        tw, ts, tfin = _bucket_plain_twin(opt, *ins, t, seg, axis_name,
+                                          with_finite)
+        for a, b in zip((nw, *ns), (tw, *ts)):
+            self.bitwise &= bool(torch.equal(a, b))
+            d = float((a - b).abs().max())
+            self.max_abs = max(self.max_abs, d)
+            self.over_tol = max(self.over_tol, d - LARS_TOL["atol"]
+                                - LARS_TOL["rtol"] * float(b.abs().max()))
+        if with_finite:
+            self.bitwise &= bool(torch.equal(fin, tfin))
+            self.over_tol = max(self.over_tol,
+                                0.0 if bool(torch.equal(fin, tfin)) else 1.0)
+        self.calls += 1
+        return res
+
+    def record(self):
+        return {"calls": self.calls, "bitwise": self.bitwise,
+                "max_abs_diff": self.max_abs, "over_lars_tol": self.over_tol}
+
+
+def _tensor_bytes(tree):
+    """Bytes of the distinct storages under ``tree`` (a dict of tensors or
+    of tuples of them)."""
+    import torch
+
+    seen, total = set(), 0
+    for v in tree.values():
+        for t in (v if isinstance(v, tuple) else (v,)):
+            if isinstance(t, torch.Tensor):
+                st = t.untyped_storage()
+                if st.data_ptr() not in seen:
+                    seen.add(st.data_ptr())
+                    total += st.nbytes()
+    return total
+
+
+def _dist_resnet_step(seed, optimizer, opt_kw, **kw):
+    """(step_fn, params, state, plan, exchange) of the kernel-arm
+    ResNet-50 in the sharded arm of this worker's process mesh, bf16."""
+    import torch
+
+    from mxnet_tpu_torch import parallel
+    from mxnet_tpu_torch.gluon import loss
+
+    dev = torch.device("cuda", 0)
+    net = resnet50(dev, seed)
+    before = torch.cuda.memory_allocated(dev)
+    step_fn, p, s = parallel.make_train_step(
+        net, loss.SoftmaxCrossEntropyLoss(), optimizer, **opt_kw,
+        mesh=parallel.get_mesh(), compute_dtype="bfloat16", donate=True,
+        autotune=False, optimizer_sharding="ps", **kw)
+    torch.cuda.synchronize()
+    return step_fn, p, s, torch.cuda.memory_allocated(dev) - before
+
+
+def _digest(tree, order=None):
+    """SHA-256 of ``tree``'s tensors in ``order`` (default: sorted names,
+    hashed with them); with an ``order`` the values alone, so that two
+    nets whose names differ by prefix compare."""
+    import hashlib
+
+    from mxnet_tpu_torch.resilience.elastic import host_gather
+
+    h = hashlib.sha256()
+    for n in (sorted(tree) if order is None else order):
+        if order is None:
+            h.update(n.encode())
+        h.update(host_gather(tree[n]).tobytes())
+    return h.hexdigest()
+
+
+def dist_train_worker(argv):
+    """``chip_smoke.py --dist-train-worker OUT CORPUS``: one worker of
+    ``dist_train_step`` (a)-(d); writes ``OUT.r<rank>.json``."""
+    import numpy as onp
+    import torch
+    import torch.distributed as dist
+
+    from mxnet_tpu_torch import autotune
+    from mxnet_tpu_torch.example import train_imagenet as ex
+    from mxnet_tpu_torch.parallel import zero
+    from mxnet_tpu_torch.resilience.elastic import host_gather
+
+    out_prefix, corpus = argv
+    check(torch.cuda.is_available(), "dist_train_step: no card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = DIST_STEP
+    res = {}
+
+    # (a) the example, replicated, fed
+    args = ex.parse_args(["--data-train", corpus, "--kv-store", "dist_sync",
+                          "--data-parallel-mesh"])
+    onp.random.seed(0)
+    kv, it, step_fn, params, state = ex.build(args)
+    rank, world = kv.rank, kv.num_workers
+    check(world == 2, f"dist_train_step: a world of {world}")
+    rplan = zero.plan_buckets(params, 1)
+    carry, losses, per_step, t = [params, state], [], [], [0]
+
+    def fed():
+        try:
+            batch = it.next()
+        except StopIteration:
+            it.reset()
+            batch = it.next()
+        t[0] += 1
+        lv, carry[0], carry[1] = step_fn(carry[0], carry[1],
+                                         batch.data[0]._data,
+                                         batch.label[0]._data, 0,
+                                         float(t[0]))
+        losses.append(lv)
+        per_step.append(step_fn.exchange)
+
+    for _ in range(cfg["fed_warmup"]):
+        fed()
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(cfg["fed_steps"]):
+        fed()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    it.close()
+    timed = per_step[cfg["fed_warmup"]:]
+    ex_last = timed[-1]
+    wire = [sum(v["bytes"] for k, v in e.items() if k not in ("roles",
+                                                              "host_s"))
+            + sum(r["bytes"] for r in e["roles"].values()) for e in timed]
+    res["a"] = {
+        "losses": [float(v) for v in losses],
+        "ms_per_step": wall / cfg["fed_steps"] * 1e3,
+        "img_per_s_this_worker": args.batch_size * cfg["fed_steps"] / wall,
+        "exchange_host_ms_per_step": sum(e["host_s"] for e in timed)
+        / len(timed) * 1e3,
+        "wire_bytes_per_step": sum(wire) / len(wire),
+        "bucket_all_reduces_per_step": ex_last["all-reduce"]["launches"],
+        "buckets": len(rplan),
+        "bn_all_reduces_per_step": ex_last["roles"].get("bn", {}).get(
+            "launches", 0),
+        "control_all_reduces_per_step": ex_last["roles"].get(
+            "control", {}).get("launches", 0),
+        "params_sha256": _digest(carry[0])}
+    del carry, params, state, step_fn, it
+    torch.cuda.empty_cache()
+
+    # (b) ZeRO stages 1, 2 and 3 from one init on one resident batch
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    from mxnet_tpu_torch.ops import pallas_opt as po
+
+    gen = torch.Generator(device="cuda:0").manual_seed(100 + rank)
+    x, y = image_batch(cfg["batch"], "kernel_arm", gen, "cuda:0")
+    stages = {}
+    with autotune.force(pallas_bnreluconv="pallas", fused_bucket_opt=True):
+        for stage in (1, 2, 3):
+            step_fn, p, s, mem = _dist_resnet_step(
+                7, "sgd", dict(learning_rate=cfg["lr"],
+                               momentum=cfg["momentum"]), zero_stage=stage)
+            plan = step_fn.zero_plan
+            po.bucket_sgd_mom.launches = 0
+            torch.cuda.synchronize()
+            dist.barrier()
+            t0 = time.perf_counter()
+            ls = []
+            for i in range(cfg["stage_steps"]):
+                lv, p, s = step_fn(p, s, x, y, None, float(i + 1))
+                ls.append(lv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = po.bucket_sgd_mom.launches
+            e = step_fn.exchange
+            named = p if stage != 3 else zero.gather_stage3_params(
+                plan, {k: host_gather(v) for k, v in p.items()})
+            shard_numels = [s[bk][0].numel() for bk in
+                            zero.stage3_param_keys(plan)]
+            stages[stage] = {
+                "losses": [float(v) for v in ls],
+                "ms_per_step": wall / cfg["stage_steps"] * 1e3,
+                "buckets": len(plan),
+                "bucket_sgd_mom_launches": launches,
+                "state_shards_half": all(
+                    n * world == b.padded for n, b in zip(shard_numels,
+                                                           plan)),
+                "counted_bytes": {k: e[k]["bytes"] for k in
+                                  ("reduce-scatter", "all-gather",
+                                   "all-reduce")},
+                "analytic_bytes": zero.analytic_exchange_bytes(
+                    plan, world, stage),
+                "exchange_host_ms_last_step": e["host_s"] * 1e3,
+                "param_bytes": _tensor_bytes(p),
+                "state_bytes": _tensor_bytes(s),
+                "memory_allocated_delta_bytes": mem,
+                "params_sha256": _digest(named, [n for b in plan
+                                                 for n in b.names])}
+            del step_fn, p, s, named
+            torch.cuda.empty_cache()
+    res["b"] = stages
+
+    # (c) the kernels against their plain versions, stage 2: every
+    # bucket update of the kernel arm against the plain version on the
+    # same shard, state and gradient; then the kernel arm against the
+    # arm forced to the optimizer's plain rule
+    kern = {}
+    for opt, kw in DIST_KERNEL_OPTS.items():
+        runs = {}
+        for arm in ("kernel", "plain"):
+            counters = _dist_counters(opt)
+            twin = _TwinCheck()
+            with autotune.force(pallas_bnreluconv="pallas",
+                                fused_bucket_opt=arm == "kernel"), twin:
+                step_fn, p, s, _ = _dist_resnet_step(11, opt, kw)
+                for fn, attr in counters.values():
+                    setattr(fn, attr, 0)
+                firsts = None
+                for i in range(cfg["kernel_steps"]):
+                    lv, p, s = step_fn(p, s, x, y, None, float(i + 1))
+                    if i == 0:
+                        firsts = [v.detach().float().clone()
+                                  for v in p.values()]
+                torch.cuda.synchronize()
+            # in parameter order: the two nets' names differ by prefix
+            runs[arm] = {"launches": {k: getattr(fn, attr) for k, (fn, attr)
+                                      in counters.items()},
+                         "first": firsts,
+                         "final": [v.detach().float().clone()
+                                   for v in p.values()],
+                         "twin": twin.record(),
+                         "buckets": len(step_fn.zero_plan)}
+            del step_fn, p, s
+        k, q = runs["kernel"], runs["plain"]
+        step1 = max(float((a - b).abs().max())
+                    for a, b in zip(k["first"], q["first"]))
+        final = max(float((a - b).abs().max())
+                    for a, b in zip(k["final"], q["final"]))
+        step1_tol = max(float((a - b).abs().max()) - LARS_TOL["atol"]
+                        - LARS_TOL["rtol"] * float(b.abs().max())
+                        for a, b in zip(k["first"], q["first"]))
+        kern[opt] = {"buckets": k["buckets"],
+                     "kernel_launches": k["launches"],
+                     "plain_launches": q["launches"],
+                     "twin": k["twin"], "plain_arm_twin_calls":
+                     q["twin"]["calls"],
+                     "step1_max_abs_diff": step1,
+                     "step1_over_lars_tol": step1_tol,
+                     "final_max_abs_diff": final}
+        del runs
+        torch.cuda.empty_cache()
+    res["c"] = kern
+
+    # (d) 2-bit compression, stage 2, a NaN planted on rank 1 at step 3
+    with autotune.force(pallas_bnreluconv="pallas", fused_bucket_opt=True):
+        step_fn, p, s, _ = _dist_resnet_step(
+            13, "sgd", dict(learning_rate=cfg["lr"], momentum=cfg["momentum"]),
+            loss_scale="dynamic",
+            gradient_compression={"type": "2bit",
+                                  "threshold": cfg["comp_threshold"]})
+        ls, skipped, wire = [], [], []
+        po.bucket_sgd_mom.launches = 0
+        for i in range(cfg["comp_steps"]):
+            xi = x
+            if i == 2 and rank == 1:
+                xi = x.clone()
+                xi.view(-1)[0] = float("nan")
+            before = _digest(p) if i == 2 else None
+            scale0 = float(s["_loss_scale"][0])
+            lv, p, s = step_fn(p, s, xi, y, None, float(i + 1))
+            ls.append(float(lv))
+            e = step_fn.exchange
+            wire.append(sum(e[k]["bytes"] for k in ("all-reduce",
+                                                    "reduce-scatter",
+                                                    "all-gather")))
+            if i == 2:
+                skipped = [_digest(p) == before,
+                           float(s["_loss_scale"][0]) == scale0 / 2]
+        rkeys = sorted(k for k in s if k.startswith("_residual"))
+        res["d"] = {
+            "losses": ls, "planted_step_skipped_and_scale_halved": skipped,
+            "residuals": len(rkeys),
+            "residuals_finite": all(bool(torch.isfinite(s[k]).all())
+                                    for k in rkeys),
+            "residuals_on": sorted({str(s[k].device) for k in rkeys}),
+            "residual_abs_max": max(float(s[k].abs().max()) for k in rkeys),
+            "wire_bytes_per_step": wire[-1],
+            "bucket_sgd_mom_launches": po.bucket_sgd_mom.launches,
+            "buckets": len(step_fn.zero_plan)}
+    res["rank"] = rank
+    res["device"] = torch.cuda.get_device_name(0)
+    with open(f"{out_prefix}.r{rank}.json", "w") as f:
+        json.dump(res, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def dist_train_step_phase(workdir, corpus, trains):
+    """The fused train step across 2 worker processes on ``cuda:0``
+    (gloo), one warm launch of ``--dist-train-worker``: (a) the example
+    replicated with global BatchNorm, (b) ZeRO stages 1-3, (c) the
+    bucket kernels against their plain versions in the sharded step, (d)
+    2-bit compression; (e) the one-card mesh's launches, read from
+    ``trains`` (the ``train_resnet50*`` phases)."""
+    import math as _m
+
+    smi = nvidia_smi_line()
+    prefix = os.path.join(workdir, "dist_step")
+    job = _Launched(DIST_WORKERS, [os.path.abspath(__file__),
+                                   "--dist-train-worker", prefix, corpus],
+                    env={"OMP_NUM_THREADS": "2"})
+    rc = job.wait(timeout=600)
+    if rc != 0:
+        log(job.err[-6000:])
+    check(rc == 0, f"dist_train_step: the launcher exited {rc}")
+    ranks = []
+    for r in range(DIST_WORKERS):
+        with open(f"{prefix}.r{r}.json") as f:
+            ranks.append(json.load(f))
+    a = [r["a"] for r in ranks]
+    check(all(_m.isfinite(v) for r in a for v in r["losses"]),
+          f"dist_train_step (a): a loss is not finite: {a[0]['losses']}")
+    check(a[0]["params_sha256"] == a[1]["params_sha256"],
+          "dist_train_step (a): the two replicas differ")
+    for r in a:
+        check(r["bucket_all_reduces_per_step"] == r["buckets"],
+              f"dist_train_step (a): {r['bucket_all_reduces_per_step']} "
+              f"bucket all-reduces a step, {r['buckets']} buckets")
+        check(r["bn_all_reduces_per_step"] > 0,
+              "dist_train_step (a): no BatchNorm all-reduce")
+    b = [r["b"] for r in ranks]
+    for rb in b:
+        digests = {st: v["params_sha256"] for st, v in rb.items()}
+        check(len(set(digests.values())) == 1,
+              f"dist_train_step (b): the stages differ: {digests}, losses "
+              f"{ {st: v['losses'] for st, v in rb.items()} }")
+        for st, v in rb.items():
+            check(all(_m.isfinite(x) for x in v["losses"]),
+                  f"dist_train_step (b) stage {st}: {v['losses']}")
+            check(v["bucket_sgd_mom_launches"] == v["buckets"]
+                  * DIST_STEP["stage_steps"],
+                  f"dist_train_step (b) stage {st}: "
+                  f"{v['bucket_sgd_mom_launches']} launches")
+            check(v["state_shards_half"],
+                  f"dist_train_step (b) stage {st}: the state is not "
+                  "half-length shards")
+            check(v["counted_bytes"] == v["analytic_bytes"],
+                  f"dist_train_step (b) stage {st}: counted "
+                  f"{v['counted_bytes']} != {v['analytic_bytes']}")
+    check(b[0]["1"]["params_sha256"] == b[1]["1"]["params_sha256"],
+          "dist_train_step (b): the replicas of stage 1 differ")
+    for rc_ in ranks:
+        for opt, v in rc_["c"].items():
+            want = v["buckets"] * DIST_STEP["kernel_steps"]
+            check(all(n == want for n in v["kernel_launches"].values()),
+                  f"dist_train_step (c) {opt}: launches "
+                  f"{v['kernel_launches']}, want {want} each")
+            check(not any(v["plain_launches"].values()) and
+                  v["plain_arm_twin_calls"] == 0,
+                  f"dist_train_step (c) {opt} plain: kernel launches "
+                  f"{v['plain_launches']}")
+            tw = v["twin"]
+            check(tw["calls"] == want,
+                  f"dist_train_step (c) {opt}: {tw['calls']} bucket updates "
+                  f"held against the plain version, want {want}")
+            if opt == "lars":
+                # the norms are sums in other orders (lars_case's bound)
+                check(tw["over_lars_tol"] <= 0,
+                      f"dist_train_step (c) lars: a step's update is off "
+                      f"the plain version on the same inputs by "
+                      f"{tw['max_abs_diff']}")
+            else:
+                check(tw["bitwise"],
+                      f"dist_train_step (c) {opt}: a step's update is not "
+                      f"bit-identical to the plain version on the same "
+                      f"inputs ({tw['max_abs_diff']})")
+            if opt != "sgd":
+                # LARS's norms are sums in other orders; Adam's kernel
+                # takes f32(1 - beta1) where the rule takes 1 - f32(beta1),
+                # as in the reference (the kernel equals its plain twin
+                # bit for bit: kernels_bucket_adam)
+                check(v["step1_over_lars_tol"] <= 0,
+                      f"dist_train_step (c) {opt}: first step off the "
+                      f"plain rule by {v['step1_max_abs_diff']}")
+            else:
+                check(v["final_max_abs_diff"] == 0.0,
+                      f"dist_train_step (c) {opt}: kernel and plain differ "
+                      f"by {v['final_max_abs_diff']}")
+    for rd in (r["d"] for r in ranks):
+        check(all(_m.isfinite(v) for i, v in enumerate(rd["losses"])
+                  if i != 2), f"dist_train_step (d): {rd['losses']}")
+        check(rd["bucket_sgd_mom_launches"] == rd["buckets"]
+              * DIST_STEP["comp_steps"],
+              f"dist_train_step (d): {rd['bucket_sgd_mom_launches']} "
+              "bucket launches")
+        check(rd["residuals_finite"] and rd["residuals_on"] == ["cuda:0"],
+              f"dist_train_step (d): residuals {rd['residuals_on']}")
+        check(rd["planted_step_skipped_and_scale_halved"] == [True, True],
+              "dist_train_step (d): the planted step was not skipped on "
+              f"every rank: {rd['planted_step_skipped_and_scale_halved']}")
+    # (e) the one-card mesh: the bucket kernel once a bucket a step, and
+    # LARS's fused reduce-and-trust (no split launch)
+    one = trains["train_resnet50"]
+    lars1 = trains["train_resnet50_lars"]
+    total = one["warmup_steps"] + one["timed_steps"]
+    check(one["bucket_sgd_mom_launches"] == one["buckets"] * total,
+          "dist_train_step (e): the one-card bucket launches changed")
+    check(lars1["bucket_lars_reduce_launches"] == 0 and
+          lars1["bucket_lars_trust_launches"] == lars1["buckets"] * total,
+          "dist_train_step (e): LARS's one-card launches changed")
+    a0 = a[0]
+    out = {"phase": "dist_train_step", "workers": DIST_WORKERS,
+           "nvidia_smi": smi, "transport": "gloo, CUDA tensors as given",
+           "a_example": {
+               "config": "resnet50_v1 (zoo, NCHW), 224², batch 128 a "
+                         "worker, bf16, SGD 0.1/0.9, fed, 2 + 10 steps",
+               "img_s_both_workers": sum(r["img_per_s_this_worker"]
+                                         for r in a),
+               "ms_per_step": [r["ms_per_step"] for r in a],
+               "exchange_host_ms_per_step": [r["exchange_host_ms_per_step"]
+                                             for r in a],
+               "wire_bytes_per_step": a0["wire_bytes_per_step"],
+               "bucket_all_reduces_per_step": a0[
+                   "bucket_all_reduces_per_step"],
+               "bn_all_reduces_per_step": a0["bn_all_reduces_per_step"],
+               "control_all_reduces_per_step": a0[
+                   "control_all_reduces_per_step"],
+               "losses_rank0": [round(v, 4) for v in a0["losses"]],
+               "replicas_equal": True},
+           "b_stages": {st: {k: [rb[st][k] for rb in b] if k in (
+               "param_bytes", "state_bytes", "memory_allocated_delta_bytes",
+               "ms_per_step", "exchange_host_ms_last_step") else b[0][st][k]
+               for k in ("ms_per_step", "buckets", "bucket_sgd_mom_launches",
+                         "analytic_bytes", "param_bytes", "state_bytes",
+                         "memory_allocated_delta_bytes",
+                         "exchange_host_ms_last_step", "losses")}
+               for st in b[0]},
+           "c_kernels": {opt: {k: v[k] for k in (
+               "buckets", "kernel_launches", "twin", "step1_max_abs_diff",
+               "final_max_abs_diff")} for opt, v in ranks[0]["c"].items()},
+           "d_compression": {k: ranks[0]["d"][k] for k in (
+               "losses", "residuals", "residual_abs_max",
+               "wire_bytes_per_step")},
+           "e_one_card": {"bucket_sgd_mom_launches":
+                          one["bucket_sgd_mom_launches"],
+                          "lars_trust_launches":
+                          lars1["bucket_lars_trust_launches"],
+                          "lars_reduce_launches":
+                          lars1["bucket_lars_reduce_launches"]},
+           # the kernels' launches in both workers, for the kernels line
+           "launches": {
+               "bucket_sgd_mom": sum(
+                   sum(v["bucket_sgd_mom_launches"] for v in r["b"].values())
+                   + r["c"]["sgd"]["kernel_launches"]["bucket_sgd_mom"]
+                   + r["d"]["bucket_sgd_mom_launches"] for r in ranks),
+               **{k: sum(r["c"][opt]["kernel_launches"][k] for r in ranks)
+                  for opt, k in (("adam", "bucket_adam"),
+                                 ("lars", "bucket_lars_norms"),
+                                 ("lars", "bucket_lars_update"))}},
+           "seconds": job.seconds}
+    log(f"[dist_train_step] {smi}: (a) "
+        f"{out['a_example']['img_s_both_workers']:.1f} img/s over both "
+        f"workers, {out['a_example']['ms_per_step']} ms/step, exchange "
+        f"host {out['a_example']['exchange_host_ms_per_step']} ms/step, "
+        f"{out['a_example']['wire_bytes_per_step']:.0f} wire B/step, "
+        f"{a0['bucket_all_reduces_per_step']} bucket + "
+        f"{a0['bn_all_reduces_per_step']} BatchNorm all-reduces a step; "
+        f"(b) {json.dumps(out['b_stages'])}; (c) "
+        f"{json.dumps(out['c_kernels'])}; (d) "
+        f"{json.dumps(out['d_compression'])}; ({job.seconds:.1f} s)")
+    emit(out)
+    return out
+
+
 def heal_worker(argv):
     """``chip_smoke.py --heal-worker module_resnet50 WORKDIR`` or
     ``--heal-worker cifar10 ...``: the commands the resilience phases
@@ -10129,6 +10806,9 @@ def main(argv=None):
         return heal_worker(argv[1:])
     if argv[:1] == ["--autotune-reload-worker"]:
         return autotune_reload_worker(argv[1:])
+    if argv[:1] == ["--dist-train-worker"]:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        return dist_train_worker(argv[1:])
     args = ap.parse_args(argv)
     try:
         import torch

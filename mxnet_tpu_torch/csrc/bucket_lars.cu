@@ -12,7 +12,11 @@
 //   (b) lars_trust_kernel:  one CTA per segment reduces the partials in a
 //       fixed order, then trust = eta*|w| / (|g| + wd*|w| + eps) where both
 //       norms are positive (else 1) and slr[s] = lr * trust; CTA 0 also sums
-//       the non-finite counts;
+//       the non-finite counts.  A bucket sharded over processes splits (b):
+//       the same reduce without the trust (this shard's sums and count),
+//       which the caller sums over the processes (the reference's psum
+//       between its norms kernel and its trust math), then
+//       lars_trust_sums_kernel takes the trust from the summed norms;
 //   (c) lars_update_kernel: mom = momentum*m + slr[seg]*(gp + wd*w);
 //       w' = w - mom, m' = mom (_lars_bucket_step, that order).
 //
@@ -137,8 +141,22 @@ lars_norms_kernel(const float* __restrict__ w, const float* __restrict__ g,
   }
 }
 
+__device__ __forceinline__ float scaled_lr(float w_ss, float g_ss, float lr,
+                                           float wd, float eta, float eps) {
+  const float w_norm = __fsqrt_rn(w_ss), g_norm = __fsqrt_rn(g_ss);
+  float trust = 1.f;
+  if (w_norm > 0.f && g_norm > 0.f)
+    trust = __fdiv_rn(__fmul_rn(eta, w_norm),
+                      __fadd_rn(__fadd_rn(g_norm, __fmul_rn(wd, w_norm)),
+                                eps));
+  return __fmul_rn(lr, trust);
+}
+
 // One CTA per segment: thread t sums partials t, t + 256, ... in order, then
-// a fixed shared-memory tree.  Segment 0's CTA also sums the counts.
+// a fixed shared-memory tree.  Segment 0's CTA also sums the counts.  kTrust:
+// the trust ratios and the int count; else the sums alone, with the count as
+// a float after them in sq (exact below 2^24), for the caller to sum.
+template <bool kTrust>
 __global__ void __launch_bounds__(kThreads)
 lars_trust_kernel(const float* __restrict__ part,
                   const int* __restrict__ part_nf, float* __restrict__ sq,
@@ -171,15 +189,24 @@ lars_trust_kernel(const float* __restrict__ part,
     const float w_ss = red[0][0], g_ss = red[1][0];
     sq[s] = w_ss;
     sq[nseg + s] = g_ss;
-    const float w_norm = __fsqrt_rn(w_ss), g_norm = __fsqrt_rn(g_ss);
-    float trust = 1.f;
-    if (w_norm > 0.f && g_norm > 0.f)
-      trust = __fdiv_rn(__fmul_rn(eta, w_norm),
-                        __fadd_rn(__fadd_rn(g_norm, __fmul_rn(wd, w_norm)),
-                                  eps));
-    slr[s] = __fmul_rn(lr, trust);
-    if (with_finite && s == 0) *nf = red_nf[0];
+    if (kTrust) {
+      slr[s] = scaled_lr(w_ss, g_ss, lr, wd, eta, eps);
+      if (with_finite && s == 0) *nf = red_nf[0];
+    } else if (with_finite && s == 0) {
+      sq[2 * nseg] = (float)red_nf[0];
+    }
   }
+}
+
+// The trust ratios from norms summed over the shards: sums holds w_ss, g_ss
+// (nseg each) and, with with_finite, the non-finite count as a float.
+__global__ void __launch_bounds__(kMaxSeg)
+lars_trust_sums_kernel(const float* __restrict__ sums, float* __restrict__ slr,
+                       int* __restrict__ nf, int nseg, int with_finite,
+                       float lr, float wd, float eta, float eps) {
+  for (int s = threadIdx.x; s < nseg; s += blockDim.x)
+    slr[s] = scaled_lr(sums[s], sums[nseg + s], lr, wd, eta, eps);
+  if (with_finite && threadIdx.x == 0) *nf = (int)sums[2 * nseg];
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -246,9 +273,37 @@ extern "C" int mxt_lars_trust(const float* part, const int* part_nf,
   if (blocks < 1 || nseg < 1 || nseg > kMaxSeg)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  lars_trust_kernel<<<nseg, kThreads, 0, st>>>(
+  lars_trust_kernel<true><<<nseg, kThreads, 0, st>>>(
       part, part_nf, sq, slr, nf, blocks, nseg, with_finite, lr, wd, eta,
       eps);
+  return (int)cudaGetLastError();
+}
+
+// The split (b) of a sharded bucket, first half: sums gets this shard's
+// w_ss, g_ss (nseg floats each) and, with with_finite, its non-finite count
+// as one float after them (2 * nseg + 1 floats).
+extern "C" int mxt_lars_reduce(const float* part, const int* part_nf,
+                               float* sums, int blocks, int nseg,
+                               int with_finite, void* stream) {
+  if (blocks < 1 || nseg < 1 || nseg > kMaxSeg)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  lars_trust_kernel<false><<<nseg, kThreads, 0, st>>>(
+      part, part_nf, sums, nullptr, nullptr, blocks, nseg, with_finite, 0.f,
+      0.f, 0.f, 0.f);
+  return (int)cudaGetLastError();
+}
+
+// Second half: slr (nseg floats) from the summed sums; nf (one int) the
+// summed count, written when with_finite.
+extern "C" int mxt_lars_trust_sums(const float* sums, float* slr, int* nf,
+                                   int nseg, int with_finite, float lr,
+                                   float wd, float eta, float eps,
+                                   void* stream) {
+  if (nseg < 1 || nseg > kMaxSeg) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  lars_trust_sums_kernel<<<1, kMaxSeg, 0, st>>>(sums, slr, nf, nseg,
+                                                with_finite, lr, wd, eta, eps);
   return (int)cudaGetLastError();
 }
 

@@ -10,16 +10,36 @@ example/image-classification/train_imagenet.py + common/fit.py).
 iterator decodes each batch's JPEGs with nvJPEG and augments them with
 the hand-written kernel ahead of the step (the device feed), so batches
 arrive on the card and never cross back to the host.  The reference's
-flags (``--gpus`` and ``--kv-store dist_sync`` raise: one card, one
-process, ROADMAP §A 11), plus ``--ctx`` (``gpu``, the default: the first
-CUDA card; ``cpu``: decode with the native library and train on the
-host).  With ``--data-parallel-mesh`` the step takes the one-card mesh,
-and ``MXNET_OPTIMIZER_SHARDING=ps`` puts the update on the flat-bucket
-kernels, as the reference's step follows that knob.  :func:`build` and :func:`train` are what other scripts call.
+flags, plus ``--ctx`` (``gpu``, the default: this worker's CUDA card;
+``cpu``: decode with the native library and train on the host).
+``--gpus`` over more than one card raises: the port's mesh spans worker
+processes, one device each (ROADMAP §C).
+
+With ``--data-parallel-mesh`` the step takes the mesh of the job's
+worker processes (one card, outside a launched job): under
+``--kv-store dist_sync`` each worker reads its part of the records
+(``part_index=rank``) and the step exchanges the gradients, as the
+reference's step spans its processes on a global mesh.
+``MXNET_OPTIMIZER_SHARDING=ps`` takes the sharded-bucket arm (the
+flat-bucket kernels on each worker's shard) and ``MXNET_ZERO_STAGE``
+its stage, as the reference's step follows those knobs.  Without
+``--data-parallel-mesh`` the reference's step has no mesh, and so each
+worker of a ``dist_sync`` job trains its own replica on its part, with
+no exchange; so does the port's.  Two CPU workers::
+
+    python -m mxnet_tpu_torch.tools.launch -n 2 --cpu python \\
+        mxnet_tpu_torch/example/train_imagenet.py --data-train train.rec \\
+        --kv-store dist_sync --data-parallel-mesh --ctx cpu
+
+Each worker prints, last, a JSON line with its rank, its final loss and
+the SHA-256 of its trained parameters (equal replicas, equal digests).
+:func:`build` and :func:`train` are what other scripts call.
 """
 from __future__ import annotations
 
 import argparse
+import hashlib
+import json
 import logging
 import os
 import sys
@@ -31,7 +51,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 import mxnet_tpu_torch as mx  # noqa: E402
 from mxnet_tpu_torch import gluon  # noqa: E402
 from mxnet_tpu_torch.base import MXNetError  # noqa: E402
-from mxnet_tpu_torch.parallel import get_mesh, make_train_step  # noqa: E402
+from mxnet_tpu_torch.parallel import (get_mesh, make_train_step,  # noqa: E402
+                                      process_device)
 
 
 def parse_args(argv=None):
@@ -49,11 +70,12 @@ def parse_args(argv=None):
     ap.add_argument("--loss-scale", default=None,
                     help="'dynamic' or a float")
     ap.add_argument("--kv-store", default="device",
-                    help="device | local (dist_* is not ported yet)")
+                    help="device | local | dist_sync (under "
+                         "tools/launch.py)")
     ap.add_argument("--data-parallel-mesh", action="store_true",
-                    help="take the one-card data mesh")
+                    help="take the mesh of the job's worker processes")
     ap.add_argument("--gpus", default=None,
-                    help="comma list of device ids (one card only)")
+                    help="comma list of device ids (one card a process)")
     ap.add_argument("--ctx", default="gpu", choices=["gpu", "cpu"])
     return ap.parse_args(argv)
 
@@ -63,14 +85,10 @@ def build(args):
     iterator on the target (``--ctx``), the zoo's ``--network``
     Xavier-initialised (numpy's global RNG, as the reference's) with its
     shapes resolved by one forward, and the train step."""
-    ctx = mx.gpu(0) if args.ctx == "gpu" else mx.cpu()
-    if args.kv_store.startswith("dist"):
-        # the reference's fused step spans processes on a global mesh
-        raise mx.MXNetError(
-            f"--kv-store {args.kv_store}: the fused train step across "
-            "worker processes is not ported yet (ROADMAP §A 11); the "
-            "Gluon Trainer's dist stores are (cifar10_dist.py)")
     kv = mx.kv.create(args.kv_store)
+    ctx = mx.cpu()
+    if args.ctx == "gpu":
+        ctx = mx.gpu(process_device(kv.rank, "cuda").index)
     shape = tuple(int(x) for x in args.image_shape.split(","))
     if args.gpus:
         ids = [int(i) for i in args.gpus.split(",")]
@@ -131,7 +149,19 @@ def train(args, log=logging.info):
         raise MXNetError("no batch: the record file is empty")
     losses = [float(v) for v in losses]  # the one sync, at the end
     return {"losses": losses, "steps": t,
-            "img_s": n / (time.time() - tic)}
+            "img_s": n / (time.time() - tic), "params": params,
+            "rank": kv.rank, "exchange": getattr(step_fn, "exchange", None)}
+
+
+def params_digest(params):
+    """SHA-256 of the trained parameters (name order, host bytes)."""
+    from mxnet_tpu_torch.resilience.elastic import host_gather
+
+    h = hashlib.sha256()
+    for name in sorted(params):
+        h.update(name.encode())
+        h.update(host_gather(params[name]).tobytes())
+    return h.hexdigest()
 
 
 def main(argv=None):
@@ -139,6 +169,16 @@ def main(argv=None):
     logging.basicConfig(level=logging.INFO)
     res = train(args)
     logging.info("done: final loss %.4f", res["losses"][-1])
+    print(json.dumps({"rank": res["rank"], "final_loss": res["losses"][-1],
+                      "steps": res["steps"],
+                      "params_sha256": params_digest(res["params"])}),
+          flush=True)
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        # leave together: rank 0 serves the job's rendezvous store
+        dist.barrier()
+        dist.destroy_process_group()
     return res
 
 

@@ -49,7 +49,7 @@ def _device_of(ctx):
     if isinstance(ctx, (list, tuple)):
         if len(ctx) != 1:
             raise MXNetError("a parameter on more than one device is not "
-                             "ported yet (ROADMAP §A 11)")
+                             "ported yet (ROADMAP §A 11 item 4)")
         ctx = ctx[0]
     return resolve_device(current_context() if ctx is None else ctx)
 

@@ -23,8 +23,10 @@ workers with one all-reduce of the group; ``dist_async`` and compressed
 ``dist_sync`` go over the TCP parameter server (:mod:`._ps`), whose
 shards apply the store's optimizer.  Gloo all-reduces CUDA tensors
 itself, through the host; NCCL refuses two ranks on one card, which is
-how a one-card machine runs two workers.  ``row_sparse_pull`` waits for
-the sparse storage (ROADMAP §A 3) and raises.
+how a one-card machine runs two workers.  The group is the default one,
+so ``parallel.get_mesh()`` after ``mx.kv.create("dist_sync")`` is the
+mesh of the same workers.  ``row_sparse_pull`` waits for the sparse
+storage (ROADMAP §A 3) and raises.
 """
 from __future__ import annotations
 

@@ -7,8 +7,8 @@ parameter through ``optimizer.get_updater``, as the reference updates a
 Module on one context.  ``context=None`` takes ``mx.current_context()``,
 ``gpu(0)`` unless a ``with mx.cpu():`` scope says otherwise (the
 reference's default is ``cpu()``).  A context list of more than one
-device, a KVStore object and ``group2ctxs`` raise: the port assumes one
-card (ROADMAP §A 11).
+device, a KVStore object and ``group2ctxs`` raise: the distributed Module
+waits for ROADMAP §A 11 item 4.
 """
 from __future__ import annotations
 
@@ -36,7 +36,7 @@ def _one_context(context):
             raise MXNetError(
                 f"Module(context={list(context)}): data parallelism over "
                 "several devices is not ported; the port runs a Module on "
-                "one card (ROADMAP §A 11)")
+                "one card (ROADMAP §A 11 item 4)")
         return context[0]
     return context
 
@@ -62,7 +62,7 @@ class Module(BaseModule):
             raise MXNetError(
                 "group2ctxs (a graph placed over several devices) is not "
                 "ported: the port runs a Module on one card "
-                "(ROADMAP §A 11)")
+                "(ROADMAP §A 11 item 4)")
         self._fixed_param_names = set(fixed_param_names or [])
         arg_names = symbol.list_arguments()
         self._param_names = [
@@ -242,7 +242,7 @@ class Module(BaseModule):
             return
         if kvstore is not None and not isinstance(kvstore, str):
             raise MXNetError("a KVStore object is not ported: pass its "
-                             "name (ROADMAP §A 11)")
+                             "name (ROADMAP §A 11 item 4)")
         # the reference's values are checked; on one context each of
         # them leaves the per-parameter updater in place, as in the
         # reference (there is nothing to shard over)

@@ -15,6 +15,7 @@ import types
 
 import numpy as _onp
 
+from ..ops import collective_ops as _collective_ops  # noqa: F401
 from ..ops import contrib_ops as _contrib_ops  # noqa: F401  (registers ops)
 from ..ops import conv as _conv  # noqa: F401
 from ..ops import detection_ops as _detection_ops  # noqa: F401

@@ -14,11 +14,18 @@ whatever the activation dtype (one pass E[x], E[x²] for bf16/fp16, two
 passes for fp32, ``_bn_stats``), and a custom backward whose residuals
 are the original activation plus per-channel statistics
 (``_bn_train``'s custom VJP, ``mxnet_tpu/ops/nn.py:153-215``), here a
-``torch.autograd.Function``.
+``torch.autograd.Function``.  Inside :func:`bn_group_scope` (the
+replicated train step of a process mesh) the statistics are the global
+batch's, as XLA computes them for the reference's replicated step under
+a mesh: the channel sums and the counts all-reduce over the processes,
+in the same fp32 policy, and the backward all-reduces its two channel
+sums.
 """
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 
 import torch
 
@@ -180,6 +187,70 @@ def dropout(data, *, p=0.5, mode="training", axes=(), cudnn_off=False,
 
 
 # ------------------------------------------------------------ BatchNorm
+_BN_GROUP = threading.local()
+
+
+@contextlib.contextmanager
+def bn_group_scope(exchange):
+    """Training BatchNorm inside takes the global batch's statistics over
+    ``exchange``'s processes (an ``ops.collective_ops.Exchange``; its
+    all-reduces count under the role ``bn``).  None: per process."""
+    prev = getattr(_BN_GROUP, "ex", None)
+    _BN_GROUP.ex = exchange
+    try:
+        yield
+    finally:
+        _BN_GROUP.ex = prev
+
+
+def bn_group():
+    """The :func:`bn_group_scope` of this thread (None outside one);
+    a layer's forward saves it for its backward, which autograd may run
+    on another thread."""
+    ex = getattr(_BN_GROUP, "ex", None)
+    return ex if ex is not None and ex.world > 1 else None
+
+
+def _bn_stats_global(data, ax, ex):
+    """``(mean, var, count)`` of the global batch over ``ex``'s
+    processes, in :func:`_bn_stats`'s policy: for fp32 the mean (with
+    the count) all-reduces first, then the centred squares; for half
+    precision E[x] and E[x²] in one all-reduce."""
+    red = tuple(i for i in range(data.dim()) if i != ax)
+    c = data.shape[ax]
+    x32 = data.to(torch.float32)
+    n_local = x32.new_full((1,), float(data.numel() // max(c, 1)))
+    if data.dtype in (torch.bfloat16, torch.float16):
+        sums = ex.all_reduce(torch.cat([x32.sum(dim=red),
+                                        x32.square().sum(dim=red),
+                                        n_local]), role="bn")
+        n = sums[2 * c]
+        mean = sums[:c] / n
+        var = torch.clamp_min(sums[c:2 * c] / n - mean.square(), 0.0)
+        return mean, var, n
+    sums = ex.all_reduce(torch.cat([x32.sum(dim=red), n_local]), role="bn")
+    n = sums[c]
+    mean = sums[:c] / n
+    sq = ex.all_reduce((x32 - mean.reshape(_bshape(data, ax))).square()
+                       .sum(dim=red), role="bn")
+    return mean, sq / n, n
+
+
+def _bn_grad_sums(ex, sums):
+    """The backward's channel sums (and any statistics cotangents)
+    summed over ``ex``'s processes: one all-reduce of them all."""
+    parts = [t for t in sums if t is not None]
+    flat = ex.all_reduce(torch.cat(parts), role="bn")
+    out, i = [], 0
+    for t in sums:
+        if t is None:
+            out.append(None)
+        else:
+            out.append(flat[i:i + t.numel()])
+            i += t.numel()
+    return out
+
+
 def _bn_stats(data, axis):
     """fp32 batch statistics over every axis but ``axis``: one pass
     (E[x] and E[x²], var clamped at 0) for half-precision data, the
@@ -213,7 +284,11 @@ class _BNTrain(torch.autograd.Function):
     def forward(ctx, data, gamma, beta, eps, axis, fix_gamma):
         ax = axis % data.dim()
         bshape = _bshape(data, ax)
-        mean, var = _bn_stats(data, ax)
+        ctx.ex = bn_group()
+        if ctx.ex is None:
+            mean, var = _bn_stats(data, ax)
+        else:
+            mean, var, ctx.n = _bn_stats_global(data, ax, ctx.ex)
         inv = torch.rsqrt(var + eps)
         g32 = torch.ones_like(inv) if fix_gamma else gamma.to(torch.float32)
         scale = (inv * g32).reshape(bshape)
@@ -238,9 +313,17 @@ class _BNTrain(torch.autograd.Function):
         xhat = (x32 - mean.reshape(bshape)) * inv.reshape(bshape)
         sum_dy = dy32.sum(dim=red)
         sum_dy_xhat = (dy32 * xhat).sum(dim=red)
+        # the parameter gradients are this process's sums (the step
+        # all-reduces them with every other gradient); the input
+        # gradient takes the global batch's
+        g_dy, g_dy_xhat = sum_dy, sum_dy_xhat
+        if ctx.ex is not None:
+            n = ctx.n
+            g_dy, g_dy_xhat, dmean_ct, dvar_ct = _bn_grad_sums(
+                ctx.ex, (sum_dy, sum_dy_xhat, dmean_ct, dvar_ct))
         dx32 = (inv * g32).reshape(bshape) * (
-            dy32 - (sum_dy / n).reshape(bshape)
-            - xhat * (sum_dy_xhat / n).reshape(bshape))
+            dy32 - (g_dy / n).reshape(bshape)
+            - xhat * (g_dy_xhat / n).reshape(bshape))
         # cotangents of the mean/var outputs: None unless a caller
         # differentiates through the batch statistics
         if dmean_ct is not None:

@@ -34,7 +34,7 @@ import torch
 
 from ..base import MXNetError
 from ..telemetry import runlog as _runlog
-from .nn import _bn_stats
+from .nn import _bn_grad_sums, _bn_stats, _bn_stats_global, bn_group
 from .registry import register_op
 
 __all__ = ["enabled", "fused_bn_relu_conv1x1", "bn_relu_conv_op",
@@ -236,8 +236,15 @@ bnreluconv_bwd.launches = 0
 
 
 # ------------------------------------------------------------ composite
-def _fwd_math(u2, gamma, beta, w2, eps, fix_gamma):
-    mean, var = _bn_stats(u2, 1)
+def _fwd_math(u2, gamma, beta, w2, eps, fix_gamma, ex=None):
+    """The forward on the [M, Ci] view; ``ex``: the global batch's
+    statistics over its processes (``nn.bn_group_scope``), whose count
+    is returned last (None without)."""
+    n = None
+    if ex is None:
+        mean, var = _bn_stats(u2, 1)
+    else:
+        mean, var, n = _bn_stats_global(u2, 1, ex)
     inv = torch.rsqrt(var + eps)
     g32 = torch.ones_like(inv) if fix_gamma else gamma.to(torch.float32)
     scale = inv * g32
@@ -245,7 +252,7 @@ def _fwd_math(u2, gamma, beta, w2, eps, fix_gamma):
     u32 = u2.to(torch.float32)
     # cast THEN relu, matching the BatchNorm-layer + Activation path
     act = torch.clamp_min((u32 * scale + shift).to(u2.dtype), 0.0)
-    return act @ w2, mean, var, inv, scale, shift
+    return act @ w2, mean, var, inv, scale, shift, n
 
 
 class _BNReluConv1x1(torch.autograd.Function):
@@ -262,8 +269,9 @@ class _BNReluConv1x1(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, u2, gamma, beta, w2, eps, fix_gamma, kernel=False):
-        y, mean, var, inv, scale, shift = _fwd_math(u2, gamma, beta, w2,
-                                                    eps, fix_gamma)
+        ctx.ex = bn_group()
+        y, mean, var, inv, scale, shift, ctx.n = _fwd_math(
+            u2, gamma, beta, w2, eps, fix_gamma, ctx.ex)
         ctx.save_for_backward(u2, gamma, w2, mean, inv, scale, shift)
         ctx.fix_gamma = fix_gamma
         ctx.kernel = kernel or _use_pallas(u2)
@@ -286,12 +294,19 @@ class _BNReluConv1x1(torch.autograd.Function):
         d_bnout, dw, s1, s2 = pass1(dy, u2, w2, g, b, mu, iv)
         s1 = s1.reshape(-1)
         s2 = s2.reshape(-1)
+        # the global batch's sums for the input gradient; dgamma/dbeta
+        # stay this process's (the step all-reduces them)
+        gs1, gs2 = s1, s2
+        if ctx.ex is not None:
+            m = ctx.n
+            gs1, gs2, dmean_ct, dvar_ct = _bn_grad_sums(
+                ctx.ex, (s1, s2, dmean_ct, dvar_ct))
         # pass 2: the elementwise BatchNorm input gradient
         u32 = u2.to(torch.float32)
         xhat = (u32 - mu) * iv
         du32 = g * (d_bnout.to(torch.float32)
-                    - (s1 / m).reshape(1, -1)
-                    - xhat * (s2 / m).reshape(1, -1))
+                    - (gs1 / m).reshape(1, -1)
+                    - xhat * (gs2 / m).reshape(1, -1))
         if dmean_ct is not None:
             du32 = du32 + (dmean_ct / m).reshape(1, -1)
         if dvar_ct is not None:

@@ -328,21 +328,37 @@ def _check_seg(w, seg, nseg):
 
 
 def bucket_lars_norms(w, g, seg, nseg, *, lr, wd, eta, eps, rescale=1.0,
-                      clip=None, with_finite=False):
+                      clip=None, with_finite=False, axis=None):
     """LARS phases (a) and (b) over an fp32 flat bucket whose element
     ``i`` belongs to tensor ``seg[i]`` (int32, below ``nseg`` ≤
     ``MAX_SEGMENTS``): ``(slr, w_ss, g_ss, nf)`` with ``w_ss``/``g_ss``
     the per-segment squared norms of w and of the prepped gradient and
-    ``slr = lr·trust`` per segment.  CUDA tensor: two kernels of
-    ``csrc/bucket_lars.cu`` — per-CTA partials (counted by
+    ``slr = lr·trust`` per segment.  ``axis`` (an
+    ``ops.collective_ops.Exchange`` or an axis name) makes ``w`` a shard
+    of a bucket split over processes: the norms and the count sum over
+    them before the trust, as the reference's psum does
+    (``mxnet_tpu/ops/pallas_opt.py:429-431``).
+
+    CUDA tensor: ``csrc/bucket_lars.cu`` — per-CTA partials (counted by
     ``bucket_lars_norms.launches``), then their fixed-order reduce and
-    the trust ratios (``bucket_lars_norms.trust_launches``); CPU
-    tensor: the plain version."""
+    the trust ratios in one launch (``trust_launches``); with ``axis``
+    the reduce (``reduce_launches``), one all-reduce of the sums and
+    the count, and the trust from the summed norms (``trust_launches``).
+    CPU tensor: the plain version, summed over ``axis`` alike."""
+    from .collective_ops import all_reduce_sum
+
     _check_bucket(w, g, [], [], dtypes=(torch.float32,))
     _check_seg(w, seg, nseg)
     if w.device.type == "cpu":
         w_ss, g_ss, nf = _lars_norms_reference(w, g, seg, nseg, rescale,
                                                clip, with_finite)
+        if axis is not None:
+            sums = torch.cat([w_ss, g_ss] + (
+                [nf.reshape(1).to(torch.float32)] if with_finite else []))
+            all_reduce_sum(sums, axis)
+            w_ss, g_ss = sums[:nseg], sums[nseg:2 * nseg]
+            if with_finite:
+                nf = sums[2 * nseg].to(torch.int32)
         return (_lars_trust_reference(w_ss, g_ss, lr, wd, eta, eps), w_ss,
                 g_ss, nf)
     n = w.numel()
@@ -351,15 +367,16 @@ def bucket_lars_norms(w, g, seg, nseg, *, lr, wd, eta, eps, rescale=1.0,
     part = torch.empty((2, blocks, nseg), dtype=torch.float32,
                        device=w.device)
     part_nf = torch.empty((blocks,), dtype=torch.int32, device=w.device)
-    sq = torch.empty((2, nseg), dtype=torch.float32, device=w.device)
+    # the sums of a split launch keep the count after them (2·nseg + 1)
+    sq = torch.empty((2 * nseg + (axis is not None),), dtype=torch.float32,
+                     device=w.device)
     slr = torch.empty((nseg,), dtype=torch.float32, device=w.device)
     nf = torch.empty((), dtype=torch.int32, device=w.device) \
         if with_finite else None
     norms = _c_fn("bucket_lars", "mxt_lars_norms",
                   [_P] * 5 + [ctypes.c_longlong] + [_I] * 2 + [_F] * 2
                   + [_I] * 2 + [_P])
-    trust = _c_fn("bucket_lars", "mxt_lars_trust",
-                  [_P] * 5 + [_I] * 3 + [_F] * 4 + [_P])
+    hyper = (_f32(lr), _f32(wd), _f32(eta), _f32(eps))
     with torch.cuda.device(w.device):
         stream = torch.cuda.current_stream(w.device).cuda_stream
         rc = norms(w.data_ptr(), g.data_ptr(), seg.data_ptr(),
@@ -370,14 +387,34 @@ def bucket_lars_norms(w, g, seg, nseg, *, lr, wd, eta, eps, rescale=1.0,
         _launched(rc, f"bucket_lars norms ({n} elements, {nseg} segments)")
         with _count_lock:
             bucket_lars_norms.launches += 1
-        rc = trust(part.data_ptr(), part_nf.data_ptr(), sq.data_ptr(),
-                   slr.data_ptr(), _ptr(nf), blocks, nseg,
-                   int(with_finite), _f32(lr), _f32(wd), _f32(eta),
-                   _f32(eps), stream)
-        _launched(rc, f"bucket_lars trust ({nseg} segments)")
+        if axis is None:
+            trust = _c_fn("bucket_lars", "mxt_lars_trust",
+                          [_P] * 5 + [_I] * 3 + [_F] * 4 + [_P])
+            rc = trust(part.data_ptr(), part_nf.data_ptr(), sq.data_ptr(),
+                       slr.data_ptr(), _ptr(nf), blocks, nseg,
+                       int(with_finite), *hyper, stream)
+            _launched(rc, f"bucket_lars trust ({nseg} segments)")
+            with _count_lock:
+                bucket_lars_norms.trust_launches += 1
+            return slr, sq[:nseg], sq[nseg:], nf
+        reduce = _c_fn("bucket_lars", "mxt_lars_reduce",
+                       [_P] * 3 + [_I] * 3 + [_P])
+        rc = reduce(part.data_ptr(), part_nf.data_ptr(), sq.data_ptr(),
+                    blocks, nseg, int(with_finite), stream)
+        _launched(rc, f"bucket_lars reduce ({nseg} segments)")
+        with _count_lock:
+            bucket_lars_norms.reduce_launches += 1
+    all_reduce_sum(sq, axis)
+    trust = _c_fn("bucket_lars", "mxt_lars_trust_sums",
+                  [_P] * 3 + [_I] * 2 + [_F] * 4 + [_P])
+    with torch.cuda.device(w.device):
+        rc = trust(sq.data_ptr(), slr.data_ptr(), _ptr(nf), nseg,
+                   int(with_finite), *hyper,
+                   torch.cuda.current_stream(w.device).cuda_stream)
+        _launched(rc, f"bucket_lars trust from sums ({nseg} segments)")
         with _count_lock:
             bucket_lars_norms.trust_launches += 1
-    return slr, sq[0], sq[1], nf
+    return slr, sq[:nseg], sq[nseg:2 * nseg], nf
 
 
 def bucket_lars_update(w, g, m, seg, slr, *, wd, momentum, rescale=1.0,
@@ -418,17 +455,20 @@ def bucket_lars_update(w, g, m, seg, slr, *, wd, momentum, rescale=1.0,
 
 bucket_adam.launches = 0
 bucket_lars_norms.launches = 0
+bucket_lars_norms.reduce_launches = 0
 bucket_lars_norms.trust_launches = 0
 bucket_lars_update.launches = 0
 
 
-def bucket_update(opt, w, g, state, t, *, seg=None, with_finite=False,
-                  out=None):
+def bucket_update(opt, w, g, state, t, *, seg=None, axis_name=None,
+                  with_finite=False, out=None):
     """One fused update of a flat bucket: ``(new_w, new_state, finite)``
     with ``finite`` a 0-dim bool tensor (the raw gradient had no
     non-finite element) or None unless ``with_finite``.  ``t`` is the
     1-based step count (Adam's bias correction); ``seg`` = ``(ids,
-    nseg)``, the bucket's segment ids (LARS).  ``out`` (tensors shaped
+    nseg)``, the bucket's segment ids (LARS), and ``axis_name`` the
+    processes over which a shard's LARS norms sum (see
+    :func:`bucket_lars_norms`).  ``out`` (tensors shaped
     like ``(w, *state)``) receives the results, for an in-place update.
     Returns None when :func:`supported` says the kernels cannot run
     this bucket, or for LARS without segment ids (the reference's
@@ -450,7 +490,8 @@ def bucket_update(opt, w, g, state, t, *, seg=None, with_finite=False,
             (mom,) = state
             slr, _, _, nf = bucket_lars_norms(
                 w, g, seg[0], nseg, lr=opt.learning_rate, eta=opt.eta,
-                eps=opt.epsilon, with_finite=with_finite, **h)
+                eps=opt.epsilon, with_finite=with_finite, axis=axis_name,
+                **h)
             new_w, new_m = bucket_lars_update(
                 w, g, mom, seg[0], slr, momentum=opt.momentum, out=out, **h)
             new_state = (new_m,)
@@ -546,8 +587,14 @@ class _Fp8Qdq(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (gscale,) = ctx.saved_tensors
-        return (_fp8_qdq_cast(g, gscale, E5M2_MAX, torch.float8_e5m2),
+        return (g if gscale is None else fp8_grad_qdq(g, gscale),
                 None, None)
+
+
+def fp8_grad_qdq(g, gscale):
+    """A gradient snapped to the ``float8_e5m2`` grid at ``gscale``: the
+    backward of :func:`fp8_qdq`."""
+    return _fp8_qdq_cast(g, gscale, E5M2_MAX, torch.float8_e5m2)
 
 
 def fp8_qdq(v, scale, gscale):
@@ -558,7 +605,9 @@ def fp8_qdq(v, scale, gscale):
     through in both directions, so a matmul or convolution sees
     fp8-valued operands while everything around it stays wide.  The
     scales are 0-d float32 tensors (``opt_state['_fp8']``,
-    :func:`fp8_delayed_scale`); neither takes a gradient.  Elementwise
+    :func:`fp8_delayed_scale`); neither takes a gradient.  ``gscale``
+    None passes the gradient through unsnapped, for a caller that snaps
+    the summed gradient itself (:func:`fp8_grad_qdq`).  Elementwise
     PyTorch on either device, as the reference's is jnp."""
     return _Fp8Qdq.apply(v, scale, gscale)
 

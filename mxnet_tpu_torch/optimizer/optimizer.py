@@ -195,12 +195,9 @@ class Optimizer:
         """Update one flat bucket (shard); elementwise rules delegate to
         ``fused_update``.  ``seg_ids`` maps each element to its tensor
         within the bucket (``num_segments`` of them), for rules that
-        reduce per tensor; ``axis_name`` names the shard axis of a
-        reduction across shards, which needs more than one card (not
-        ported yet, ROADMAP §A 11)."""
-        if axis_name is not None:
-            raise MXNetError("bucket reductions across shards are not "
-                             "ported yet (ROADMAP §A 11)")
+        reduce per tensor; ``axis_name`` (an axis name, or the step's
+        ``ops.collective_ops.Exchange``) names the processes over which
+        such a reduction sums, when the bucket is sharded over them."""
         if not self.fused_elementwise:
             raise MXNetError(
                 f"{type(self).__name__} is not elementwise and provides "
@@ -825,14 +822,17 @@ class LARS(Optimizer):
         if seg_ids is None:
             # a whole-tensor bucket: the per-tensor rule
             return self.fused_update(w, g, state, t, key=key)
-        if axis_name is not None:
-            raise MXNetError("bucket reductions across shards are not "
-                             "ported yet (ROADMAP §A 11)")
+        from ..ops.collective_ops import all_reduce_sum
+
         (mom,) = state
         g = self._prep(g)
         h = self._hyper(self.learning_rate, self.wd, w.dtype)
-        slr = _lars_scaled_lr(segment_sum(w * w, seg_ids, num_segments),
-                              segment_sum(g * g, seg_ids, num_segments),
+        # the segment norms of a shard sum over the shards (the
+        # reference's segment_sum + psum); one all-reduce of both
+        sums = torch.cat([segment_sum(w * w, seg_ids, num_segments),
+                          segment_sum(g * g, seg_ids, num_segments)])
+        all_reduce_sum(sums, axis_name)
+        slr = _lars_scaled_lr(sums[:num_segments], sums[num_segments:],
                               **h)
         new_w, new_m = _lars_momentum(w, mom, g, slr[seg_ids], h["wd"],
                                       scalar_as(self.momentum, w.dtype))

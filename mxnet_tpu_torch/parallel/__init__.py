@@ -7,12 +7,19 @@ opt_state)`` with the reference's contract:
 
 - the replicated arm: the optimizer's per-tensor rule on every
   parameter;
-- the ``optimizer_sharding="ps"`` arm on a one-card :class:`Mesh`: the
-  parameters live in flat buckets (``parallel.zero``), each updated in
-  one pass — the ``fused_bucket_opt`` kernel arm runs the hand-written
-  bucket kernels (SGD, Adam, LARS), whose fused non-finite count is the
-  dynamic loss scale's verdict; a rule that reduces per tensor (LARS)
-  gets each bucket's segment ids;
+- the ``optimizer_sharding="ps"`` arm under a :class:`Mesh`: the
+  parameters live in flat buckets (``parallel.zero``), each process
+  updating the shard it owns in one pass — the ``fused_bucket_opt``
+  kernel arm runs the hand-written bucket kernels (SGD, Adam, LARS),
+  whose fused non-finite count is the dynamic loss scale's verdict; a
+  rule that reduces per tensor (LARS) gets each bucket's segment ids.
+  ZeRO stage 1 all-reduces each gradient bucket, stage 2 (the default)
+  reduce-scatters it, and both gather the updated shards back; stage 3
+  keeps the parameters as ``{"_bucket<i>": this process's shard}``, the
+  forward all-gathers each bucket (all gathers issued up front) and its
+  backward reduce-scatters.  ``gradient_compression={"type": "2bit",
+  "threshold": t}`` quantizes the scattered fp32 shard with an
+  error-feedback residual ``_residual<i>`` in the optimizer state;
 - ``compute_dtype="bfloat16"`` casts every parameter but the norm
   affine/statistics (``NORM_STAT_SUFFIXES``) and the input;
 - dynamic or static loss scaling, and ``nan_guard`` (skip the update
@@ -49,9 +56,21 @@ the fp8 rung (matmul/conv weights and the input through
 ``ops.pallas_opt.fp8_qdq`` at delayed per-tensor scales kept in
 ``opt_state['_fp8']``).
 
-Not ported yet (they raise): tensor parallelism (``param_spec``, ROADMAP
-§A 8), ZeRO stages 1 and 3, gradient compression and any mesh of more
-than one card (§A 11).
+A mesh spans worker processes, one device each (:func:`get_mesh`; ROADMAP
+§C): under a mesh of several, ``x`` and ``y`` are this process's rows of
+the global batch and the returned loss is the global mean.  The
+replicated arm all-reduces each flat gradient bucket and normalizes
+BatchNorm with the global batch's statistics, and the fp8 rung scales
+the input by the global batch's largest magnitude (an all-reduce of the
+max); the ps arm's BatchNorm sees its own rows, as in the reference.
+In both arms each process's random layers draw from ``fold_in(key,
+rank)``, so no two processes' rows share a mask.  Every process issues
+the same collectives in the same order (``ops.collective_ops.Exchange``),
+counted per call as ``step_fn.exchange``; the loss-scale and nan-guard
+verdicts are global (one all-reduce of the loss and the bad count).
+
+Not ported yet (it raises): tensor parallelism (``param_spec``, ROADMAP
+§A 8).
 """
 from __future__ import annotations
 
@@ -68,7 +87,8 @@ from ..base import MXNetError
 from ..context import resolve_device
 from . import zero
 
-__all__ = ["Mesh", "get_mesh", "functionalize", "make_train_step",
+__all__ = ["Mesh", "get_mesh", "process_device", "functionalize",
+           "make_train_step",
            "DataParallelTrainer", "load_jax_params", "NORM_STAT_SUFFIXES",
            "amp_cast_params", "zero"]
 
@@ -99,27 +119,77 @@ def amp_cast_params(params, compute_dtype):
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """A device mesh; the port has the one-card mesh only."""
+    """A 1-D ``data`` mesh of worker processes, one device each (PyTorch's
+    idiom; the reference's mesh spans the devices of its processes).
+    ``devices`` holds this process's device; the mesh spans the ``size``
+    processes of ``torch.distributed``'s default group, this one being
+    ``rank``.  Size 1 is the one-card mesh."""
 
     devices: tuple
     axis_names: tuple = ("data",)
+    size: int = 1
+    rank: int = 0
 
     @property
     def shape(self):
-        return dict(zip(self.axis_names, (len(self.devices),)))
+        return {self.axis_names[0]: self.size}
+
+
+def _world():
+    """``(world size, rank)`` of this process's job (``(1, 0)`` outside
+    one)."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size(), dist.get_rank()
+    return 1, 0
+
+
+def process_device(rank=None, device_type=None):
+    """This worker's device: on a card (``device_type``, default the
+    current context's) ``cuda:{local rank % cards}`` — two ranks on a
+    one-card machine both take ``cuda:0`` — else the host."""
+    import os
+
+    from ..context import current_context
+
+    kind = device_type or (
+        "cuda" if current_context().device_type == "gpu" else "cpu")
+    if kind != "cuda":
+        return torch.device("cpu")
+    if rank is None:
+        rank = _world()[1]
+    local = int(os.environ.get("LOCAL_RANK", rank))
+    return resolve_device(torch.device(
+        "cuda", local % max(1, torch.cuda.device_count())))
 
 
 def get_mesh(shape=None, axis_names=("data",), devices=None):
-    """A one-card ``data`` mesh over ``devices[0]`` (default ``cuda:0``).
-    A mesh over more than one card raises until the multi-card slice
-    (ROADMAP §A 11)."""
-    devs = [resolve_device(None)] if devices is None \
-        else [resolve_device(d) for d in devices]
-    size = len(devs) if shape is None else math.prod(shape)
-    if size != 1 or len(tuple(axis_names)) != 1:
-        raise MXNetError("a mesh over more than one card is not ported "
-                         "yet (ROADMAP §A 11)")
-    return Mesh((devs[0],), tuple(axis_names))
+    """The ``data`` mesh of this job: every worker process of a launched
+    job (``tools/launch.py``, ``kvstore.init_distributed``), on this
+    process's device (``devices[0]``, default :func:`process_device`);
+    outside a job, the one-card mesh.  ``shape``, when given, must be
+    the world size.  A mesh over several devices within one process
+    raises (ROADMAP §C, the process mesh): launch one process per
+    device instead."""
+    axis_names = tuple(axis_names)
+    if len(axis_names) != 1:
+        raise MXNetError("a mesh of more than one axis (tensor "
+                         "parallelism) is not ported yet (ROADMAP §A 8)")
+    if devices is not None and len(devices) > 1:
+        raise MXNetError(
+            f"a mesh over {len(devices)} devices within one process is "
+            "not how the port spans devices: its mesh spans worker "
+            "processes, one device each (ROADMAP §C, the process mesh); "
+            "launch one process per device (tools/launch.py)")
+    world, rank = _world()
+    if shape is not None and math.prod(shape) != world:
+        raise MXNetError(
+            f"a mesh of shape {tuple(shape)} in a job of {world} worker "
+            "processes: the port's mesh spans the job's processes, one "
+            "device each (ROADMAP §C, the process mesh)")
+    dev = resolve_device(devices[0]) if devices else process_device(rank)
+    return Mesh((dev,), axis_names, world, rank)
 
 
 # ------------------------------------------------------------ functionalize
@@ -231,14 +301,20 @@ def _build_optimizer(optimizer, learning_rate, momentum, wd, beta1, beta2,
     return klass(**kwargs)
 
 
-def _refuse_unported(param_spec, gradient_compression):
-    for what, item, bad in (
-            ("tensor parallelism (param_spec)", "§A 8", param_spec),
-            ("gradient_compression", "§A 11",
-             gradient_compression is not None)):
-        if bad:
-            raise MXNetError(f"make_train_step: {what} is not ported yet "
-                             f"(ROADMAP {item})")
+def _refuse_unported(param_spec):
+    if param_spec:
+        raise MXNetError("make_train_step: tensor parallelism (param_spec) "
+                         "is not ported yet (ROADMAP §A 8)")
+
+
+def _zero_stage(zero_stage):
+    """``MXNET_ZERO_STAGE`` over the argument (None: unset)."""
+    env_stage = zero.resolve_zero_stage()
+    stage = env_stage if env_stage is not None else zero_stage
+    if stage not in (None, 1, 2, 3):
+        raise MXNetError(
+            f"unknown zero_stage {stage!r} (use 1, 2 or 3)")
+    return stage
 
 
 def _resolve_ps_mode(optimizer_sharding, zero_stage, mesh):
@@ -246,7 +322,7 @@ def _resolve_ps_mode(optimizer_sharding, zero_stage, mesh):
     precedence: ``MXNET_OPTIMIZER_SHARDING=0`` vetoes even an explicit
     opt-in and ``ps`` opts in when the argument is None;
     ``MXNET_ZERO_STAGE`` overrides ``zero_stage``, and a stage implies
-    the arm unless the env vetoed it.  Stage 2 is the one ported."""
+    the arm unless the env vetoed it."""
     ps_mode = optimizer_sharding
     env_ps = zero.resolve_sharding_env()
     if env_ps is False:
@@ -256,14 +332,7 @@ def _resolve_ps_mode(optimizer_sharding, zero_stage, mesh):
     if ps_mode not in (None, False, "", "ps"):
         raise MXNetError(
             f"unknown optimizer_sharding {ps_mode!r} (only 'ps')")
-    env_stage = zero.resolve_zero_stage()
-    stage = env_stage if env_stage is not None else zero_stage
-    if stage not in (None, 1, 2, 3):
-        raise MXNetError(
-            f"unknown zero_stage {stage!r} (use 1, 2 or 3)")
-    if stage in (1, 3):
-        raise MXNetError(f"ZeRO stage {stage} is not ported yet "
-                         "(ROADMAP §A 11)")
+    stage = _zero_stage(zero_stage)
     ps_mode = ps_mode == "ps" or (stage is not None
                                   and env_ps is not False)
     if ps_mode and mesh is None:
@@ -272,6 +341,40 @@ def _resolve_ps_mode(optimizer_sharding, zero_stage, mesh):
             "on one device) — step stays replicated", stacklevel=3)
         ps_mode = False
     return ps_mode
+
+
+def _compression_threshold(gradient_compression, ps_mode):
+    """The 2-bit threshold of ``gradient_compression`` (None: off); it
+    needs the sharded arm, as in the reference."""
+    if gradient_compression is None:
+        return None
+    if not ps_mode:
+        raise MXNetError(
+            "gradient_compression in make_train_step requires "
+            "optimizer_sharding='ps' (the replicated step has no "
+            "bucketed wire to compress)")
+    ctype = gradient_compression.get("type", "2bit")
+    if ctype != "2bit":
+        raise MXNetError(f"unsupported compression {ctype}")
+    return float(gradient_compression.get("threshold", 0.5))
+
+
+class _GatherBucket(torch.autograd.Function):
+    """Stage 3's parameter gather: forward, the whole bucket of a gather
+    issued ahead (``pending``: ``[out, work]``), waited on here; backward,
+    the reduce-scatter of its gradient to this process's shard."""
+
+    @staticmethod
+    def forward(ctx, shard, pending, ex):
+        full, work = pending
+        if work is not None:
+            work.wait()
+        ctx.ex = ex
+        return full
+
+    @staticmethod
+    def backward(ctx, g_full):
+        return ctx.ex.reduce_scatter(g_full.contiguous()), None, None
 
 
 def _bucket_flat(bucket, params):
@@ -322,14 +425,28 @@ def make_train_step(block, loss_fn, optimizer="sgd", learning_rate=0.01,
     times in-step on one device only); winners cached for the mesh key
     still apply."""
     from .. import autotune as _at
+    from ..ops import collective_ops as _co
+    from ..ops import nn as _nn
     from ..ops import pallas_opt as _po
 
-    _refuse_unported(param_spec, gradient_compression)
+    _refuse_unported(param_spec)
     dev = mesh.devices[0] if mesh is not None else resolve_device(device)
+    world = 1 if mesh is None else mesh.shape[data_axis]
+    rank = 0 if mesh is None else mesh.rank
+    # the step's collectives over the mesh's processes, counted per call
+    ex = _co.Exchange(mesh)
     params, apply_fn = functionalize(block, train=True)
     opt = _build_optimizer(optimizer, learning_rate, momentum, wd, beta1,
                            beta2, epsilon, opt_kwargs)
     cdt = None if compute_dtype is None else _torch_dtype(compute_dtype)
+    ps_mode = _resolve_ps_mode(optimizer_sharding, zero_stage, mesh)
+    # stage 2 (reduce-scattered gradients) unless a stage was asked for
+    stage = (_zero_stage(zero_stage) or 2) if ps_mode else None
+    comp_threshold = _compression_threshold(gradient_compression, ps_mode)
+    # the replicated step of a process mesh normalizes with the global
+    # batch's statistics, as the reference's does under a mesh; the ps
+    # step's forward sees its own rows (per-shard statistics), as there
+    bn_ex = ex if world > 1 and not ps_mode else None
 
     if variant_ops is None:
         # the dtype ladder joins the default roster only when the knob
@@ -361,8 +478,11 @@ def make_train_step(block, loss_fn, optimizer="sgd", learning_rate=0.01,
             # op stay fp32.  A cached fp8 winner reaching a step whose
             # build did not provision the state (fp8 None) runs fp32
             gscale = fp8["g"][0]
+            # across processes the weights' gradients snap to e5m2 once
+            # they are summed (reduce_grads), as the global batch's do
+            wscale = gscale if world == 1 else None
             param_dict = {
-                n: (_po.fp8_qdq(v, fp8["w"][n][0], gscale)
+                n: (_po.fp8_qdq(v, fp8["w"][n][0], wscale)
                     if n in fp8["w"] else v)
                 for n, v in param_dict.items()}
             if x.is_floating_point():
@@ -370,14 +490,18 @@ def make_train_step(block, loss_fn, optimizer="sgd", learning_rate=0.01,
         if c is not None:
             param_dict = amp_cast_params(param_dict, c)
             x = x.to(c)
-        out = apply_fn(param_dict, x, key=key)
+        with _nn.bn_group_scope(bn_ex):
+            out = apply_fn(param_dict, x, key=key)
         return loss_fn(out.to(torch.float32), y).mean()
 
-    def scaled_grads(params_, x, y, key, scale, fp8=None):
-        """(loss · scale, d(loss · scale)/dparams); scale None = 1."""
+    def scaled_grads(params_, x, y, key, scale, fp8=None, gather=None):
+        """(loss · scale, d(loss · scale)/dparams); scale None = 1.
+        ``gather`` maps the leaves to the named tree the forward takes
+        (stage 3's bucket gathers)."""
         leaves = {n: v.detach().requires_grad_(v.is_floating_point())
                   for n, v in params_.items()}
-        loss = loss_of(leaves, x, y, key, fp8)
+        loss = loss_of(leaves if gather is None else gather(leaves), x, y,
+                       key, fp8)
         if scale is not None:
             loss = loss * scale
         gs = torch.autograd.grad(
@@ -390,32 +514,66 @@ def make_train_step(block, loss_fn, optimizer="sgd", learning_rate=0.01,
             grads[n] = torch.zeros_like(v) if g is None else g
         return loss.detach(), grads
 
+    def globalize(loss, finite):
+        """The group mean of this process's ``loss`` and the global
+        verdict (every process's ``finite``; None: no verdict), in one
+        all-reduce of the loss and the bad count.  World 1: as given."""
+        if world == 1:
+            return loss, finite
+        bad = torch.zeros((), dtype=torch.float32, device=dev) \
+            if finite is None else (~finite).to(torch.float32)
+        pack = ex.all_reduce(torch.stack([loss.to(torch.float32), bad]),
+                             role="control")
+        return (pack[0] / world).to(loss.dtype), \
+            (None if finite is None else pack[1] == 0)
+
     dynamic = loss_scale == "dynamic"
     static_scale = float(loss_scale) if (
         loss_scale is not None and not dynamic) else 1.0
-    ps_mode = _resolve_ps_mode(optimizer_sharding, zero_stage, mesh)
     names = list(params)
     f32 = dict(dtype=torch.float32, device=dev)
 
     if ps_mode:
-        n_sh = mesh.shape[data_axis]
+        n_sh = world
         zero.check_bucket_rule(opt)
         plan = zero.plan_buckets(params, n_sh, capacity=bucket_bound)
         bucket_keys = zero.stage3_param_keys(plan)
-        # fresh flat buckets on the card; the returned params are views
-        flats = [zero.flatten_bucket(b, params).to(dev) for b in plan]
-        views = {}
-        for b, flat in zip(plan, flats):
-            views.update(zero.unflatten_bucket(b, flat))
-        params = {n: views[n] for n in names}
-        opt_state = {bk: opt.fused_state(flat)
-                     for bk, flat in zip(bucket_keys, flats)}
+        # fresh flat buckets on the device, rank 0's everywhere; stages
+        # 1/2 return views of them, stage 3 keeps this rank's shards
+        flats = [ex.broadcast(zero.flatten_bucket(b, params).to(dev))
+                 for b in plan]
+        if stage == 3:
+            params = {bk: zero.mark_shard(
+                zero.shard_slice(flat, n_sh, rank).clone(), mesh)
+                for bk, flat in zip(bucket_keys, flats)}
+        else:
+            views = {}
+            for b, flat in zip(plan, flats):
+                views.update(zero.unflatten_bucket(b, flat))
+            params = {n: views[n] for n in names}
+        # the optimizer state of the owned shard only
+        opt_state = {bk: tuple(
+            zero.mark_shard(v, mesh) for v in opt.fused_state(
+                zero.shard_slice(flat, n_sh, rank)))
+            for bk, flat in zip(bucket_keys, flats)}
+        if comp_threshold is not None:
+            # the error-feedback residual: fp32, of the owned shard
+            for i, b in enumerate(plan):
+                opt_state[f"_residual{i}"] = zero.mark_shard(torch.zeros(
+                    (b.padded // n_sh,), **f32), mesh)
         # per-tensor reductions (LARS) need each element's tensor index
         seg_info = None if opt.fused_elementwise else [
             (ids.to(dev), nseg) for ids, nseg in map(zero.bucket_segments,
                                                      plan)]
     else:
         params = {n: v.to(dev, copy=True) for n, v in params.items()}
+        if world > 1:
+            # the gradient buckets of the replicated step; the replicas
+            # start from rank 0's weights
+            rplan = zero.plan_buckets(params, 1, capacity=bucket_bound)
+            for b in rplan:
+                params.update(zero.unflatten_bucket(
+                    b, ex.broadcast(zero.flatten_bucket(b, params))))
         opt_state = {n: opt.fused_state(v) for n, v in params.items()}
     if dynamic:
         opt_state["_loss_scale"] = (
@@ -477,8 +635,13 @@ def make_train_step(block, loss_fn, optimizer="sgd", learning_rate=0.01,
         its history, and the next step's scales (on the device; an
         overflowed observation backs the scale off)."""
         _, xh = fp8_state["x"]
-        x_amax = x.to(torch.float32).abs().max() if x.is_floating_point() \
-            else xh.max()  # integer inputs never quantize
+        if x.is_floating_point():
+            x_amax = x.to(torch.float32).abs().max()
+            # the global batch's: every process sees only its rows
+            x_amax = ex.all_reduce(x_amax.reshape(1), role="fp8",
+                                   op="max")[0]
+        else:
+            x_amax = xh.max()  # integer inputs never quantize
         nh, ns = _po.fp8_delayed_scale(xh, x_amax)
         new = {"x": (ns, nh)}
         _, gh = fp8_state["g"]
@@ -514,7 +677,27 @@ def make_train_step(block, loss_fn, optimizer="sgd", learning_rate=0.01,
                                                   opt_state_[n], t)
         return new_p, new_s
 
+    def reduce_grads(grads, fp8=None):
+        """The replicated step's exchange: the local mean loss's
+        gradients summed over the processes, one all-reduce a bucket,
+        and divided by the world (world 1: as given).  Under the fp8
+        rung the summed weight gradients then snap to e5m2."""
+        if world == 1:
+            return grads
+        out = {}
+        for b in rplan:
+            flat = ex.all_reduce(zero.flatten_bucket(b, grads))
+            out.update(zero.unflatten_bucket(b, flat.div_(world)))
+        if fp8 is not None:
+            for n in fp8["w"]:
+                out[n] = _po.fp8_grad_qdq(out[n], fp8["g"][0])
+        return out
+
     def replicated_step(params_, opt_state_, x, y, key, t):
+        # each process's random layers draw from its own key, so its
+        # rows get masks of their own (one card: the key)
+        if world > 1:
+            key = _rng.fold_in(0 if key is None else key, rank)
         # the fp8 rung, decided for this call: the delayed scales go
         # into the loss and this step's amax observations into the
         # histories — on every step, a skipped one included (the
@@ -532,9 +715,10 @@ def make_train_step(block, loss_fn, optimizer="sgd", learning_rate=0.01,
         if dynamic:
             scale, good = opt_state_["_loss_scale"]
             sloss, sgrads = scaled_grads(params_, x, y, key, scale, fp8)
+            sgrads = reduce_grads(sgrads, fp8)
             inv = 1.0 / scale
             grads = {n: g * inv for n, g in sgrads.items()}
-            finite = _all_finite(grads.values())
+            sloss, finite = globalize(sloss, _all_finite(grads.values()))
             new_p, new_s = guarded(finite, *apply_updates(
                 params_, opt_state_, grads, t), params_, opt_state_)
             new_s["_loss_scale"] = _po.scale_bookkeeping(finite, scale,
@@ -547,12 +731,15 @@ def make_train_step(block, loss_fn, optimizer="sgd", learning_rate=0.01,
         if static_scale != 1.0:
             loss, grads = scaled_grads(params_, x, y, key, static_scale,
                                        fp8)
+            grads = reduce_grads(grads, fp8)
             loss = loss / static_scale
             grads = {n: g / static_scale for n, g in grads.items()}
         else:
             loss, grads = scaled_grads(params_, x, y, key, None, fp8)
+            grads = reduce_grads(grads, fp8)
         if nan_guard:
-            finite = torch.isfinite(loss) & _all_finite(grads.values())
+            loss, finite = globalize(
+                loss, torch.isfinite(loss) & _all_finite(grads.values()))
             new_p, new_s = guarded(finite, *apply_updates(
                 params_, opt_state_, grads, t), params_, opt_state_)
             new_s["_bad_steps"] = torch.where(
@@ -564,6 +751,7 @@ def make_train_step(block, loss_fn, optimizer="sgd", learning_rate=0.01,
                 # step's NaN counts are the explanation
                 new_s["_numerics"] = nm_pack(grads, loss)
             return loss, new_p, new_s
+        loss, _ = globalize(loss, None)
         new_p, new_s = apply_updates(params_, opt_state_, grads, t)
         new_s = fp8_carry(new_s, grads)
         if numerics_on:
@@ -576,14 +764,34 @@ def make_train_step(block, loss_fn, optimizer="sgd", learning_rate=0.01,
         # the plan's flat key; None (undecided on the host) leaves it
         # to each call's variant_choice (a force scope or a winner of
         # the program scope)
-        ps_pallas = zero.resolve_bucket_variant(opt, plan, mesh, 2)
+        ps_pallas = zero.resolve_bucket_variant(opt, plan, mesh, stage)
+        # stages 1/2 gather each updated shard back into its flat bucket
+        gather_back = stage != 3 and n_sh > 1
+
+        def stage3_gather(leaves):
+            """The named tree of stage 3's bucket shards: every bucket's
+            all-gather issued up front, each waited on as the forward's
+            tree is built, their backward the reduce-scatter."""
+            pending = [list(ex.all_gather(leaves[bk].detach(),
+                                          async_op=True))
+                       for bk in bucket_keys]
+            named = {}
+            for bk, b, pend in zip(bucket_keys, plan, pending):
+                named.update(zero.unflatten_bucket(
+                    b, _GatherBucket.apply(leaves[bk], pend, ex)))
+            return named
 
         def ps_step(params_, opt_state_, x, y, key, t):
             scale = opt_state_["_loss_scale"][0] if dynamic else None
+            # each process's random layers draw from its own key (the
+            # reference's fold_in of the shard index); one card: the key
+            if world > 1:
+                key = _rng.fold_in(0 if key is None else key, rank)
             lval, lgrads = scaled_grads(
                 params_, x, y, key,
                 scale if dynamic else
-                (static_scale if static_scale != 1.0 else None))
+                (static_scale if static_scale != 1.0 else None),
+                gather=stage3_gather if stage == 3 else None)
             # grad of the global mean loss = sum of shard grads / N; the
             # unscale folds into the same multiply
             inv = 1.0 / n_sh
@@ -600,44 +808,91 @@ def make_train_step(block, loss_fn, optimizer="sgd", learning_rate=0.01,
                 finite = torch.ones((), dtype=torch.bool, device=dev)
             staged = []
             for i, (bk, b) in enumerate(zip(bucket_keys, plan)):
-                w_flat = _bucket_flat(b, params_) if donate else None
                 state = opt_state_[bk]
-                if w_flat is None:
-                    w_flat = zero.flatten_bucket(b, params_)
                 if not donate:
                     state = tuple(s.clone() for s in state)
-                # stage 2 at one shard: the reduce-scatter is the identity
-                g32 = zero.flatten_bucket(b, lgrads).to(torch.float32)
+                if stage == 3:
+                    # the shard is the parameter; its gradient arrived
+                    # summed and scattered through the gather's backward
+                    w_flat = None
+                    w_sh = params_[bk] if donate else params_[bk].clone()
+                    g_sh = lgrads[bk]
+                else:
+                    w_flat = _bucket_flat(b, params_) if donate else None
+                    if w_flat is None:
+                        w_flat = zero.flatten_bucket(b, params_)
+                    w_sh = zero.shard_slice(w_flat, n_sh, rank)
+                    g_full = zero.flatten_bucket(b, lgrads)
+                    if stage == 1:
+                        # one all-reduce; the owned shard sliced off it
+                        g_sh = zero.shard_slice(ex.all_reduce(g_full), n_sh,
+                                                rank)
+                    else:
+                        g_sh = ex.reduce_scatter(g_full)
+                g32 = g_sh.to(torch.float32)
                 if not (isinstance(inv, float) and inv == 1.0):
                     g32 = g32 * inv
+                new_resid = None
+                if comp_threshold is not None:
+                    from ..kvstore import quantize_2bit
+
+                    # the verdict is the raw gradient's, taken before
+                    # the quantize (the kernel's would see {-t, 0, t})
+                    if check_finite:
+                        finite = finite & torch.isfinite(g32).all()
+                    g32, new_resid = quantize_2bit(
+                        g32 + opt_state_[f"_residual{i}"], comp_threshold)
+                want_fin = check_finite and comp_threshold is None
+                # in place unless the verdict may hold the update back;
+                # a shard to gather back takes a buffer of its own
+                out = None
+                if not check_finite:
+                    out = (torch.empty_like(w_sh) if gather_back else w_sh,
+                           *state)
                 res = zero.bucket_shard_update(
-                    b, opt, params_, g32, state, t, n_shards=n_sh, idx=0,
-                    seg=None if seg_info is None else seg_info[i],
-                    pallas=ps_pallas, want_finite=check_finite, w_sh=w_flat,
-                    out=None if check_finite else (w_flat, *state))
-                if check_finite:
+                    b, opt, params_, g32, state, t, n_shards=n_sh, idx=rank,
+                    axis=ex, seg=None if seg_info is None else seg_info[i],
+                    pallas=ps_pallas, want_finite=want_fin, w_sh=w_sh,
+                    out=out)
+                if want_fin:
                     _, uw, us, bfin = res
                     finite = finite & (bfin if bfin is not None
                                        else torch.isfinite(g32).all())
                 else:
                     _, uw, us = res
-                staged.append((bk, b, w_flat, uw, state, us))
+                staged.append((i, bk, b, w_flat, w_sh, uw, state, us,
+                               new_resid))
+            loss, finite = globalize(lval, finite)
             new_p, new_s = {}, {}
-            for bk, b, w_flat, uw, state, us in staged:
+            for i, bk, b, w_flat, w_sh, uw, state, us, new_resid in staged:
                 if check_finite:
-                    # skip the update on a bad step: shard and state hold
-                    torch.where(finite, uw, w_flat, out=w_flat)
+                    # skip the update on a bad step: shard, state and
+                    # residual hold
+                    if gather_back:
+                        uw = torch.where(finite, uw, w_sh)
+                    else:
+                        uw = torch.where(finite, uw, w_sh, out=w_sh)
                     for u, o in zip(us, state):
                         torch.where(finite, u, o, out=o)
+                    if new_resid is not None:
+                        new_resid = torch.where(
+                            finite, new_resid, opt_state_[f"_residual{i}"])
                 else:
-                    if uw is not w_flat:
-                        w_flat.copy_(uw)
+                    if not gather_back and uw is not w_sh:
+                        uw = w_sh.copy_(uw)
                     for u, o in zip(us, state):
                         if u is not o:
                             o.copy_(u)
-                new_s[bk] = state
+                # the shards stay tagged for host_gather
+                new_s[bk] = tuple(zero.mark_shard(o, mesh) for o in state)
+                if new_resid is not None:
+                    new_s[f"_residual{i}"] = zero.mark_shard(new_resid, mesh)
+                if stage == 3:
+                    new_p[bk] = zero.mark_shard(uw, mesh)
+                    continue
+                if gather_back:
+                    ex.all_gather(uw, out=w_flat)
                 new_p.update(zero.unflatten_bucket(b, w_flat))
-            loss = lval
             if dynamic:
                 new_s["_loss_scale"] = _po.scale_bookkeeping(
                     finite, scale, opt_state_["_loss_scale"][1])
@@ -648,14 +903,13 @@ def make_train_step(block, loss_fn, optimizer="sgd", learning_rate=0.01,
                 new_s["_bad_steps"] = torch.where(
                     finite, torch.zeros_like(opt_state_["_bad_steps"]),
                     opt_state_["_bad_steps"] + 1)
-            return loss, {n: new_p[n] for n in names}, new_s
+            return loss, {n: new_p[n] for n in (
+                bucket_keys if stage == 3 else names)}, new_s
 
     inner = ps_step if ps_mode else replicated_step
 
     def step(params_, opt_state_, x, y, key, t):
-        # ``key`` seeds the step's random layers (None: key 0); one card,
-        # so the reference's per-shard fold_in of the shard index 0 is
-        # the key itself
+        # ``key`` seeds the step's random layers (None: key 0)
         return inner(params_, opt_state_, torch.as_tensor(x).to(dev),
                      torch.as_tensor(y).to(dev), key, t)
 
@@ -685,15 +939,27 @@ def make_train_step(block, loss_fn, optimizer="sgd", learning_rate=0.01,
                                mesh=mesh_d):
             return step(params_, opt_state_, x, y, key, t)
 
-    step_fn = _observed(step_fn, opt, ps_mode, numerics_on, dev,
+    step_fn = _observed(step_fn, opt, stage, numerics_on, dev,
                         variant_ops, mesh_d, tune_level)
+    if mesh is not None:
+        # each call's collectives, counted: step_fn.exchange
+        counted = step_fn
+
+        def step_fn(p, o, x, y, key, t):
+            ex.reset()
+            result = counted(p, o, x, y, key, t)
+            step_fn.exchange = ex.counts()
+            return result
+
+        ex.reset()
+        step_fn.exchange = ex.counts()
     if ps_mode:
-        step_fn.zero_stage = 2
+        step_fn.zero_stage = stage
         step_fn.zero_plan = plan
     return step_fn, params, opt_state
 
 
-def _observed(inner, opt, ps_mode, numerics_on, dev, variant_ops, mesh_d,
+def _observed(inner, opt, stage, numerics_on, dev, variant_ops, mesh_d,
               tune_level):
     """The telemetry and fault wrappers of the reference
     (``mxnet_tpu/parallel/__init__.py:951-1052``) around a built step.
@@ -717,7 +983,10 @@ def _observed(inner, opt, ps_mode, numerics_on, dev, variant_ops, mesh_d,
     hyper = {k: v for k, v in sorted(vars(opt).items())
              if not k.startswith("_")
              and isinstance(v, (int, float, bool, str, type(None)))}
-    sharding = "ps" if ps_mode else "none"
+    # stage 2 keeps the reference's "ps" stamp; stages 1/3 name
+    # themselves, so a stage flip reads as a retrace cause
+    sharding = "none" if stage is None else (
+        "ps" if stage == 2 else f"zero{stage}")
     seen = set()
     last = [None]
     nm_period = _nm.sample_period() if numerics_on else 0
@@ -804,9 +1073,8 @@ class DataParallelTrainer:
     """The fused training driver: one object owning the parameters, the
     optimizer state and the step of :func:`make_train_step` (same
     arguments).  Call :meth:`fit_batch` per batch and
-    :meth:`sync_to_block` to write the weights back into the block.
-    ZeRO stage 3, whose parameters live as bucket shards, is not ported
-    (``make_train_step`` raises)."""
+    :meth:`sync_to_block` to write the weights back into the block (at
+    ZeRO stage 3 the bucket shards gather to the named tree first)."""
 
     def __init__(self, block, loss_fn, optimizer="sgd", mesh=None,
                  **opt_kwargs):
@@ -838,10 +1106,20 @@ class DataParallelTrainer:
         return self._opt_state
 
     def sync_to_block(self):
-        """Copy the trained parameters into the block's tensors."""
+        """Copy the trained parameters into the block's tensors; stage 3's
+        bucket shards are gathered over the mesh's processes first
+        (every process must call it)."""
         from ..gluon.block import _collect_all_params
 
+        params = self._params
+        if getattr(self._step_fn, "zero_stage", None) == 3:
+            from ..resilience.elastic import host_gather
+
+            params = zero.gather_stage3_params(
+                self._step_fn.zero_plan,
+                {k: host_gather(v) for k, v in params.items()})
         with torch.no_grad():
             for p in _collect_all_params(self._block):
-                if p.name in self._params:
-                    p._tensor().copy_(self._params[p.name])
+                if p.name in params:
+                    t = p._tensor()
+                    t.copy_(torch.as_tensor(params[p.name]).to(t.device))

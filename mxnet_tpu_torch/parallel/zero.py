@@ -4,10 +4,16 @@
 Parameters pack into dtype-homogeneous flat buckets
 (:func:`plan_buckets`, split at ``MXNET_KVSTORE_BIGARRAY_BOUND``
 elements), and the optimizer updates each bucket in one pass
-(:func:`bucket_shard_update`).  The port runs this at one shard: the
-collectives of a one-card mesh are the identity, and
-``torch.distributed`` comes with the multi-card slice (ROADMAP §A
-item 9), as do ZeRO stages 1 and 3 and the Module-side updater.
+(:func:`bucket_shard_update`), each worker process of a mesh updating
+the shard it owns (``parallel.Mesh``: one device a process; the
+collectives are ``ops.collective_ops.Exchange``'s).  Stage 3 keeps the
+parameters as flat bucket shards (:func:`shard_stage3_params`,
+:func:`gather_stage3_params`); :func:`analytic_exchange_bytes` is the
+plan's wire floor, which the step's counted bytes equal.  The HLO
+readers of the reference (``collective_bytes``, ``overlap_report``,
+``export_overlap_trace``) have no counterpart: the port counts its own
+launches and bytes (ROADMAP §C).  The Module-side updater waits for the
+distributed Module (ROADMAP §A 11 item 4).
 """
 from __future__ import annotations
 
@@ -23,7 +29,10 @@ __all__ = ["Bucket", "plan_buckets", "flatten_bucket", "unflatten_bucket",
            "resolve_bucket_variant", "flat_variant_key",
            "stage3_param_keys", "bucket_segments",
            "plan_fingerprint", "resolve_sharding_env",
-           "resolve_zero_stage"]
+           "resolve_zero_stage", "gather_bucket", "shard_stage3_params",
+           "gather_stage3_params", "analytic_exchange_bytes",
+           "mark_shard", "shard_mesh", "named_bucket_state",
+           "shard_bucket_state"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -139,28 +148,30 @@ def check_bucket_rule(optimizer):
 
 
 def bucket_shard_update(bucket, opt, params, g_sh, state, t, *, n_shards,
-                        idx, seg=None, pallas=None, want_finite=False,
-                        w_sh=None, out=None):
+                        idx, axis=None, seg=None, pallas=None,
+                        want_finite=False, w_sh=None, out=None):
     """The per-bucket update: ``(w_sh, new_w_sh, new_state[, finite])``.
 
-    ``w_sh`` is this shard of the flat parameter bucket (sliced from
-    ``params`` when None); ``g_sh`` the gradient shard, cast to the
-    bucket's dtype here.  ``seg`` = ``(ids, num_segments)`` of the whole
-    bucket (:func:`bucket_segments`), for a rule that reduces per
-    tensor; the shard's ids are sliced here.  ``pallas``: True runs the
-    fused kernel arm (:func:`ops.pallas_opt.bucket_update`), False the
-    plain ``opt.fused_bucket_update``, None consults the
-    ``fused_bucket_opt`` variant now (force > ``MXNET_PALLAS_OPT`` > a
-    winner of ``program_scope`` > the plain arm), what
-    :func:`resolve_bucket_variant` leaves undecided on the host.  A kernel arm that cannot run this
-    bucket raises — the port never falls back.  ``want_finite`` adds
-    the verdict of the raw gradient: the kernel's fused count, or None
-    on the plain arm (the caller checks).  ``out`` (tensors like
-    ``(w_sh, *state)``) asks the kernel arm to write its results
-    there."""
-    if n_shards != 1:
-        raise MXNetError("bucket shards over more than one card are not "
-                         "ported yet (ROADMAP §A 11)")
+    ``w_sh`` is shard ``idx`` of ``n_shards`` of the flat parameter
+    bucket (sliced from ``params`` when None); ``g_sh`` the gradient
+    shard, cast to the bucket's dtype here.  ``seg`` = ``(ids,
+    num_segments)`` of the whole bucket (:func:`bucket_segments`), for a
+    rule that reduces per tensor; the shard's ids are sliced here, and
+    its per-segment sums add up over ``axis`` (an ``Exchange`` of the
+    shards' processes) when there is more than one shard.  ``pallas``:
+    True runs the fused kernel arm
+    (:func:`ops.pallas_opt.bucket_update`), False the plain
+    ``opt.fused_bucket_update``, None consults the ``fused_bucket_opt``
+    variant now (force > ``MXNET_PALLAS_OPT`` > a winner of
+    ``program_scope`` > the plain arm), what
+    :func:`resolve_bucket_variant` leaves undecided on the host.  A
+    kernel arm that cannot run this bucket raises — the port never
+    falls back.  ``want_finite`` adds the verdict of the raw gradient:
+    the kernel's fused count, or None on the plain arm (the caller
+    checks).  ``out`` (tensors like ``(w_sh, *state)``) asks the kernel
+    arm to write its results there."""
+    if n_shards == 1:
+        axis = None  # nothing to sum over: the one-shard launches
     if w_sh is None:
         w_sh = shard_slice(flatten_bucket(bucket, params), n_shards, idx)
     seg_sh = None
@@ -175,8 +186,8 @@ def bucket_shard_update(bucket, opt, params, g_sh, state, t, *, n_shards,
         from ..ops import pallas_opt
 
         res = pallas_opt.bucket_update(opt, w_sh, g_sh, state, t,
-                                       seg=seg_sh, with_finite=want_finite,
-                                       out=out)
+                                       seg=seg_sh, axis_name=axis,
+                                       with_finite=want_finite, out=out)
         if res is None:
             nseg = None if seg is None else seg[1]
             raise MXNetError(
@@ -185,11 +196,18 @@ def bucket_shard_update(bucket, opt, params, g_sh, state, t, *, n_shards,
                    or "the rule needs the bucket's segment ids"))
         uw, us, finite = res
         return (w_sh, uw, us, finite) if want_finite else (w_sh, uw, us)
-    kwargs = {} if seg_sh is None else dict(seg_ids=seg_sh[0],
-                                            num_segments=seg_sh[1])
+    kwargs = {} if seg_sh is None else dict(
+        seg_ids=seg_sh[0], num_segments=seg_sh[1], axis_name=axis)
     uw, us = opt.fused_bucket_update(w_sh, g_sh.to(w_sh.dtype), state, t,
                                      **kwargs)
     return (w_sh, uw, us, None) if want_finite else (w_sh, uw, us)
+
+
+def gather_bucket(bucket, w_sh, axis):
+    """All-gather an updated shard back to the whole flat bucket over
+    ``axis`` (an ``Exchange``) and split it per parameter (tiled, in
+    :func:`shard_slice`'s order)."""
+    return unflatten_bucket(bucket, axis.all_gather(w_sh))
 
 
 def flat_variant_key(plan, stage=None):
@@ -303,5 +321,104 @@ def resolve_zero_stage():
 
 
 def stage3_param_keys(plan):
-    """The optimizer-state keys of the buckets: ``_bucket<i>``."""
+    """The keys of the buckets, in the optimizer state and in the
+    stage-3 parameter layout: ``_bucket<i>``."""
     return [f"_bucket{i}" for i in range(len(plan))]
+
+
+def mark_shard(t, mesh):
+    """Tag ``t`` as this process's shard of a flat bucket split over
+    ``mesh``'s processes, so that ``resilience.elastic.host_gather``
+    all-gathers it; untagged (one shard) at world 1.  Returns ``t``."""
+    if mesh is not None and mesh.size > 1:
+        t._mxt_shard_mesh = mesh
+    return t
+
+
+def shard_mesh(t):
+    """The mesh whose processes hold ``t``'s bucket (None: whole)."""
+    return getattr(t, "_mxt_shard_mesh", None)
+
+
+def named_bucket_state(plan, opt_state, gather=None):
+    """The optimizer state of whole buckets (``{"_bucket<i>": tuple of
+    flat tensors}``) as the per-parameter layout ``{name: tuple}``, the
+    world-size-free one a checkpoint keeps; ``gather`` (e.g.
+    ``host_gather``) first maps each sharded tensor to its whole
+    bucket."""
+    named = {}
+    for bk, b in zip(stage3_param_keys(plan), plan):
+        leaves = [torch.as_tensor(t if gather is None else gather(t))
+                  for t in opt_state[bk]]
+        for name, shape, off in zip(b.names, b.shapes, b.offsets):
+            n = math.prod(shape)
+            named[name] = tuple(x[off:off + n].reshape(shape)
+                                for x in leaves)
+    return named
+
+
+def shard_bucket_state(plan, named, mesh=None):
+    """The inverse of :func:`named_bucket_state` under a (new) plan: each
+    bucket's state flattened from ``{name: tuple}`` and, under a mesh,
+    this process's shard of it (tagged, on its device) — the re-slice of
+    a resume whose ``reshard_verdict`` says reshard."""
+    out = {}
+    for bk, b in zip(stage3_param_keys(plan), plan):
+        slots = len(named[b.names[0]])
+        state = []
+        for k in range(slots):
+            flat = flatten_bucket(b, {n: torch.as_tensor(named[n][k])
+                                      for n in b.names})
+            if mesh is not None:
+                flat = mark_shard(shard_slice(flat, mesh.size, mesh.rank)
+                                  .clone().to(mesh.devices[0]), mesh)
+            state.append(flat)
+        out[bk] = tuple(state)
+    return out
+
+
+def shard_stage3_params(plan, named, mesh=None):
+    """Named ``{name: tensor}`` parameters -> the stage-3 layout
+    ``{"_bucket<i>": flat padded bucket}``.  With a mesh of several
+    processes each keeps only its own shard (``padded / N`` elements, a
+    tensor of its own), on its device."""
+    out = {}
+    for k, b in zip(stage3_param_keys(plan), plan):
+        flat = flatten_bucket(b, {n: torch.as_tensor(named[n])
+                                  for n in b.names})
+        if mesh is not None:
+            flat = mark_shard(shard_slice(flat, mesh.size, mesh.rank)
+                              .clone().to(mesh.devices[0]), mesh)
+        out[k] = flat
+    return out
+
+
+def gather_stage3_params(plan, pshards):
+    """The inverse of :func:`shard_stage3_params` over whole buckets:
+    the named ``{name: tensor}`` tree from ``{"_bucket<i>": flat
+    padded bucket}`` (a process mesh's shards go through
+    ``resilience.elastic.host_gather`` first)."""
+    named = {}
+    for k, b in zip(stage3_param_keys(plan), plan):
+        named.update(unflatten_bucket(b, torch.as_tensor(pshards[k])))
+    return named
+
+
+def analytic_exchange_bytes(plan, n_shards, stage):
+    """The plan's least wire bytes a step, as each rank receives them
+    (the output of each launch; reference ``analytic_exchange_bytes``,
+    ``mxnet_tpu/parallel/zero.py:418``): stage 1, one all-reduce and one
+    gather-back all-gather a bucket; stages 2 and 3, one reduce-scatter
+    (``padded / N`` out) and one all-gather (``padded`` out) a bucket.
+    The step's counted bucket bytes (``step_fn.exchange``) equal it."""
+    rs = ag = ar = 0
+    for b in plan:
+        full = b.padded * torch.empty((), dtype=getattr(
+            torch, b.dtype)).element_size()
+        if stage == 1:
+            ar += full
+            ag += full
+        else:
+            rs += full // int(n_shards)
+            ag += full
+    return {"reduce-scatter": rs, "all-gather": ag, "all-reduce": ar}

@@ -24,8 +24,9 @@ bytes for the same symbol and arrays; the manifest has the reference's
 keys.  Its ``rng`` is :func:`capture_rng`'s: numpy's global state as
 the reference writes it, and the port's generators.  Every save writes a
 ``checkpoint`` run-log record, and a load that falls back past corrupt
-versions a ``checkpoint`` record with ``reason="fallback"``.  The ZeRO
-stage-3 helpers wait for ZeRO beyond one card (ROADMAP §A 11).
+versions a ``checkpoint`` record with ``reason="fallback"``.
+:func:`stage3_save_params` / :func:`stage3_load_params` carry ZeRO
+stage 3's bucket shards to and from the named ``.params`` layout.
 """
 from __future__ import annotations
 
@@ -44,13 +45,46 @@ from ..context import cpu
 from . import faultsim
 
 __all__ = ["CheckpointManager", "atomic_write_bytes", "capture_rng",
-           "restore_rng"]
+           "restore_rng", "stage3_save_params", "stage3_load_params"]
 
 faultsim.register_point("ckpt.write", "mid-payload in checkpoint "
                         "atomic_write")
 faultsim.register_point("ckpt.async", "async snapshot writer thread, "
                         "mid-payload in every atomic write of a "
                         "save_async version")
+
+def stage3_save_params(plan, params):
+    """ZeRO stage 3's ``{"_bucket<i>": shard}`` -> the named
+    ``{name: numpy array}`` for :meth:`CheckpointManager.save` (reference
+    ``stage3_save_params``).  Each bucket gathers to one host copy
+    through ``elastic.host_gather`` (a collective under a process mesh:
+    every process calls it), so the ``.params`` on disk are
+    interchangeable with replicated and stage-1/2 runs."""
+    from ..parallel.zero import gather_stage3_params, stage3_param_keys
+    from .elastic import host_gather
+
+    keys = set(stage3_param_keys(plan))
+    named = gather_stage3_params(plan, {k: host_gather(v)
+                                        for k, v in params.items()
+                                        if k in keys})
+    return {n: v.numpy() for n, v in named.items()}
+
+
+def stage3_load_params(plan, arg_params, mesh=None):
+    """The inverse of :func:`stage3_save_params`: a loaded named
+    ``arg_params`` in the stage-3 layout, this process's shards under a
+    ``mesh``.  Check the manifest's topology first
+    (``elastic.reshard_verdict``): another plan would misread the
+    buckets."""
+    import torch
+
+    from ..parallel.zero import shard_stage3_params
+
+    named = {k: torch.as_tensor(onp.asarray(
+        v.asnumpy() if hasattr(v, "asnumpy") else v))
+        for k, v in arg_params.items()}
+    return shard_stage3_params(plan, named, mesh=mesh)
+
 
 def capture_rng():
     """The host and device RNG state as JSON-serializable data, so a

@@ -22,12 +22,12 @@ processes is a resume at the new world size, not a restart:
   batches, so a resize at a fixed global batch keeps them).
 * :class:`ElasticHostIter` — this process's deterministic row slice of
   a global batch stream, so any world size consumes the same samples.
-* :func:`host_gather` — one host copy of an array.  Every tensor of the
-  port is replicated until ZeRO spans cards (ROADMAP §A 11), so this is
-  a copy, never a collective.
+* :func:`host_gather` — one host copy of an array: a copy of a
+  replicated tensor, an all-gather of a bucket shard (a ZeRO stage-3
+  parameter, a sharded optimizer state).
 
-The port has one card per process: :func:`elastic_mesh` is the
-one-card mesh of a world-1 job and raises beyond it.
+The port has one device per process: :func:`elastic_mesh` is the mesh
+of the world's processes (``parallel.Mesh``).
 
 Fault points (``resilience.faultsim``): ``dist.init`` fires inside
 every bring-up attempt (an armed ``raise`` exercises the retry path),
@@ -283,12 +283,12 @@ def elastic_barrier():
 
 
 def elastic_mesh(dp=None, tp=1, devices=None):
-    """The data mesh of this process's world.  The port has one card per
-    process and replicated state, so at world size 1 this is the
-    one-card ``('data',)`` mesh of ``parallel.get_mesh``; a mesh over
-    more than one card (more processes, ``dp`` or ``tp`` > 1) waits for
-    ZeRO beyond one card (ROADMAP §A 11) and raises."""
-    from ..parallel import get_mesh
+    """The ``('data',)`` mesh of this process's world (the reference's
+    ``elastic_mesh``): one device a process, so a world of N processes
+    is the N-process mesh of ``parallel.Mesh``, this process its rank,
+    on ``devices[0]`` (default: ``parallel.process_device``).  ``tp`` >
+    1 (tensor parallelism) waits for ROADMAP §A 8."""
+    from ..parallel import Mesh, get_mesh, process_device
 
     ctx = _STATE["ctx"]
     world = ctx.world_devices if ctx is not None else 1
@@ -297,24 +297,39 @@ def elastic_mesh(dp=None, tp=1, devices=None):
     if dp * tp != world:
         raise MXNetError(
             f"elastic_mesh: dp({dp}) x tp({tp}) != {world} devices")
-    if dp * tp != 1:
+    if tp != 1:
         raise MXNetError(
-            f"elastic_mesh: a dp({dp}) x tp({tp}) mesh over {world} "
-            "devices spans cards, which waits for ZeRO beyond one card "
-            "(ROADMAP §A 11)")
-    return get_mesh(devices=devices)
+            f"elastic_mesh: a dp({dp}) x tp({tp}) mesh is tensor "
+            "parallelism, which is not ported yet (ROADMAP §A 8)")
+    if world == 1:
+        return get_mesh(devices=devices)
+    if devices is not None and len(devices) > 1:
+        return get_mesh(devices=devices)  # raises: one device a process
+    rank = ctx.process_id
+    dev = process_device(rank) if not devices else \
+        get_mesh(devices=devices).devices[0]
+    return Mesh((dev,), ("data",), world, rank)
 
 
 def host_gather(x):
     """One host numpy copy of an array (an NDArray, a tensor or
-    anything numpy takes).  The port's tensors are replicated, so this
-    is a device-to-host copy, never a collective; bf16 comes back as
-    float32, which numpy can hold."""
+    anything numpy takes).  A replicated tensor is a device-to-host
+    copy; this process's shard of a bucket split over a mesh's
+    processes (``parallel.zero.mark_shard``: a stage-3 parameter, a
+    sharded optimizer state) all-gathers to the whole bucket first,
+    a collective every process of the mesh must join.  bf16 comes back
+    as float32, which numpy can hold."""
     import torch
 
     data = getattr(x, "_data", x)
     if isinstance(data, torch.Tensor):
+        from ..ops.collective_ops import Exchange
+        from ..parallel.zero import shard_mesh
+
+        mesh = shard_mesh(data)
         data = data.detach()
+        if mesh is not None:
+            data = Exchange(mesh).all_gather(data)
         if data.dtype == torch.bfloat16:
             data = data.float()
         return data.to("cpu").numpy()
@@ -323,9 +338,8 @@ def host_gather(x):
 
 # ------------------------------------------------------------- topology
 def _mesh_world(mesh):
-    devices = tuple(mesh.devices)
-    return (int(mesh.shape.get("data", len(devices))), (len(devices),),
-            tuple(str(a) for a in mesh.axis_names))
+    width = int(mesh.shape.get("data", len(mesh.devices)))
+    return width, (width,), tuple(str(a) for a in mesh.axis_names)
 
 
 def topology_block(world_size=None, num_processes=None, mesh=None,

@@ -11,7 +11,7 @@ executor was bound to; in training the arguments that take a gradient
 enter as leaves that require grad, and ``backward`` asks
 ``torch.autograd.grad`` for their gradients.  Compiling the graph is
 later work (ROADMAP §A 14, with ``hybridize``).  The executor assumes one
-device: ``group2ctx`` raises (ROADMAP §A 11).
+device: ``group2ctx`` raises (ROADMAP §A 11 item 4).
 """
 from __future__ import annotations
 
@@ -94,7 +94,7 @@ class Executor:
             raise MXNetError(
                 "group2ctx (a graph placed over several devices) is not "
                 "ported: the port's executor runs on one card "
-                "(ROADMAP §A 11)")
+                "(ROADMAP §A 11 item 4)")
         self._symbol = symbol
         self._ctx = ctx or current_context()
         self._device = self._ctx.torch_device()

@@ -143,8 +143,9 @@ def main(argv=None):
                       "3, plan "
                       f"{entry.get('plan_fingerprint', '?')}): the "
                       ".params payload is the host-gathered named "
-                      "layout; resuming it sharded waits for ZeRO "
-                      "beyond one card")
+                      "layout; resuming sharded re-shards via "
+                      "stage3_load_params after a reshard_verdict "
+                      "fingerprint check")
             for t in entry["stray_temps"]:
                 print(f"  note: stray temp {t} (crash mid-write; "
                       "final artifact untouched)")

@@ -550,6 +550,49 @@ def test_bucket_kernels_refuse_instead_of_falling_back(card):
                       po.bucket_lars_update.launches)
 
 
+@pytest.mark.parametrize("n,nseg,kind", [(1000003, 7, "arbitrary"),
+                                         (2359296, 3, "sorted")])
+def test_lars_split_launches_equal_the_fused_at_world_one(card, n, nseg,
+                                                          kind):
+    """A bucket sharded over processes takes LARS's split launches (the
+    reduce of the partials, the all-reduce of the sums and the count,
+    the trust from the summed norms).  Over a world of one they give the
+    fused reduce-and-trust launch's bits, and so the plain version's
+    agreement."""
+    from mxnet_tpu_torch.ops import pallas_opt as po
+    from mxnet_tpu_torch.ops.collective_ops import Exchange
+    from mxnet_tpu_torch.parallel import get_mesh
+
+    gen = torch.Generator(device=card).manual_seed(n)
+    if kind == "arbitrary":
+        ids = torch.randint(0, nseg, (n,), generator=gen, device=card,
+                            dtype=torch.int32)
+    else:
+        ids = (torch.arange(n, device=card) * nseg // n).to(torch.int32)
+    w = torch.randn(n, generator=gen, device=card)
+    g = torch.randn(n, generator=gen, device=card) * 0.01
+    g[n // 5] = float("inf")
+    hp = dict(lr=5.0, wd=5e-5, eta=0.001, eps=0.0, rescale=0.5, clip=0.02,
+              with_finite=True)
+    before = (po.bucket_lars_norms.launches,
+              po.bucket_lars_norms.reduce_launches,
+              po.bucket_lars_norms.trust_launches)
+    fused = po.bucket_lars_norms(w, g, ids, nseg, **hp)
+    split = po.bucket_lars_norms(w, g, ids, nseg,
+                                 axis=Exchange(get_mesh(devices=[card])),
+                                 **hp)
+    torch.cuda.synchronize()
+    assert (po.bucket_lars_norms.launches,
+            po.bucket_lars_norms.reduce_launches,
+            po.bucket_lars_norms.trust_launches) == \
+        (before[0] + 2, before[1] + 1, before[2] + 2)
+    assert all(_same_bits(a, b) for a, b in zip(fused, split))
+    assert int(split[3]) == 1
+    rw_ss, rg_ss, _ = po._lars_norms_reference(w, g, ids, nseg, 0.5, 0.02,
+                                               True)
+    assert torch.allclose(split[1], rw_ss, rtol=1e-6, atol=0)
+
+
 @pytest.mark.parametrize("opt", ["lars", "adam"])
 def test_lars_adam_train_steps_launch_kernels(card, opt):
     """A tiny NHWC ResNetV1 trains on the card through

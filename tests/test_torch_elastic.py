@@ -150,10 +150,11 @@ def test_zero_stage_knob_matches_reference(raw, monkeypatch):
 def test_make_train_step_reads_the_zero_knobs(monkeypatch):
     """``MXNET_ZERO_STAGE`` overrides the argument and implies the
     sharded arm, ``MXNET_OPTIMIZER_SHARDING=0`` vetoes it (the
-    reference's precedence); stages 1 and 3 are refused, citing the
-    multi-card item."""
+    reference's precedence); stages 1 and 3 build the stage the knob
+    names."""
     from mxnet_tpu_torch import gluon, parallel
 
+    zero_keys = parallel.zero.stage3_param_keys
     mesh = parallel.get_mesh(devices=["cpu"])
     resolve = parallel._resolve_ps_mode
     monkeypatch.setenv("MXNET_ZERO_STAGE", "2")
@@ -172,10 +173,11 @@ def test_make_train_step_reads_the_zero_knobs(monkeypatch):
     net.initialize()
     for stage in ("1", "3"):
         monkeypatch.setenv("MXNET_ZERO_STAGE", stage)
-        with pytest.raises(MXNetError,
-                           match=rf"ZeRO stage {stage} .*ROADMAP §A 11\)"):
-            parallel.make_train_step(
-                net, lambda out, y: ((out - y) ** 2).sum(-1), mesh=mesh)
+        step, p, _ = parallel.make_train_step(
+            net, lambda out, y: ((out - y) ** 2).sum(-1), mesh=mesh,
+            zero_stage=2)
+        assert step.zero_stage == int(stage)
+        assert (set(p) == set(zero_keys(step.zero_plan))) == (stage == "3")
     monkeypatch.setenv("MXNET_ZERO_STAGE", "x")
     with pytest.raises(MXNetError, match="not a recognized stage"):
         resolve(None, None, mesh)
@@ -297,11 +299,14 @@ def test_elastic_init_world_one_and_mesh(monkeypatch):
                                  global_batch=8)
     with pytest.raises(MXNetError, match="devices"):
         t_elastic.elastic_mesh(dp=3, tp=7)
-    # a world of two processes is a mesh over two cards
+    # a world of two processes is the two-process mesh, this one rank 1
     monkeypatch.setitem(t_elastic._STATE, "ctx", t_elastic.ElasticContext(
-        "127.0.0.1:1", 2, 0, 2, 1, "gloo"))
-    with pytest.raises(MXNetError, match="ZeRO beyond one card"):
-        t_elastic.elastic_mesh()
+        "127.0.0.1:1", 2, 1, 2, 1, "gloo"))
+    mesh2 = t_elastic.elastic_mesh(devices=["cpu"])
+    assert mesh2.shape == {"data": 2} and mesh2.rank == 1
+    assert str(mesh2.devices[0]) == "cpu"
+    assert t_elastic.topology_block(mesh=mesh2) == \
+        j_elastic.topology_block(world_size=2, num_processes=2)
     x = tmx.nd.array(onp.arange(6.0).reshape(2, 3))
     onp.testing.assert_array_equal(t_elastic.host_gather(x),
                                    onp.arange(6.0).reshape(2, 3))
@@ -365,6 +370,51 @@ def test_two_process_sigterm_drain_then_resume_at_world_one(tmp_path):
         onp.testing.assert_allclose(onp.asarray(resumed["final"][k]),
                                     onp.asarray(ref["final"][k]),
                                     rtol=1e-5, atol=1e-7, err_msg=k)
+
+
+def test_two_process_zero_drain_then_reshard_at_world_one(tmp_path):
+    """The drill of the reference's
+    ``test_two_process_real_distributed_resize_drill`` through the real
+    sharded step (``make_train_step``'s ps arm, each process holding
+    its momentum shard): both ranks SIGTERM-drain at one step, gather
+    jointly, rank 0 writes the topology-stamped checkpoint; the world-1
+    relaunch gets ``reshard``, re-plans, re-slices the momentum and
+    continues from the cursor to the uninterrupted run's parameters."""
+    prefix = str(tmp_path / "z" / "ck")
+    os.makedirs(os.path.dirname(prefix))
+    port = _free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, _WORKER, "zero_train", f"127.0.0.1:{port}",
+         str(pid), "2", prefix], env=_env(), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for pid in (0, 1)]
+    ref = subprocess.Popen([sys.executable, _WORKER, "zero_reference"],
+                           env=_env(), stdout=subprocess.PIPE,
+                           stderr=subprocess.PIPE, text=True)
+    outs = [p.communicate(timeout=240)[0] for p in procs]
+    for pid, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == -signal.SIGTERM, (pid, p.returncode,
+                                                 out[-2000:])
+        assert f"[{pid}] draining" in out
+    assert "[0] drain checkpoint at cursor 3" in outs[0]
+    st = TMgr(prefix).load()
+    assert st["batch_cursor"] == 3
+    assert st["topology"]["world_size"] == 2
+    assert st["topology"]["sharding"] == "ps"
+    r = subprocess.run([sys.executable, _WORKER, "zero_resume", prefix],
+                       env=_env(), capture_output=True, text=True,
+                       timeout=240)
+    assert r.returncode == 0, r.stderr[-3000:]
+    resumed = json.loads(r.stdout.strip().splitlines()[-1])
+    assert resumed["verdict"] == {"reshard": True, "old_world": 2,
+                                  "new_world": 1}
+    assert resumed["resumed_cursor"] == 3
+    out, err = ref.communicate(timeout=240)
+    assert ref.returncode == 0, err[-3000:]
+    want = json.loads(out.strip().splitlines()[-1])
+    for k in want["final"]:
+        onp.testing.assert_allclose(onp.asarray(resumed["final"][k]),
+                                    onp.asarray(want["final"][k]),
+                                    rtol=1e-6, atol=1e-6, err_msg=k)
 
 
 # -------------------------------------------------------------- runtime

@@ -321,27 +321,33 @@ def test_a_callers_generator_still_draws_the_weights():
 
 # ----------------------------------------------------- §C 6: labels
 def test_multi_card_refusals_cite_the_multi_card_item():
+    """What still refuses several devices cites where it waits: a
+    parameter over several devices the distributed Module (§A 11 item
+    4), a mesh over several devices within one process the process
+    mesh's §C entry.  The shard-spanning pieces are ported: a stage-1
+    request without a mesh stays replicated, an axis name over a world
+    of one sums nothing, a bucket cut into shards updates its own."""
     from mxnet_tpu_torch import optimizer, parallel
     from mxnet_tpu_torch.gluon.parameter import _device_of
     from mxnet_tpu_torch.parallel import zero
 
-    with pytest.raises(MXNetError, match=r"ROADMAP §A 11\)"):
+    with pytest.raises(MXNetError, match=r"ROADMAP §C, the process mesh"):
         parallel.get_mesh(devices=["cpu", "cpu"])
-    with pytest.raises(MXNetError, match=r"ROADMAP §A 11\)"):
-        parallel._resolve_ps_mode("ps", 1, None)
-    with pytest.raises(MXNetError, match=r"ROADMAP §A 11\)"):
+    with pytest.warns(UserWarning, match="needs a mesh"):
+        assert parallel._resolve_ps_mode("ps", 1, None) is False
+    with pytest.raises(MXNetError, match=r"ROADMAP §A 11 item 4\)"):
         _device_of([tmx.cpu(), tmx.cpu()])
     sgd = optimizer.SGD(learning_rate=0.1)
-    w = torch.zeros(4)
-    with pytest.raises(MXNetError, match=r"ROADMAP §A 11\)"):
-        sgd.fused_bucket_update(w, w, sgd.fused_state(w), 1.0,
-                                axis_name="data")
-    plan = zero.plan_buckets({"a_weight": w}, 1)
-    with pytest.raises(MXNetError, match=r"ROADMAP §A 11\)"):
-        zero.bucket_shard_update(plan[0], sgd, {"a_weight": w}, w,
-                                 sgd.fused_state(w), 1.0, n_shards=2,
-                                 idx=0)
-    assert "§A 11" in parallel.get_mesh.__doc__
+    w = torch.ones(4)
+    new_w, _ = sgd.fused_bucket_update(w, w, sgd.fused_state(w), 1.0,
+                                       axis_name="data")
+    assert torch.allclose(new_w, w * 0.9)
+    plan = zero.plan_buckets({"a_weight": w}, 2)
+    _, uw, _ = zero.bucket_shard_update(
+        plan[0], sgd, {"a_weight": w}, w[:2], sgd.fused_state(w[:2]), 1.0,
+        n_shards=2, idx=1, pallas=False)
+    assert torch.allclose(uw, w[2:] * 0.9)
+    assert "§C" in parallel.get_mesh.__doc__
 
 
 @pytest.mark.parametrize("what", ["resume_from", "snapshot"])

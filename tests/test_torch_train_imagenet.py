@@ -98,12 +98,18 @@ def test_three_steps_match_reference(tmp_path, monkeypatch):
 
 
 def test_dist_store_and_many_cards_raise(tmp_path):
+    """``--kv-store dist_sync`` outside a launched job is a world of one
+    (the two-worker job is in ``tests/test_torch_zero.py``); ``--gpus``
+    over two cards raises: one device a process."""
     path = str(tmp_path / "t.rec")
     jtu.write_rec_corpus(path, n=4, size=16, seed=2)
     args = t_ex.parse_args(["--data-train", path, "--ctx", "cpu",
-                            "--kv-store", "dist_sync"] + ARGS)
-    with pytest.raises(tmx.MXNetError, match="§A 11"):
-        t_ex.build(args)
+                            "--kv-store", "dist_sync",
+                            "--data-parallel-mesh"] + ARGS)
+    kv, it, step_fn, _, _ = t_ex.build(args)
+    it.close()
+    assert (kv.rank, kv.num_workers) == (0, 1)
+    assert step_fn.exchange["all-reduce"]["launches"] == 0
     args = t_ex.parse_args(["--data-train", path, "--ctx", "cpu",
                             "--gpus", "0,1"] + ARGS)
     with pytest.raises(tmx.MXNetError):

@@ -229,7 +229,13 @@ def test_data_parallel_trainer_equals_the_direct_step(weights, monkeypatch):
     trainer.sync_to_block()
     for n, p in net.collect_params().items():
         assert onp.array_equal(p.data().asnumpy(), want[1][n]), n
-    with pytest.raises(Exception, match="not ported"):
-        t_par.DataParallelTrainer(
-            net, t_loss.SoftmaxCrossEntropyLoss(), "lars",
-            mesh=t_par.get_mesh(devices=["cpu"]), zero_stage=3)
+    # stage 3 is ported: its bucket shards gather back into the block
+    stage3 = t_par.DataParallelTrainer(
+        net, t_loss.SoftmaxCrossEntropyLoss(), "lars",
+        mesh=t_par.get_mesh(devices=["cpu"]), zero_stage=3)
+    assert stage3.step_fn.zero_stage == 3
+    assert set(stage3.params) == set(
+        t_par.zero.stage3_param_keys(stage3.step_fn.zero_plan))
+    stage3.sync_to_block()
+    for n, p in net.collect_params().items():
+        assert onp.array_equal(p.data().asnumpy(), want[1][n]), n

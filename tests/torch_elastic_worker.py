@@ -27,6 +27,14 @@ Modes (argv[1]):
   remaining steps; prints the final parameters as JSON.
 * ``reference [steps]`` — one process, every step uninterrupted; prints
   the final parameters as JSON.
+* ``zero_train``, ``zero_resume``, ``zero_reference`` — the same drill
+  through ``parallel.make_train_step``'s sharded arm (ZeRO stage 2: the
+  linear model as a ``Dense(4, in_units=6)``, each process holding its
+  shard of the momentum bucket): the drained ranks gather the
+  parameters and the momentum shards jointly (``host_gather``) and rank
+  0 writes them per parameter with the topology; the world-1 resume
+  re-plans the buckets and re-slices the momentum
+  (``zero.shard_bucket_state``).
 """
 import json
 import os
@@ -224,6 +232,104 @@ def _resume(prefix):
         flush=True)
 
 
+def _zero_step(mesh, params=None):
+    """(step_fn, params, opt_state) of the linear model in the sharded
+    arm over ``mesh``; ``params``: its weights (default the drill's)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon, parallel
+
+    params = init_params() if params is None else params
+    with mx.cpu():
+        net = gluon.nn.Dense(DIM_OUT, in_units=DIM_IN, prefix="lin_")
+        net.initialize()
+        parallel.load_jax_params(net, {"lin_weight": params["w"].T,
+                                       "lin_bias": params["b"]})
+        return parallel.make_train_step(
+            net, lambda out, y: ((out - y) ** 2).sum(-1), "sgd",
+            learning_rate=0.1, momentum=0.9, mesh=mesh, donate=False,
+            autotune=False, optimizer_sharding="ps")
+
+
+def _zero_steps(step_fn, p, s, start, stop, drain=None, pid=0):
+    rank, n = world()
+    b = GLOBAL_BATCH // n
+    done = start
+    for t in range(start, stop):
+        if drain is not None and t + 1 == DRAIN_AT:
+            os.kill(os.getpid(), signal.SIGTERM)
+        x, y = (torch.from_numpy(a[rank * b:(rank + 1) * b])
+                for a in global_batch(t))
+        loss, p, s = step_fn(p, s, x, y, 0, float(t + 1))
+        done = t + 1
+        print(f"[{pid}] step {t} loss={float(loss):.6f}", flush=True)
+        if drain is not None and drain.requested is not None:
+            break
+    return p, s, done
+
+
+def _zero_final(p):
+    from mxnet_tpu_torch.resilience.elastic import host_gather
+
+    return {"w": host_gather(p["lin_weight"]).T,
+            "b": host_gather(p["lin_bias"])}
+
+
+def _zero_train(coordinator, pid, nprocs, prefix):
+    from mxnet_tpu_torch.parallel import zero
+    from mxnet_tpu_torch.resilience import elastic
+    from mxnet_tpu_torch.resilience.checkpoint import CheckpointManager
+    from mxnet_tpu_torch.resilience.preempt import PreemptionDrain
+
+    elastic.elastic_init(coordinator=coordinator, num_processes=nprocs,
+                         process_id=pid)
+    mesh = elastic.elastic_mesh(devices=["cpu"])
+    step_fn, p, s = _zero_step(mesh)
+    plan = step_fn.zero_plan
+    drain = PreemptionDrain()
+    with drain:
+        p, s, cursor = _zero_steps(step_fn, p, s, 0, TOTAL_STEPS, drain, pid)
+    # the joint gather: every rank, at the same step
+    params = {n: elastic.host_gather(v) for n, v in p.items()}
+    mom = {n: tuple(x.numpy() for x in leaves) for n, leaves in
+           zero.named_bucket_state(plan, s, elastic.host_gather).items()}
+    print(f"[{pid}] draining", flush=True)
+    if pid == 0:
+        CheckpointManager(prefix).save(
+            1, arg_params=nd_tree(params), optimizer_states=pickle.dumps(mom),
+            batch_cursor=cursor, topology=elastic.topology_block(
+                mesh=mesh, sharding="ps", plan=plan,
+                global_batch=GLOBAL_BATCH))
+        print(f"[0] drain checkpoint at cursor {cursor}", flush=True)
+    drain.reraise()
+    raise SystemExit("the drain never came")
+
+
+def _zero_resume(prefix):
+    from mxnet_tpu_torch.parallel import zero
+    from mxnet_tpu_torch.resilience import elastic
+    from mxnet_tpu_torch.resilience.checkpoint import CheckpointManager
+
+    elastic.elastic_init()
+    st = CheckpointManager(prefix).load(ctx=_cpu())
+    mesh = elastic.elastic_mesh(devices=["cpu"])
+    arg = {k: v.asnumpy() for k, v in st["arg_params"].items()}
+    step_fn, p, s = _zero_step(mesh, {"w": arg["lin_weight"].T,
+                                      "b": arg["lin_bias"]})
+    new = elastic.topology_block(mesh=mesh, sharding="ps",
+                                 plan=step_fn.zero_plan,
+                                 global_batch=GLOBAL_BATCH)
+    verdict = elastic.reshard_verdict(st["topology"], new)
+    cursor = elastic.reslice_cursor(st["batch_cursor"], st["topology"], new)
+    if verdict["reshard"]:
+        # re-plan at this world and re-slice the momentum into it
+        s.update(zero.shard_bucket_state(
+            step_fn.zero_plan, pickle.loads(st["optimizer_states"]), mesh))
+    p, s, _ = _zero_steps(step_fn, p, s, cursor, TOTAL_STEPS)
+    print(final_json(_zero_final(p), resumed_cursor=cursor, verdict={
+        k: verdict[k] for k in ("reshard", "old_world", "new_world")}),
+        flush=True)
+
+
 def main():
     mode = sys.argv[1]
     if mode == "init":
@@ -236,6 +342,17 @@ def main():
                sys.argv[5])
     elif mode == "resume":
         _resume(sys.argv[2])
+    elif mode == "zero_train":
+        _zero_train(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]),
+                    sys.argv[5])
+    elif mode == "zero_resume":
+        _zero_resume(sys.argv[2])
+    elif mode == "zero_reference":
+        from mxnet_tpu_torch.parallel import get_mesh
+
+        step_fn, p, s = _zero_step(get_mesh(devices=["cpu"]))
+        p, _, _ = _zero_steps(step_fn, p, s, 0, TOTAL_STEPS)
+        print(final_json(_zero_final(p)), flush=True)
     elif mode == "reference":
         steps = int(sys.argv[2]) if len(sys.argv) > 2 else TOTAL_STEPS
         params, _ = run_steps(init_params(), zero_momentum(), 0, steps)
