@@ -122,7 +122,16 @@ step across two workers on the card (``dist_train_step``: the
 example under ``--kv-store dist_sync --data-parallel-mesh``, replicated
 with global BatchNorm, the replicas equal; ZeRO stages 1, 2 and 3 bit
 for bit; the bucket kernels on the workers' shards against the plain
-rule; 2-bit compression; ``--dist-train-worker`` is its worker), SSD-300 fed by
+rule; 2-bit compression; ``--dist-train-worker`` is its worker), the
+distributed Module (``dist_module``: ``resnet50_v1_symbol``'s ResNet-50
+by ``Module(context=[gpu(0), gpu(1)])`` over two workers on the card,
+``dist_sync`` with SGD and Adam through the sharded updater's bucket
+kernels, ``local`` through the per-parameter updater, each held against
+one process on the global batch; ``--dist-module-worker``), the
+matrix-factorization net split across the card and the host by
+``group2ctx`` (``module_group2ctx``), and a two-worker ``dist_sync`` fit
+drained by SIGTERM and resumed at world 1 (``dist_module_resume``;
+``--dist-module-resume-worker``), SSD-300 fed by
 ``ImageDetRecordIter`` (``ssd_rec``) and the MNIST example over IDX
 files (``mnist_data_dir``); and the resilience: ``resnet50_v1_symbol``'s
 ResNet-50 trained by ``Module.fit`` with asynchronous snapshots, SIGKILLed,
@@ -5707,6 +5716,15 @@ def run(profile=False, old_brc=None, workdir=None):
     # the fused train step across the two workers
     torch.cuda.empty_cache()
     dstep = dist_train_step_phase(workdir, corpus, trains)
+    # the distributed Module
+    torch.cuda.empty_cache()
+    t_dm = time.perf_counter()
+    dmod = dist_module_phase(workdir)
+    torch.cuda.empty_cache()
+    module_group2ctx_phase()
+    dist_module_resume_phase(workdir)
+    log(f"[the distributed Module's phases] "
+        f"{time.perf_counter() - t_dm:.1f} s")
     ssdr = ssd_rec_phase(workdir)
     log(f"[ssd_rec] fed {ssdr['fed_img_s']:.1f} img/s, resident "
         f"{ssdr['resident_img_s']:.1f}, iterator alone "
@@ -5771,6 +5789,7 @@ def run(profile=False, old_brc=None, workdir=None):
               + zoo["bucket_sgd_mom_launches"]
               + tim["bucket_sgd_mom_launches"]
               + dstep["launches"]["bucket_sgd_mom"]
+              + dmod["launches"]["bucket_sgd_mom"]
               + op_launches["bucket_sgd_mom"], 0.0, sgd[0]),
         # the same kernel at VGG-16's 102.76 M fc6 bucket, its own row
         entry("bucket_sgd_mom_vgg16", "bucket_sgd.cu",
@@ -5782,7 +5801,8 @@ def run(profile=False, old_brc=None, workdir=None):
         entry("bucket_adam", "bucket_adam.cu",
               "mxnet_tpu/ops/pallas_opt.py:173",
               t_adam["bucket_adam_launches"] + op_launches["bucket_adam"]
-              + dstep["launches"]["bucket_adam"],
+              + dstep["launches"]["bucket_adam"]
+              + dmod["launches"]["bucket_adam"],
               0.0, adam[0]),
         entry("bucket_lars_norms", "bucket_lars.cu",
               "mxnet_tpu/ops/pallas_opt.py:194",
@@ -10759,6 +10779,638 @@ def dist_train_step_phase(workdir, corpus, trains):
     return out
 
 
+# ------------------------------------------------ the distributed Module
+#: ``dist_module``: ``resnet50_v1_symbol``'s ResNet-50 trained by
+#: ``mx.mod.Module(context=[gpu(0), gpu(1)])`` over two workers sharing
+#: the card (gloo), fp32, global batch 64 (32 a worker), 2 warm-up and 5
+#: timed steps an arm: (a) ``dist_sync`` SGD 0.1/0.9 (the sharded
+#: updater, the bucket kernel), (b) ``dist_sync`` Adam (the bucket Adam
+#: kernel), (c) ``local`` SGD (the per-parameter updater on the summed
+#: gradients)
+DIST_MODULE = dict(
+    batch=64, image=224, warmup=2, steps=5, seed=0,
+    arms={"a": ("dist_sync", "sgd", (("learning_rate", 0.1),
+                                     ("momentum", 0.9))),
+          "b": ("dist_sync", "adam", (("learning_rate", 1e-3),)),
+          "c": ("local", "sgd", (("learning_rate", 0.1),
+                                 ("momentum", 0.9)))})
+#: the tolerances, on the parameters and moving statistics after the
+#: warm-up steps.  The sharded updater against the per-parameter one:
+#: the reference's ``rtol=1e-5, atol=1e-6``
+#: (``tests/test_zero_sharding.py:373-374``), cuDNN deterministic in
+#: both.  The multi-context Module against one process: the reference's
+#: ``rtol=2e-4, atol=2e-5`` (``tests/test_symbol_module.py:236-237``) is
+#: read and reported, and held is ``CUDA_CPU_TOL``'s rule, each trained
+#: parameter's update (and each moving statistic's change) no further
+#: from a float64 run's than twice one fp32 process's distance plus
+#: 1e-3 (relative norms).  At random init the fp32 ResNet's gradient is
+#: ill-conditioned: cuDNN's batch-32 and batch-64 algorithms sum in other
+#: orders, a relu mask flips near zero, and the one-process run itself
+#: moves a BatchNorm gamma's gradient by a whole term (the same
+#: cancellation as ``CUDA_CPU_TOL``'s; PERF.md §6)
+DIST_MODULE_TOL = {"multi_single": dict(rtol=2e-4, atol=2e-5),
+                   "sharded_local": dict(rtol=1e-5, atol=1e-6),
+                   "against_float64": "per quantity: 2 x one fp32 process "
+                                      "+ 1e-3"}
+#: ``dist_module_resume``: the same symbol at 112², global batch 16 (8 a
+#: worker), 6 batches an epoch of seeded host data, ``dist_sync`` SGD;
+#: both workers SIGTERM themselves after batch ``kill_at``; the drain
+#: checkpoint resumes at world 1, held against the same checkpoint
+#: trained by hand at the port's CPU drill's tolerance
+#: (``tests/test_torch_elastic.py``'s zero drill: rtol 1e-6, atol 1e-6)
+DIST_RESUME = dict(batch=16, image=112, batches=6, kill_at=2, seed=3,
+                   opt=(("learning_rate", 0.05), ("momentum", 0.9)),
+                   tol=dict(rtol=1e-6, atol=1e-6))
+
+
+def _close_report(got, want, tol):
+    """Two ``{name: array}`` compared: all within ``tol``, the largest
+    |got - want| and the tensor it is in, the share of elements past
+    ``tol`` and the tensors that hold them (the first 8)."""
+    import numpy as onp
+
+    ok, worst, where, past, total, names = True, 0.0, None, 0, 0, []
+    for n, w in want.items():
+        g = got[n]
+        d = onp.abs(g.astype(onp.float64) - w)
+        bad = d > tol["atol"] + tol["rtol"] * onp.abs(w)
+        past += int(bad.sum())
+        total += d.size
+        if d.size and float(d.max()) > worst:
+            worst, where = float(d.max()), n
+        if bad.any():
+            ok = False
+            names.append(n)
+    return {"within": ok, "max_abs_diff": worst, "at": where,
+            "share_past_tol": past / max(total, 1),
+            "tensors_past_tol": names[:8], "n_tensors_past_tol": len(names)}
+
+
+def dist_module_worker(argv):
+    """``chip_smoke.py --dist-module-worker OUT``: one worker of
+    ``dist_module``; writes ``OUT.r<rank>.json`` and, on rank 0, each
+    arm's parameters after the warm-up (``OUT.<arm>.npz``) and the
+    initial ones (``OUT.init.npz``)."""
+    import numpy as onp
+    import torch
+    import torch.distributed as dist
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autotune
+    from mxnet_tpu_torch.ndarray import NDArray
+    from mxnet_tpu_torch.parallel import zero
+
+    (out_prefix,) = argv
+    check(torch.cuda.is_available(), "dist_module: no card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    mx.kvstore.init_distributed()
+    rank, world = dist.get_rank(), dist.get_world_size()
+    cfg = DIST_MODULE
+    b, img = cfg["batch"], cfg["image"]
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(cfg["seed"] + 1)
+    x = torch.randn((b, 3, img, img), generator=gen, device=dev)
+    y = torch.randint(0, 1000, (b,), generator=gen, device=dev).float()
+    batch = mx.io.DataBatch([NDArray(x)], [NDArray(y)])
+    symbol = resnet50_v1_symbol(mx.sym)
+    wrappers = kernel_wrappers()
+    res = {"rank": rank, "world": world}
+    init = None
+    for arm, (kv, optn, params) in cfg["arms"].items():
+        t_arm = time.perf_counter()
+        mod = mx.mod.Module(symbol, context=[mx.gpu(i)
+                                             for i in range(world)])
+        mod.bind([("data", (b, 3, img, img))], [("softmax_label", (b,))])
+        if init is None:
+            torch.manual_seed(cfg["seed"])
+            onp.random.seed(cfg["seed"])
+            mod.init_params(mx.init.Xavier())
+            arg, aux = mod.get_params()
+            init = ({n: v._data.cpu() for n, v in arg.items()},
+                    {n: v._data.cpu() for n, v in aux.items()})
+            if rank == 0:
+                onp.savez(f"{out_prefix}.init.npz", **{
+                    f"arg/{n}": v.numpy() for n, v in init[0].items()}, **{
+                    f"aux/{n}": v.numpy() for n, v in init[1].items()})
+        else:
+            mod.init_params(arg_params={n: NDArray(v) for n, v in
+                                        init[0].items()},
+                            aux_params={n: NDArray(v) for n, v in
+                                        init[1].items()}, force_init=True)
+        mod.init_optimizer(kvstore=kv, optimizer=optn,
+                           optimizer_params=params)
+        setup_s = time.perf_counter() - t_arm
+        for w in wrappers.values():
+            w.launches = 0  # the arm's main path starts here
+        losses = []
+
+        def step():
+            mod.forward(batch, is_train=True)
+            mod.backward()
+            mod.update()
+            losses.append(float(_module_loss(mod, y)))
+
+        t0 = time.perf_counter()
+        for _ in range(cfg["warmup"]):
+            step()
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        warm_launches = {n: w.launches for n, w in wrappers.items()}
+        arg, aux = mod.get_params()
+        if rank == 0:
+            onp.savez(f"{out_prefix}.{arm}.npz", **{
+                f"arg/{n}": v.asnumpy() for n, v in arg.items()}, **{
+                f"aux/{n}": v.asnumpy() for n, v in aux.items()})
+        aux_digest = _digest({n: v._data for n, v in aux.items()})
+        mod.exchange.reset()
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(cfg["steps"]):
+            step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        c = mod.exchange.counts()
+        n = cfg["steps"]
+        upd = mod._updater
+        sharded = isinstance(upd, zero.ShardedBucketUpdater)
+        race = None
+        if sharded:
+            shape, dtype, mesh_d = upd._variant_key()
+            race = autotune.lookup_entry("fused_bucket_opt", shape, dtype,
+                                         platform="cuda", mesh=mesh_d)
+        res[arm] = {
+            "kvstore": kv, "optimizer": optn,
+            "updater": type(upd).__name__, "kernel_arm": bool(
+                sharded and upd._pallas),
+            "buckets": len(upd.plan) if sharded else 0,
+            "grad_buckets": len(mod._grad_plan),
+            "setup_s": setup_s, "warmup_s": warm_s,
+            "ms_per_step": wall / n * 1e3,
+            "exchange_per_step": {
+                k: {"launches": c[k]["launches"] / n,
+                    "bytes": c[k]["bytes"] / n}
+                for k in ("all-reduce", "all-gather", "reduce-scatter")},
+            "roles_per_step": {r: {"launches": v["launches"] / n,
+                                   "bytes": v["bytes"] / n}
+                               for r, v in c["roles"].items()},
+            "exchange_host_ms_per_step": c["host_s"] / n * 1e3,
+            "launches": {k: v for k, v in ((k, w.launches) for k, w in
+                                           wrappers.items()) if v},
+            "launches_warmup": {k: v for k, v in warm_launches.items()
+                                if v},
+            "race": race, "losses": losses,
+            "aux_sha256_after_warmup": aux_digest,
+            "params_sha256": _digest({n: v._data for n, v in
+                                      mod.get_params()[0].items()})}
+        del mod, upd
+        torch.cuda.empty_cache()
+    with open(f"{out_prefix}.r{rank}.json", "w") as f:
+        json.dump(res, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _module_reference_steps(mx, symbol, init, x, y, optn, params, steps):
+    """One process's Module on one context training the global batch:
+    the parameters and moving statistics after ``steps`` steps."""
+    from mxnet_tpu_torch.ndarray import NDArray
+
+    mod = mx.mod.Module(symbol, context=mx.gpu(0))
+    mod.bind([("data", tuple(x.shape))], [("softmax_label",
+                                           tuple(y.shape))])
+    mod.init_params(arg_params={n: NDArray(v) for n, v in init[0].items()},
+                    aux_params={n: NDArray(v) for n, v in init[1].items()})
+    mod.init_optimizer(optimizer=optn, optimizer_params=params)
+    batch = mx.io.DataBatch([NDArray(x)], [NDArray(y)])
+    for _ in range(steps):
+        mod.forward(batch, is_train=True)
+        mod.backward()
+        mod.update()
+    arg, aux = mod.get_params()
+    return ({n: v.asnumpy() for n, v in arg.items()},
+            {n: v.asnumpy() for n, v in aux.items()})
+
+
+def _module_steps_f64(mx, symbol, init, x, y, optn, params, steps):
+    """The same steps in float64 on the card through the same pieces (the
+    graph executor, the updater by parameter name, rescale 1/batch),
+    ``float64_throughout``: the parameters and moving statistics."""
+    import torch
+
+    f64, dev = torch.float64, torch.device("cuda", 0)
+    names = list(init[0])
+    args = {n: mx.nd.NDArray(v.to(dev, f64)) for n, v in init[0].items()}
+    args["data"] = mx.nd.NDArray(x.to(dev, f64))
+    args["softmax_label"] = mx.nd.NDArray(y.to(dev, f64))
+    ex = symbol.bind(mx.gpu(0), args, args_grad={
+        n: mx.nd.NDArray(torch.zeros_like(args[n]._data)) for n in names},
+        grad_req={n: "write" if n in init[0] else "null"
+                  for n in symbol.list_arguments()},
+        aux_states={n: mx.nd.NDArray(v.to(dev, f64))
+                    for n, v in init[1].items()})
+    upd = mx.optimizer.get_updater(mx.optimizer.create(
+        optn, param_idx2name={n: n for n in names},
+        rescale_grad=1.0 / x.shape[0], **dict(params)))
+    with float64_throughout():
+        for _ in range(steps):
+            ex.forward(is_train=True)
+            ex.backward()
+            for n in names:
+                upd(n, ex.grad_dict[n], ex.arg_dict[n])
+    return ({n: ex.arg_dict[n]._data.cpu().numpy() for n in names},
+            {n: a._data.cpu().numpy() for n, a in ex.aux_dict.items()})
+
+
+def _against_float64(runs, f64, init):
+    """``CUDA_CPU_TOL``'s rule over ``runs`` (``{"multi": (arg, aux),
+    "single": ...}``) against the float64 run: each trained parameter's
+    update and each moving statistic's change, relative norms; a
+    parameter whose float64 update is below ``INERT_SHARE`` of the
+    whole is not held.  Returns the report."""
+    import numpy as onp
+
+    def rel(a, ref):
+        return float(onp.linalg.norm(a - ref)
+                     / max(float(onp.linalg.norm(ref)), 1e-30))
+
+    start = {n: v.numpy().astype(onp.float64) for n, v in init[0].items()}
+    stats0 = {n: v.numpy().astype(onp.float64) for n, v in init[1].items()}
+    moved = {n: float(onp.linalg.norm(f64[0][n] - start[n]))
+             for n in start}
+    whole = math.sqrt(sum(v * v for v in moved.values()))
+    trained = [n for n, v in moved.items() if v >= INERT_SHARE * whole]
+
+    def errs(run):
+        e = {f"update/{n}": rel(run[0][n] - start[n], f64[0][n] - start[n])
+             for n in trained}
+        e.update({f"moving/{n}": rel(run[1][n] - stats0[n],
+                                     f64[1][n] - stats0[n])
+                  for n in f64[1]})
+        return e
+
+    multi, single = errs(runs["multi"]), errs(runs["single"])
+    over = {k: (multi[k], single[k]) for k in multi
+            if multi[k] > 2 * single[k] + 1e-3}
+    worst = max(multi, key=lambda k: multi[k] - 2 * single[k])
+    return {"held": len(multi), "not_held_inert": sorted(set(moved)
+                                                         - set(trained)),
+            "multi_vs_f64_max": max(multi.values()),
+            "single_vs_f64_max": max(single.values()),
+            "multi_vs_f64_median": sorted(multi.values())[len(multi) // 2],
+            "single_vs_f64_median": sorted(single.values())[
+                len(single) // 2],
+            "closest_to_limit": {"quantity": worst, "multi": multi[worst],
+                                 "single": single[worst]},
+            "over_limit": {k: list(v) for k, v in list(over.items())[:8]},
+            "within": not over}
+
+
+def dist_module_phase(workdir):
+    """The distributed Module on the card: one launch of
+    ``--dist-module-worker`` on 2 workers sharing ``cuda:0`` (gloo), arms
+    (a)-(c) of :data:`DIST_MODULE`; then, here, one process's Module on
+    the global batch for SGD and Adam, against which each arm's
+    parameters after the warm-up are held (:data:`DIST_MODULE_TOL`)."""
+    import numpy as onp
+    import torch
+
+    import mxnet_tpu_torch as mx
+
+    t_phase = time.perf_counter()
+    smi = nvidia_smi_line()
+    prefix = os.path.join(workdir, "dist_module")
+    job = _Launched(DIST_WORKERS, [os.path.abspath(__file__),
+                                   "--dist-module-worker", prefix],
+                    env={"OMP_NUM_THREADS": "2"})
+    rc = job.wait(timeout=600)
+    if rc != 0:
+        log(job.err[-6000:])
+    check(rc == 0, f"dist_module: the launcher exited {rc}")
+    ranks = []
+    for r in range(DIST_WORKERS):
+        with open(f"{prefix}.r{r}.json") as f:
+            ranks.append(json.load(f))
+    cfg = DIST_MODULE
+    with onp.load(f"{prefix}.init.npz") as z:
+        init = ({k[4:]: torch.from_numpy(z[k]) for k in z.files
+                 if k.startswith("arg/")},
+                {k[4:]: torch.from_numpy(z[k]) for k in z.files
+                 if k.startswith("aux/")})
+    arms = {}
+    for arm in cfg["arms"]:
+        with onp.load(f"{prefix}.{arm}.npz") as z:
+            arms[arm] = ({k[4:]: z[k] for k in z.files
+                          if k.startswith("arg/")},
+                         {k[4:]: z[k] for k in z.files
+                          if k.startswith("aux/")})
+    # one process on the global batch: the same seeded batch as the
+    # workers drew
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(cfg["seed"] + 1)
+    b, img = cfg["batch"], cfg["image"]
+    x = torch.randn((b, 3, img, img), generator=gen, device=dev)
+    y = torch.randint(0, 1000, (b,), generator=gen, device=dev).float()
+    symbol = resnet50_v1_symbol(mx.sym)
+    single, f64 = {}, {}
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    try:
+        for optn in ("sgd", "adam"):
+            params = next(p for kv, o, p in cfg["arms"].values()
+                          if o == optn)
+            single[optn] = _module_reference_steps(
+                mx, symbol, init, x, y, optn, params, cfg["warmup"])
+            f64[optn] = _module_steps_f64(mx, symbol, init, x, y, optn,
+                                          params, cfg["warmup"])
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = flags
+    held = {}
+    for arm, (kv, optn, _) in cfg["arms"].items():
+        tol = DIST_MODULE_TOL["multi_single"]
+        held[arm] = {
+            "against_one_process": {
+                "params": _close_report(arms[arm][0], single[optn][0], tol),
+                "moving_stats": _close_report(arms[arm][1],
+                                              single[optn][1], tol)},
+            "against_float64": _against_float64(
+                {"multi": arms[arm], "single": single[optn]}, f64[optn],
+                init)}
+    tol = DIST_MODULE_TOL["sharded_local"]
+    held["a"]["against_local"] = {
+        "params": _close_report(arms["a"][0], arms["c"][0], tol),
+        "moving_stats": _close_report(arms["a"][1], arms["c"][1], tol)}
+    r0 = ranks[0]
+    out = {"phase": "dist_module", "workers": DIST_WORKERS,
+           "nvidia_smi": smi, "transport": "gloo, CUDA tensors as given",
+           "config": f"resnet50_v1_symbol (NCHW), {img}², global batch "
+                     f"{b} ({b // DIST_WORKERS} a worker), fp32, "
+                     f"{cfg['warmup']} + {cfg['steps']} steps an arm",
+           "tolerances": DIST_MODULE_TOL,
+           "arms": {arm: {k: r0[arm][k] for k in (
+               "kvstore", "optimizer", "updater", "kernel_arm", "buckets",
+               "grad_buckets", "setup_s", "warmup_s", "ms_per_step",
+               "exchange_per_step", "roles_per_step",
+               "exchange_host_ms_per_step", "launches", "launches_warmup",
+               "race", "losses")} | {
+                   "ms_per_step_ranks": [r[arm]["ms_per_step"]
+                                         for r in ranks],
+                   "held": held[arm]} for arm in cfg["arms"]},
+           "launches": {
+               "bucket_sgd_mom": sum(r[a]["launches"].get(
+                   "bucket_sgd_mom", 0) for r in ranks for a in cfg["arms"]),
+               "bucket_adam": sum(r[a]["launches"].get("bucket_adam", 0)
+                                  for r in ranks for a in cfg["arms"])},
+           "seconds": time.perf_counter() - t_phase,
+           "launch_seconds": job.seconds}
+    emit(out)
+    for arm, a in out["arms"].items():
+        log(f"[dist_module] ({arm}) {a['kvstore']} {a['optimizer']}: "
+            f"{a['updater']} kernel_arm={a['kernel_arm']} "
+            f"{a['ms_per_step']:.1f} ms/step (ranks "
+            f"{[round(v, 1) for v in a['ms_per_step_ranks']]}), exchange "
+            f"{a['exchange_per_step']}, BatchNorm "
+            f"{a['roles_per_step'].get('bn')}, launches {a['launches']}, "
+            f"held {a['held']}")
+    log(f"[dist_module] {smi}: {out['seconds']:.1f} s (launch "
+        f"{job.seconds:.1f} s)")
+    for arm, a in out["arms"].items():
+        check(all(math.isfinite(v) for v in a["losses"]),
+              f"dist_module ({arm}): a loss is not finite: {a['losses']}")
+        check(len({r[arm]["params_sha256"] for r in ranks}) == 1,
+              f"dist_module ({arm}): the replicas' parameters differ")
+        check(len({r[arm]["aux_sha256_after_warmup"] for r in ranks}) == 1,
+              f"dist_module ({arm}): the moving statistics differ between "
+              "ranks")
+        check(a["roles_per_step"].get("bn", {}).get("launches", 0) > 0,
+              f"dist_module ({arm}): no BatchNorm all-reduce")
+        check(a["exchange_per_step"]["all-reduce"]["launches"]
+              == a["grad_buckets"],
+              f"dist_module ({arm}): {a['exchange_per_step']} for "
+              f"{a['grad_buckets']} gradient buckets")
+        rep = a["held"]["against_float64"]
+        check(rep["within"] and rep["held"] > 200,
+              f"dist_module ({arm}): against float64, over twice one "
+              f"process's distance + 1e-3: {rep}")
+    for arm, kern in (("a", "bucket_sgd_mom"), ("b", "bucket_adam")):
+        a = out["arms"][arm]
+        check(a["updater"] == "ShardedBucketUpdater" and a["kernel_arm"],
+              f"dist_module ({arm}): {a['updater']}, kernel arm "
+              f"{a['kernel_arm']}")
+        check(a["launches"].get(kern, 0) >= a["buckets"] * (
+            cfg["warmup"] + cfg["steps"]) > 0,
+              f"dist_module ({arm}): {kern} launched "
+              f"{a['launches'].get(kern, 0)} times for {a['buckets']} "
+              "buckets")
+        check(a["exchange_per_step"]["all-gather"]["launches"]
+              == a["buckets"], f"dist_module ({arm}): gathers "
+              f"{a['exchange_per_step']['all-gather']}")
+    check(out["arms"]["c"]["updater"] == "Updater" and not any(
+        out["arms"]["c"]["launches"].values()),
+          f"dist_module (c): {out['arms']['c']['updater']}, launches "
+          f"{out['arms']['c']['launches']}")
+    for part, rep in held["a"]["against_local"].items():
+        check(rep["within"], f"dist_module (a) against (c): {part} {rep}")
+    return out
+
+
+def module_group2ctx_phase():
+    """``matrix_factorization.py``'s net split across devices: the user
+    group on ``gpu(0)``, the item group on ``cpu()``; 20 steps, their
+    losses held against the all-card run within 1e-5, and the boundary
+    transfers a step."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.example.model_parallel import \
+        matrix_factorization as mf
+
+    t0 = time.perf_counter()
+    args = mf.parse_args(["--steps", "20"])
+    t1 = time.perf_counter()
+    split, ex = mf.train(args, mx.gpu(0), {"dev1": mx.gpu(0),
+                                           "dev2": mx.cpu()})
+    split_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    card, ex1 = mf.train(args, mx.gpu(0), None)
+    card_s = time.perf_counter() - t1
+    diff = max(abs(a - b) / max(abs(b), 1e-12) for a, b in zip(split, card))
+    res = {"phase": "module_group2ctx",
+           "groups": {"dev1": "gpu(0)", "dev2": "cpu(0)"},
+           "placement": ex.placement,
+           "devices": {n: str(a._data.device)
+                       for n, a in ex.arg_dict.items()},
+           "transfers_per_step": ex.transfers,
+           "steps": args.steps, "losses_split": split, "losses_card": card,
+           "max_rel_diff": diff, "ms_per_step_split": split_s
+           / args.steps * 1e3, "ms_per_step_card": card_s / args.steps
+           * 1e3, "seconds": time.perf_counter() - t0}
+    emit(res)
+    log(f"[module_group2ctx] {ex.transfers} boundary transfers a step, "
+        f"losses {split[0]:.4f} -> {split[-1]:.4f}, max relative "
+        f"difference to the all-card run {diff:.3g}; "
+        f"{res['ms_per_step_split']:.2f} ms/step split, "
+        f"{res['ms_per_step_card']:.2f} all-card")
+    check(ex.arg_dict["user_embed_weight"]._data.device.type == "cuda"
+          and ex.arg_dict["item_embed_weight"]._data.device
+          == torch.device("cpu"),
+          f"module_group2ctx: placed {res['devices']}")
+    check(ex.transfers > 0 and ex1.transfers == 0,
+          f"module_group2ctx: transfers {ex.transfers}, {ex1.transfers}")
+    check(diff <= 1e-5, f"module_group2ctx: losses differ by {diff}")
+    return res
+
+
+def _resume_data():
+    import numpy as onp
+
+    cfg = DIST_RESUME
+    rng = onp.random.RandomState(cfg["seed"])
+    n = cfg["batch"] * cfg["batches"]
+    x = rng.randn(n, 3, cfg["image"], cfg["image"]).astype("float32")
+    y = rng.randint(0, 1000, n).astype("float32")
+    return x, y
+
+
+def dist_module_resume_worker(argv):
+    """``chip_smoke.py --dist-module-resume-worker drain PREFIX`` (one of
+    2 launched workers: ``Module.fit`` with ``dist_sync`` checkpointing to
+    PREFIX, SIGTERM after batch ``kill_at``) or ``... resume PREFIX OUT``
+    (one process: the fit resumed at world 1, and the same checkpoint
+    trained by hand; writes OUT)."""
+    import numpy as onp
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.resilience import elastic
+    from mxnet_tpu_torch.resilience.checkpoint import CheckpointManager
+
+    check(torch.cuda.is_available(), "dist_module_resume: no card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    mode, prefix = argv[:2]
+    cfg = DIST_RESUME
+    x, y = _resume_data()
+    symbol = resnet50_v1_symbol(mx.sym)
+
+    def fit(context, **kw):
+        onp.random.seed(cfg["seed"])
+        torch.manual_seed(cfg["seed"])
+        it = mx.io.NDArrayIter(x, y, batch_size=cfg["batch"],
+                               shuffle=False)
+        mod = mx.mod.Module(symbol, context=context)
+        mod.fit(it, num_epoch=1, kvstore="dist_sync", optimizer="sgd",
+                optimizer_params=cfg["opt"], initializer=mx.init.Xavier(),
+                **kw)
+        return mod
+
+    if mode == "drain":
+        import signal
+
+        import torch.distributed as dist
+
+        mx.kvstore.init_distributed()
+
+        def killer(param):
+            if param.nbatch == cfg["kill_at"]:
+                os.kill(os.getpid(), signal.SIGTERM)
+
+        fit([mx.gpu(i) for i in range(dist.get_world_size())],
+            checkpoint=prefix, batch_end_callback=killer)
+        return 0  # the drain re-raises the signal first
+    t0 = time.perf_counter()
+    state = CheckpointManager(prefix).load(ctx=mx.cpu())
+    mod = fit(mx.gpu(0), resume_from=prefix)
+    verdict = elastic.reshard_verdict(state["topology"],
+                                      mod._topology_block())
+    resumed_s = time.perf_counter() - t0
+    # the same checkpoint trained by hand from its cursor
+    ref = mx.mod.Module(symbol, context=mx.gpu(0))
+    ref.bind([("data", x[:cfg["batch"]].shape)],
+             [("softmax_label", y[:cfg["batch"]].shape)])
+    ref.init_params(arg_params=state["arg_params"],
+                    aux_params=state["aux_params"])
+    ref.init_optimizer(kvstore="dist_sync", optimizer="sgd",
+                       optimizer_params=cfg["opt"])
+    ref._set_optimizer_states(state["optimizer_states"])
+    from mxnet_tpu_torch.resilience.checkpoint import restore_rng
+
+    restore_rng(state.get("rng"))
+    for i in range(state["batch_cursor"], cfg["batches"]):
+        sl = slice(i * cfg["batch"], (i + 1) * cfg["batch"])
+        ref.forward(mx.io.DataBatch([mx.nd.array(x[sl], ctx=mx.cpu())],
+                                    [mx.nd.array(y[sl], ctx=mx.cpu())]),
+                    is_train=True)
+        ref.backward()
+        ref.update()
+    got = {n: v.asnumpy() for n, v in mod.get_params()[0].items()}
+    want = {n: v.asnumpy() for n, v in ref.get_params()[0].items()}
+    res = {"topology": state["topology"], "epoch": state["epoch"],
+           "batch_cursor": state["batch_cursor"], "verdict": verdict,
+           "held": _close_report(got, want, cfg["tol"]),
+           "resume_s": resumed_s, "num_update": int(
+               mod._optimizer.num_update)}
+    with open(argv[2], "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def dist_module_resume_phase(workdir):
+    """The 2-worker ``dist_sync`` fit drained by SIGTERM, resumed at
+    world 1 (a reshard), against the same checkpoint trained by hand."""
+    t0 = time.perf_counter()
+    prefix = os.path.join(workdir, "dm_resume", "ck")
+    os.makedirs(os.path.dirname(prefix), exist_ok=True)
+    here = os.path.abspath(__file__)
+    job = _Launched(DIST_WORKERS, [here, "--dist-module-resume-worker",
+                                   "drain", prefix],
+                    env={"OMP_NUM_THREADS": "2"})
+    rc = job.wait(timeout=600)
+    check(rc != 0 and "Traceback" not in job.err,
+          f"dist_module_resume: the drained workers exited {rc}: "
+          f"{job.err[-3000:]}")
+    drain_s = time.perf_counter() - t0
+    out = os.path.join(workdir, "dm_resume.json")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.dirname(here) + os.pathsep + env.get(
+        "PYTHONPATH", "")
+    r = subprocess.run([sys.executable, here, "--dist-module-resume-worker",
+                        "resume", prefix, out], env=env,
+                       capture_output=True, text=True, timeout=600)
+    if r.returncode != 0:
+        log(r.stderr[-6000:])
+    check(r.returncode == 0, f"dist_module_resume: resume exited "
+          f"{r.returncode}")
+    with open(out) as f:
+        res = json.load(f)
+    res.update(phase="dist_module_resume", drain_s=drain_s,
+               seconds=time.perf_counter() - t0, tol=DIST_RESUME["tol"])
+    emit(res)
+    log(f"[dist_module_resume] drained at cursor {res['batch_cursor']} "
+        f"(world {res['topology']['world_size']}, "
+        f"{res['topology']['sharding']}), verdict {res['verdict']}, held "
+        f"{res['held']} ({res['seconds']:.1f} s)")
+    topo = res["topology"]
+    check(res["batch_cursor"] == DIST_RESUME["kill_at"] + 1
+          and topo["world_size"] == DIST_WORKERS
+          and topo["sharding"] == "ps",
+          f"dist_module_resume: checkpoint {res['batch_cursor']} {topo}")
+    check(res["verdict"]["reshard"] and res["verdict"]["new_world"] == 1,
+          f"dist_module_resume: verdict {res['verdict']}")
+    check(res["held"]["within"], f"dist_module_resume: {res['held']}")
+    return res
+
+
 def heal_worker(argv):
     """``chip_smoke.py --heal-worker module_resnet50 WORKDIR`` or
     ``--heal-worker cifar10 ...``: the commands the resilience phases
@@ -10809,6 +11461,11 @@ def main(argv=None):
     if argv[:1] == ["--dist-train-worker"]:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         return dist_train_worker(argv[1:])
+    if argv[:1] in (["--dist-module-worker"],
+                    ["--dist-module-resume-worker"]):
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        return (dist_module_worker if argv[0] == "--dist-module-worker"
+                else dist_module_resume_worker)(argv[1:])
     args = ap.parse_args(argv)
     try:
         import torch

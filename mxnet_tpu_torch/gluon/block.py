@@ -1065,8 +1065,8 @@ class SymbolBlock(HybridBlock):
         value_of = {s.name: a for s, a in zip(self._inputs, args)}
         for name, attr in self._param_attrs.items():
             value_of[name] = getattr(self, attr)
-        outs, aux_updates = _eval_graph(self._outputs, value_of,
-                                        self.training, args[0].device)
+        outs, aux_updates, _ = _eval_graph(self._outputs, value_of,
+                                           self.training, args[0].device)
         with torch.no_grad():
             for name, value in aux_updates.items():
                 getattr(self, self._param_attrs[name]).copy_(value)

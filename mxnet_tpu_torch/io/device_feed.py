@@ -86,31 +86,50 @@ def _put_tensor(t, device):
     return t.to(device)
 
 
-def as_device_batch(item, device):
+def _rows(t, rows):
+    """Process ``rank``'s contiguous rows of a global batch array, for
+    ``rows = (rank, world)`` (None: all of it)."""
+    if rows is None or t.dim() == 0:
+        return t
+    rank, world = rows
+    if t.shape[0] % world:
+        raise MXNetError(
+            f"batch axis ({t.shape[0]}) must divide the {world}-process "
+            "data mesh")
+    k = t.shape[0] // world
+    return t[rank * k:(rank + 1) * k]
+
+
+def as_device_batch(item, device, rows=None):
     """Recursively move a batch's arrays to ``device`` (a
     ``torch.device``): NDArrays stay NDArrays, numpy arrays become
     NDArrays, tensors stay tensors; ``DataBatch`` structure, pad and
     index are kept.  A CUDA copy is asynchronous on the current stream,
-    from pinned memory."""
+    from pinned memory.  ``rows = (rank, world)`` moves only process
+    ``rank``'s rows of each array (a mesh of ``world`` processes); the
+    ``DataBatch`` then carries them as ``rows_of``."""
     if item is None:
         return None
     if isinstance(item, DataBatch):
-        return DataBatch(
-            data=as_device_batch(item.data, device),
-            label=as_device_batch(item.label, device),
+        out = DataBatch(
+            data=as_device_batch(item.data, device, rows),
+            label=as_device_batch(item.label, device, rows),
             pad=item.pad, index=item.index, bucket_key=item.bucket_key,
             provide_data=item.provide_data,
             provide_label=item.provide_label)
+        if rows is not None:
+            out.rows_of = tuple(rows)
+        return out
     if isinstance(item, (list, tuple)):
-        mapped = [as_device_batch(x, device) for x in item]
+        mapped = [as_device_batch(x, device, rows) for x in item]
         return type(item)(mapped) if isinstance(item, tuple) else mapped
     if isinstance(item, nd.NDArray):
-        return nd.NDArray(_put_tensor(item._data, device))
+        return nd.NDArray(_put_tensor(_rows(item._data, rows), device))
     if isinstance(item, onp.ndarray):
-        return nd.NDArray(_put_tensor(nd.array(item, ctx=_cpu())._data,
-                                      device))
+        return nd.NDArray(_put_tensor(_rows(
+            nd.array(item, ctx=_cpu())._data, rows), device))
     if isinstance(item, torch.Tensor):
-        return _put_tensor(item, device)
+        return _put_tensor(_rows(item, rows), device)
     return item
 
 
@@ -203,7 +222,7 @@ def _side_stream(device):
         return s
 
 
-def _produce(base, q, stop, stats, device):
+def _produce(base, q, stop, stats, device, rows=None):
     """Producer loop (module-level on purpose: it holds no reference to
     the DeviceFeedIter, so an abandoned iterator can be collected and
     its finalizer stop this thread)."""
@@ -224,7 +243,7 @@ def _produce(base, q, stop, stats, device):
                 # transient failures retry with bounded backoff
                 faultsim.inject("feed.h2d")
                 return side_stream_put(
-                    lambda: as_device_batch(it, device), device)
+                    lambda: as_device_batch(it, device, rows), device)
 
             out = retry_call(
                 put_batch,
@@ -243,7 +262,9 @@ class DeviceFeedIter(DataIter):
     of the consumer.
 
     ``device`` (default: the current context when the feed is built),
-    or a ``mesh``'s card.  ``reset()`` restarts the producer and resets
+    or a ``mesh``'s card; under a mesh of several processes only this
+    process's rows of each global batch are moved (``rows_of`` on the
+    batch).  ``reset()`` restarts the producer and resets
     the wrapped source, so the wrapper drops into ``Module.fit``'s epoch
     loop in place of the raw iterator.  ``stats()`` reports how long the
     consumer waited, how long the producer spent assembling and
@@ -259,6 +280,8 @@ class DeviceFeedIter(DataIter):
         self._depth = max(1, int(depth if depth is not None
                                  else get_env("MXNET_DEVICE_FEED_DEPTH")))
         self._device = _target(device, mesh)
+        self._rows = None if mesh is None or mesh.size == 1 else \
+            (mesh.rank, mesh.size)
         self._stats = {"batches": 0, "epochs": 0,
                        "consumer_wait_s": 0.0, "producer_busy_s": 0.0,
                        "h2d_bytes": 0}
@@ -277,7 +300,7 @@ class DeviceFeedIter(DataIter):
         self._thread = threading.Thread(
             target=_produce,
             args=(self._base, self._q, self._stop, self._stats,
-                  self._device),
+                  self._device, self._rows),
             name="DeviceFeedIter", daemon=True)
         self._finalizer = weakref.finalize(self, self._stop.set)
         self._thread.start()

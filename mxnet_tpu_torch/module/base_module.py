@@ -240,8 +240,10 @@ class BaseModule:
         owned_feed = None
         if device_feed_enabled() and \
                 not isinstance(train_data, DeviceFeedIter):
+            # under a mesh the feed moves only this process's rows
             train_data = owned_feed = DeviceFeedIter(
-                train_data, device=getattr(self, "_context", None))
+                train_data, device=getattr(self, "_context", None),
+                mesh=getattr(self, "_mesh", None))
         batch_size = 0
         try:
             batch_size = int(train_data.provide_data[0][1][0])
@@ -352,6 +354,8 @@ class BaseModule:
         version, and says so."""
         version, kw = self._fit_checkpoint_state(ckpt_mgr, epoch,
                                                  batch_cursor)
+        if not self._writes_checkpoints():
+            return None
         man = ckpt_mgr.save(version, lock_timeout=lock_timeout, **kw)
         if man is None and lock_timeout is not None:
             self.logger.warning(
@@ -371,10 +375,18 @@ class BaseModule:
 
         version, kw = self._fit_checkpoint_state(ckpt_mgr, epoch,
                                                  batch_cursor)
+        if not self._writes_checkpoints():
+            return
         if get_env("MXNET_CKPT_ASYNC"):
             ckpt_mgr.save_async(version, **kw)
         else:
             ckpt_mgr.save(version, **kw)
+
+    def _writes_checkpoints(self):
+        """Whether this process writes fit's checkpoints (every process
+        computes their state; under a Module's mesh only rank 0
+        writes)."""
+        return True
 
     def _topology_block(self):
         """The world stamp of this module's checkpoints
@@ -617,7 +629,7 @@ class BaseModule:
                         "Preemption drain (signal %s): %s at epoch %d "
                         "batch %d", drain.requested,
                         "checkpoint" if drained_ckpt is not None
-                        else "NO checkpoint written", epoch, nbatch)
+                        else "no checkpoint written here", epoch, nbatch)
                     session.flight("preempt_drain")
                     drained = True
                     break

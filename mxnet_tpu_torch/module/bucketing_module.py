@@ -5,14 +5,16 @@ Reference parity: python/mxnet/module/bucketing_module.py — one module
 per bucket key, every one bound over the default bucket's parameter and
 auxiliary arrays (the same NDArray objects), so an update through any
 bucket is seen by all.  SURVEY.md §5.7: bucketing is the reference's
-variable-length strategy.
+variable-length strategy.  A context list reaches every bucket's Module,
+so under a process mesh (``Module``) each bucket trains data-parallel
+over the same shared arrays.
 """
 from __future__ import annotations
 
 import logging
 
 from .base_module import BaseModule
-from .module import Module, _one_context
+from .module import Module, _mesh_contexts
 
 __all__ = ["BucketingModule"]
 
@@ -26,7 +28,10 @@ class BucketingModule(BaseModule):
         assert default_bucket_key is not None
         self._sym_gen = sym_gen
         self._default_bucket_key = default_bucket_key
-        self._context = _one_context(context)
+        # the buckets' Modules take the context (list) as given; this
+        # process's context feeds fit's device feed
+        self._contexts = context
+        self._context = _mesh_contexts(context)[0]
         self._fixed_param_names = fixed_param_names
         self._buckets = {}
         self._curr_module = None
@@ -41,7 +46,7 @@ class BucketingModule(BaseModule):
         sym, data_names, label_names = self._sym_gen(bucket_key)
         return Module(
             sym, data_names, label_names, logger=self.logger,
-            context=self._context,
+            context=self._contexts,
             fixed_param_names=self._fixed_param_names)
 
     def bind(self, data_shapes, label_shapes=None, for_training=True,

@@ -203,6 +203,29 @@ def bn_group_scope(exchange):
         _BN_GROUP.ex = prev
 
 
+_BATCH_WORLD = threading.local()
+
+
+@contextlib.contextmanager
+def global_batch_scope(world):
+    """Output ops inside that divide their gradient by the batch
+    (``SoftmaxOutput``'s ``normalization="valid"``, the regression
+    outputs) divide by the global batch: this process's rows times
+    ``world``, the processes of a mesh that each take as many rows (the
+    Module over a process mesh).  The reference's program sees the
+    global batch itself."""
+    prev = getattr(_BATCH_WORLD, "n", 1)
+    _BATCH_WORLD.n = int(world)
+    try:
+        yield
+    finally:
+        _BATCH_WORLD.n = prev
+
+
+def _batch_world():
+    return getattr(_BATCH_WORLD, "n", 1)
+
+
 def bn_group():
     """The :func:`bn_group_scope` of this thread (None outside one);
     a layer's forward saves it for its backward, which autograd may run
@@ -380,7 +403,7 @@ class _SoftmaxOutput(torch.autograd.Function):
     (the reference's custom VJP, ``mxnet_tpu/ops/nn.py:322-353``):
     ``smooth_alpha`` smooths the one-hot, ``use_ignore`` zeroes the rows
     whose label is ``ignore_label``, and ``normalize`` divides by the
-    leading (batch) extent."""
+    leading (batch) extent (times :func:`global_batch_scope`'s world)."""
 
     @staticmethod
     def forward(ctx, data, label, grad_scale, ignore_label, use_ignore,
@@ -389,6 +412,7 @@ class _SoftmaxOutput(torch.autograd.Function):
         ctx.save_for_backward(out, label)
         ctx.hyper = (grad_scale, ignore_label, use_ignore, smooth_alpha,
                      normalize)
+        ctx.world = _batch_world()
         return out
 
     @staticmethod
@@ -406,7 +430,8 @@ class _SoftmaxOutput(torch.autograd.Function):
         grad = out - oh
         if use_ignore:
             grad = grad * (label != ignore_label).to(out.dtype).unsqueeze(-1)
-        scale = grad_scale / out.shape[0] if normalize else grad_scale
+        scale = grad_scale / (out.shape[0] * ctx.world) if normalize \
+            else grad_scale
         return grad * scale, None, None, None, None, None, None
 
 
@@ -439,12 +464,13 @@ class _RegressionOutput(torch.autograd.Function):
         out = _REGRESSION[kind][0](data)
         ctx.save_for_backward(out, label)
         ctx.grad_scale, ctx.kind = grad_scale, kind
+        ctx.world = _batch_world()
         return out
 
     @staticmethod
     def backward(ctx, g):
         out, label = ctx.saved_tensors
-        batch = out.shape[0] if out.dim() else 1
+        batch = (out.shape[0] if out.dim() else 1) * ctx.world
         grad = _REGRESSION[ctx.kind][1](out, label)
         return grad * (ctx.grad_scale / batch), None, None, None
 

@@ -12,8 +12,9 @@ parameters as flat bucket shards (:func:`shard_stage3_params`,
 plan's wire floor, which the step's counted bytes equal.  The HLO
 readers of the reference (``collective_bytes``, ``overlap_report``,
 ``export_overlap_trace``) have no counterpart: the port counts its own
-launches and bytes (ROADMAP §C).  The Module-side updater waits for the
-distributed Module (ROADMAP §A 11 item 4).
+launches and bytes (ROADMAP §C).  :class:`ShardedBucketUpdater` is the
+Module's: its optimizer state sharded over the process mesh, each
+process updating its own shard of every bucket.
 """
 from __future__ import annotations
 
@@ -23,6 +24,10 @@ import math
 import torch
 
 from ..base import MXNetError
+from ..resilience import faultsim
+
+faultsim.register_point("dist.collective", "before the elastic barrier's "
+                        "all-reduce and the sharded updater's exchange")
 
 __all__ = ["Bucket", "plan_buckets", "flatten_bucket", "unflatten_bucket",
            "shard_slice", "bucket_shard_update", "check_bucket_rule",
@@ -32,7 +37,8 @@ __all__ = ["Bucket", "plan_buckets", "flatten_bucket", "unflatten_bucket",
            "resolve_zero_stage", "gather_bucket", "shard_stage3_params",
            "gather_stage3_params", "analytic_exchange_bytes",
            "mark_shard", "shard_mesh", "named_bucket_state",
-           "shard_bucket_state"]
+           "shard_bucket_state", "sharding_rule_reasons",
+           "ShardedBucketUpdater"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -422,3 +428,398 @@ def analytic_exchange_bytes(plan, n_shards, stage):
             rs += full // int(n_shards)
             ag += full
     return {"reduce-scatter": rs, "all-gather": ag, "all-reduce": ar}
+
+
+def sharding_rule_reasons(optimizer):
+    """Semantics the flat-bucket sharded updater cannot reproduce, as
+    reasons (empty: eligible; reference ``sharding_rule_reasons``,
+    ``mxnet_tpu/parallel/zero.py:573``).  The Module falls back to the
+    per-parameter updater on them, with the reasons logged;
+    :meth:`ShardedBucketUpdater.set_states` refuses a resumed pickle
+    whose optimizer has any."""
+    reasons = []
+    try:
+        check_bucket_rule(optimizer)
+    except MXNetError as e:
+        reasons.append(str(e))
+    if getattr(optimizer, "needs_key", False):
+        reasons.append("stochastic rule (needs per-step PRNG keys)")
+    if getattr(optimizer, "multi_precision", False):
+        reasons.append("multi_precision master weights")
+    if getattr(optimizer, "lr_scheduler", None) is not None:
+        reasons.append("lr_scheduler (evaluated per update only in "
+                       "the eager path)")
+    if not reasons:
+        # the legacy .states interchange needs identical fused and eager
+        # state layouts (Nadam's fused rule carries a schedule scalar)
+        from ..ndarray import NDArray
+
+        probe = torch.zeros((2,), dtype=torch.float32)
+        try:
+            if len(optimizer.fused_state(probe)) != \
+                    len(optimizer.create_state(0, NDArray(probe))):
+                reasons.append("fused/eager state layouts differ")
+        except Exception as e:
+            reasons.append(f"state probe failed: {e!r}")
+    return reasons
+
+
+# hyper-parameters a live change of which does not re-bake the bucket
+# optimizers: lr/wd ride the bucket group, the multipliers feed
+# _get_lr/_get_wd, schedulers take the eager path, the counters advance
+_HYPER_SIG_SKIP = frozenset((
+    "lr", "wd", "lr_mult", "wd_mult", "param_dict", "idx2name",
+    "lr_scheduler", "num_update", "begin_num_update",
+    "_index_update_count", "_all_index_update_counts",
+))
+
+
+class ShardedBucketUpdater:
+    """The Module's sharded updater (reference ``ShardedBucketUpdater``,
+    ``mxnet_tpu/parallel/zero.py:669``): the optimizer state of every
+    trained parameter lives in flat buckets sharded over ``mesh``'s
+    processes, each process updating only the shard it owns through
+    :func:`bucket_shard_update` (the bucket kernels, or the rule's plain
+    form), then all-gathering every bucket back into the parameters —
+    copied in place, so the executor's arrays stay the arrays it holds.
+
+    The gradients arrive fully reduced (the Module sums them over the
+    mesh after its backward); the owned shard is a slice of them.  The
+    buckets are partitioned by each parameter's effective ``(lr, wd)``,
+    so per-parameter multipliers hold, and a live change of ``lr``,
+    ``wd`` or any other scalar hyper-parameter is followed.
+
+    ``get_states`` gathers the shards into the per-parameter
+    ``{name: state}`` pickle of :class:`~mxnet_tpu_torch.optimizer.Updater`
+    (a collective: every process calls it), ``set_states`` re-shards
+    one on the live plan: the port's ``.states`` files pass between the
+    two updaters and across world sizes."""
+
+    def __init__(self, optimizer, mesh, params, capacity=None,
+                 exchange=None):
+        from ..ops.collective_ops import Exchange
+
+        check_bucket_rule(optimizer)
+        self.optimizer = optimizer
+        self.mesh = mesh
+        self.n_shards = int(mesh.size)
+        self.rank = int(mesh.rank)
+        self._ex = exchange if exchange is not None else Exchange(mesh)
+        self._device = mesh.devices[0]
+        self._capacity = capacity
+        self._shapes = {n: tuple(v.shape) for n, v in params.items()}
+        self._dtypes = {n: v.dtype for n, v in params.items()}
+        self._groups = self._current_groups(params)
+        self.plan = plan_buckets(params, self.n_shards, capacity=capacity,
+                                 group_key=self._groups)
+        self._rebuild_bucket_opts()
+        self._hyper_sig = self._current_hyper_sig()
+        # the step clock continues the optimizer's (begin_num_update
+        # seeds a resumed run; Adam's bias correction takes t = _t + 1)
+        self._t = int(getattr(optimizer, "num_update", 0) or 0)
+        #: the lowering of the shard update: True the bucket kernels,
+        #: False the rule's plain form, None not decided yet
+        self._pallas = None
+        self._states = [tuple(optimizer.fused_state(
+            shard_slice(flatten_bucket(b, params), self.n_shards,
+                        self.rank).to(self._device, copy=True)))
+            for b in self.plan]
+
+    def _current_groups(self, names):
+        return {n: (float(self.optimizer._get_lr(n)),
+                    float(self.optimizer._get_wd(n))) for n in names}
+
+    def _current_hyper_sig(self):
+        """Every scalar hyper-parameter the bucket optimizers copy but
+        lr and wd (momentum, the betas, rescale_grad, clip_gradient...):
+        a live change re-bakes them."""
+        return tuple(sorted(
+            (k, v) for k, v in vars(self.optimizer).items()
+            if k not in _HYPER_SIG_SKIP
+            and isinstance(v, (int, float, bool, str, bytes, type(None)))))
+
+    def _rebuild_bucket_opts(self):
+        """One shallow copy of the optimizer a bucket, its effective lr
+        and wd set (the multipliers live in the group key)."""
+        import copy
+
+        self._bucket_opts = []
+        for b in self.plan:
+            o = copy.copy(self.optimizer)
+            o.lr_mult, o.wd_mult, o.param_dict = {}, {}, {}
+            o.lr_scheduler = None
+            if b.group is not None:
+                o.lr, o.wd = b.group
+            self._bucket_opts.append(o)
+        self._segs = None if getattr(self.optimizer, "fused_elementwise",
+                                     True) else \
+            [(ids.to(self._device), nseg)
+             for ids, nseg in map(bucket_segments, self.plan)]
+
+    def _sync_hyper_params(self):
+        """Follow a live change of the optimizer: a scalar
+        hyper-parameter re-bakes the bucket optimizers; new (lr, wd)
+        values that keep the partition swap the groups; a change that
+        re-partitions the parameters gathers the states, re-plans the
+        buckets and re-shards them (and re-decides the lowering: a new
+        plan is a new variant key)."""
+        sig = self._current_hyper_sig()
+        if sig != self._hyper_sig:
+            self._hyper_sig = sig
+            self._rebuild_bucket_opts()
+        groups = self._current_groups(self._shapes)
+        if groups == self._groups:
+            return
+        if all(len({groups[n] for n in b.names}) == 1 for b in self.plan):
+            self._groups = groups
+            self.plan = [dataclasses.replace(b, group=groups[b.names[0]])
+                         for b in self.plan]
+            self._rebuild_bucket_opts()
+            return
+        per_param = self._gather_per_param()
+        self._groups = groups
+        specs = {n: torch.empty(self._shapes[n], dtype=self._dtypes[n],
+                                device="meta") for n in self._shapes}
+        self.plan = plan_buckets(specs, self.n_shards,
+                                 capacity=self._capacity, group_key=groups)
+        self._rebuild_bucket_opts()
+        self._states = self._flatten_to_plan(per_param)
+        self._pallas = None
+
+    # ------------------------------------------------------------ update
+    def _variant_key(self):
+        """The ``fused_bucket_opt`` key of this updater: the plan's flat
+        key (:func:`flat_variant_key`) and the mesh's, the key the
+        sharded train step consults."""
+        from .. import autotune as _at
+
+        shape, dtype = flat_variant_key(self.plan)
+        return shape, dtype, _at.mesh_desc(self.mesh)
+
+    def _decide_variant(self):
+        """The ``fused_bucket_opt`` lowering (reference
+        ``_decide_variant``, ``mxnet_tpu/parallel/zero.py:819``):
+        :func:`resolve_bucket_variant` first (a force scope or
+        ``MXNET_PALLAS_OPT``, the kernels' reach, a cached winner under
+        the shared key); on the host with none of them the plain rule,
+        as the reference's answer off the TPU.  On the card the answer
+        is the kernel, whose roster there is that arm alone (ROADMAP §C);
+        with autotune on and no winner cached, the updater races that
+        roster on its own exchange (:meth:`_time_update`) and records
+        the winner under the shared key.  Every process decides alike:
+        the race's exchanges are collectives."""
+        from .. import autotune as _at
+
+        decided = resolve_bucket_variant(self.optimizer, self.plan,
+                                         self.mesh)
+        if not decided:
+            return False
+        if (self._device.type == "cuda" and _at.enabled()
+                and _at.variant_choice("fused_bucket_opt") is None):
+            shape, dtype, mesh_d = self._variant_key()
+            if _at.lookup("fused_bucket_opt", shape, dtype,
+                          platform="cuda", mesh=mesh_d) is None:
+                _at.tune("fused_bucket_opt", shape, dtype,
+                         _at.op_variants("fused_bucket_opt", "cuda"),
+                         lambda v: self._time_update(bool(v)),
+                         platform="cuda", mesh=mesh_d)
+        return True
+
+    def _time_update(self, pallas):
+        """Marginal seconds of one update of this updater's exchange
+        under a lowering (reference ``_time_update``): the shared
+        :func:`autotune.chain_time` over the real bucket plan on copies
+        of the state and synthetic gradients of 1e-3; the live
+        parameters and state are not touched."""
+        from .. import autotune as _at
+
+        w = [torch.zeros((b.padded,), dtype=getattr(torch, b.dtype),
+                         device=self._device) for b in self.plan]
+        g = [torch.full_like(x, 1e-3) for x in w]
+        states = [tuple(s.clone() for s in st) for st in self._states]
+
+        def body(carry, i):
+            self._exchange(carry, g, states, i + 1, pallas)
+            return carry
+
+        return _at.chain_time(body, w)
+
+    def _exchange(self, w_flats, g_flats, states, t, pallas):
+        """One update of every bucket on flat padded buffers: this
+        process's shard of each through :func:`bucket_shard_update`, its
+        state updated in place, then the all-gather of the updated
+        shards back into ``w_flats``."""
+        for i, b in enumerate(self.plan):
+            w_sh = shard_slice(w_flats[i], self.n_shards, self.rank)
+            g_sh = shard_slice(g_flats[i], self.n_shards, self.rank)
+            state = states[i]
+            out = (torch.empty_like(w_sh), *state) if pallas else None
+            _, uw, us = bucket_shard_update(
+                b, self._bucket_opts[i], None, g_sh, state, t,
+                n_shards=self.n_shards, idx=self.rank, axis=self._ex,
+                seg=None if self._segs is None else self._segs[i],
+                pallas=pallas, w_sh=w_sh, out=out)
+            for u, o in zip(us, state):
+                if u is not o:
+                    o.copy_(u)
+            self._ex.all_gather(uw, out=w_flats[i])
+
+    def update_all(self, triplets):
+        """One step of every ``(name, grad, weight)`` NDArray triplet at
+        once (``Module.update`` collects them)."""
+        if self._states is None:
+            self._gather_per_param()  # raises the state-lost error
+        self._sync_hyper_params()
+        if self._pallas is None:
+            self._pallas = self._decide_variant()
+        trip = {n: (g, w) for n, g, w in triplets}
+        plan_names = [n for b in self.plan for n in b.names]
+        missing = [n for n in plan_names if n not in trip]
+        extra = [n for n in trip if n not in set(plan_names)]
+        if missing or extra:
+            raise MXNetError(
+                "sharded update param set diverged from the bucket plan "
+                f"(missing {missing[:4]}, unplanned {extra[:4]})")
+        weights = {n: trip[n][1] for n in plan_names}
+        # a lost collective (resilience.faultsim dist.collective) fires
+        # before any bucket is touched: the state stays whole and the
+        # drain checkpoint that follows can gather it
+        faultsim.inject("dist.collective")
+        w_flats = [flatten_bucket(b, {n: weights[n]._data for n in b.names})
+                   for b in self.plan]
+        g_flats = [flatten_bucket(b, {n: trip[n][0]._data.to(
+            self._device) for n in b.names}) for b in self.plan]
+        try:
+            with torch.no_grad():
+                self._exchange(w_flats, g_flats, self._states, self._t + 1,
+                               self._pallas)
+        except Exception:
+            # the buckets before the failure were updated in place: the
+            # state no longer matches any step.  _t holds: the step did
+            # not happen.
+            self._states = None
+            raise
+        self._t += 1
+        # the eager Updater advances num_update on every call; callbacks
+        # reading it (decay every K updates) see the same clock
+        self.optimizer.num_update = max(
+            self._t, int(getattr(self.optimizer, "num_update", 0)))
+        with torch.no_grad():
+            for b, flat in zip(self.plan, w_flats):
+                for n, v in unflatten_bucket(b, flat).items():
+                    weights[n]._data.copy_(v)
+
+    def topology(self):
+        """This updater's part of the checkpoint ``topology`` block."""
+        return {"world_size": self.n_shards,
+                "plan_fingerprint": plan_fingerprint(self.plan,
+                                                     self.n_shards),
+                "n_buckets": len(self.plan)}
+
+    # ---------------------------------------------- checkpoint (legacy)
+    def _gather_per_param(self):
+        """The sharded states gathered whole (a collective) and split per
+        parameter on the host: ``{name: tuple of CPU tensors}``."""
+        if self._states is None:
+            raise MXNetError(
+                "sharded optimizer state was lost when a step failed "
+                "mid-exchange (its buckets are updated in place); "
+                "restore from the last checkpoint via set_states before "
+                "saving or updating again")
+        per_param = {}
+        for b, st in zip(self.plan, self._states):
+            leaves = [self._ex.all_gather(s, role="state").cpu()
+                      if s.dim() else s.cpu() for s in st]
+            for name, shape, off in zip(b.names, b.shapes, b.offsets):
+                n = math.prod(shape)
+                per_param[name] = tuple(
+                    s[off:off + n].reshape(shape) if s.dim() else s
+                    for s in leaves)
+        return per_param
+
+    def _flatten_to_plan(self, per_param):
+        """The inverse of :meth:`_gather_per_param` on the live plan:
+        each bucket's leaves flattened and this process's shard kept,
+        on its device."""
+        new_states = []
+        for b in self.plan:
+            ref = per_param[b.names[0]]
+            flat = []
+            for li in range(len(ref)):
+                if torch.as_tensor(ref[li]).dim():
+                    whole = flatten_bucket(b, {
+                        n: torch.as_tensor(per_param[n][li])
+                        for n in b.names})
+                    flat.append(shard_slice(whole, self.n_shards, self.rank)
+                                .to(self._device, copy=True))
+                else:
+                    # a replicated scalar, alike across the parameters
+                    flat.append(torch.as_tensor(ref[li]).to(self._device))
+            new_states.append(tuple(flat))
+        return new_states
+
+    def get_states(self, dump_optimizer=False):
+        """The states gathered into the per-parameter pickle of the
+        eager Updater (``{name: tuple of NDArrays}``), with the step
+        count under ``"__step"``; with ``dump_optimizer`` the optimizer
+        too, its counters seeded with the step count so an eager resume
+        continues Adam's bias correction."""
+        import copy
+        import pickle
+
+        from ..ndarray import NDArray
+
+        states = {name: tuple(NDArray(leaf.clone()) for leaf in leaves)
+                  for name, leaves in self._gather_per_param().items()}
+        states["__step"] = (NDArray(torch.tensor([self._t],
+                                                 dtype=torch.int64)),)
+        if dump_optimizer:
+            opt = copy.copy(self.optimizer)
+            opt.param_dict = {}
+            opt.num_update = opt.begin_num_update = self._t
+            opt._index_update_count = {}
+            return pickle.dumps((states, opt))
+        return pickle.dumps(states)
+
+    def set_states(self, states):
+        """Re-shard a per-parameter states pickle on the live plan (the
+        inverse of :meth:`get_states`; an eager Updater's file loads the
+        same way).  A pickled optimizer the sharded updater cannot run
+        is refused, the live one kept."""
+        import pickle
+
+        loaded = pickle.loads(states)
+        have_opt = isinstance(loaded, tuple) and len(loaded) == 2
+        if have_opt:
+            loaded, new_opt = loaded
+            bad = sharding_rule_reasons(new_opt)
+            if bad:
+                raise MXNetError(
+                    "resumed optimizer states carry an optimizer the "
+                    "sharded updater cannot run ({}); resume this "
+                    "checkpoint with kvstore='local' (the eager "
+                    "updater) instead".format("; ".join(bad)))
+            new_opt.param_dict = getattr(self.optimizer, "param_dict", {})
+            self.optimizer = new_opt
+            self._rebuild_bucket_opts()
+            self._hyper_sig = self._current_hyper_sig()
+            self._pallas = None  # the kernels' reach may differ
+            # the dump's counter is fresher than a "__step" entry an
+            # eager run carried along inert
+            self._t = int(getattr(new_opt, "num_update", self._t))
+        loaded = dict(loaded)
+        stp = loaded.pop("__step", None)
+        if stp is not None and not have_opt:
+            v = stp[0]
+            self._t = int(torch.as_tensor(getattr(v, "_data", v))
+                          .reshape(-1)[0])
+        per_param = {}
+        for b in self.plan:
+            for name in b.names:
+                st = loaded.get(name)
+                if st is None:
+                    raise MXNetError(
+                        f"optimizer states missing parameter {name!r}")
+                per_param[name] = tuple(
+                    getattr(s, "_data", s) for s in st)
+        self._states = self._flatten_to_plan(per_param)

@@ -348,6 +348,61 @@ def test_resolve_bucket_variant_matches_reference(rule, case, two_caches,
     assert got == want
 
 
+UPDATER_CASES = ("undecided", "force_pallas", "env_0", "autotune_off",
+                 "cached_pallas", "cached_jnp", "cached_other_mesh")
+
+
+def _updater_decides(pkg, rule, case, monkeypatch):
+    """The Module's sharded updater's lowering (``_decide_variant``) over
+    ``_plans``' tensors on a one-device mesh."""
+    rng = onp.random.RandomState(0)
+    arrays = {"a_weight": rng.randn(40, 30), "b_bias": rng.randn(30),
+              "c_weight": rng.randn(50, 20)}
+    j_cls, t_cls, kw = RULES[rule]
+    if pkg == "jax":
+        at, zero, opt = j_at, j_zero, j_cls(**kw)
+        mesh = jax.sharding.Mesh(onp.array(jax.devices()[:1]), ("data",))
+        params = {n: jnp.asarray(a, jnp.float32) for n, a in arrays.items()}
+    else:
+        at, zero, opt = t_at, t_zero, t_cls(**kw)
+        mesh = t_par.get_mesh(devices=["cpu"])
+        params = {n: torch.tensor(a, dtype=torch.float32)
+                  for n, a in arrays.items()}
+    upd = zero.ShardedBucketUpdater(opt, mesh, params, capacity=1300)
+    if "env" in case:
+        monkeypatch.setenv("MXNET_PALLAS_OPT", case["env"])
+    if "autotune" in case:
+        monkeypatch.setenv("MXNET_AUTOTUNE", case["autotune"])
+    if "cached" in case:
+        shape, dtype = zero.flat_variant_key(upd.plan)
+        at.record("fused_bucket_opt", shape, dtype, winner=case["cached"],
+                  platform="cpu", mesh=case.get("cached_mesh", "data=1"))
+    try:
+        if "force" in case:
+            with at.force(fused_bucket_opt=case["force"]):
+                return upd._decide_variant()
+        return upd._decide_variant()
+    finally:
+        for k in ("MXNET_PALLAS_OPT", "MXNET_AUTOTUNE"):
+            monkeypatch.delenv(k, raising=False)
+
+
+@pytest.mark.parametrize("rule", sorted(RULES))
+@pytest.mark.parametrize("case", UPDATER_CASES)
+def test_sharded_updater_decides_as_the_reference(rule, case, two_caches,
+                                                  monkeypatch):
+    """Off the TPU with nothing set the reference's updater takes the
+    plain rule, and so does the port's on the CPU; a winner recorded
+    under the flat key and the mesh is read by both (the key the sharded
+    train step consults)."""
+    spec = BUCKET_CASES[case]
+    two_caches("jax")
+    want = _updater_decides("jax", rule, spec, monkeypatch)
+    two_caches("torch")
+    got = _updater_decides("torch", rule, spec, monkeypatch)
+    assert bool(got) == bool(want)
+
+
 def test_flat_variant_key_matches_reference():
     j_plan, t_plan = _plans()
     for stage in (None, 1, 2, 3):

@@ -457,6 +457,22 @@ def test_what_is_not_ported_raises(what, monkeypatch, tmp_path):
         pf = tmx.io.PrefetchingIter(it, device_feed=True)
         assert next(iter(pf)).data[0].context == tmx.cpu()
         return
+    if what in ("kvstore", "group2ctxs"):
+        # ported since: a KVStore object is taken by its type, and
+        # group2ctxs places the graph's ctx_groups (none here: the
+        # Module trains as without it)
+        runs = []
+        for kw, kv in (({}, "local"), ({}, tmx.kv.create("local")),
+                       ({"group2ctxs": {"dev1": tmx.cpu()}}, "local")):
+            onp.random.seed(0)
+            m = tmx.mod.Module(s, **kw)
+            m.fit(it, num_epoch=1, kvstore=kv)
+            runs.append(m.get_params()[0])
+        for r in runs[1:]:
+            for n in runs[0]:
+                onp.testing.assert_array_equal(r[n].asnumpy(),
+                                               runs[0][n].asnumpy())
+        return
     if what in ("resume_from", "snapshot"):
         # ported since: fit(resume_from=) restores the parameters, the
         # optimizer states, the RNG and the batch cursor, and
@@ -507,14 +523,8 @@ def test_what_is_not_ported_raises(what, monkeypatch, tmp_path):
         return
     with pytest.raises(MXNetError):
         if what == "contexts":
+            # outside a launched job (the mesh is one process a device)
             tmx.mod.Module(s, context=[tmx.cpu(0), tmx.cpu(1)])
-        elif what == "kvstore":
-            mod = tmx.mod.Module(s)
-            mod.bind(it.provide_data, it.provide_label)
-            mod.init_params()
-            mod.init_optimizer(kvstore=object())
-        elif what == "group2ctxs":
-            tmx.mod.Module(s, group2ctxs={"dev1": tmx.cpu()})
         elif what == "device_feed":
             pass
         elif what == "cuda_without_card":

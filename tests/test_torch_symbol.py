@@ -385,10 +385,15 @@ def test_reshape_and_copy_params_match_reference():
 
 
 def test_group2ctx_is_refused():
+    # ported since: group2ctx binds, each node on its group's context
+    # (none tagged here: every node on the bind context)
     s = _mlp(tmx.sym)
-    with pytest.raises(MXNetError, match="§A 11"):
-        s.simple_bind(tmx.cpu(), group2ctx={"dev1": tmx.cpu()},
-                      data=(8, 10), softmax_label=(8,))
+    ex = s.simple_bind(tmx.cpu(), group2ctx={"dev1": tmx.cpu(1)},
+                       data=(8, 10), softmax_label=(8,))
+    assert set(ex.placement.values()) == {"cpu(0)"}
+    assert len(ex.placement) == len(s.list_arguments()) + 4
+    ex.forward(is_train=False, data=tmx.nd.array(_f32(8, 10, seed=7)))
+    assert ex.transfers == 0
 
 
 def test_contrib_control_flow_is_refused():
